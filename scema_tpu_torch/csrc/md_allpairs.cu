@@ -1,38 +1,70 @@
-// K1: fused all-pairs MD — whole NVT + fix-deform or NVT + virial-sampling
-// runs of many united-atom OPLS boxes, one thread block per job.
+// K1 and K3: fused all-pairs MD — whole NVT + fix-deform or NVT +
+// virial-sampling runs of many OPLS boxes, one thread block per job.
 //
-// Replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
+// K1 replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk):
 // forces_allpairs, refresh_images, bonded_chain_forces, nhc_half, the
 // deform path _h_at / _remap_coeffs and the sampling accumulation.
 //
-// What bounds it on an H100: the pair loop.  A 512-atom job does N^2 = 262k
-// pair evaluations per step (~25 FLOP each, a quarter of them inside the
-// 10 A cutoff), so a 576-job macro-step of ~120 steps is ~1.8e10 pair
-// evaluations: about 7 ms at the card's float32 FMA rate if every lane were
-// busy.  The lj1/lj2 planes (2 x 1 MiB for N = 512) are read once per step
-// per job, ~150 GB per macro-step, which L2 (50 MB) serves; device memory
-// sees them once.  Per-job state is 6 x 2 KB and never leaves the SM
-// between steps.
+// K3 is the same kernel with the charged all-atom additions of that TPU
+// kernel switched on at compile time (template flags):
+//   COUL     Coulomb pair force from a dense qq plane (special-bond weights
+//            folded in): plain cutoff qq/r^3 ...
+//   EWALD    ... or LAMMPS's damped real-space Ewald form
+//            qq (erfc(a r)/r + 2a/sqrt(pi) e^{-a^2 r^2}) / r^2 with erfc
+//            from the A&S 7.1.26 polynomial sharing the exp (_ewald_fcoul,
+//            erfc_poly);
+//   PATTERNS offset-pattern bonds, angles and OPLS dihedrals for all-atom
+//            [C H H (H)] layouts (bonded_pattern_forces) instead of the
+//            linear-chain terms;
+//   SHAKE    Jacobi SHAKE after the drift and Jacobi RATTLE after the
+//            second half-kick over static partner offsets (shake_rolls,
+//            rattle_rolls);
+//   FEXT     a frozen per-atom force (the smooth k-space remainder,
+//            refreshed by the host between chunks) added to every step's
+//            force, and per-job step offsets (gstep0, n_tot) so a chunk
+//            deforms along the path of the whole run.
+// K1 is the instantiation with every flag off.
+//
+// What bounds it on an H100: the pair loop.  A job does N^2 pair
+// evaluations per step, twice the N(N-1)/2 the function needs (no Newton
+// halving, below).  For K1's 512-site box that is 262k (~25 FLOP
+// each, a quarter inside the 10 A cutoff); for K3's 1792-atom charged box
+// 3.2M, of which ~40% lie inside the 12 A LJ cutoff and ~17% inside the
+// 9 A Coulomb cutoff, where the erfc form adds one exp, one rcp and ~15
+// FMAs.  The parameter planes (lj1, lj2, and qq with COUL: 3 x 12.8 MB at
+// N = 1792) are read once per step per job through L2 (50 MB, shared by
+// every block); device memory sees them about once.  The bonded patterns
+// and the SHAKE/RATTLE sweeps are O(N) work per step but each costs block
+// barriers: 2 per pattern (~40 patterns for PE), 2 per SHAKE sweep (20)
+// and 2 per RATTLE sweep (10).
 //
 // Design:
 // * One block per job, one thread per atom (strided loops when N exceeds
-//   the block).  Positions, velocities, forces and the bonded role buffers
-//   live in shared memory for the whole run: 21 N floats (43 KB at N=512).
-// * Pair loop: each thread sums the full LJ row of its own atom over every
-//   j with no Newton halving — deterministic, no atomics, and the plane
-//   reads lj1[j*N + i] are coalesced across the warp (the planes are
+//   the block; the block is as wide as the instantiation's register count
+//   allows).  Positions, velocities, forces and a 12 N role/scratch
+//   buffer live in shared memory for the whole run: 21 N floats (43 KB at
+//   N = 512, 150 KB at N = 1792).
+// * Pair loop: each thread sums the full row of its own atom over every j
+//   with no Newton halving — deterministic, no atomics, and the plane
+//   reads plane[j*N + i] are coalesced across the warp (the planes are
 //   symmetric).  Positions of j are shared-memory broadcasts.  The virial
 //   takes half of each ordered pair.
 // * Minimum image per pair by the sequential triclinic rounding of
 //   refresh_images (z, then y, then x), exact while every box height
 //   exceeds twice the cutoff (checked at system build).  The TPU's cached
 //   image planes and triangle-packed parameter planes are not ported.
-// * Bonded terms follow the hand-derived formulas of bonded_chain_forces;
-//   the thread owning anchor atom k writes each term's role forces (roles
-//   k, k+1, k+2, k+3) to shared memory, then every atom gathers roles
-//   i, i-1, i-2, i-3 — the TPU's shift trick, still deterministic.  acosf
-//   is exact here (the TPU used a polynomial only on hardware).
+// * Bonded terms write per-role forces to the shared role buffer, then
+//   every atom gathers its roles at their static offsets — the TPU's
+//   shift trick, deterministic.  Chain terms (K1) do this in one pass;
+//   with PATTERNS each pattern is one pass (compute roles, barrier,
+//   gather, barrier).  acosf is exact (the TPU used a polynomial only on
+//   hardware).
+// * SHAKE/RATTLE sweeps: each constraint's anchor thread writes its
+//   Lagrange factor, then each atom sums its corrections from its +o and
+//   -o partners in a fixed order.  The role buffer holds the positions
+//   before the drift and the factors; the force arrays (free between the
+//   half-kick and the force call) hold the drifted positions.
 // * Per-job scalars (kinetic energy, kinetic tensor, virial) come from
 //   block reductions in a fixed order; thread 0 advances the NHC-3 chain
 //   exactly as nhc_half does and broadcasts the velocity scale.
@@ -49,6 +81,10 @@ constexpr int FSCAL = 16;
 constexpr int F_DT = 0, F_T = 1, F_H0 = 2, F_EPS = 8;
 constexpr int T_BMASK = 0, T_BK = 1, T_BR0 = 2, T_AMASK = 3, T_AK = 4,
               T_ATH0 = 5, T_DMASK = 6, T_DK1 = 7;
+constexpr int MAXPAT = 64;  // offset patterns (pack_patterns' bound)
+constexpr int MAXSHK = 8;   // SHAKE offsets (pack_shake's bound)
+constexpr int PAT_BOND = 0, PAT_ANGLE = 1, PAT_DIHEDRAL = 2;
+constexpr float EWALD_F = 1.12837916709551257f;  // 2/sqrt(pi)
 
 struct Box {
   float lx, ly, lz, xy, xz, yz;
@@ -57,15 +93,34 @@ struct Box {
 struct Params {
   const float* lj1;   // (N, N)
   const float* lj2;   // (N, N)
-  const float* topo;  // (16, N)
+  const float* topo;  // (16, N) chain rows
   int N;
   float cutoff2, r2min;
+  // K3 only
+  const float* qq;    // (N, N) with COUL
+  const float* pat;   // (R, N) pattern parameter rows with PATTERNS
+  const float* shk;   // (n_shk, N) SHAKE d0^2 rows with SHAKE
+  float coul_cutoff2, alpha;
+};
+
+// Offset patterns (PATTERNS) and SHAKE offsets, passed by value.  Pattern
+// p reads its parameter rows from row[p]; its roles sit at offsets
+// 0, off[p][0], off[p][1], off[p][2] from the anchor atom.
+struct Topo3 {
+  int n_pat;
+  int kind[MAXPAT];
+  int off[MAXPAT][3];
+  int row[MAXPAT];
+  int n_shk;
+  int shk_off[MAXSHK];
+  int shake_iters, rattle_iters;
+  float relax;
 };
 
 // shared-memory views of one job
 struct Smem {
   float *px, *py, *pz, *vx, *vy, *vz, *fx, *fy, *fz;
-  float* q;    // (4 roles x 3 components, N) bonded role forces
+  float* q;    // 12 N: bonded role forces (4 roles x 3 components), SHAKE scratch
   float* red;  // MAXW x NRED reduction scratch
   float* misc; // NHC chain + broadcasts
 };
@@ -124,7 +179,43 @@ __device__ __forceinline__ void add_outer(float w[6], const float f[3], const fl
   w[5] += 0.5f * (f[1] * d[2] + f[2] * d[1]);
 }
 
-// Bonded terms anchored at atom k: role forces into q, virial into w.
+// OPLS dihedral on the bond vectors b1, b2, b3 (Blondel-Karplus gradient):
+// the four role forces F0..F3.
+__device__ __forceinline__ void dihedral_forces(const float b1[3], const float b2[3],
+                                                const float b3[3], float K1, float K2,
+                                                float K3, float K4, float F0[3], float F1[3],
+                                                float F2[3], float F3[3]) {
+  const float n1[3] = {b1[1] * b2[2] - b1[2] * b2[1], b1[2] * b2[0] - b1[0] * b2[2],
+                       b1[0] * b2[1] - b1[1] * b2[0]};
+  const float n2[3] = {b2[1] * b3[2] - b2[2] * b3[1], b2[2] * b3[0] - b2[0] * b3[2],
+                       b2[0] * b3[1] - b2[1] * b3[0]};
+  const float n1sq = n1[0] * n1[0] + n1[1] * n1[1] + n1[2] * n1[2];
+  const float n2sq = n2[0] * n2[0] + n2[1] * n2[1] + n2[2] * n2[2];
+  const float b2sq = b2[0] * b2[0] + b2[1] * b2[1] + b2[2] * b2[2];
+  const float nb2 = sqrtf(b2sq);
+  const float inv_nn = rsqrtf(n1sq * n2sq);
+  const float cphi = (n1[0] * n2[0] + n1[1] * n2[1] + n1[2] * n2[2]) * inv_nn;
+  const float cx[3] = {n1[1] * n2[2] - n1[2] * n2[1], n1[2] * n2[0] - n1[0] * n2[2],
+                       n1[0] * n2[1] - n1[1] * n2[0]};
+  const float s = (cx[0] * b2[0] + cx[1] * b2[1] + cx[2] * b2[2]) * inv_nn / nb2;
+  const float sin2 = 2.f * s * cphi;
+  const float sin3 = s * (3.f - 4.f * s * s);
+  const float cos2 = 1.f - 2.f * s * s;
+  const float sin4 = 2.f * sin2 * cos2;
+  const float dE = 0.5f * (-K1 * s + 2.f * K2 * sin2 - 3.f * K3 * sin3 + 4.f * K4 * sin4);
+  const float c0 = nb2 / n1sq, c3 = nb2 / n2sq;
+  const float ts = (b1[0] * b2[0] + b1[1] * b2[1] + b1[2] * b2[2]) / b2sq;
+  const float tu = (b3[0] * b2[0] + b3[1] * b2[1] + b3[2] * b2[2]) / b2sq;
+  for (int a = 0; a < 3; ++a) {
+    const float dp0 = -c0 * n1[a];
+    const float dp3 = c3 * n2[a];
+    const float dp1 = -(1.f + ts) * dp0 + tu * dp3;
+    const float dp2 = ts * dp0 - (1.f + tu) * dp3;
+    F0[a] = -dE * dp0; F1[a] = -dE * dp1; F2[a] = -dE * dp2; F3[a] = -dE * dp3;
+  }
+}
+
+// Bonded chain terms anchored at atom k: role forces into q, virial into w.
 __device__ void bonded_terms(const Params& P, const Smem& S, int k, float w[6]) {
   const int N = P.N;
   const float* topo = P.topo;
@@ -223,10 +314,71 @@ __device__ void bonded_terms(const Params& P, const Smem& S, int k, float w[6]) 
   }
 }
 
+// One offset pattern anchored at atom a: role forces into q (roles 0..3 at
+// offsets 0, off[0], off[1], off[2]).  Terms whose parameters are zero or
+// whose partners fall outside the box write zeros.
+__device__ void pattern_term(const Params& P, const Topo3& T, const Smem& S, int p, int a) {
+  const int N = P.N;
+  const int kind = T.kind[p];
+  const float* rows = P.pat + (size_t)T.row[p] * N;
+  float r[4][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  const int nrole = kind == PAT_BOND ? 2 : (kind == PAT_ANGLE ? 3 : 4);
+  bool inside = true;
+  for (int k = 1; k < nrole; ++k) {
+    const int j = a + T.off[p][k - 1];
+    inside = inside && j >= 0 && j < N;
+  }
+  if (inside) {
+    if (kind == PAT_BOND) {
+      const float K = rows[a], r0 = rows[N + a];
+      if (K > 0.f) {
+        const int j = a + T.off[p][0];
+        const float b[3] = {S.px[j] - S.px[a], S.py[j] - S.py[a], S.pz[j] - S.pz[a]};
+        const float rb = sqrtf(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
+        const float fb = 2.f * K * (rb - r0) / rb;
+        for (int c = 0; c < 3; ++c) { r[0][c] = fb * b[c]; r[1][c] = -fb * b[c]; }
+      }
+    } else if (kind == PAT_ANGLE) {
+      const float K = rows[a], th0 = rows[N + a];
+      if (K > 0.f) {
+        const int ia = a + T.off[p][0], ib = a + T.off[p][1];
+        const float r1[3] = {S.px[ia] - S.px[a], S.py[ia] - S.py[a], S.pz[ia] - S.pz[a]};
+        const float r2[3] = {S.px[ib] - S.px[a], S.py[ib] - S.py[a], S.pz[ib] - S.pz[a]};
+        const float d11 = r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2];
+        const float d22 = r2[0] * r2[0] + r2[1] * r2[1] + r2[2] * r2[2];
+        const float d12 = r1[0] * r2[0] + r1[1] * r2[1] + r1[2] * r2[2];
+        const float inv12 = rsqrtf(d11 * d22);
+        const float c = fminf(fmaxf(d12 * inv12, -1.f + 1e-7f), 1.f - 1e-7f);
+        const float sin_th = sqrtf(fmaxf(1.f - c * c, 1e-30f));
+        const float aE = -2.f * K * (acosf(c) - th0) / sin_th;
+        for (int k = 0; k < 3; ++k) {
+          const float g1 = r2[k] * inv12 - c * r1[k] / d11;
+          const float g2 = r1[k] * inv12 - c * r2[k] / d22;
+          r[0][k] = aE * (g1 + g2);
+          r[1][k] = -aE * g1;
+          r[2][k] = -aE * g2;
+        }
+      }
+    } else {
+      const float K1 = rows[a], K2 = rows[N + a], K3 = rows[2 * N + a], K4 = rows[3 * N + a];
+      if (fabsf(K1) + fabsf(K2) + fabsf(K3) + fabsf(K4) > 0.f) {
+        const int i1 = a + T.off[p][0], i2 = a + T.off[p][1], i3 = a + T.off[p][2];
+        const float b1[3] = {S.px[i1] - S.px[a], S.py[i1] - S.py[a], S.pz[i1] - S.pz[a]};
+        const float b2[3] = {S.px[i2] - S.px[i1], S.py[i2] - S.py[i1], S.pz[i2] - S.pz[i1]};
+        const float b3[3] = {S.px[i3] - S.px[i2], S.py[i3] - S.py[i2], S.pz[i3] - S.pz[i2]};
+        dihedral_forces(b1, b2, b3, K1, K2, K3, K4, r[0], r[1], r[2], r[3]);
+      }
+    }
+  }
+  for (int k = 0; k < nrole; ++k)
+    for (int c = 0; c < 3; ++c) S.q[(k * 3 + c) * N + a] = r[k][c];
+}
+
 // Forces (and, with want_w, this thread's virial partial sums) at the
 // positions in shared memory for box h.  Entry and exit are block-synced.
-__device__ void compute_forces(const Params& P, const Smem& S, const Box& h,
-                               bool want_w, float w[6]) {
+template <bool COUL, bool EWALD, bool PAT>
+__device__ void compute_forces(const Params& P, const Topo3& T, const Smem& S,
+                               const Box& h, bool want_w, float w[6]) {
   const int N = P.N;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float ilx = 1.f / h.lx, ily = 1.f / h.ly, ilz = 1.f / h.lz;
@@ -245,49 +397,119 @@ __device__ void compute_forces(const Params& P, const Smem& S, const Box& h,
       const float n1 = rintf(dx * ilx);
       dx -= n1 * h.lx;
       const float r2 = dx * dx + dy * dy + dz * dz;
-      if (r2 < P.cutoff2) {
-        const float a1 = __ldg(P.lj1 + (size_t)j * N + i);
-        const float a2 = __ldg(P.lj2 + (size_t)j * N + i);
-        const float inv = 1.f / fmaxf(r2, P.r2min);
-        const float u2 = inv * inv;
-        const float u3 = u2 * inv;
-        const float fp = (a1 * u3 - a2) * u2 * u2;
-        fxi -= fp * dx;
-        fyi -= fp * dy;
-        fzi -= fp * dz;
-        if (want_w) {
-          const float hp = 0.5f * fp;
-          wl[0] += hp * dx * dx;
-          wl[1] += hp * dy * dy;
-          wl[2] += hp * dz * dz;
-          wl[3] += hp * dx * dy;
-          wl[4] += hp * dx * dz;
-          wl[5] += hp * dy * dz;
+      if constexpr (!COUL) {  // K1's pair term
+        if (r2 < P.cutoff2) {
+          const float a1 = __ldg(P.lj1 + (size_t)j * N + i);
+          const float a2 = __ldg(P.lj2 + (size_t)j * N + i);
+          const float inv = 1.f / fmaxf(r2, P.r2min);
+          const float u2 = inv * inv;
+          const float u3 = u2 * inv;
+          const float fp = (a1 * u3 - a2) * u2 * u2;
+          fxi -= fp * dx;
+          fyi -= fp * dy;
+          fzi -= fp * dz;
+          if (want_w) {
+            const float hp = 0.5f * fp;
+            wl[0] += hp * dx * dx;
+            wl[1] += hp * dy * dy;
+            wl[2] += hp * dz * dz;
+            wl[3] += hp * dx * dy;
+            wl[4] += hp * dx * dz;
+            wl[5] += hp * dy * dz;
+          }
+        }
+      } else {
+        const bool lj_live = r2 < P.cutoff2, q_live = r2 < P.coul_cutoff2;
+        if (lj_live || q_live) {
+          const float r2c = fmaxf(r2, P.r2min);
+          const float inv_r = rsqrtf(r2c);
+          const float inv2 = inv_r * inv_r;
+          float fp = 0.f;
+          if (lj_live) {
+            const float a1 = __ldg(P.lj1 + (size_t)j * N + i);
+            const float a2 = __ldg(P.lj2 + (size_t)j * N + i);
+            const float u2 = inv2 * inv2;
+            const float u3 = u2 * inv2;
+            fp = (a1 * u3 - a2) * u2 * u2;
+          }
+          if (q_live) {
+            const float qq = __ldg(P.qq + (size_t)j * N + i);
+            if constexpr (EWALD) {
+              const float x = P.alpha * (r2c * inv_r);
+              const float ex = expf(-x * x);
+              const float t = 1.f / (1.f + 0.3275911f * x);
+              const float erfc_x =
+                  t * ex * (0.254829592f + t * (-0.284496736f + t * (
+                      1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+              fp += qq * inv2 * (erfc_x * inv_r + EWALD_F * P.alpha * ex);
+            } else {
+              fp += qq * inv_r * inv2;
+            }
+          }
+          fxi -= fp * dx;
+          fyi -= fp * dy;
+          fzi -= fp * dz;
+          if (want_w) {
+            const float hp = 0.5f * fp;
+            wl[0] += hp * dx * dx;
+            wl[1] += hp * dy * dy;
+            wl[2] += hp * dz * dz;
+            wl[3] += hp * dx * dy;
+            wl[4] += hp * dx * dz;
+            wl[5] += hp * dy * dz;
+          }
         }
       }
     }
     S.fx[i] = fxi;
     S.fy[i] = fyi;
     S.fz[i] = fzi;
-    bonded_terms(P, S, i, wl);
+    if constexpr (!PAT) bonded_terms(P, S, i, wl);
     if (want_w)
       for (int k = 0; k < 6; ++k) w[k] += wl[k];
   }
   __syncthreads();
-  for (int i = tid; i < N; i += nt) {
-    float g[3];
-    for (int a = 0; a < 3; ++a) {
-      float acc = S.q[(0 * 3 + a) * N + i];
-      if (i >= 1) acc += S.q[(1 * 3 + a) * N + i - 1];
-      if (i >= 2) acc += S.q[(2 * 3 + a) * N + i - 2];
-      if (i >= 3) acc += S.q[(3 * 3 + a) * N + i - 3];
-      g[a] = acc;
+  if constexpr (!PAT) {
+    for (int i = tid; i < N; i += nt) {
+      float g[3];
+      for (int a = 0; a < 3; ++a) {
+        float acc = S.q[(0 * 3 + a) * N + i];
+        if (i >= 1) acc += S.q[(1 * 3 + a) * N + i - 1];
+        if (i >= 2) acc += S.q[(2 * 3 + a) * N + i - 2];
+        if (i >= 3) acc += S.q[(3 * 3 + a) * N + i - 3];
+        g[a] = acc;
+      }
+      S.fx[i] += g[0];
+      S.fy[i] += g[1];
+      S.fz[i] += g[2];
     }
-    S.fx[i] += g[0];
-    S.fy[i] += g[1];
-    S.fz[i] += g[2];
+    __syncthreads();
+  } else {
+    // one pass per pattern: every anchor writes its roles, then every atom
+    // gathers the roles that land on it; the virial is sum_i f_i (x) r_i
+    // over the pattern forces (bonded_pattern_forces)
+    for (int p = 0; p < T.n_pat; ++p) {
+      for (int a = tid; a < N; a += nt) pattern_term(P, T, S, p, a);
+      __syncthreads();
+      const int nrole = T.kind[p] == PAT_BOND ? 2 : (T.kind[p] == PAT_ANGLE ? 3 : 4);
+      for (int i = tid; i < N; i += nt) {
+        float g[3] = {S.q[i], S.q[N + i], S.q[2 * N + i]};
+        for (int k = 1; k < nrole; ++k) {
+          const int a = i - T.off[p][k - 1];
+          if (a >= 0 && a < N)
+            for (int c = 0; c < 3; ++c) g[c] += S.q[(k * 3 + c) * N + a];
+        }
+        S.fx[i] += g[0];
+        S.fy[i] += g[1];
+        S.fz[i] += g[2];
+        if (want_w) {
+          const float r[3] = {S.px[i], S.py[i], S.pz[i]};
+          add_outer(w, g, r);
+        }
+      }
+      __syncthreads();
+    }
   }
-  __syncthreads();
 }
 
 // Half-step Nose-Hoover chain (MTK), the scalar twin of nhc_half: the
@@ -331,64 +553,223 @@ __device__ void nhc_half(const Smem& S, const float* __restrict__ mftm, int N,
   }
 }
 
-__global__ void md_run_kernel(Params P, const float* __restrict__ invm,
-                              const float* __restrict__ mftm, float* state,
-                              float* vxi_io, float* press_out,
-                              const int* __restrict__ n_run_arr,
-                              const float* __restrict__ fscal, int deform,
-                              int sample, float ndof, float boltz, float nktv2p,
-                              float tdamp) {
+// Jacobi SHAKE (shake_rolls): project the drifted positions in S.p onto
+// the constraints, reference directions from the pre-drift positions in
+// S.q[0..3N); fold the correction into the velocities.  S.f holds the
+// drifted positions meanwhile.  Entry and exit are block-synced.
+__device__ void shake(const Params& P, const Topo3& T, const Smem& S,
+                      const float* __restrict__ invm, float inv_dt) {
+  const int N = P.N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float *ox = S.q, *oy = S.q + N, *oz = S.q + 2 * N;
+  float* G = S.q + 3 * N;  // n_shk x N Lagrange factors
+  for (int it = 0; it < T.shake_iters; ++it) {
+    for (int a = tid; a < N; a += nt) {
+      for (int k = 0; k < T.n_shk; ++k) {
+        const int j = a + T.shk_off[k];
+        const float d0sq = j < N ? P.shk[(size_t)k * N + a] : 0.f;
+        float g = 0.f;
+        if (d0sq > 0.f) {
+          const float rx = S.px[j] - S.px[a], ry = S.py[j] - S.py[a], rz = S.pz[j] - S.pz[a];
+          const float qx = ox[j] - ox[a], qy = oy[j] - oy[a], qz = oz[j] - oz[a];
+          const float diff = rx * rx + ry * ry + rz * rz - d0sq;
+          const float denom = 2.f * (rx * qx + ry * qy + rz * qz) * (invm[a] + invm[j]) + 1e-30f;
+          g = T.relax * diff / denom;
+        }
+        G[k * N + a] = g;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < N; i += nt) {
+      const float im = invm[i];
+      float d[3] = {0.f, 0.f, 0.f};
+      for (int k = 0; k < T.n_shk; ++k) {
+        const int o = T.shk_off[k];
+        const int j = i + o, a = i - o;  // i as anchor (partner j); i as partner of a
+        float c[3] = {0.f, 0.f, 0.f}, cb[3] = {0.f, 0.f, 0.f};
+        if (j < N) {
+          const float g = G[k * N + i];
+          c[0] = g * (ox[j] - ox[i]); c[1] = g * (oy[j] - oy[i]); c[2] = g * (oz[j] - oz[i]);
+        }
+        if (a >= 0) {
+          const float g = G[k * N + a];
+          cb[0] = g * (ox[i] - ox[a]); cb[1] = g * (oy[i] - oy[a]); cb[2] = g * (oz[i] - oz[a]);
+        }
+        for (int e = 0; e < 3; ++e) d[e] += c[e] * im - cb[e] * im;
+      }
+      S.px[i] += d[0];
+      S.py[i] += d[1];
+      S.pz[i] += d[2];
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < N; i += nt) {
+    S.vx[i] += (S.px[i] - S.fx[i]) * inv_dt;
+    S.vy[i] += (S.py[i] - S.fy[i]) * inv_dt;
+    S.vz[i] += (S.pz[i] - S.fz[i]) * inv_dt;
+  }
+  __syncthreads();
+}
+
+// Jacobi RATTLE (rattle_rolls): remove the relative velocity along every
+// constrained bond.  Entry and exit are block-synced.
+__device__ void rattle(const Params& P, const Topo3& T, const Smem& S,
+                       const float* __restrict__ invm) {
+  const int N = P.N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* G = S.q;  // n_shk x N factors
+  for (int it = 0; it < T.rattle_iters; ++it) {
+    for (int a = tid; a < N; a += nt) {
+      for (int k = 0; k < T.n_shk; ++k) {
+        const int j = a + T.shk_off[k];
+        const float d0sq = j < N ? P.shk[(size_t)k * N + a] : 0.f;
+        float g = 0.f;
+        if (d0sq > 0.f) {
+          const float rx = S.px[j] - S.px[a], ry = S.py[j] - S.py[a], rz = S.pz[j] - S.pz[a];
+          const float r2 = rx * rx + ry * ry + rz * rz;
+          const float dvx = S.vx[j] - S.vx[a], dvy = S.vy[j] - S.vy[a], dvz = S.vz[j] - S.vz[a];
+          g = T.relax * (dvx * rx + dvy * ry + dvz * rz) / (r2 * (invm[a] + invm[j]) + 1e-30f);
+        }
+        G[k * N + a] = g;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < N; i += nt) {
+      const float im = invm[i];
+      float d[3] = {0.f, 0.f, 0.f};
+      for (int k = 0; k < T.n_shk; ++k) {
+        const int o = T.shk_off[k];
+        const int j = i + o, a = i - o;
+        float c[3] = {0.f, 0.f, 0.f}, cb[3] = {0.f, 0.f, 0.f};
+        if (j < N) {
+          const float g = G[k * N + i];
+          c[0] = g * (S.px[j] - S.px[i]); c[1] = g * (S.py[j] - S.py[i]);
+          c[2] = g * (S.pz[j] - S.pz[i]);
+        }
+        if (a >= 0) {
+          const float g = G[k * N + a];
+          cb[0] = g * (S.px[i] - S.px[a]); cb[1] = g * (S.py[i] - S.py[a]);
+          cb[2] = g * (S.pz[i] - S.pz[a]);
+        }
+        for (int e = 0; e < 3; ++e) d[e] += c[e] * im - cb[e] * im;
+      }
+      S.vx[i] += d[0];
+      S.vy[i] += d[1];
+      S.vz[i] += d[2];
+    }
+    __syncthreads();
+  }
+}
+
+template <bool FEXT>
+__device__ __forceinline__ void add_fext(const Smem& S, const float* __restrict__ fx,
+                                         int N) {
+  if constexpr (FEXT) {
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      S.fx[i] += fx[i];
+      S.fy[i] += fx[N + i];
+      S.fz[i] += fx[2 * N + i];
+    }
+  }
+}
+
+struct RunArgs {
+  const float* invm;
+  const float* mftm;
+  float* state;
+  float* vxi;
+  float* press;
+  const int* n_run;
+  const int* gstep0;  // FEXT only
+  const int* n_tot;   // FEXT only
+  const float* fscal;
+  const float* fext;  // (B, 3, N), FEXT only
+  int deform, sample;
+  float ndof, boltz, nktv2p, tdamp;
+};
+
+template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT>
+__global__ void md_run_kernel(Params P, Topo3 T, RunArgs A) {
   extern __shared__ float sm[];
   const int job = blockIdx.x;
   const int N = P.N;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int n_run = n_run_arr[job];
+  const int n_run = A.n_run[job];
   if (n_run <= 0) {
-    if (tid < 6) press_out[job * 6 + tid] = 0.f;
+    if (tid < 6) A.press[job * 6 + tid] = 0.f;
     return;
   }
+  const float* __restrict__ invm = A.invm;
+  const float* __restrict__ mftm = A.mftm;
   Smem S = carve(sm, N);
-  float* st = state + (size_t)job * 6 * N;
+  float* st = A.state + (size_t)job * 6 * N;
   for (int i = tid; i < N; i += nt) {
     S.px[i] = st[i]; S.py[i] = st[N + i]; S.pz[i] = st[2 * N + i];
     S.vx[i] = st[3 * N + i]; S.vy[i] = st[4 * N + i]; S.vz[i] = st[5 * N + i];
   }
-  if (tid < NHC) S.misc[tid] = vxi_io[job * NHC + tid];
-  const float* fs = fscal + (size_t)job * FSCAL;
+  if (tid < NHC) S.misc[tid] = A.vxi[job * NHC + tid];
+  const float* fs = A.fscal + (size_t)job * FSCAL;
   const float dt = fs[F_DT];
-  const float kt = boltz * fs[F_T];
+  const float kt = A.boltz * fs[F_T];
   const Box h0 = {fs[F_H0], fs[F_H0 + 1], fs[F_H0 + 2], fs[F_H0 + 3], fs[F_H0 + 4], fs[F_H0 + 5]};
   float eps[6];
   for (int k = 0; k < 6; ++k) eps[k] = fs[F_EPS + k];
-  const float n_tot = (float)n_run;
+  // per-job step offsets only with FEXT (K3's chunked runs); K1 runs whole
+  const float n_tot = FEXT ? (float)A.n_tot[job] : (float)n_run;
+  const int deform = A.deform, sample = A.sample;
   __syncthreads();
 
   float w[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float pacc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  compute_forces(P, S, h0, false, w);
+  int g0 = 0;
+  const float* fext = nullptr;
+  if constexpr (FEXT) {
+    g0 = A.gstep0[job];
+    fext = A.fext + (size_t)job * 3 * N;
+    // chunk-start forces at the chunk's own box, with this chunk's fext
+    compute_forces<COUL, EWALD, PAT>(P, T, S, deform ? h_at(h0, eps, (float)g0 / n_tot) : h0,
+                                     false, w);
+    add_fext<FEXT>(S, fext, N);
+  } else {
+    compute_forces<COUL, EWALD, PAT>(P, T, S, h0, false, w);
+  }
   for (int s = 0; s < n_run; ++s) {
-    const Box h = deform ? h_at(h0, eps, (float)s / n_tot) : h0;
-    nhc_half(S, mftm, N, dt, kt, ndof, tdamp);
+    const Box h = deform ? h_at(h0, eps, (float)(g0 + s) / n_tot) : h0;
+    nhc_half(S, mftm, N, dt, kt, A.ndof, A.tdamp);
     const float half = 0.5f * dt;
     for (int i = tid; i < N; i += nt) {
       const float im = invm[i];
       S.vx[i] += half * S.fx[i] * im;
       S.vy[i] += half * S.fy[i] * im;
       S.vz[i] += half * S.fz[i] * im;
+      if constexpr (SHAKE) {  // positions before the drift: SHAKE's directions
+        S.q[i] = S.px[i]; S.q[N + i] = S.py[i]; S.q[2 * N + i] = S.pz[i];
+      }
       S.px[i] += dt * S.vx[i];
       S.py[i] += dt * S.vy[i];
       S.pz[i] += dt * S.vz[i];
+      if constexpr (SHAKE) {  // drifted positions, for the velocity correction
+        S.fx[i] = S.px[i]; S.fy[i] = S.py[i]; S.fz[i] = S.pz[i];
+      }
     }
     __syncthreads();
+    if constexpr (SHAKE) {
+      if (dt > 0.f) shake(P, T, S, invm, 1.f / dt);
+    }
     for (int k = 0; k < 6; ++k) w[k] = 0.f;
-    compute_forces(P, S, h, sample != 0, w);
+    compute_forces<COUL, EWALD, PAT>(P, T, S, h, sample != 0, w);
+    add_fext<FEXT>(S, fext, N);
     for (int i = tid; i < N; i += nt) {
       const float im = invm[i];
       S.vx[i] += half * S.fx[i] * im;
       S.vy[i] += half * S.fy[i] * im;
       S.vz[i] += half * S.fz[i] * im;
     }
-    nhc_half(S, mftm, N, dt, kt, ndof, tdamp);
+    if constexpr (SHAKE) {
+      __syncthreads();
+      if (dt > 0.f) rattle(P, T, S, invm);
+    }
+    nhc_half(S, mftm, N, dt, kt, A.ndof, A.tdamp);
     if (sample) {
       float r[12];
       for (int k = 0; k < 6; ++k) r[6 + k] = w[k];
@@ -404,11 +785,11 @@ __global__ void md_run_kernel(Params P, const float* __restrict__ invm,
         r[5] += m * vy * vz;
       }
       block_sum<12>(r, S.red);
-      const float conv = nktv2p / (h.lx * h.ly * h.lz);
+      const float conv = A.nktv2p / (h.lx * h.ly * h.lz);
       for (int k = 0; k < 6; ++k) pacc[k] += (r[k] + r[6 + k]) * conv;
     }
     if (deform) {
-      const Box hn = h_at(h0, eps, (float)(s + 1) / n_tot);
+      const Box hn = h_at(h0, eps, (float)(g0 + s + 1) / n_tot);
       const float i00 = 1.f / h.lx, i11 = 1.f / h.ly, i22 = 1.f / h.lz;
       const float i01 = -h.xy / (h.lx * h.ly);
       const float i12 = -h.yz / (h.ly * h.lz);
@@ -432,11 +813,12 @@ __global__ void md_run_kernel(Params P, const float* __restrict__ invm,
     st[i] = S.px[i]; st[N + i] = S.py[i]; st[2 * N + i] = S.pz[i];
     st[3 * N + i] = S.vx[i]; st[4 * N + i] = S.vy[i]; st[5 * N + i] = S.vz[i];
   }
-  if (tid < NHC) vxi_io[job * NHC + tid] = S.misc[tid];
-  if (tid < 6) press_out[job * 6 + tid] = pacc[tid];
+  if (tid < NHC) A.vxi[job * NHC + tid] = S.misc[tid];
+  if (tid < 6) A.press[job * 6 + tid] = pacc[tid];
 }
 
-__global__ void md_forces_kernel(Params P, const float* __restrict__ pos,
+template <bool COUL, bool EWALD, bool PAT>
+__global__ void md_forces_kernel(Params P, Topo3 T, const float* __restrict__ pos,
                                  const float* __restrict__ h6,
                                  float* __restrict__ force,
                                  float* __restrict__ virial) {
@@ -453,7 +835,7 @@ __global__ void md_forces_kernel(Params P, const float* __restrict__ pos,
   const Box h = {hb[0], hb[1], hb[2], hb[3], hb[4], hb[5]};
   __syncthreads();
   float w[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  compute_forces(P, S, h, true, w);
+  compute_forces<COUL, EWALD, PAT>(P, T, S, h, true, w);
   float* f = force + (size_t)job * 3 * N;
   for (int i = tid; i < N; i += nt) {
     f[i] = S.fx[i]; f[N + i] = S.fy[i]; f[2 * N + i] = S.fz[i];
@@ -462,52 +844,115 @@ __global__ void md_forces_kernel(Params P, const float* __restrict__ pos,
   if (tid < 6) virial[job * 6 + tid] = w[tid];
 }
 
-int block_threads(int N) {
-  const int t = ((N + 31) / 32) * 32;
-  return t < 1024 ? (t < 32 ? 32 : t) : 1024;
-}
-
 size_t smem_bytes(int N) {
   return sizeof(float) * (size_t)(21 * N + MAXW * NRED + 16);
 }
 
+// Threads per block: one per atom up to what the kernel's register count
+// allows (a multiple of 32).
 template <typename K>
-cudaError_t prepare(K kernel, size_t bytes) {
+cudaError_t prepare(K kernel, int N, size_t bytes, int* threads) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int t = ((N + 31) / 32) * 32;
+  const int cap = (attr.maxThreadsPerBlock / 32) * 32;
+  *threads = t < 32 ? 32 : (t > cap ? cap : t);
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-}  // namespace
-
-extern "C" int md_allpairs_run_f32(const float* lj1, const float* lj2,
-                                   const float* topo, const float* invm,
-                                   const float* mftm, float* state, float* vxi,
-                                   float* press, const int* n_run,
-                                   const float* fscal, int B, int N, int deform,
-                                   int sample, float cutoff2, float r2min,
-                                   float ndof, float boltz, float nktv2p,
-                                   float tdamp, void* stream) {
-  Params P{lj1, lj2, topo, N, cutoff2, r2min};
-  const size_t bytes = smem_bytes(N);
-  cudaError_t err = prepare(md_run_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  md_run_kernel<<<B, block_threads(N), bytes, static_cast<cudaStream_t>(stream)>>>(
-      P, invm, mftm, state, vxi, press, n_run, fscal, deform, sample, ndof, boltz,
-      nktv2p, tdamp);
-  return static_cast<int>(cudaGetLastError());
+template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT>
+cudaError_t launch_run(const Params& P, const Topo3& T, const RunArgs& A, int B,
+                       cudaStream_t stream) {
+  auto kernel = md_run_kernel<COUL, EWALD, PAT, SHAKE, FEXT>;
+  const size_t bytes = smem_bytes(P.N);
+  int threads = 0;
+  cudaError_t err = prepare(kernel, P.N, bytes, &threads);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, bytes, stream>>>(P, T, A);
+  return cudaGetLastError();
 }
 
-extern "C" int md_allpairs_forces_f32(const float* lj1, const float* lj2,
-                                      const float* topo, const float* pos,
-                                      const float* h6, float* force, float* virial,
-                                      int B, int N, float cutoff2, float r2min,
-                                      void* stream) {
-  Params P{lj1, lj2, topo, N, cutoff2, r2min};
-  const size_t bytes = smem_bytes(N);
-  cudaError_t err = prepare(md_forces_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  md_forces_kernel<<<B, block_threads(N), bytes, static_cast<cudaStream_t>(stream)>>>(
-      P, pos, h6, force, virial);
-  return static_cast<int>(cudaGetLastError());
+template <bool COUL, bool EWALD, bool PAT>
+cudaError_t launch_forces(const Params& P, const Topo3& T, const float* pos,
+                          const float* h6, float* force, float* virial, int B,
+                          cudaStream_t stream) {
+  auto kernel = md_forces_kernel<COUL, EWALD, PAT>;
+  const size_t bytes = smem_bytes(P.N);
+  int threads = 0;
+  cudaError_t err = prepare(kernel, P.N, bytes, &threads);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, bytes, stream>>>(P, T, pos, h6, force, virial);
+  return cudaGetLastError();
+}
+
+// The flag sets make_runner produces from the ported materials; any other
+// set is refused with cudaErrorInvalidValue (add its instance when a
+// material that needs it is ported):
+//   none                              K1: united-atom chain melts
+//   COUL+PATTERNS(+SHAKE)             all-atom PE with cutoff Coulomb
+//   COUL+EWALD+PATTERNS(+SHAKE)+FEXT  all-atom PE with the k-space split
+cudaError_t dispatch_run(const Params& P, const Topo3& T, const RunArgs& A, bool coul,
+                         bool ewald, int B, cudaStream_t s) {
+  const bool pat = T.n_pat > 0, shk = T.n_shk > 0, fext = A.fext != nullptr;
+  if (!coul && !ewald && !pat && !shk && !fext)
+    return launch_run<false, false, false, false, false>(P, T, A, B, s);
+  if (!coul || !pat || ewald != fext) return cudaErrorInvalidValue;
+  if (ewald)
+    return shk ? launch_run<true, true, true, true, true>(P, T, A, B, s)
+               : launch_run<true, true, true, false, true>(P, T, A, B, s);
+  return shk ? launch_run<true, false, true, true, false>(P, T, A, B, s)
+             : launch_run<true, false, true, false, false>(P, T, A, B, s);
+}
+
+cudaError_t dispatch_forces(const Params& P, const Topo3& T, bool coul, bool ewald,
+                            const float* pos, const float* h6, float* force, float* virial,
+                            int B, cudaStream_t s) {
+  const bool pat = T.n_pat > 0;
+  if (!coul && !ewald && !pat)
+    return launch_forces<false, false, false>(P, T, pos, h6, force, virial, B, s);
+  if (!coul || !pat) return cudaErrorInvalidValue;
+  return ewald ? launch_forces<true, true, true>(P, T, pos, h6, force, virial, B, s)
+               : launch_forces<true, false, true>(P, T, pos, h6, force, virial, B, s);
+}
+
+}  // namespace
+
+// ------------------------------------------------------------------ entries
+
+// Every operand of a K1/K3 launch; mirrored field for field by
+// ops/md_fused.py's ctypes structure _MDArgs.  The flags coul and ewald,
+// the pattern and SHAKE counts in topo3 and a non-null fext select the
+// instantiation.
+struct MDArgs {
+  const float *lj1, *lj2, *topo, *qq, *pat, *shk, *invm, *mftm;
+  float *state, *vxi, *press;
+  const int *n_run, *gstep0, *n_tot;
+  const float *fscal, *fext, *pos, *h6;
+  float *force, *virial;
+  int B, N, deform, sample, coul, ewald;
+  float cutoff2, r2min, coul_cutoff2, alpha, ndof, boltz, nktv2p, tdamp;
+  Topo3 topo3;
+};
+
+extern "C" int md_allpairs_run_f32(const MDArgs* a, void* stream) {
+  // SHAKE keeps 3 + n_shk rows of N floats in the 12 N role buffer
+  if (a->topo3.n_pat > MAXPAT || a->topo3.n_shk > MAXSHK) return (int)cudaErrorInvalidValue;
+  Params P{a->lj1, a->lj2, a->topo, a->N, a->cutoff2, a->r2min, a->qq, a->pat, a->shk,
+           a->coul_cutoff2, a->alpha};
+  RunArgs A{a->invm, a->mftm, a->state, a->vxi, a->press, a->n_run, a->gstep0, a->n_tot,
+            a->fscal, a->fext, a->deform, a->sample, a->ndof, a->boltz, a->nktv2p, a->tdamp};
+  return static_cast<int>(dispatch_run(P, a->topo3, A, a->coul != 0, a->ewald != 0, a->B,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int md_allpairs_forces_f32(const MDArgs* a, void* stream) {
+  if (a->topo3.n_pat > MAXPAT) return (int)cudaErrorInvalidValue;
+  Params P{a->lj1, a->lj2, a->topo, a->N, a->cutoff2, a->r2min, a->qq, a->pat, a->shk,
+           a->coul_cutoff2, a->alpha};
+  return static_cast<int>(dispatch_forces(P, a->topo3, a->coul != 0, a->ewald != 0, a->pos,
+                                          a->h6, a->force, a->virial, a->B,
+                                          static_cast<cudaStream_t>(stream)));
 }

@@ -8,9 +8,9 @@ subtraction, replica averaging, and scatter-back into the FE stress field.
 
 Differences from the JAX version, all of form rather than result:
 
-* All active (job, replica) pairs of a step go to ONE K1 launch per phase
-  (one thread block per job); there is no job-chunk scan, no ``shard_map``
-  and no multi-job packing.
+* All active (job, replica) pairs of a step go to ONE kernel launch per
+  phase (K1, or K3 per k-space chunk; one thread block per job); there is
+  no job-chunk scan, no ``shard_map`` and no multi-job packing.
 * The fixed-capacity job list (``jnp.nonzero(size=K, fill_value=0)``) is
   built with explicit padding, and rows past the valid slots are masked
   out before any gather or scatter — torch's ``index_put_`` has no
@@ -34,6 +34,7 @@ from ..fem.state import init_qp_state
 from ..md import engine as E
 from ..md import material as M
 from ..md.homogenization import MDParams, strain_and_homogenize
+from ..utils.device import resolve
 from .problem import HMMProblem, StepOutputs, assign_materials, clustering_mapping
 
 
@@ -218,7 +219,10 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                  material: torch.Tensor | None = None) -> MDHMMProblem:
     """Assemble the MD-coupled HMM, preparing every material x replica on
     the device first (FIRE + NVT, then stress sampling and the stiffness
-    probe).
+    probe).  ``spec`` replaces the config's material (the charged all-atom
+    PE melt is selected this way, as the JAX package does).  ``device``
+    None means the current CUDA device (an error without one);
+    ``device="cpu"`` runs the kernels' plain versions.
 
     ``prepared`` skips that prep: one ``(states, init_data)`` pair per
     material, ``states`` an MDState stacked over replicas and
@@ -229,6 +233,7 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
             "staged material prep (equilibrate_staged: the in.init.lammps "
             "NPT heatup/cooldown cycle, engine.run_npt MTK) is not ported yet "
             "(ROADMAP queue 1); run with --quick-prep")
+    device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     md_dtype = getattr(torch, cfg.md_dtype)
     n_repl = cfg.material.number_of_replicas

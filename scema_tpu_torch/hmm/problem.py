@@ -21,6 +21,7 @@ from ..fem import shapes
 from ..fem.problem_types import Problem, make_problem
 from ..fem.state import FEState, init_fe_state, init_history, init_qp_state
 from ..utils import tensors as T
+from ..utils.device import resolve
 
 
 def clustering_mapping(state: FEState, flags: torch.Tensor, min_steps: int,
@@ -134,7 +135,9 @@ def build_hooke_hmm(cfg: HMMConfig, ensemble: bridge.ReplicaEnsemble | None = No
                     device=None, material: torch.Tensor | None = None) -> HMMProblem:
     """HMMProblem with the Hooke's-law fake-MD backend (the reference's
     "approximate md with hookes law" debug mode).  ``material`` overrides
-    the per-qp material draw."""
+    the per-qp material draw.  ``device`` None means the current CUDA
+    device (an error without one); ``device="cpu"`` asks for the CPU."""
+    device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     problem = make_problem(cfg, dtype, device)
     geom = shapes.precompute_geometry(problem.mesh.nodes, problem.mesh.cells,

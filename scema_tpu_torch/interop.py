@@ -5,7 +5,10 @@ fields — reads its arrays through ``numpy.asarray`` and returns the port's
 counterpart as torch tensors.  This module never imports ``jax``; it is how
 tests hand the port what JAX drew at random (``assign_materials``,
 ``maxwell_velocities``) or prepared (equilibrated microstates, measured
-replica ensembles), since torch cannot reproduce ``jax.random`` bits.
+replica ensembles), since torch cannot reproduce ``jax.random`` bits, and
+how they hand it a charged system's JAX-made pieces (k-space objects,
+Coulomb plane, pattern and SHAKE rows, constraint lists) to hold the
+port's own against.
 """
 from __future__ import annotations
 
@@ -15,7 +18,10 @@ import torch
 from .bridging.bridge import ReplicaEnsemble
 from .fem.state import FEState, HistoryState, QPState
 from .hmm.md_coupling import MicroStates
+from .md.constraints import Constraints
 from .md.engine import MDState
+from .md.forcefields.coulomb import Ewald
+from .md.forcefields.pme import PME
 from .md.material import InitData
 
 
@@ -92,7 +98,35 @@ def dense_planes(jax_runner, n_atoms: int, dtype=torch.float64, device=None):
                  for p in (jax_runner.dense_lj1, jax_runner.dense_lj2))
 
 
-def topo_rows(jax_topo, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:
-    """JAX ``pack_topo`` rows (16, NT, 128) -> the port's (16, N)."""
-    a = np.asarray(jax_topo)
+def lane_rows(jax_rows, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """JAX per-atom channel rows (R, NT, 128) — ``pack_topo``,
+    ``pack_patterns``, ``pack_shake`` — -> the port's unpadded (R, N)."""
+    a = np.asarray(jax_rows)
     return _t(a.reshape(a.shape[0], -1)[:, :n_atoms], dtype, device)
+
+
+
+def dense_qq(jax_runner, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """The JAX FusedRunner's dense (NPAD, NPAD) Coulomb plane cropped to (N, N)."""
+    return _t(np.asarray(jax_runner.dense_qq)[:n_atoms, :n_atoms], dtype, device)
+
+
+def constraints(cons) -> Constraints:
+    """JAX ``constraints.Constraints`` -> the port's."""
+    return Constraints(idx=np.asarray(cons.idx).astype(np.int64),
+                       d0=np.asarray(cons.d0, np.float64),
+                       mask=np.asarray(cons.mask).astype(bool))
+
+
+def kspace(ew, dtype=torch.float64, device=None):
+    """JAX ``coulomb.Ewald`` or ``pme.PME`` -> the port's, with the same
+    charges, splitting parameter and k-vector set or mesh."""
+    if hasattr(ew, "mesh"):
+        return PME(charges=_t(ew.charges, dtype, device), cutoff=float(ew.cutoff),
+                   alpha=float(ew.alpha), mesh=tuple(int(k) for k in ew.mesh),
+                   b2x=_t(ew.b2x, dtype, device), b2y=_t(ew.b2y, dtype, device),
+                   b2z=_t(ew.b2z, dtype, device), order=int(ew.order),
+                   qqr2e=float(ew.qqr2e))
+    return Ewald(charges=_t(ew.charges, dtype, device), cutoff=float(ew.cutoff),
+                 alpha=float(ew.alpha), kvecs=_t(ew.kvecs, dtype, device),
+                 qqr2e=float(ew.qqr2e))

@@ -36,6 +36,24 @@ def volume(h: torch.Tensor) -> torch.Tensor:
     return h[..., 0, 0] * h[..., 1, 1] * h[..., 2, 2]
 
 
+def inv_h(h: torch.Tensor) -> torch.Tensor:
+    """General inverse (the strain-derivative virial deforms h by arbitrary
+    3x3 factors, so no upper-triangular shortcut)."""
+    return torch.linalg.inv(h)
+
+
+def to_fractional(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """pos (..., N, 3) -> fractional coordinates for h (..., 3, 3)."""
+    return pos @ inv_h(h).transpose(-1, -2)
+
+
+def min_image_disp(h: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
+    """Minimum-image displacement vectors dr (..., P, 3) for h (..., 3, 3)."""
+    ds = dr @ inv_h(h).transpose(-1, -2)
+    ds = ds - torch.round(ds)
+    return ds @ h.transpose(-1, -2)
+
+
 def remap_affine(h_old: torch.Tensor, h_new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """fix-deform 'remap x': hold fractional coords fixed under box change."""
     return pos @ (torch.linalg.inv(h_old).transpose(-1, -2) @ h_new.transpose(-1, -2))

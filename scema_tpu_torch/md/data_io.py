@@ -626,17 +626,26 @@ def read_lammps_dump(path: str):
 
 
 def to_opls(data: MolecularData, lj_cutoff: float = 12.0, coul_cutoff: float = 9.0,
-            dtype=None, device=None):
+            use_ewald: bool = True, dtype=None, device=None, kspace: str = "auto"):
     """OPLS parameter tables (``forcefields.opls.OPLS``) from MolecularData:
-    geometric-mixed LJ epsilon/sigma, bonded coefficients, and the
-    special-bonds exclusion lists (``special_lj`` = (0, 0, 0)).  The charges
-    are carried; no ported kernel evaluates Coulomb terms, so
-    ``ops.md_fused.make_runner`` refuses a charged system."""
+    geometric-mixed LJ epsilon/sigma, bonded coefficients, the
+    special-bonds exclusion lists (``special_lj`` = (0, 0, 0)) and, for a
+    charged system with ``use_ewald``, the k-space object: ``kspace`` =
+    'ewald' (dense reciprocal sum), 'pme' (FFT mesh, the reference's
+    ``kspace_style pppm``) or 'auto' (dense below 2048 atoms, PME above).
+    Without it the Coulomb term is plain cutoff (coul/cut)."""
     import torch
 
     from .forcefields import opls as O
+    from .forcefields.coulomb import Ewald
+    from .forcefields.pme import PME
 
     dtype = dtype or torch.float64
+    ewald = None
+    if use_ewald and np.abs(data.charges).max() > 0:
+        use_pme = kspace == "pme" or (kspace == "auto" and len(data.pos) >= 2048)
+        maker = PME if use_pme else Ewald
+        ewald = maker.create(data.charges, coul_cutoff, data.box, dtype=dtype, device=device)
 
     def t(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
@@ -663,4 +672,5 @@ def to_opls(data: MolecularData, lj_cutoff: float = 12.0, coul_cutoff: float = 9
         dihedral_k=t(data.dihedral_coeffs if len(data.dihedral_coeffs)
                      else np.zeros((1, 4))),
         excl=O.build_exclusions(len(data.pos), data.bonds),
+        ewald=ewald,
     )

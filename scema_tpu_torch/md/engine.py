@@ -4,9 +4,10 @@ strain driving, virial pressure sampling, FIRE relaxation.
 Torch twin of the fused-path subset of ``scema_tpu/md/engine.py`` (the
 replacement for the LAMMPS instances the reference spawns per quadrature
 point, stmd_problem.h:83-383).  Every dynamics run goes through kernel K1
-(``ops/md_fused.py``); FIRE and the stiffness probe take their forces from
-K1's force + virial entry.  The unfused neighbor-list engine with autograd
-forces is not ported yet.
+(``ops/md_fused.py``), or through K3 for charged all-atom systems; FIRE and
+the stiffness probe take their forces from the kernel's force + virial
+entry plus, with Ewald/PME, the smooth k-space remainder.  The unfused
+neighbor-list engine with autograd forces is not ported yet.
 
 States carry any leading batch shape: pos/vel (..., N, 3), h (..., 3, 3),
 vxi (..., 3).  The runs flatten the batch into K1's job axis, so B jobs
@@ -58,12 +59,13 @@ class MDState:
 
 @dataclass(frozen=True)
 class MDSystem:
-    """Static MD configuration: force field, masses, units, K1 inputs."""
+    """Static MD configuration: force field, masses, units, kernel inputs."""
 
     ff: object  # forcefields.opls.OPLS
     masses: torch.Tensor  # (N,)
     fused: MF.FusedRunner
     units: UnitSystem = REAL
+    constraints: object = None  # constraints.Constraints (SHAKE/RATTLE in K3)
 
     @property
     def n_atoms(self) -> int:
@@ -71,7 +73,9 @@ class MDSystem:
 
     @property
     def ndof(self) -> int:
-        return 3 * self.n_atoms - 3
+        # fix shake subtracts each rigid bond from the temperature DOF count
+        n_cons = 0 if self.constraints is None else int(self.constraints.mask.sum())
+        return 3 * self.n_atoms - 3 - n_cons
 
 
 def init_state(pos, h, vel=None) -> MDState:
@@ -103,14 +107,24 @@ def temperature(sys: MDSystem, vel: torch.Tensor) -> torch.Tensor:
     return ke2 / (sys.ndof * sys.units.boltz)
 
 
-def forces_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor):
+def forces_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor,
+                  want_virial: bool = True):
     """(F (..., N, 3), W (..., 6)): forces and Voigt potential virial from
-    K1's force entry (W_ab = -dE/d eps_ab, symmetric)."""
+    the kernel's force entry (W_ab = -dE/d eps_ab, symmetric), plus the
+    smooth k-space remainder's force and virial for Ewald/PME systems — so
+    F is the full Ewald gradient, as the JAX package's FIRE takes it.
+    ``want_virial=False`` skips the remainder's virial (W then lacks it)."""
     bs = pos.shape[:-2]
     n = pos.shape[-2]
-    F, W = MF.md_forces_virial(sys.fused, pos.reshape(-1, n, 3).transpose(1, 2),
-                               MF.h6_of(h.reshape(-1, 3, 3)))
-    return F.transpose(1, 2).reshape(bs + (n, 3)), W.reshape(bs + (6,))
+    pf, hf = pos.reshape(-1, n, 3), h.reshape(-1, 3, 3)
+    F, W = MF.md_forces_virial(sys.fused, pf.transpose(1, 2), MF.h6_of(hf))
+    F = F.transpose(1, 2)
+    if sys.fused.kspace is not None:
+        Fk, Wk = sys.fused.kspace(pf, hf, want_virial=want_virial)
+        F = F + Fk
+        if want_virial:
+            W = W + Wk
+    return F.reshape(bs + (n, 3)), W.reshape(bs + (6,))
 
 
 def pressure_tensor(sys: MDSystem, state: MDState, W6: torch.Tensor) -> torch.Tensor:
@@ -177,7 +191,7 @@ def minimize_fire(sys: MDSystem, state: MDState, n_steps: int = 200,
     for _ in range(max(1, n_steps // FIRE_CHUNK)):
         vel = torch.zeros_like(pos)
         for _ in range(FIRE_CHUNK):
-            F, _ = forces_virial(sys, pos, h)
+            F, _ = forces_virial(sys, pos, h, want_virial=False)
             vel = vel + dt * F * minv
             fnorm = torch.sqrt(torch.sum(F * F, dim=(1, 2), keepdim=True)) + 1e-30
             vnorm = torch.sqrt(torch.sum(vel * vel, dim=(1, 2), keepdim=True))

@@ -4,8 +4,10 @@ Torch twin of the parameter side of ``scema_tpu/md/forcefields/opls.py``:
 LJ tables (geometric mixing), the bonded topology and coefficients, and the
 special-bonds exclusion lists (reference: lammps_scripts_opls/in.set.lammps,
 ``special_bonds`` at the LAMMPS default lj/coul 0 0 0: 1-2, 1-3 and 1-4
-pairs fully excluded).  No energy function lives here: the ported path
-takes forces and virials from kernel K1 (``ops/md_fused.py``).
+pairs fully excluded) and, for charged systems with ``kspace``, the Ewald
+or PME object.  No pair energy function lives here: the ported path takes
+forces and virials from kernels K1 and K3 (``ops/md_fused.py``) and the
+smooth k-space remainder from ``material.build_kspace_split``.
 """
 from __future__ import annotations
 
@@ -72,6 +74,7 @@ class OPLS:
     excl: np.ndarray  # (N, 3, max_excl) int32, -1 padded
     special_lj: tuple = (0.0, 0.0, 0.0)  # 1-2, 1-3, 1-4 weights
     special_coul: tuple = (0.0, 0.0, 0.0)
+    ewald: object = None  # coulomb.Ewald or pme.PME; None = coul/cut
 
     @property
     def n_atoms(self) -> int:

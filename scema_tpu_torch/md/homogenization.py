@@ -12,7 +12,9 @@ stmd_problem.h:83-383):
    (ELASTIC/in.homogenization.lammps);
 5. ATM -> Pa with the reference's -1.01325e5 factor (stmd_problem.h:335-341).
 
-Here the whole batch of jobs runs in one K1 launch per phase, and inactive
+Here the whole batch of jobs runs in one kernel launch per phase (K1, or
+K3 for charged all-atom boxes: one launch per ``kspace_every`` steps when
+the smooth k-space remainder is refreshed between chunks), and inactive
 batch entries are skipped by the kernel with their state left unchanged.
 """
 from __future__ import annotations
@@ -82,7 +84,8 @@ def stiffness_probe(sys: E.MDSystem, state: E.MDState, params: MDParams,
     """6x6 stiffness (Pa) from +/- finite box deformations
     (ELASTIC/in.modulus.lammps, cold variant of homogenization.py:141-193):
     the twelve deformed boxes relax with FIRE at fixed box as one batch,
-    then one K1 force + virial evaluation gives each pressure tensor;
+    then one force + virial evaluation (the kernel's entry plus the k-space
+    remainder's virial for Ewald/PME systems) gives each pressure tensor;
     ``C[:, d] = -(P(+up) - P(-up)) / (2 up) * atm_to_pa``, symmetrized."""
     dtype, dev = state.pos.dtype, state.pos.device
     eps = torch.zeros((12, 6), dtype=dtype, device=dev)

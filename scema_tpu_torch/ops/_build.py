@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, writes into ``build/scema_tpu_torch/`` at the repository
-root, and is keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads the cached library.  Nothing here runs
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
+``nvcc`` process per source, all started together — and the objects are
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, writes into
+``build/scema_tpu_torch/`` at the repository root, and is keyed by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads the cached library.  Nothing here runs
 when a module is imported: the CPU tests import every module on machines
 without ``nvcc``.
 
@@ -28,18 +30,17 @@ BUILD_DIR = _PKG.parent / "build" / "scema_tpu_torch"
 # -Xptxas -v reports registers, shared memory and spills per kernel into
 # build_log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # exported symbol -> argtypes (pointers and the stream as c_void_p so they
 # are passed as 64-bit values)
 SIGNATURES = {
     "pairwise_l2_f32": [_P, _P, _I, _I, _P],
-    "md_allpairs_run_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "md_allpairs_forces_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # K1/K3: a pointer to the MDArgs structure (md_fused._MDArgs) and the stream
+    "md_allpairs_run_f32": [_P, _P],
+    "md_allpairs_forces_f32": [_P, _P],
 }
 
 _lib = None
@@ -85,14 +86,30 @@ def build() -> Path:
         build_seconds = None
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [src.name for src, p in zip(sources(), procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    build_log += link.stdout + link.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

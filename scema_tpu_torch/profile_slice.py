@@ -1,9 +1,13 @@
 """Steady-state timing and device-time breakdown of the port's main path.
 
     python -m scema_tpu_torch.profile_slice [--steps 8] [--repeats 10] [--trace out.json]
+    python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
 
 Builds the MD-coupled ``HMMConfig()`` dogbone on one CUDA card exactly as
-``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes), times
+``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes) — or,
+with ``--charged``, the charged slice (the 1792-atom all-atom PE material
+``material.PEAA`` at every flagged qp, at most 128 MD jobs per step,
+``equil_steps=50``, ``minimize_steps=100``) — times
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
@@ -14,6 +18,7 @@ memory.  The last line is one JSON object with these numbers.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,6 +50,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=8, help="macro-steps before the repeats")
     ap.add_argument("--repeats", type=int, default=10, help="repeats of the next step")
     ap.add_argument("--trace", default="", help="write the profiled step's Chrome trace here")
+    ap.add_argument("--charged", action="store_true",
+                    help="the charged all-atom PE slice (K3, PME) instead of the g0 slice")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,7 +73,14 @@ def main(argv=None) -> int:
 
     cfg = HMMConfig().replace(dtype="float32")
     t0 = time.perf_counter()
-    hmm = build_md_hmm(cfg, staged=False, device=dev)
+    if args.charged:
+        from .md.material import PEAA
+
+        cfg = cfg.replace(md_dtype="float32", resources=dataclasses.replace(
+            cfg.resources, max_md_jobs=128))
+        hmm = build_md_hmm(cfg, spec=PEAA, equil_steps=50, minimize_steps=100, device=dev)
+    else:
+        hmm = build_md_hmm(cfg, staged=False, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"setup {setup_s:.3f}s (mesh + quick prep, kernel build included if not cached)")
@@ -104,6 +118,12 @@ def main(argv=None) -> int:
         t = _self_device_us(e)
         if t > 0:
             print(f"  {t / 1e3:10.3f} ms  {100 * t / dev_total:5.1f}%  n={e.count:5d}  {e.key[:80]}")
+    groups = {"md kernels (K1/K3)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
+    for e in ka:
+        key = ("md kernels (K1/K3)" if "md_run_kernel" in e.key or "md_forces_kernel" in e.key
+               else "pairwise_l2 (K2)" if "pairwise_l2" in e.key else "everything else")
+        groups[key] += _self_device_us(e) / 1e3
+    print("device time by group (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _device_busy_us(events)
     idle = 1.0 - busy / (w * 1e6)
@@ -112,7 +132,8 @@ def main(argv=None) -> int:
           f"{len(events)} device events; peak memory {peak:.1f} MiB")
     print(json.dumps({"card": card, "setup_s": setup_s, "step_s": walls, "md_jobs": jobs,
                       "repeat_s": rep, "repeat_md_jobs": rep_jobs, "profiled_step_s": w,
-                      "device_ms": dev_total / 1e3, "idle_share": idle,
+                      "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
+                      "idle_share": idle,
                       "peak_mem_mib": peak}))
     return 0
 

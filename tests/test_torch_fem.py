@@ -35,7 +35,7 @@ def _hooke(cfg):
 @pytest.fixture(scope="module")
 def runs():
     jh = j_build_hooke(_hooke(JCfg()))
-    th = t_build_hooke(_hooke(TCfg()))
+    th = t_build_hooke(_hooke(TCfg()), device="cpu")
     js, ts = jh.init_state(), th.init_state()
     step = jax.jit(jh.step)
     out = {"j_sig": [], "t_sig": [], "j_out": [], "t_out": []}

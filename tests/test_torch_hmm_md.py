@@ -56,7 +56,7 @@ def runs():
                         density=float(ens.rho[0, r]))
             for r in range(be.n_repl)]
     mat = assign_materials(jcfg, jh.geom, jh.base.dtype)
-    th = t_build_md_hmm(_cfg(TCfg), spec=TM.MaterialSpec(**SMALL),
+    th = t_build_md_hmm(_cfg(TCfg), spec=TM.MaterialSpec(**SMALL), device="cpu",
                         prepared=[(interop.md_state(be.initial_md_state), data)],
                         material=interop.materials(mat))
     jc, tc = jh.init_state(), th.init_state()
@@ -106,3 +106,21 @@ def test_injected_microstates_step_like_jax(runs):
     (tfe, (tm,)), _ = th.step(tc)
     assert rel_err(np64(tfe.qp.new_stress), np.asarray(jfe.qp.new_stress)) < 1e-8
     assert np.abs(np64(tm.pos) - np.asarray(jm.pos)).max() < 1e-8
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    """Without a device the entry points take the current CUDA device; on
+    a machine without one they raise instead of running on the CPU."""
+    import torch
+
+    from scema_tpu_torch.hmm.problem import build_hooke_hmm
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_build_md_hmm(TCfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_hooke_hmm(TCfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.build_system(TM.MaterialSpec(**SMALL))
+    assert TM.build_system(TM.MaterialSpec(**SMALL), device="cpu")[1].pos.device.type == "cpu"

@@ -11,8 +11,9 @@ Tolerances: positions 1e-8 A, velocities and thermostat 1e-8 relative,
 length/stress/stiffness/density 1e-8 relative — only the summation order
 differs (measured in float64 on a CPU: ~1e-13).
 
-Also: a charged system is refused, since no ported kernel evaluates the
-Coulomb terms that the JAX package would compute for it."""
+Also: a topology that no ported kernel runs (an improper, which sends the
+JAX package to its unported XLA bonded path) is refused, charged or not,
+and a charged chain without one takes K3's cutoff Coulomb plane."""
 import jax
 import numpy as np
 import pytest
@@ -49,7 +50,7 @@ def prep():
     # equilibrate's own Maxwell draw, for the port to start from
     jvel = JE.maxwell_velocities(jsys, key, PARAMS["temperature"], dtype=jeq.pos.dtype)
 
-    tsys, tst0 = TM.build_system(TM.MaterialSpec(**SMALL))
+    tsys, tst0 = TM.build_system(TM.MaterialSpec(**SMALL), device="cpu")
     tp = TH.MDParams(**PARAMS)
     tmin = TE.minimize_fire(tsys, tst0, n_steps=MIN_STEPS, dt0=0.5)
     teq = TM.equilibrate(tsys, tst0, tp, minimize_steps=MIN_STEPS, equil_steps=EQUIL_STEPS,
@@ -146,17 +147,45 @@ Dihedrals
 """
 
 
+IMPROPER = """1 impropers
+1 improper types
+"""
+IMPROPER_SECTIONS = """
+Improper Coeffs
+
+1 1.0 0.0
+
+Impropers
+
+1 1 1 2 3 4
+"""
+
+
 @pytest.mark.parametrize("q", [0.0, 0.1])
 def test_charged_data_file_is_refused(tmp_path, q):
-    """K1 has no Coulomb term: a charged system raises instead of running
-    with its charges dropped; the same chain uncharged builds."""
+    """What no kernel of the port runs is refused rather than run with a
+    term dropped: the chain with an improper raises NotImplementedError,
+    charged or not.  Without it, the chain builds: uncharged on K1,
+    charged on K3 with the cutoff Coulomb plane qqr2e q_i q_j w (zero
+    here: every pair of a 4-atom chain is a 1-2, 1-3 or 1-4 pair, and
+    ``special_coul`` = 0), or, with the Ewald sum requested, only together
+    with its k-space remainder."""
+    text = CHAIN_DATA.format(q=q, mq=-q)
     p = tmp_path / "chain.data"
-    p.write_text(CHAIN_DATA.format(q=q, mq=-q))
+    p.write_text(text.replace("1 dihedral types\n", "1 dihedral types\n" + IMPROPER)
+                 + IMPROPER_SECTIONS)
     data = TD.read_data(str(p))
-    ff = TD.to_opls(data, lj_cutoff=10.0, coul_cutoff=9.0)
+    assert len(data.impropers) == 1
     masses = torch.as_tensor(data.masses[data.types], dtype=torch.float64)
-    if q == 0.0:
-        assert TMF.make_runner(ff, masses, REAL).spec.n_atoms == 4
-    else:
-        with pytest.raises(NotImplementedError, match="charged"):
-            TMF.make_runner(ff, masses, REAL)
+    with pytest.raises(NotImplementedError, match="impropers"):
+        TMF.make_runner(TD.to_opls(data, 10.0, 9.0, use_ewald=False), masses, REAL)
+
+    p.write_text(text)
+    data = TD.read_data(str(p))
+    runner = TMF.make_runner(TD.to_opls(data, 10.0, 9.0, use_ewald=False), masses, REAL)
+    assert runner.spec.n_atoms == 4 and runner.spec.coul == (q != 0.0)
+    assert runner.spec.k3 == (q != 0.0) and not runner.spec.fext
+    if q:
+        assert runner.qq.shape == (4, 4) and not bool(runner.qq.any())
+        with pytest.raises(ValueError, match="k-space"):
+            TMF.make_runner(TD.to_opls(data, 10.0, 9.0, use_ewald=True), masses, REAL)

@@ -42,7 +42,7 @@ def melt():
     jsys, jst = JM.build_system(JM.MaterialSpec(**SMALL, use_fused=False, rebuild_every=20))
     jst = jax.jit(lambda s: JE.minimize_fire(jsys, s, 40, dt0=0.5))(jst)
     jst = jst._replace(vel=JE.maxwell_velocities(jsys, jax.random.PRNGKey(0), T_MD))
-    tsys, _ = TM.build_system(TM.MaterialSpec(**SMALL))
+    tsys, _ = TM.build_system(TM.MaterialSpec(**SMALL), device="cpu")
     return jsys, jst, tsys, interop.md_state(jst)
 
 
@@ -52,10 +52,10 @@ def test_planes_and_topo_match_jax(melt):
     n = tsys.n_atoms
     lj1, lj2 = interop.dense_planes(jsys_f.fused, n)
     assert torch.equal(tsys.fused.lj1, lj1) and torch.equal(tsys.fused.lj2, lj2)
-    assert torch.equal(tsys.fused.topo, interop.topo_rows(jsys_f.fused.topo, n))
+    assert torch.equal(tsys.fused.topo, interop.lane_rows(jsys_f.fused.topo, n))
     ff = jsys_f.ff
     topo = JMF.pack_topo(ff.topo, ff.bonded, n, dtype=jnp.float64)
-    assert torch.equal(tsys.fused.topo, interop.topo_rows(topo, n))
+    assert torch.equal(tsys.fused.topo, interop.lane_rows(topo, n))
 
 
 def test_forces_virial_match_jax(melt):
