@@ -30,12 +30,34 @@ failure exits non-zero before the result line:
 7. the charged slice: ``build_md_hmm(HMMConfig(), spec=PEAA,
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per step,
    float32, for 2 macro-steps, its launch counters zeroed just before and
-   read just after; K2 and K3 must have launched.
+   read just after; K2 and K3 must have launched;
+8. K4 (the gather-list pair loop, which also stands for the TPU's streamed
+   job-grid form K4s) against its plain version on the prepared PEAA2240
+   box (70 C10H22 chains, 2240 charged atoms, K ~ 1112 list slots, SHAKE,
+   PME split, float32): the force + virial entry on 12 boxes against
+   float32 and float64, a 16-job 10-step deform chunk with SHAKE and the
+   frozen k-space force against float32 and float64, the SHAKE residual
+   after it, 20-step sampling pressure sums per job against float64, no
+   list row full; the kernel's and the plain version's times on a 128-job
+   10-step chunk, the neighbor build's time for 128 jobs, and K3's
+   all-pairs time on the same 2240-atom box (the all-pairs/list
+   crossover; measured only, no gate changes);
+9. the MD-throughput path of the JAX package's ``bench_md_charged_bigbox``
+   on the port: ``build_system(PEAA2240)``, FIRE 30, a Maxwell draw at
+   300 K, NVT 20, then 8 jobs x 100 ``run_strain`` steps of 1 fs with
+   eps_zz = linspace(1e-4, 5e-4): atom-steps/s, with the MD launch counters
+   zeroed just before the two timed runs and read just after; K4 alone must
+   have launched;
+10. the coupled list slice: ``build_md_hmm(HMMConfig(), spec=PEAA2240,
+   equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per
+   step, float32, 2 macro-steps, its launch counters zeroed just before
+   and read just after; K2 and K4 must have launched.
 
 The second-to-last line is a JSON object with one entry per kernel (K1
-and K2 launches counted on the g0 slice, K3's on the charged slice; bounds
-from this run's shapes and the card's published peaks); the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
+on the coupled list slice; bounds from this run's shapes and the card's
+published peaks); the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 import contextlib
 import dataclasses
@@ -119,6 +141,38 @@ def pair_flops(n_atoms, jobs_steps, f_lj, f_q=0.0, virial=False):
     per = (FLOP_GEOM + FLOP_LJ * f_lj + FLOP_EWALD * f_q
            + (FLOP_APPLY + FLOP_VIRIAL * virial) * max(f_lj, f_q))
     return n_atoms * (n_atoms - 1) / 2.0 * jobs_steps * per
+
+
+def list_pair_counts(nbr, pos, h, cut2, coul_cut2):
+    """Unordered pairs per box of K4's lists at positions pos (B, N, 3) in
+    boxes h (B, 3, 3): (in the list, inside the LJ cutoff, inside the
+    Coulomb cutoff), each averaged over the boxes — the pairs the list
+    kernel's function needs, counted from this run's lists."""
+    import torch
+
+    from scema_tpu_torch.ops import md_fused as MF
+
+    Bn, K, n = nbr["idx"].shape
+    flat = nbr["idx"].long().reshape(Bn, K * n)
+    h6 = MF.h6_of(h.double())
+    lx, ly, lz, xy, xz, yz = (h6[:, k, None, None] for k in range(6))
+    p = pos.double()
+    g = [torch.gather(p[..., a], 1, flat).reshape(Bn, K, n) for a in range(3)]
+    nx, ny, nz = nbr["imx"].double(), nbr["imy"].double(), nbr["imz"].double()
+    dx = g[0] + nx * lx + ny * xy + nz * xz - p[..., 0][:, None]
+    dy = g[1] + ny * ly + nz * yz - p[..., 1][:, None]
+    dz = g[2] + nz * lz - p[..., 2][:, None]
+    r2 = dx * dx + dy * dy + dz * dz
+    live = nbr["idx"] != torch.arange(n, dtype=nbr["idx"].dtype, device=pos.device)
+    return tuple(float(((live & m).sum() / 2.0) / Bn)
+                 for m in (live, r2 < cut2, r2 < coul_cut2))
+
+
+def list_flops(jobs_steps, pairs, pairs_lj, pairs_q, virial=False):
+    """Operations of ``jobs_steps`` list-force evaluations, by
+    :func:`pair_flops`'s rules over the list's unordered pairs."""
+    return jobs_steps * (pairs * FLOP_GEOM + pairs_lj * FLOP_LJ + pairs_q * FLOP_EWALD
+                         + max(pairs_lj, pairs_q) * (FLOP_APPLY + FLOP_VIRIAL * virial))
 
 
 def shake_residual(sys_, pos):
@@ -644,6 +698,338 @@ def phase_charged_slice(dev):
     return launches
 
 
+def _f64(nbr):
+    return {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+
+
+def phase_k4(dev):
+    import torch
+
+    from scema_tpu_torch.md import box as B
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.md import neighbor as NB
+    from scema_tpu_torch.md.homogenization import _LAMMPS_TO_FRAMEWORK
+    from scema_tpu_torch.md.units import REAL
+    from scema_tpu_torch.ops import md_fused as MF
+
+    t0 = time.perf_counter()
+    sys_, st = M.build_system(M.PEAA2240, dtype=torch.float32, device=dev)
+    r = sys_.fused
+    n, K = sys_.n_atoms, r.spec.k
+    st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
+    torch.cuda.synchronize()
+    print(f"[8 K4] PEAA2240 box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags {r.spec.flags}, "
+          f"list width K={K} (r_list {r.nspec.r_list} A, rebuilt every {r.rebuild_every} steps), "
+          f"PME mesh {sys_.ff.ewald.mesh}, build + FIRE {time.perf_counter() - t0:.2f}s")
+    r64 = r.to(dev, torch.float64)
+    n_ch = len(r.channel_names)
+
+    # force + virial entry at the stiffness probe's 12 deformed boxes, on
+    # one list built at those positions
+    eps = torch.zeros((12, 6), device=dev)
+    for d in range(6):
+        eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
+        eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
+    h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
+    pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    p12 = pos12.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(h12)
+    nbr12 = r.channels(pos12, h12)
+    F, W = MF.md_forces_virial(r, p12, h6, nbr=nbr12)
+    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6, nbr12)
+    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double(), _f64(nbr12))
+    torch.cuda.synchronize()
+    f_err = float((F - Fp).abs().max())
+    fn = F64.norm(dim=1)
+    big = fn > 0.01 * fn.max()
+    pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+    ek = float((F.double() - F64).abs().max()) / fmax
+    ep = float((Fp.double() - F64).abs().max()) / fmax
+    wk = float((W.double() - W64).abs().max()) / wmax
+    wp = float((Wp.double() - W64).abs().max()) / wmax
+    if (not torch.isfinite(F).all() or ek > 4 * ep + 1e-6 or wk > 4 * wp + 1e-6
+            or pa_k > 4 * pa_p + 1e-5):
+        fail(f"K4 forces: kernel error vs float64 {ek:.3e} (per atom {pa_k:.3e}, virial "
+             f"{wk:.3e}) exceeds 4x the plain float32 error {ep:.3e} ({pa_p:.3e}, "
+             f"{wp:.3e}) + 1e-6 (per atom 1e-5)")
+    live = nbr12["idx"] != torch.arange(n, dtype=torch.int32, device=dev)
+    fullest = int(live.sum(1).max())
+    if fullest >= K:
+        fail(f"K4: a list row is full ({fullest} live slots of K={K}): pairs may be dropped")
+    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6, nbr=nbr12), reps=10)
+    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6, nbr12), reps=2)
+    lp, lj, lq = list_pair_counts(nbr12, pos12, h12, r.spec.cutoff2, r.spec.coul_cutoff2)
+    # the bytes the list function needs: each job's list (idx and the three
+    # image channels) and, once, the job-independent coefficient planes
+    # (lj1, lj2, qq); the kernel also streams per-slot lj1/lj2/qq gathered
+    # from those planes, 7 channels in all (ch_bytes per job)
+    list_bytes = 4.0 * 4 * K * n
+    ch_bytes = 4.0 * n_ch * K * n
+    planes = 3 * n * n
+    fb_ms, fb_by = bound(12 * (list_bytes + 4.0 * (3 * n + 6 + 3 * n + 6))
+                         + 4.0 * (planes + r.pat.numel() + 2 * n),
+                         list_flops(12, lp, lj, lq, virial=True))
+    print(f"[8 K4 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: kernel "
+          f"{ek:.3e} plain-f32 {ep:.3e}, worst per-atom {pa_k:.3e} / {pa_p:.3e}, virial "
+          f"{wk:.3e} / {wp:.3e} (tol 4x plain + 1e-6, per atom + 1e-5)  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}; per box {lp:.0f} list pairs, "
+          f"{lj:.0f} inside LJ, {lq:.0f} inside Coulomb); fullest row {fullest} of K={K} slots")
+    forces_row = {"name": "md_list_forces_virial", "route": "cuda",
+                  "source": "scema_tpu_torch/csrc/md_list.cu",
+                  "replaces": "scema_tpu/ops/md_fused.py:1850",
+                  "note": "K4 gather-list branch (pair_tile :1261, gather3 :855); also K4s, "
+                          "the streamed job-grid form (md_fused.py:1678): the same kernel",
+                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+
+    # a 16-job 10-step deform chunk with SHAKE and the frozen k-space force
+    # against float32 and float64
+    gen = torch.Generator().manual_seed(8)
+    J = 128
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    posJ = st.pos.expand(J, -1, -1).contiguous()
+    state = MF.pack_state(posJ, vel)
+    vxi = torch.zeros((J, 3), device=dev)
+    epsJ = (torch.rand((J, 6), generator=gen) * 2e-3 - 1e-3).to(dev)
+    fscal = MF.make_fscal(DT, T_MD, hJ, epsJ)
+    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
+    g0 = torch.zeros_like(n10)
+    n_tot = torch.full_like(n10, 40)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    nbrJ = r.channels(posJ, hJ, reuse=True)
+    b.record()
+    torch.cuda.synchronize()
+    nb_ms = min(a.elapsed_time(b), cuda_ms(lambda: r.channels(posJ, hJ, reuse=True), reps=2))
+    list_ms = cuda_ms(lambda: NB.build(r.nspec, posJ, hJ), reps=2)
+    Fk, _ = r.kspace(posJ, hJ)
+    fk = Fk.transpose(1, 2).contiguous()
+    S = 16
+    sub = (state[:S], vxi[:S], n10[:S], fscal[:S], True, False, fk[:S], g0[:S], n_tot[:S])
+    nbrS = {k: v[:S] for k, v in nbrJ.items()}
+    out, xo, _ = MF.md_run(r, *sub, nbr=nbrS)
+    ref, _, _ = MF.md_run_plain(r, *sub, nbr=nbrS)
+    ref64, _, _ = MF.md_run_plain(r64, state[:S].double(), vxi[:S].double(), n10[:S],
+                                  fscal[:S].double(), True, False, fk[:S].double(), g0[:S],
+                                  n_tot[:S], nbr=_f64(nbrS))
+    torch.cuda.synchronize()
+    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
+    vmax = float(ref64[:, 3:].abs().max())
+    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+        fail(f"K4 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+    resid = shake_residual(sys_, out[:, :3].transpose(1, 2))
+    if not resid < 1e-3:
+        fail(f"K4 SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+    print(f"[8 K4 run16] {S} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions "
+          f"max_abs_err vs plain {p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 "
+          f"{pp:.3e} A, velocities rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4); SHAKE "
+          f"residual max |r^2-d0^2|/d0^2 {resid:.3e} (tol 1e-3)")
+
+    # the main path's chunk shape: 128 jobs x 10 steps, kernel and plain
+    args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
+    run_ms = cuda_ms(lambda: MF.md_run(r, *args, nbr=nbrJ), reps=3)
+    run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
+    lp, lj, lq = list_pair_counts({k: v[:2] for k, v in nbrJ.items()}, posJ[:2], hJ[:2],
+                                  r.spec.cutoff2, r.spec.coul_cutoff2)
+    rb_ms, rb_by = bound(J * (list_bytes + 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3))
+                         + 4.0 * (planes + r.pat.numel() + r.shk.numel() + 2 * n),
+                         list_flops(J * 10, lp, lj, lq))
+    stream_ms = J * 10 * ch_bytes / HBM_BPS * 1e3
+    print(f"[8 K4 run] {J} jobs x 10 deform steps: kernel {run_ms:.3f} ms  plain "
+          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}; inputs read once: lists "
+          f"{J * list_bytes / 1e9:.3f} GB, planes {4 * planes / 1e6:.1f} MB; per box {lp:.0f} "
+          f"list pairs, {lj:.0f} inside LJ, {lq:.0f} inside Coulomb)  the kernel's {n_ch} "
+          f"channels re-read every step: {J * 10 * ch_bytes / 1e9:.2f} GB = {stream_ms:.3f} ms "
+          f"at 3.35 TB/s")
+    print(f"[8 neighbor] {J} jobs: list build + channel packing {nb_ms:.3f} ms (build alone "
+          f"{list_ms:.3f} ms), {NB.jobs_per_slice(n)} jobs per slice")
+
+    # K3 all-pairs on the same box, shapes and inputs (the crossover)
+    ap = MF.make_runner(sys_.ff, sys_.masses, REAL, dtype=torch.float32, device=dev,
+                        constraints=sys_.constraints, kspace=r.kspace, kspace_every=10)
+    if ap.spec.kernel != "K3":
+        fail(f"the all-pairs runner of the 2240-atom box is {ap.spec.kernel}, not K3")
+    k3_ms = cuda_ms(lambda: MF.md_run(ap, *args), reps=3)
+    k3_out, _, _ = MF.md_run(ap, *args)
+    k4_out, _, _ = MF.md_run(r, *args, nbr=nbrJ)
+    torch.cuda.synchronize()
+    print(f"[8 crossover] N={n}, {J} jobs x 10 deform steps: K3 all-pairs {k3_ms:.3f} ms, K4 list "
+          f"{run_ms:.3f} ms (+ its list build {nb_ms:.3f} ms per rebuild): K4/K3 "
+          f"{(run_ms + nb_ms) / k3_ms:.3f}; max |pos K3 - K4| after the chunk "
+          f"{float((k3_out[:, :3] - k4_out[:, :3]).abs().max()):.3e} A")
+
+    # 20-step sampling at 16 jobs: each job's pressure sums against float64
+    n20 = torch.full((S,), 20, dtype=torch.int32, device=dev)
+    f_s = MF.make_fscal(DT, T_MD, hJ[:S])
+    one = torch.ones_like(n20)
+    sargs = (out, xo, n20, f_s, False, True, fk[:S], g0[:S], one)
+    _, _, sk = MF.md_run(r, *sargs, nbr=nbrS)
+    _, _, sp = MF.md_run_plain(r, *sargs, nbr=nbrS)
+    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True,
+                                fk[:S].double(), g0[:S], one, nbr=_f64(nbrS))
+    torch.cuda.synchronize()
+    smax = s64.abs().amax(0)
+    sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
+    sp_err = float(((sp.double() - s64).abs().amax(0) / smax).max())
+    if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
+        fail(f"K4 sampling: kernel pressure sums vs float64 rel {sk_err:.3e} exceed "
+             f"4x plain float32 {sp_err:.3e} + 1e-4")
+    print(f"[8 K4 sample20] {S} jobs x 20 sampling steps: per-job pressure sums rel to float64 "
+          f"(worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} (tol 4x plain + 1e-4)")
+    run_row = {"name": "md_list_run", "route": "cuda",
+               "source": "scema_tpu_torch/csrc/md_list.cu",
+               "replaces": "scema_tpu/ops/md_fused.py:1850",
+               "note": "K4 gather-list branch (pair_tile :1261, gather3 :855); also K4s, the "
+                       "streamed job-grid form (md_fused.py:1678): the same kernel",
+               "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
+               "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
+    return run_row, forces_row
+
+
+def phase_bench(dev):
+    """The MD-throughput path of bench_md_charged_bigbox (bench.py:244-257,
+    _bench_throughput :131-171) through the port's entry points."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+
+    n_jobs, n_steps, dt, T = 8, 100, 1.0, 300.0
+    t0 = time.perf_counter()
+    sys_, st0 = M.build_system(M.PEAA2240, dtype=torch.float32, device=dev)
+    st0 = E.minimize_fire(sys_, st0, n_steps=30, dt0=0.5)
+    st0 = st0.replace(vel=E.maxwell_velocities(sys_, T, torch.Generator().manual_seed(0),
+                                               torch.float32, dev))
+    eps = torch.zeros((n_jobs, 6), device=dev)
+    eps[:, 2] = torch.linspace(1e-4, 5e-4, n_jobs, device=dev)
+    batch = E.MDState(*(x.expand((n_jobs,) + x.shape).contiguous()
+                        for x in (st0.pos, st0.vel, st0.h, st0.vxi)))
+    batch = E.run_strain(sys_, batch, eps * 0.0, 20, T, dt)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    counters = {"md_allpairs_run": (MF.md_run, "launches"),
+                "md_charged_run": (MF.md_run, "launches_k3"),
+                "md_list_run": (MF.md_run, "launches_k4")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    best = float("inf")
+    for _ in range(2):
+        t1 = time.perf_counter()
+        out = E.run_strain(sys_, batch, eps, n_steps, T, dt)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t1)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    if not torch.isfinite(out.pos).all():
+        fail("bench path: non-finite positions")
+    if launches["md_list_run"] <= 0 or launches["md_allpairs_run"] or launches["md_charged_run"]:
+        fail(f"bench path: the timed runs did not go through K4 alone: {launches}")
+    rate = n_jobs * sys_.n_atoms * n_steps / best
+    print(f"[9 bench] md_charged_bigbox path: {n_jobs} jobs x {n_steps} run_strain steps of "
+          f"{dt} fs, {sys_.n_atoms} atoms: best of 2 {best:.4f}s -> {rate:.6g} atom-steps/s "
+          f"(setup: build + FIRE 30 + NVT 20 {setup:.2f}s)  launches in the 2 timed runs "
+          f"{launches}")
+    return rate
+
+
+def phase_list_slice(dev):
+    import torch
+
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+    from scema_tpu_torch.ops import pairwise_l2 as K2
+
+    counters = {"md_allpairs_run": (MF.md_run, "launches"),
+                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_charged_run": (MF.md_run, "launches_k3"),
+                "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
+                "md_list_run": (MF.md_run, "launches_k4"),
+                "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
+                "pairwise_l2": (K2.pairwise_l2, "launches")}
+    cfg = HMMConfig()
+    cfg = cfg.replace(dtype="float32", md_dtype="float32",
+                      resources=dataclasses.replace(cfg.resources, max_md_jobs=128))
+    n_steps = 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    hmm = build_md_hmm(cfg, spec=M.PEAA2240, equil_steps=50, minimize_steps=100, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # time the k-space remainder and the list rebuilds inside the steps
+    runner = hmm.backend.sys.fused
+    marks = {"kspace": [], "channels": []}
+    orig = {name: getattr(runner, name) for name in marks}
+
+    def timed(name):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = orig[name](*a, **kw)
+            ev[1].record()
+            marks[name].append(ev)
+            return res
+        return call
+
+    for name in marks:
+        object.__setattr__(runner, name, timed(name))
+    state = hmm.init_state()
+    step_s, jobs, shares = [], [], []
+    for _ in range(n_steps):
+        for m in marks.values():
+            m.clear()
+        t1 = time.perf_counter()
+        state, out = hmm.step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        step_s.append(wall)
+        jobs.append(int(out.n_jobs))
+        shares.append({k: round(sum(a.elapsed_time(b) for a, b in m) / 1e3 / wall, 4)
+                       for k, m in marks.items()})
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)) or jobs[-1] <= 0:
+            fail("list slice: a macro-step produced no MD jobs or non-finite residuals")
+    for name, fn in orig.items():
+        object.__setattr__(runner, name, fn)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    if abs(umax - expect) > 1e-5 * expect:
+        fail(f"list slice: max displacement {umax} != {expect}")
+    if launches["md_list_run"] <= 0 or launches["md_list_forces_virial"] <= 0 \
+            or launches["pairwise_l2"] <= 0:
+        fail(f"list slice: a kernel of the path was not launched: {launches}")
+    if max(jobs) > 128:
+        fail(f"list slice: {max(jobs)} MD jobs in a step, above the 128 cap")
+    micro = state[1][0]
+    ran = micro.pos[micro.has_run]
+    resid = shake_residual(hmm.backend.sys, ran)
+    if ran.shape[0] == 0 or not resid < 1e-3:
+        fail(f"list slice: SHAKE residual {resid:.3e} on {ran.shape[0]} MD states (tol 1e-3)")
+    print(f"[10 list slice] {hmm.backend.sys.n_atoms}-atom PEAA2240 boxes on K4 (K="
+          f"{runner.spec.k}), qps {hmm.geom.n_qp_total}: setup {setup_s:.3f}s  s/macro-step "
+          f"{[round(x, 4) for x in step_s]}  md jobs {jobs}  share of the step (PME remainder, "
+          f"list rebuilds) {shares}  launches {launches}  peak memory {peak / 2**20:.1f} MiB  "
+          f"max displacement {umax:.6g} m (expect {expect:.6g})  SHAKE residual max "
+          f"|r^2-d0^2|/d0^2 {resid:.3e} over the {ran.shape[0]} qps' MD states (tol 1e-3)")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -664,9 +1050,13 @@ def main() -> int:
     launches = phase_slice(dev)
     k3_run, k3_forces = phase_k3(dev)
     launches_charged = phase_charged_slice(dev)
-    rows = [k1_run, k1_forces, k2, k3_run, k3_forces]
+    k4_run, k4_forces = phase_k4(dev)
+    phase_bench(dev)
+    launches_list = phase_list_slice(dev)
+    rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces]
     for row in rows:
-        path = launches_charged if row["name"].startswith("md_charged") else launches
+        path = (launches_charged if row["name"].startswith("md_charged") else
+                launches_list if row["name"].startswith("md_list") else launches)
         row["launches"] = path[row["name"]]
     print(card)
     print(json.dumps({"kernels": rows}))

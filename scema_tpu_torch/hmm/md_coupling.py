@@ -9,8 +9,10 @@ subtraction, replica averaging, and scatter-back into the FE stress field.
 Differences from the JAX version, all of form rather than result:
 
 * All active (job, replica) pairs of a step go to ONE kernel launch per
-  phase (K1, or K3 per k-space chunk; one thread block per job); there is
-  no job-chunk scan, no ``shard_map`` and no multi-job packing.
+  phase (K1, or K3/K4 per k-space or list-rebuild chunk; one thread block
+  per job); there is no job-chunk scan, no ``shard_map``, no multi-job
+  packing, and no clamp of the job chunk for streamed list kernels
+  (md_coupling.py:582-588, a TPU workaround).
 * The fixed-capacity job list (``jnp.nonzero(size=K, fill_value=0)``) is
   built with explicit padding, and rows past the valid slots are masked
   out before any gather or scatter — torch's ``index_put_`` has no
@@ -114,8 +116,9 @@ class MDBackend:
         eps_rep = bridge.replica_strains(self.ensemble, eps_job, mat_job)
         dlength = bridge.strain_to_length_variation(self.ensemble, eps_rep, mat_job)
 
-        # -- batched MD (execute_inside_md_simulations): one K1 launch per
-        # phase for every (job, replica)
+        # -- batched MD (execute_inside_md_simulations): one kernel launch
+        # per phase (per chunk with k-space or a list) for every (job,
+        # replica)
         md_dtype = micro.pos.dtype
         st, sigma_rep = strain_and_homogenize(self.sys, st, dlength.to(md_dtype),
                                               self.params)

@@ -23,6 +23,7 @@ from .md.engine import MDState
 from .md.forcefields.coulomb import Ewald
 from .md.forcefields.pme import PME
 from .md.material import InitData
+from .md.neighbor import NeighborList
 
 
 def _t(x, dtype=None, device=None) -> torch.Tensor:
@@ -104,6 +105,31 @@ def lane_rows(jax_rows, n_atoms: int, dtype=torch.float64, device=None) -> torch
     a = np.asarray(jax_rows)
     return _t(a.reshape(a.shape[0], -1)[:, :n_atoms], dtype, device)
 
+
+def neighbor_list(nbr, device=None) -> NeighborList:
+    """JAX ``neighbor.NeighborList`` (idx, mask; any leading job axes) ->
+    the port's (int64 indices)."""
+    return NeighborList(idx=_i(nbr.idx, device),
+                        mask=torch.as_tensor(np.asarray(nbr.mask).astype(bool), device=device))
+
+
+def list_channels(ch, n_atoms: int, dtype=torch.float64, device=None) -> dict:
+    """JAX gather-list channels (``FusedRunner.channels``: idx, w4e, sig2,
+    imx/imy/imz [, qq], each (K, NT, 128)) -> K4's (1, K, N) channels:
+    idx as int32, and the LJ pair in LAMMPS's force-coefficient form,
+    lj1 = 48 eps sig^12 w = 12 w4e sig2^6 and lj2 = 24 eps sig^6 w =
+    6 w4e sig2^3, so both kernels see the same slots."""
+    def rows(name):
+        a = np.asarray(ch[name])
+        return a.reshape(a.shape[0], -1)[:, :n_atoms]
+
+    w4e, sig2 = rows("w4e").astype(np.float64), rows("sig2").astype(np.float64)
+    out = {"idx": torch.as_tensor(rows("idx").astype(np.int32), device=device)[None],
+           "lj1": _t(12.0 * w4e * sig2 ** 6, dtype, device)[None],
+           "lj2": _t(6.0 * w4e * sig2 ** 3, dtype, device)[None]}
+    for name in ("imx", "imy", "imz") + (("qq",) if "qq" in ch else ()):
+        out[name] = _t(rows(name), dtype, device)[None]
+    return out
 
 
 def dense_qq(jax_runner, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:

@@ -4,9 +4,11 @@ strain driving, virial pressure sampling, FIRE relaxation.
 Torch twin of the fused-path subset of ``scema_tpu/md/engine.py`` (the
 replacement for the LAMMPS instances the reference spawns per quadrature
 point, stmd_problem.h:83-383).  Every dynamics run goes through kernel K1
-(``ops/md_fused.py``), or through K3 for charged all-atom systems; FIRE and
+(``ops/md_fused.py``), or through K3 for charged all-atom systems, or K4
+(the gather-list pair loop) for boxes above the all-pairs gate; FIRE and
 the stiffness probe take their forces from the kernel's force + virial
-entry plus, with Ewald/PME, the smooth k-space remainder.  The unfused
+entry (K4 builds a fresh list per call) plus, with Ewald/PME, the smooth
+k-space remainder.  The unfused
 neighbor-list engine with autograd forces is not ported yet.
 
 States carry any leading batch shape: pos/vel (..., N, 3), h (..., 3, 3),
@@ -145,7 +147,8 @@ def _steps(n_steps, batch: int, device) -> torch.Tensor:
 def run_strain(sys: MDSystem, state: MDState, eps_eff: torch.Tensor, n_steps,
                T: float, dt: float) -> MDState:
     """NVT run with ``fix deform ... erate`` toward strain ``eps_eff``
-    (in.strain.lammps), one K1 launch for the whole batch.  ``n_steps`` is a
+    (in.strain.lammps), one kernel launch for the whole batch (one per
+    chunk with the k-space split or a list).  ``n_steps`` is a
     scalar or per-job; a job with 0 steps is returned unchanged."""
     bs = state.batch_shape
     flat = state.flat()

@@ -13,9 +13,11 @@ stmd_problem.h:83-383):
 5. ATM -> Pa with the reference's -1.01325e5 factor (stmd_problem.h:335-341).
 
 Here the whole batch of jobs runs in one kernel launch per phase (K1, or
-K3 for charged all-atom boxes: one launch per ``kspace_every`` steps when
-the smooth k-space remainder is refreshed between chunks), and inactive
-batch entries are skipped by the kernel with their state left unchanged.
+K3/K4 for charged all-atom boxes: one launch per chunk when the smooth
+k-space remainder and, on K4, the neighbor list are refreshed between
+chunks), and inactive batch entries are skipped by the kernel with their
+state left unchanged — on the list path too, where the JAX package runs
+them for their full length and discards them.
 """
 from __future__ import annotations
 

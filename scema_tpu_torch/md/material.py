@@ -8,9 +8,12 @@ OPLS material: ``lj/cut/coul/long`` + ``pppm`` + ``fix shake ... m 1.0``),
 relax it with FIRE, thermalize with NVT (``equilibrate``, the quick
 fixed-box prep), then sample the residual stress and probe the 6x6
 stiffness (``measure``).  For Ewald/PME systems ``build_kspace_split``
-gives the smooth k-space remainder that kernel K3 holds frozen between
-chunks.  The staged heatup/cooldown NPT prep (``equilibrate_staged``), the
-other force fields and systems read from data files are not ported yet.
+gives the smooth k-space remainder that kernels K3 and K4 hold frozen
+between chunks.  A box above the TPU kernel's all-pairs admission gate (or
+any with ``force_list_kernel``) runs K4's gather-list pair loop over a
+neighbor list rebuilt every ``rebuild_every`` steps.  The staged
+heatup/cooldown NPT prep (``equilibrate_staged``), the other force fields
+and systems read from data files are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..ops import md_fused as MF
 from ..utils.device import resolve
 from . import box as B
 from . import engine as E
+from . import neighbor as NB
 from .homogenization import MDParams, stiffness_probe
 from .units import ATM_TO_PA, REAL
 
@@ -54,7 +58,13 @@ class MaterialSpec:
     # reciprocal-sum backend: 'auto' (dense Ewald below 2048 atoms, PME
     # above), 'ewald' or 'pme'
     kspace: str = "auto"
-    # setup-time min-image check; disable only for test fixtures
+    # neighbor-list rebuild period for boxes on the list kernel K4 (the
+    # list width comes from the box's density)
+    rebuild_every: int = 10
+    # run K4 even where the all-pairs gate would admit the box
+    force_list_kernel: bool = False
+    # setup-time checks (min image, list width, cell capacity); disable
+    # only for test fixtures
     validate: bool = True
 
 
@@ -65,6 +75,20 @@ class MaterialSpec:
 PEAA = MaterialSpec(name="peaa", force_field="opls", allatom=True, n_chains=56,
                     chain_length=10, pe_density=0.68, opls_lj_cutoff=12.0,
                     opls_coul_cutoff=9.0, use_ewald=True, kspace_every=10, kspace="pme")
+
+# The same material in a box above the all-pairs gate (the JAX package's
+# bench.py bench_md_charged_bigbox): 70 C10H22 chains, 2240 atoms in a
+# ~29.0 A box, on the gather-list kernel K4 with the list rebuilt every 10
+# steps; the all-pairs gate alone sends it there
+PEAA2240 = MaterialSpec(name="peaa2240", force_field="opls", allatom=True, n_chains=70,
+                        chain_length=10, pe_density=0.68, opls_lj_cutoff=12.0,
+                        opls_coul_cutoff=9.0, use_ewald=True, kspace_every=10, kspace="pme")
+
+# The TPU kernel's all-pairs admission budget (material.py:391-393): the
+# dense parameter and image planes must fit 81 MiB
+ALLPAIRS_PLANE_BYTES = 81 * 1024 * 1024
+# the narrowest neighbor list (slots per atom) a box gets
+MIN_LIST_WIDTH = 32
 
 
 @dataclass(frozen=True)
@@ -78,19 +102,46 @@ class InitData:
     density: float  # kg/m^3
 
 
-def _validate_setup(spec: MaterialSpec, h: np.ndarray, cutoff: float,
-                    skin: float = 1.0) -> None:
-    """Minimum-image bound of material._validate_setup: the list range
-    cutoff + skin must not exceed half the smallest box height — beyond it
-    a pair could interact through more than one periodic image, and K1's
-    per-pair minimum image would miss genuine copies."""
+def _validate_setup(spec: MaterialSpec, pos, h, nspec: NB.NeighborSpec) -> None:
+    """material._validate_setup's setup-time checks:
+
+    1. minimum image: the list range cutoff + skin must not exceed half the
+       smallest box height — beyond it a pair could interact through more
+       than one periodic image, which neither the all-pairs kernels'
+       per-pair minimum image nor the list sees;
+    2. list width: k_max must hold every neighbor within cutoff + skin/2;
+    3. cell capacity: the fullest cell must fit a cell-binned list."""
     hmin = float(np.min(np.abs(np.diag(np.asarray(h, dtype=float)))))
-    r_list = cutoff + skin
-    if r_list > 0.5 * hmin:
+    if nspec.r_list > 0.5 * hmin:
         raise ValueError(
-            f"material {spec.name!r}: neighbor range {r_list:.2f} A violates the "
+            f"material {spec.name!r}: neighbor range {nspec.r_list:.2f} A violates the "
             f"minimum-image bound (box min height {hmin:.2f} A); enlarge the box "
             "or reduce the cutoff/skin")
+    k_need = NB.max_in_range(pos, h, nspec.cutoff + 0.5 * nspec.skin)
+    if nspec.k_max < k_need:
+        raise ValueError(
+            f"material {spec.name!r}: neighbor list width k_max={nspec.k_max} "
+            f"< {k_need} neighbors within cutoff+skin/2 — in-cutoff pairs "
+            f"would be silently dropped; reduce the list range r_list={nspec.r_list:.2f} A "
+            "(cutoff + skin)")
+    occ = NB.max_cell_occupancy(nspec, pos, h)
+    if occ > nspec.cell_capacity:
+        raise ValueError(
+            f"material {spec.name!r}: fullest cell holds {occ} atoms "
+            f"> cell_capacity={nspec.cell_capacity}")
+
+
+def allpairs_admitted(n_atoms: int, charged: bool, force_list_kernel: bool = False) -> bool:
+    """The TPU kernel's all-pairs admission rule, verbatim (material.py:
+    379-393): the dense f32 planes (lj1, lj2, qq when charged, and three
+    image planes) of the 128-padded box must fit 81 MiB, and the list
+    kernel is not forced.  g0 (512 sites) and PEAA (1792 atoms) pass;
+    PEAA2240 does not.  The port keeps it so that every box takes the
+    reference's path; re-deriving it from the H100's K3/K4 crossover is
+    ROADMAP item 10."""
+    npad = -(-n_atoms // 128) * 128
+    plane_bytes = (2 + int(charged) + 3) * npad * npad * 4
+    return plane_bytes <= ALLPAIRS_PLANE_BYTES and not force_list_kernel
 
 
 def build_kspace_split(ff, n: int):
@@ -161,7 +212,8 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     """The OPLS branch of material._build_system (material.py:658-713): the
     built-in united-atom alkane melt (K1's chain path) or, with
     ``allatom``, the charged all-atom PE melt with SHAKE on the bonds to
-    hydrogen and, with ``use_ewald``, the Ewald/PME k-space split (K3).
+    hydrogen and, with ``use_ewald``, the Ewald/PME k-space split (K3); a
+    box the all-pairs gate refuses, or ``force_list_kernel``, runs K4.
     ``device`` None means the current CUDA device (an error without one);
     ``device="cpu"`` runs the kernels' plain versions."""
     from . import constraints as CN
@@ -191,12 +243,20 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
         if bool(sel.any()):
             d0 = np.asarray(data.bond_coeffs)[np.asarray(data.bond_types)[sel], 1]
             cons = CN.from_bonds(b[sel], d0)
+    # the list width from the density, not a constant (material.py:690-696)
+    k_max = max(MIN_LIST_WIDTH, NB.required_k(n, data.box, ff.cutoff + 1.0))
+    k_max = ((k_max + 7) // 8) * 8
+    nspec = NB.derive_spec(n, data.box, cutoff=ff.cutoff, skin=1.0, k_max=k_max)
     if spec.validate:
-        _validate_setup(spec, data.box, ff.cutoff)
+        _validate_setup(spec, data.pos, data.box, nspec)
+    use_list = not allpairs_admitted(n, bool(np.any(data.charges != 0.0)),
+                                     spec.force_list_kernel)
     masses = torch.as_tensor(data.masses[data.types], dtype=dtype, device=device)
     kspace = build_kspace_split(ff, n) if ff.ewald is not None else None
     fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device, constraints=cons,
-                           kspace=kspace, kspace_every=spec.kspace_every)
+                           kspace=kspace, kspace_every=spec.kspace_every,
+                           nspec=nspec if use_list else None,
+                           rebuild_every=spec.rebuild_every)
     sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons)
     st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
                       torch.as_tensor(data.box, dtype=dtype, device=device))

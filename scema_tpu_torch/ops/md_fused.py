@@ -1,5 +1,5 @@
-"""K1 and K3: the fused all-pairs MD kernel — whole strain and sampling runs
-of many MD jobs in one launch — and its host glue.
+"""K1, K3 and K4: the fused MD kernel — whole strain and sampling runs of
+many MD jobs in one launch — and its host glue.
 
 The port of the all-pairs LJ/OPLS branch of
 ``scema_tpu/ops/md_fused.py::_make_kernel`` (launched by ``fused_chunk``):
@@ -21,15 +21,26 @@ remainder, refreshed by the host every ``kspace_every`` steps — with per-job
 step offsets so a chunk deforms along its whole run's path.  A runner whose
 ``spec.k3`` is set launches K3; any other launches K1.
 
-Two entries, each a wrapper that launches ``csrc/md_allpairs.cu`` on CUDA
-tensors (counting the launch: ``launches`` for K1, ``launches_k3`` for K3)
-and runs the plain PyTorch version of the same function on CPU tensors:
+K4 is the gather-list branch of the same TPU kernel (``forces`` ->
+``pair_tile``, ``gather3``; with ``k_chunk`` its HBM-streamed job-grid
+form ``_build_streamed_grid_call``, K4s): the pair loop walks a
+fixed-width full neighbor list (``md/neighbor.py``) whose slot channels —
+index, lj1/lj2 and qq with the special-bond weights, image integers fixed
+at the build — the host packs at each chunk start (:func:`pack_channels`,
+``FusedRunner.channels``); the pair displacement uses each step's box.  A
+runner whose ``spec.k`` is set (boxes above the all-pairs gate, or
+``force_list_kernel``) launches K4, with K3's or K1's other flags.
+
+Two entries, each a wrapper that launches ``csrc/md_allpairs.cu`` (K1,
+K3) or ``csrc/md_list.cu`` (K4) on CUDA tensors (counting the launch:
+``launches`` for K1, ``launches_k3`` for K3, ``launches_k4`` for K4) and
+runs the plain PyTorch version of the same function on CPU tensors:
 
 * :func:`md_run` — one whole run (``deform`` and/or ``sample`` mode) of B
   jobs; the kernel runs one thread block per job.
 * :func:`md_forces_virial` — one force + virial evaluation of B boxes (FIRE
-  minimisation and the stiffness probe); the k-space remainder is added by
-  the caller.
+  minimisation and the stiffness probe; K4 builds a fresh list per call);
+  the k-space remainder is added by the caller.
 
 Layouts: a job's state is (6, N) rows ``[x y z vx vy vz]``; ``fscal`` rows
 are ``[dt, T, lx, ly, lz, xy, xz, yz, exx, eyy, ezz, exy, exz, eyz, 0, 0]``.
@@ -40,12 +51,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..md import box as B
+from ..md import neighbor as NB
 from ..md.forcefields.coulomb import QQR2E_REAL
 from . import _build
 
@@ -70,7 +82,7 @@ _PATTERN_KIND = {"bond": 0, "angle": 1, "dihedral": 2}
 
 @dataclass(frozen=True)
 class FusedSpec:
-    """Static configuration of K1/K3 for one MD system."""
+    """Static configuration of K1/K3/K4 for one MD system."""
 
     n_atoms: int
     cutoff2: float  # LJ cutoff squared
@@ -94,25 +106,34 @@ class FusedSpec:
     shake_iters: int = 20  # fix shake's iteration bound
     rattle_iters: int = 10
     shake_relax: float = 0.8
+    # K4: neighbor-list width (slots per atom); 0 = the all-pairs planes
+    k: int = 0
 
     @property
     def k3(self) -> bool:
-        """Any charged all-atom addition on: the runner launches K3."""
+        """Any charged all-atom addition on (with K4, its charged flags)."""
         return self.coul or self.fext or bool(self.bonded_pattern) or bool(self.shake_offsets)
 
     @property
+    def kernel(self) -> str:
+        """The kernel this runner launches: K4 (list), K3 or K1."""
+        return "K4" if self.k else ("K3" if self.k3 else "K1")
+
+    @property
     def flags(self) -> str:
-        """K3's compile-time flag set of this runner ("none" for K1)."""
+        """The compile-time flag set of this runner ("none" for K1)."""
         on = [name for name, v in (("COUL", self.coul), ("EWALD", self.ewald_alpha > 0.0),
                                    ("PATTERNS", bool(self.bonded_pattern)),
-                                   ("SHAKE", bool(self.shake_offsets)), ("FEXT", self.fext))
+                                   ("SHAKE", bool(self.shake_offsets)), ("FEXT", self.fext),
+                                   ("LIST", self.k > 0))
               if v]
         return "+".join(on) or "none"
 
 
 @dataclass(frozen=True)
 class FusedRunner:
-    """Position-independent device inputs of K1/K3 for one MD system."""
+    """Position-independent device inputs of K1/K3/K4 for one MD system
+    (K4 gathers its per-slot lj1/lj2/qq from the same dense planes)."""
 
     spec: FusedSpec
     invm: torch.Tensor  # (N,) ftm2v / m
@@ -128,6 +149,11 @@ class FusedRunner:
     # kspace_every steps (material.build_kspace_split)
     kspace: object = None
     kspace_every: int = 10
+    # K4: the neighbor list (md.neighbor.NeighborSpec) and its rebuild period
+    nspec: object = None
+    rebuild_every: int = 10
+    # K4's channel buffers of the chunk loop, one set per batch size
+    _buffers: dict = field(default_factory=dict, init=False, compare=False, repr=False)
 
     def to(self, device=None, dtype=None) -> "FusedRunner":
         def mv(x):
@@ -136,6 +162,43 @@ class FusedRunner:
         return replace(self, invm=mv(self.invm), mftm=mv(self.mftm), lj1=mv(self.lj1),
                        lj2=mv(self.lj2), topo=mv(self.topo), qq=mv(self.qq),
                        pat=mv(self.pat), shk=mv(self.shk))
+
+    @property
+    def channel_names(self) -> tuple:
+        """K4's (B, K, N) channels: neighbor index (int32), coefficients,
+        image integers (and qq with Coulomb)."""
+        return ("idx", "lj1", "lj2", "imx", "imy", "imz") + (("qq",) if self.spec.coul else ())
+
+    def channels(self, pos: torch.Tensor, h: torch.Tensor, jobs: torch.Tensor | None = None,
+                 reuse: bool = False) -> dict:
+        """K4's channels for positions pos (B, N, 3) in boxes h (B, 3, 3):
+        a fresh list (``neighbor.build``) packed by :func:`pack_channels`,
+        built in slices of jobs.  ``jobs`` limits the rebuild to those
+        jobs (the others keep their last list; a launch that gives them no
+        steps skips them); ``reuse`` writes into one buffer set kept
+        per batch size (the chunk loop's: 70 MB per job at N = 2240, K =
+        1112), which the next reusing call overwrites."""
+        spec = self.spec
+        Bn, n = pos.shape[0], spec.n_atoms
+        out = self._buffers.get((Bn, pos.dtype, pos.device)) if reuse else None
+        if out is None:
+            # every slot starts dead (self-padded, zero coefficients), so a
+            # job that is never rebuilt holds a valid empty list
+            out = {name: torch.zeros((Bn, spec.k, n), device=pos.device,
+                                     dtype=torch.int32 if name == "idx" else pos.dtype)
+                   for name in self.channel_names}
+            out["idx"][:] = torch.arange(n, dtype=torch.int32, device=pos.device)
+            if reuse:
+                self._buffers.clear()
+                self._buffers[(Bn, pos.dtype, pos.device)] = out
+        if jobs is None:
+            jobs = torch.arange(Bn, device=pos.device)
+        step = NB.jobs_per_slice(n)
+        for s in range(0, jobs.shape[0], step):
+            js = jobs[s:s + step]
+            p, hh = pos[js], h[js]
+            pack_channels(self, p, hh, NB.build(self.nspec, p, hh), out, js)
+        return out
 
 
 def pack_topo(ff, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -268,15 +331,17 @@ def dense_qq(ff, dtype=torch.float64, device=None) -> torch.Tensor:
 
 def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                 dtype=torch.float64, device=None, constraints=None, kspace=None,
-                kspace_every: int = 10) -> FusedRunner:
-    """K1's or K3's inputs for one system.
+                kspace_every: int = 10, nspec=None, rebuild_every: int = 10) -> FusedRunner:
+    """K1's, K3's or K4's inputs for one system.
 
     A linear-chain topology takes the chain terms, any other the offset
     patterns; nonzero charges add the qq plane (cutoff Coulomb, or the
     real-space Ewald form when ``ff.ewald`` is set — then ``kspace``, the
     smooth remainder from ``material.build_kspace_split``, is required);
-    ``constraints`` add SHAKE/RATTLE.  What no kernel of the port runs yet
-    — impropers, irregular topologies, wide constraint offsets, for which
+    ``constraints`` add SHAKE/RATTLE; a neighbor spec ``nspec`` selects
+    K4's list of width ``nspec.k_max``, rebuilt every ``rebuild_every``
+    steps (the all-pairs planes otherwise).  What no kernel of the port
+    runs yet — impropers, irregular topologies, wide constraint offsets, for which
     the JAX package falls back to its XLA path — raises
     NotImplementedError."""
     n = int(masses.shape[0])
@@ -310,7 +375,7 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                      tdamp=tdamp, coul=coul, coul_cutoff2=float(ff.coul_cutoff) ** 2,
                      ewald_alpha=float(ewald.alpha) if ewald is not None else 0.0,
                      fext=ewald is not None, bonded_pattern=patterns,
-                     shake_offsets=shake_offsets)
+                     shake_offsets=shake_offsets, k=int(nspec.k_max) if nspec is not None else 0)
     lj1, lj2 = dense_planes(ff, dtype, device)
     return FusedRunner(
         spec=spec,
@@ -318,7 +383,54 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
         mftm=(m / units.ftm2v).to(device=device, dtype=dtype),
         lj1=lj1, lj2=lj2, topo=topo,
         qq=dense_qq(ff, dtype, device) if coul else None, pat=pat, shk=shk,
-        kspace=kspace, kspace_every=kspace_every)
+        kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every)
+
+
+def pack_channels(runner: FusedRunner, pos: torch.Tensor, h: torch.Tensor,
+                  nbr: NB.NeighborList, out: dict | None = None,
+                  jobs: torch.Tensor | None = None) -> dict:
+    """K4's channels of the lists ``nbr`` (b, N, k) built at pos (b, N, 3)
+    in boxes h (b, 3, 3), written into rows ``jobs`` of the (B, K, N)
+    buffers ``out`` (new (b, K, N) tensors by default) — the generic
+    branch of the JAX package's ``FusedRunner.channels`` +
+    ``pack_channels`` (md_fused.py:2241-2256, :1954-2041) in slot-major
+    layout.  Per slot: the neighbor index, dead
+    slots self-padded (also the k..K tail); lj1/lj2 (and qq) from the
+    dense planes, which carry the special_lj (special_coul) weights, zero
+    on dead slots; the image integers n_ij = -round(inv_h (x_j - x_i)),
+    fixed here, so that x_j + h n_ij - x_i is the minimum image at the build
+    and follows any later affine deform."""
+    spec = runner.spec
+    b, n, k = nbr.idx.shape
+    if out is None:
+        out = {name: torch.empty((b, spec.k, n), device=pos.device,
+                                 dtype=torch.int32 if name == "idx" else pos.dtype)
+               for name in runner.channel_names}
+        jobs = torch.arange(b, device=pos.device)
+    if k > spec.k:
+        raise ValueError(f"pack_channels: list width {k} exceeds the kernel's K = {spec.k}")
+    idx, m = nbr.idx, nbr.mask.to(pos.dtype)
+    ii = torch.arange(n, device=pos.device)[:, None]
+    vals = {"idx": idx, "lj1": runner.lj1[ii, idx] * m, "lj2": runner.lj2[ii, idx] * m}
+    if spec.coul:
+        vals["qq"] = runner.qq[ii, idx] * m
+    ih = B.inv_h(h)
+    flat = idx.reshape(b, n * k)
+    d = [torch.gather(pos[..., a], 1, flat).reshape(b, n, k) - pos[..., a, None]
+         for a in range(3)]
+    for a, name in enumerate(("imx", "imy", "imz")):
+        vals[name] = -torch.round(ih[:, a, 0, None, None] * d[0] + ih[:, a, 1, None, None] * d[1]
+                                  + ih[:, a, 2, None, None] * d[2])
+    for name, x in vals.items():
+        dst = out[name]
+        full = torch.empty((b, spec.k, n), dtype=dst.dtype, device=dst.device)
+        full[:, :k] = x.transpose(1, 2)
+        if name == "idx":
+            full[:, k:] = ii[:, 0].to(dst.dtype)
+        else:
+            full[:, k:] = 0.0
+        dst.index_copy_(0, jobs, full)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -571,28 +683,73 @@ def rattle_rolls_plain(v, p, invm, offsets, rows, n_iters: int = 10,
     return v
 
 
-# (B, N, N) pair planes per slice of jobs in the plain pair loop
+# (B, N, N) pair planes, or (B, K, N) list slots, per slice of jobs in the
+# plain pair loop
 _PLAIN_PAIRS = 1 << 24
 
 
-def _pair_forces_plain(runner: FusedRunner, p, h6, want_virial: bool):
-    """All-pairs LJ (+ Coulomb) with per-pair sequential triclinic minimum
-    image on (B, N) rows, in slices of jobs to bound the (B, N, N) planes.
-    Returns ((fx, fy, fz), w6 list of (B,) or None)."""
-    spec = runner.spec
+def _pair_forces_plain(runner: FusedRunner, p, h6, want_virial: bool, nbr: dict | None = None):
+    """LJ (+ Coulomb) pair forces on (B, N) rows in slices of jobs that bound
+    the per-pair temporaries: all pairs with the per-pair sequential
+    triclinic minimum image (K1/K3), or K4's list slots from the (B, K, N)
+    channels ``nbr``.  Returns ((fx, fy, fz), w6 list of (B,) or None)."""
     n = p[0].shape[-1]
-    step = max(1, _PLAIN_PAIRS // max(n * n, 1))
+    step = max(1, _PLAIN_PAIRS // max(n * (nbr["idx"].shape[1] if nbr else n), 1))
     parts = []
     for s in range(0, p[0].shape[0], step):
         sl = slice(s, s + step)
-        parts.append(_pair_block_plain(runner, spec, [x[sl] for x in p],
-                                       [h[sl] for h in h6], want_virial))
+        ps, hs = [x[sl] for x in p], [h[sl] for h in h6]
+        if nbr:
+            parts.append(_list_block_plain(runner.spec, ps, hs,
+                                           {k: v[sl] for k, v in nbr.items()}, want_virial))
+        else:
+            parts.append(_pair_block_plain(runner, ps, hs, want_virial))
     f = [torch.cat([pt[0][a] for pt in parts]) for a in range(3)]
     w6 = [torch.cat([pt[1][k] for pt in parts]) for k in range(6)] if want_virial else None
     return f, w6
 
 
-def _pair_block_plain(runner, spec, p, h6, want_virial):
+def _fpair_plain(spec: FusedSpec, r2, lj1, lj2, qq, above=None):
+    """Pair F/r at squared distances r2 from the coefficients lj1, lj2 (and
+    qq with Coulomb): live inside each cutoff and, with ``above`` (the
+    list's r2 > r2min), only there — the arithmetic of the kernel's
+    pair_force."""
+    r2c = torch.clamp(r2, min=spec.r2min)
+    zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+    if spec.coul:
+        inv_r = torch.rsqrt(r2c)
+        inv_r2 = inv_r * inv_r
+    else:
+        inv_r2 = 1.0 / r2c
+    u2 = inv_r2 * inv_r2
+    u3 = u2 * inv_r2
+    lj_live = r2 < spec.cutoff2
+    if above is not None:
+        lj_live = lj_live & above
+    fpair = torch.where(lj_live, (lj1 * u3 - lj2) * u2 * u2, zero)
+    if spec.coul:
+        if spec.ewald_alpha > 0.0:
+            fcoul = ewald_fcoul(qq, r2c, inv_r, inv_r2, spec.ewald_alpha)
+        else:
+            fcoul = qq * inv_r * inv_r2
+        q_live = r2 < spec.coul_cutoff2
+        if above is not None:
+            q_live = q_live & above
+        fpair = fpair + torch.where(q_live, fcoul, zero)
+    return fpair
+
+
+def _apply_plain(fpair, dx, dy, dz, axis: int, want_virial: bool):
+    """Forces summed over the pair axis and half of each pair's virial."""
+    f = [-(fpair * d).sum(axis) for d in (dx, dy, dz)]
+    w6 = None
+    if want_virial:
+        w6 = [0.5 * (fpair * u * v).sum((-1, -2))
+              for u, v in ((dx, dx), (dy, dy), (dz, dz), (dx, dy), (dx, dz), (dy, dz))]
+    return f, w6
+
+
+def _pair_block_plain(runner, p, h6, want_virial):
     lx, ly, lz, xy, xz, yz = (h[:, None, None] for h in h6)
     # d[b, i, j] = r_j - r_i (source minus target)
     dx = p[0][:, None, :] - p[0][:, :, None]
@@ -607,35 +764,34 @@ def _pair_block_plain(runner, spec, p, h6, want_virial):
     n1 = torch.round(dx / lx)
     dx = dx - n1 * lx
     r2 = dx * dx + dy * dy + dz * dz
-    r2c = torch.clamp(r2, min=spec.r2min)
-    zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
-    if spec.coul:
-        inv_r = torch.rsqrt(r2c)
-        inv_r2 = inv_r * inv_r
-    else:
-        inv_r2 = 1.0 / r2c
-    u2 = inv_r2 * inv_r2
-    u3 = u2 * inv_r2
-    fpair = torch.where(r2 < spec.cutoff2, (runner.lj1 * u3 - runner.lj2) * u2 * u2, zero)
-    if spec.coul:
-        if spec.ewald_alpha > 0.0:
-            fcoul = ewald_fcoul(runner.qq, r2c, inv_r, inv_r2, spec.ewald_alpha)
-        else:
-            fcoul = runner.qq * inv_r * inv_r2
-        fpair = fpair + torch.where(r2 < spec.coul_cutoff2, fcoul, zero)
-    f = [-(fpair * d).sum(-1) for d in (dx, dy, dz)]
-    w6 = None
-    if want_virial:
-        w6 = [0.5 * (fpair * u * v).sum((-1, -2))
-              for u, v in ((dx, dx), (dy, dy), (dz, dz), (dx, dy), (dx, dz), (dy, dz))]
-    return f, w6
+    fpair = _fpair_plain(runner.spec, r2, runner.lj1, runner.lj2, runner.qq)
+    return _apply_plain(fpair, dx, dy, dz, -1, want_virial)
 
 
-def _forces_plain(runner: FusedRunner, p, h6, want_virial: bool):
+def _list_block_plain(spec, p, h6, nbr, want_virial):
+    """K4's slots: d = r_j + h n_ij - r_i with this box h, live where r2min
+    < r2 < cutoff (self-padded dead slots have r2 = 0), half of each slot's
+    virial (the list is full)."""
+    lx, ly, lz, xy, xz, yz = (h[:, None, None] for h in h6)
+    b, K, n = nbr["idx"].shape
+    flat = nbr["idx"].reshape(b, K * n).long()
+    g = [torch.gather(x, 1, flat).reshape(b, K, n) for x in p]
+    nx, ny, nz = nbr["imx"], nbr["imy"], nbr["imz"]
+    # d[b, s, i] for slot s of atom i
+    dx = g[0] + nx * lx + ny * xy + nz * xz - p[0][:, None, :]
+    dy = g[1] + ny * ly + nz * yz - p[1][:, None, :]
+    dz = g[2] + nz * lz - p[2][:, None, :]
+    r2 = dx * dx + dy * dy + dz * dz
+    fpair = _fpair_plain(spec, r2, nbr["lj1"], nbr["lj2"], nbr.get("qq"), above=r2 > spec.r2min)
+    return _apply_plain(fpair, dx, dy, dz, 1, want_virial)
+
+
+def _forces_plain(runner: FusedRunner, p, h6, want_virial: bool, nbr: dict | None = None):
     """Pair + bonded (chain or pattern) forces on (B, N) rows; h6 is a list
-    of six (B,) box scalars.  Returns ((fx, fy, fz), w6 list of (B,) or
-    None).  The frozen k-space force is not included."""
-    f, w6 = _pair_forces_plain(runner, p, h6, want_virial)
+    of six (B,) box scalars; ``nbr`` K4's channels for a list runner.
+    Returns ((fx, fy, fz), w6 list of (B,) or None).  The frozen k-space
+    force is not included."""
+    f, w6 = _pair_forces_plain(runner, p, h6, want_virial, nbr if runner.spec.k else None)
     if runner.spec.bonded_pattern:
         fb, wb = bonded_pattern_forces_plain(p, runner.pat, runner.spec.bonded_pattern)
     else:
@@ -704,7 +860,8 @@ def _nhc_half(runner, v, vxi, dt, T):
 def md_run_plain(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                  n_run: torch.Tensor, fscal: torch.Tensor, deform: bool,
                  sample: bool, fext: torch.Tensor | None = None,
-                 gstep0: torch.Tensor | None = None, n_tot: torch.Tensor | None = None):
+                 gstep0: torch.Tensor | None = None, n_tot: torch.Tensor | None = None,
+                 nbr: dict | None = None):
     """Plain version of the run entry; see :func:`md_run`."""
     spec = runner.spec
     n_run = n_run.to(torch.int64)
@@ -726,7 +883,7 @@ def md_run_plain(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
         return _h_at(h0, eps, (g0 + s) / nt) if deform else h0
 
     def forces(p, h, want):
-        f, w6 = _forces_plain(runner, p, h, want)
+        f, w6 = _forces_plain(runner, p, h, want, nbr)
         if fext is not None:
             f = [f[a] + fext[:, a] for a in range(3)]
         return f, w6
@@ -776,10 +933,13 @@ def md_run_plain(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     return out, torch.stack(xi, dim=1), torch.stack(pacc, dim=1)
 
 
-def md_forces_virial_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor):
+def md_forces_virial_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                           nbr: dict | None = None):
     """Plain version of the force entry; see :func:`md_forces_virial`."""
+    if runner.spec.k and nbr is None:
+        nbr = runner.channels(pos.transpose(1, 2), h_of_h6(h6))
     p = [pos[:, a] for a in range(3)]
-    f, w6 = _forces_plain(runner, p, [h6[:, k] for k in range(6)], True)
+    f, w6 = _forces_plain(runner, p, [h6[:, k] for k in range(6)], True, nbr)
     return torch.stack(f, dim=1), torch.stack(w6, dim=1)
 
 
@@ -816,23 +976,41 @@ def check_smem(spec: FusedSpec) -> None:
     """Raise on the host when a box exceeds its kernel's shared-memory budget."""
     need = smem_bytes(spec)
     if need > _MAX_SMEM:
-        name = "K3" if spec.k3 else "K1"
         raise ValueError(
-            f"{name} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
+            f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
             f"memory per block, above the {_MAX_SMEM} B a Hopper block can use; this "
             f"flag set fits at most {max_atoms(spec)} atoms")
 
 
 def _check_cuda(runner: FusedRunner, *tensors):
+    name = runner.spec.kernel
     for t in (runner.lj1, runner.lj2, runner.topo, runner.invm, runner.mftm, runner.qq,
               runner.pat, runner.shk) + tensors:
         if t is None:
             continue
         if t.device.type != "cuda":
-            raise ValueError("K1/K3: all operands must be on the same CUDA device")
+            raise ValueError(f"{name}: all operands must be on the same CUDA device")
         if t.dtype not in (torch.float32, torch.int32):
-            raise TypeError(f"K1/K3 kernels take float32 (int32 counts), got {t.dtype}")
+            raise TypeError(f"{name} takes float32 (int32 counts and indices), got {t.dtype}")
     check_smem(runner.spec)
+
+
+def _check_channels(runner: FusedRunner, nbr: dict | None, Bn: int) -> dict:
+    """K4's channels, contiguous, each (B, K, N) — or raise."""
+    spec = runner.spec
+    if nbr is None:
+        raise ValueError("K4: a list runner needs its neighbor channels (FusedRunner.channels)")
+    out = {}
+    for name in runner.channel_names:
+        t = nbr[name].contiguous()
+        if t.shape != (Bn, spec.k, spec.n_atoms):
+            raise ValueError(f"K4: channel {name} shape {tuple(t.shape)} != "
+                             f"({Bn}, {spec.k}, {spec.n_atoms})")
+        if t.dtype != (torch.int32 if name == "idx" else torch.float32):
+            raise TypeError(f"K4: channel {name} has dtype {t.dtype}")
+        out[name] = t
+    _check_cuda(runner, *out.values())
+    return out
 
 
 def _f(x) -> int:
@@ -855,16 +1033,21 @@ class _MDArgs(ctypes.Structure):
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "lj1", "lj2", "topo", "qq", "pat", "shk", "invm", "mftm", "state", "vxi", "press",
-        "n_run", "gstep0", "n_tot", "fscal", "fext", "pos", "h6", "force", "virial")]
-        + [(name, ctypes.c_int) for name in ("B", "N", "deform", "sample", "coul", "ewald")]
+        "n_run", "gstep0", "n_tot", "fscal", "fext", "pos", "h6", "force", "virial",
+        "nidx", "nlj1", "nlj2", "nqq", "nimx", "nimy", "nimz")]
+        + [(name, ctypes.c_int) for name in ("B", "N", "K", "deform", "sample", "coul",
+                                             "ewald")]
         + [(name, ctypes.c_float) for name in (
             "cutoff2", "r2min", "coul_cutoff2", "alpha", "ndof", "boltz", "nktv2p", "tdamp")]
         + [("topo3", _Topo3)])
 
 
-def _md_args(runner: FusedRunner, B_: int, **ptrs) -> _MDArgs:
+def _md_args(runner: FusedRunner, B_: int, nbr: dict | None = None, **ptrs) -> _MDArgs:
     spec = runner.spec
     a = _MDArgs()
+    if nbr is not None:
+        for name, t in nbr.items():
+            setattr(a, "n" + name, t.data_ptr())
     a.lj1, a.lj2, a.topo, a.invm, a.mftm = (_f(t) for t in (
         runner.lj1, runner.lj2, runner.topo, runner.invm, runner.mftm))
     for name, t in (("qq", runner.qq), ("pat", runner.pat), ("shk", runner.shk)):
@@ -872,7 +1055,7 @@ def _md_args(runner: FusedRunner, B_: int, **ptrs) -> _MDArgs:
             setattr(a, name, _f(t))
     for name, v in ptrs.items():
         setattr(a, name, v)
-    a.B, a.N = B_, spec.n_atoms
+    a.B, a.N, a.K = B_, spec.n_atoms, spec.k
     a.coul, a.ewald = int(spec.coul), int(spec.ewald_alpha > 0.0)
     a.cutoff2, a.r2min, a.coul_cutoff2, a.alpha = (spec.cutoff2, spec.r2min,
                                                    spec.coul_cutoff2, spec.ewald_alpha)
@@ -897,13 +1080,16 @@ def _md_args(runner: FusedRunner, B_: int, **ptrs) -> _MDArgs:
 def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
            n_run: torch.Tensor, fscal: torch.Tensor, deform: bool,
            sample: bool, fext: torch.Tensor | None = None,
-           gstep0: torch.Tensor | None = None, n_tot: torch.Tensor | None = None):
+           gstep0: torch.Tensor | None = None, n_tot: torch.Tensor | None = None,
+           nbr: dict | None = None):
     """One whole NVT (+ fix-deform) (+ virial-sampling) run of B jobs.
 
     state (B, 6, N), vxi (B, 3), n_run (B,) steps per job, fscal (B, 16).
     With ``spec.fext``: fext (B, 3, N) is the frozen k-space force added to
-    every step's force, and the deform path runs from global step
-    ``gstep0`` (B,) of a ``n_tot`` (B,)-step run (defaults 0 and n_run).
+    every step's force.  With ``spec.fext`` or a list (K4), the deform path
+    runs from global step ``gstep0`` (B,) of a ``n_tot`` (B,)-step run
+    (defaults 0 and n_run).  K4 reads the (B, K, N) channels ``nbr``
+    (``FusedRunner.channels``; idx int32).
     Returns (state', vxi', press_sum (B, 6)): press_sum is the sum over the
     job's steps of the instantaneous Voigt pressure without fext's virial
     (zero unless ``sample``).  Inputs are not modified."""
@@ -913,7 +1099,7 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                          f"k-space split (spec.fext={spec.fext})")
     if state.device.type == "cpu":
         return md_run_plain(runner, state, vxi, n_run, fscal, deform, sample, fext,
-                            gstep0, n_tot)
+                            gstep0, n_tot, nbr)
     if state.device.type != "cuda":
         raise ValueError(f"md_run: unsupported device {state.device}")
     Bn, six, N = state.shape
@@ -929,39 +1115,51 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
         return st, xi, press
     ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
-    if spec.fext:
-        fx = fext.contiguous()
+    if spec.fext or spec.k:
         g0 = (torch.zeros_like(nr) if gstep0 is None else gstep0.to(torch.int32)).contiguous()
         ntot = (nr if n_tot is None else n_tot.to(torch.int32)).contiguous()
+        _check_cuda(runner, g0, ntot)
+        ptrs.update(gstep0=g0.data_ptr(), n_tot=ntot.data_ptr())
+    if spec.fext:
+        fx = fext.contiguous()
         if fx.shape != (Bn, 3, N):
             raise ValueError(f"md_run: fext shape {tuple(fx.shape)} != ({Bn}, 3, {N})")
-        _check_cuda(runner, fx, g0, ntot)
-        ptrs.update(fext=fx.data_ptr(), gstep0=g0.data_ptr(), n_tot=ntot.data_ptr())
-    args = _md_args(runner, Bn, **ptrs)
+        _check_cuda(runner, fx)
+        ptrs.update(fext=fx.data_ptr())
+    ch = _check_channels(runner, nbr, Bn) if spec.k else None
+    args = _md_args(runner, Bn, ch, **ptrs)
     args.deform, args.sample = int(deform), int(sample)
-    rc = _build.library().md_allpairs_run_f32(ctypes.byref(args),
-                                              _build.stream_handle(st.device))
-    _build.check(rc, f"md_allpairs_run_f32 (flags {spec.flags})")
-    if spec.k3:
-        md_run.launches_k3 += 1
-    else:
-        md_run.launches += 1
+    entry = "md_list_run_f32" if spec.k else "md_allpairs_run_f32"
+    rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(st.device))
+    _build.check(rc, f"{entry} (flags {spec.flags})")
+    _count(md_run, spec)
     return st, xi, press
+
+
+def _count(fn, spec: FusedSpec) -> None:
+    """One launch more on the wrapper's counter of this runner's kernel."""
+    attr = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4"}[spec.kernel]
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 md_run.launches = 0
 md_run.launches_k3 = 0
+md_run.launches_k4 = 0
 
 
-def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor):
+def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                     nbr: dict | None = None):
     """Forces and virial of B boxes: pos (B, 3, N) rows, h6 (B, 6) box
     scalars [lx ly lz xy xz yz].  Returns (F (B, 3, N), W (B, 6)) with W
     the Voigt virial sum (pair sum_{i<j} f_ij d (x) d plus the bonded
     terms, in energy units).  Pair terms are LJ and, with ``spec.coul``,
     the cutoff or real-space Ewald Coulomb term; the k-space remainder is
-    the caller's (``engine.forces_virial``)."""
+    the caller's (``engine.forces_virial``).  A list runner (K4) builds a
+    fresh list at these positions unless given its channels ``nbr``."""
+    if runner.spec.k and nbr is None:
+        nbr = runner.channels(pos.transpose(1, 2), h_of_h6(h6))
     if pos.device.type == "cpu":
-        return md_forces_virial_plain(runner, pos, h6)
+        return md_forces_virial_plain(runner, pos, h6, nbr)
     if pos.device.type != "cuda":
         raise ValueError(f"md_forces_virial: unsupported device {pos.device}")
     spec = runner.spec
@@ -975,20 +1173,19 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor):
     vir = torch.empty((Bn, 6), dtype=pos.dtype, device=pos.device)
     if Bn == 0:
         return force, vir
-    args = _md_args(runner, Bn, pos=pos.data_ptr(), h6=h6.data_ptr(),
+    ch = _check_channels(runner, nbr, Bn) if spec.k else None
+    args = _md_args(runner, Bn, ch, pos=pos.data_ptr(), h6=h6.data_ptr(),
                     force=force.data_ptr(), virial=vir.data_ptr())
-    rc = _build.library().md_allpairs_forces_f32(ctypes.byref(args),
-                                                 _build.stream_handle(pos.device))
-    _build.check(rc, f"md_allpairs_forces_f32 (flags {spec.flags})")
-    if spec.k3:
-        md_forces_virial.launches_k3 += 1
-    else:
-        md_forces_virial.launches += 1
+    entry = "md_list_forces_f32" if spec.k else "md_allpairs_forces_f32"
+    rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(pos.device))
+    _build.check(rc, f"{entry} (flags {spec.flags})")
+    _count(md_forces_virial, spec)
     return force, vir
 
 
 md_forces_virial.launches = 0
 md_forces_virial.launches_k3 = 0
+md_forces_virial.launches_k4 = 0
 
 
 # --------------------------------------------------------------------------
@@ -999,6 +1196,12 @@ def h6_of(h: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) upper-triangular box -> (..., 6) [lx ly lz xy xz yz]."""
     return torch.stack([h[..., 0, 0], h[..., 1, 1], h[..., 2, 2],
                         h[..., 0, 1], h[..., 0, 2], h[..., 1, 2]], -1)
+
+
+def h_of_h6(h6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) [lx ly lz xy xz yz] -> (..., 3, 3) upper-triangular box."""
+    lx, ly, lz, xy, xz, yz = h6.unbind(-1)
+    return B.h_from_lengths_tilts(torch.stack([lx, ly, lz], -1), torch.stack([xy, xz, yz], -1))
 
 
 def make_fscal(dt, T, h: torch.Tensor, eps: torch.Tensor | None = None) -> torch.Tensor:
@@ -1023,36 +1226,64 @@ def unpack_state(st: torch.Tensor):
     return st[:, :3].transpose(1, 2), st[:, 3:].transpose(1, 2)
 
 
-def _kspace_chunks(runner: FusedRunner, st6, vxi, n_steps, fscal, h0, eps,
-                   deform: bool, sample: bool):
-    """The rRESPA outer level (md_fused.py:2329-2353, :2503-2533): runs of
-    ``kspace_every`` steps with the smooth k-space remainder frozen at each
-    chunk's start, one batched launch per chunk (each job runs
-    min(ns - g0, kspace_every) trips; finished and inactive jobs none).
-    With ``sample``, the remainder's virial joins the pressure sums here.
+def _chunk_steps(rebuild_every: int) -> int:
+    """The list path's rebuild period: the largest divisor of 10 not above
+    ``rebuild_every`` (md_fused.py:2284 — nts is always a multiple of 10)."""
+    for d in (10, 5, 2, 1):
+        if rebuild_every >= d:
+            return d
+    return 1
+
+
+def launch_steps(runner: FusedRunner) -> int:
+    """Steps per launch of the chunk loop: the k-space period for K3; for
+    K4 the rebuild period, or the shorter of it and the k-space period so
+    that both refreshes come on time (md_fused.py:2358-2364)."""
+    if not runner.spec.k:
+        return runner.kspace_every
+    R = _chunk_steps(runner.rebuild_every)
+    return min(R, max(1, int(runner.kspace_every))) if runner.kspace is not None else R
+
+
+def _chunks(runner: FusedRunner, st6, vxi, n_steps, fscal, h0, eps,
+            deform: bool, sample: bool):
+    """The chunk loop: the rRESPA outer level (md_fused.py:2329-2353,
+    :2503-2533) with the smooth k-space remainder frozen at each chunk's
+    start, and K4's list rebuilds (:2358-2393, :2534-2569) — one batched
+    launch per chunk of :func:`launch_steps` steps.  Each job runs
+    min(n - g0, R) trips; finished and inactive jobs none, and only the
+    jobs still running get a new remainder and list.  With ``sample``, the
+    remainder's virial joins the pressure sums here.  Where a job's step
+    count is not a multiple of R its last chunk is short (the JAX list path
+    floors the count instead; HMM runs are multiples of 10).
     Returns (st6, vxi, press_sum)."""
-    Rk = runner.kspace_every
+    R = launch_steps(runner)
     dtype = st6.dtype
     n_max = int(n_steps.max()) if n_steps.numel() else 0
     ns = torch.clamp(n_steps, min=1)
     conv = runner.spec.nktv2p / B.volume(h0)
     pacc = torch.zeros((st6.shape[0], 6), dtype=dtype, device=st6.device)
-    for c in range(math.ceil(n_max / Rk)):
-        g0 = c * Rk
-        trips = torch.clamp(torch.minimum(n_steps - g0, torch.full_like(n_steps, Rk)), min=0)
+    fk = nbr = None
+    for c in range(math.ceil(n_max / R)):
+        g0 = c * R
+        trips = torch.clamp(torch.minimum(n_steps - g0, torch.full_like(n_steps, R)), min=0)
         act = torch.nonzero(trips > 0).flatten()
         h_c = B.deform_path(h0, eps, g0 / ns.to(dtype)) if deform else h0
         pos_c, _ = unpack_state(st6)
-        Fk, Wk = runner.kspace(pos_c[act], h_c[act], want_virial=sample)
-        fk = torch.zeros((st6.shape[0], 3, st6.shape[2]), dtype=dtype, device=st6.device)
-        fk[act] = Fk.transpose(1, 2).to(dtype)
+        if runner.kspace is not None:
+            Fk, Wk = runner.kspace(pos_c[act], h_c[act], want_virial=sample)
+            fk = torch.zeros((st6.shape[0], 3, st6.shape[2]), dtype=dtype, device=st6.device)
+            fk[act] = Fk.transpose(1, 2).to(dtype)
+        if runner.spec.k:
+            nbr = runner.channels(pos_c, h_c, jobs=act, reuse=True)
         st6, vxi, pk = md_run(runner, st6, vxi, trips, fscal, deform, sample, fext=fk,
                               gstep0=torch.full_like(n_steps, g0),
-                              n_tot=ns if deform else torch.ones_like(n_steps))
-        if sample:
+                              n_tot=ns if deform else torch.ones_like(n_steps), nbr=nbr)
+        pacc = pacc + pk
+        if sample and runner.kspace is not None:
             wk = torch.zeros((st6.shape[0], 6), dtype=dtype, device=st6.device)
             wk[act] = Wk.to(dtype)
-            pacc = pacc + pk + trips.to(dtype)[:, None] * wk * conv[:, None]
+            pacc = pacc + trips.to(dtype)[:, None] * wk * conv[:, None]
     return st6, vxi, pacc
 
 
@@ -1061,18 +1292,18 @@ def run_strain_fused(runner: FusedRunner, state, eps_eff: torch.Tensor,
     """engine.run_strain semantics for a (B,) batch of jobs: NVT with the
     box moved linearly toward ``eps_eff`` over each job's ``n_steps``
     (0 = inactive: state returned unchanged).  One launch for the whole
-    run, or one per ``kspace_every`` steps with the k-space split."""
+    run, or one per chunk with the k-space split or a list (K4)."""
     from ..md.engine import MDState
 
     n_steps = torch.as_tensor(n_steps, device=state.pos.device).to(torch.int64)
     eps = eps_eff.to(state.pos.dtype)
     fscal = make_fscal(dt, T, state.h, eps)
     st6 = pack_state(state.pos, state.vel)
-    if runner.kspace is None:
+    if runner.kspace is None and not runner.spec.k:
         st6, vxi, _ = md_run(runner, st6, state.vxi, n_steps, fscal, deform=True, sample=False)
     else:
-        st6, vxi, _ = _kspace_chunks(runner, st6, state.vxi, n_steps, fscal, state.h, eps,
-                                     deform=True, sample=False)
+        st6, vxi, _ = _chunks(runner, st6, state.vxi, n_steps, fscal, state.h, eps,
+                              deform=True, sample=False)
     pos, vel = unpack_state(st6)
     frac_end = (n_steps > 0).to(state.pos.dtype)
     h_end = B.deform_path(state.h, eps, frac_end)
@@ -1087,12 +1318,12 @@ def sample_stress_fused(runner: FusedRunner, state, n_steps: torch.Tensor, T, dt
     n_steps = torch.as_tensor(n_steps, device=state.pos.device).to(torch.int64)
     fscal = make_fscal(dt, T, state.h)
     st6 = pack_state(state.pos, state.vel)
-    if runner.kspace is None:
+    if runner.kspace is None and not runner.spec.k:
         st6, vxi, pacc = md_run(runner, st6, state.vxi, n_steps, fscal, deform=False,
                                 sample=True)
     else:
-        st6, vxi, pacc = _kspace_chunks(runner, st6, state.vxi, n_steps, fscal, state.h,
-                                        None, deform=False, sample=True)
+        st6, vxi, pacc = _chunks(runner, st6, state.vxi, n_steps, fscal, state.h, None,
+                                 deform=False, sample=True)
     pos, vel = unpack_state(st6)
     press = pacc / torch.clamp(n_steps, min=1).to(pacc.dtype)[:, None]
     return MDState(pos=pos, vel=vel, h=state.h, vxi=vxi), press

@@ -2,18 +2,24 @@
 
     python -m scema_tpu_torch.profile_slice [--steps 8] [--repeats 10] [--trace out.json]
     python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
+    python -m scema_tpu_torch.profile_slice --bigbox [--steps 3] [--repeats 3]
 
 Builds the MD-coupled ``HMMConfig()`` dogbone on one CUDA card exactly as
 ``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes) — or,
 with ``--charged``, the charged slice (the 1792-atom all-atom PE material
 ``material.PEAA`` at every flagged qp, at most 128 MD jobs per step,
-``equil_steps=50``, ``minimize_steps=100``) — times
+``equil_steps=50``, ``minimize_steps=100``) or, with ``--bigbox``, the same
+with the 2240-atom box ``material.PEAA2240`` on the gather-list kernel K4 —
+times
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
 ``torch.profiler``: the script prints the kernels by device time, the share
 of the step's wall time in which the device was idle, and the peak device
-memory.  The last line is one JSON object with these numbers.
+memory.  On the charged slices the k-space remainder and (K4) the neighbor
+list rebuilds are timed by CUDA events around each call, so the profiled
+step's device time splits into the MD kernel, the rebuilds, PME and the
+rest.  The last line is one JSON object with these numbers.
 """
 from __future__ import annotations
 
@@ -52,10 +58,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default="", help="write the profiled step's Chrome trace here")
     ap.add_argument("--charged", action="store_true",
                     help="the charged all-atom PE slice (K3, PME) instead of the g0 slice")
+    ap.add_argument("--bigbox", action="store_true",
+                    help="the charged 2240-atom slice on the list kernel (K4, PME)")
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from .config import HMMConfig
     from .hmm.md_coupling import build_md_hmm
@@ -73,17 +81,36 @@ def main(argv=None) -> int:
 
     cfg = HMMConfig().replace(dtype="float32")
     t0 = time.perf_counter()
-    if args.charged:
-        from .md.material import PEAA
+    if args.charged or args.bigbox:
+        from .md.material import PEAA, PEAA2240
 
         cfg = cfg.replace(md_dtype="float32", resources=dataclasses.replace(
             cfg.resources, max_md_jobs=128))
-        hmm = build_md_hmm(cfg, spec=PEAA, equil_steps=50, minimize_steps=100, device=dev)
+        hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
+                           minimize_steps=100, device=dev)
     else:
         hmm = build_md_hmm(cfg, staged=False, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"setup {setup_s:.3f}s (mesh + quick prep, kernel build included if not cached)")
+    # CUDA events around the k-space remainder and the list rebuilds
+    runner = hmm.backend.sys.fused
+    spans = {"PME remainder": [], "neighbor build": []}
+    for key, name in (("PME remainder", "kspace"), ("neighbor build", "channels")):
+        fn = getattr(runner, name)
+        if name == "kspace" and fn is None or name == "channels" and not runner.spec.k:
+            continue
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            with record_function(_key):
+                res = _fn(*a, **kw)
+            ev[1].record()
+            spans[_key].append(ev)
+            return res
+
+        object.__setattr__(runner, name, timed)
 
     def timed_step(carry):
         t = time.perf_counter()
@@ -107,24 +134,44 @@ def main(argv=None) -> int:
     print(f"step {args.steps + 1} x {args.repeats} from one carry ({rep_jobs} md jobs): "
           f"min {min(rep):.4f}s  median {statistics.median(rep):.4f}s  max {max(rep):.4f}s")
 
+    for m in spans.values():
+        m.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, out, w = timed_step(carry)
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in m) for k, m in spans.items()}
     if args.trace:
         prof.export_chrome_trace(args.trace)
     ka = prof.key_averages()
-    dev_total = sum(_self_device_us(e) for e in ka)
+    # device time from the device events themselves (the operators'
+    # self device time in key_averages counts each kernel twice)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda and e.name not in spans]
+    dur = [(e.name, e.time_range.end - e.time_range.start) for e in events]
+    dev_total = sum(d for _, d in dur)
     print(f"profiled step: wall {w:.4f}s  device time {dev_total / 1e3:.3f} ms")
     for e in sorted(ka, key=lambda e: -_self_device_us(e))[:12]:
         t = _self_device_us(e)
         if t > 0:
             print(f"  {t / 1e3:10.3f} ms  {100 * t / dev_total:5.1f}%  n={e.count:5d}  {e.key[:80]}")
-    groups = {"md kernels (K1/K3)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
-    for e in ka:
-        key = ("md kernels (K1/K3)" if "md_run_kernel" in e.key or "md_forces_kernel" in e.key
-               else "pairwise_l2 (K2)" if "pairwise_l2" in e.key else "everything else")
-        groups[key] += _self_device_us(e) / 1e3
+    groups = {"md kernels (K1/K3/K4)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
+    for name, d in dur:
+        key = ("md kernels (K1/K3/K4)" if "md_run_kernel" in name or "md_forces_kernel" in name
+               else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")
+        groups[key] += d / 1e3
     print("device time by group (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device time of the kernels launched inside each timed span
+    span_dev = {k: 0.0 for k in spans}
+    for e in prof.events():
+        if e.device_type != cuda and e.name in spans:
+            span_dev[e.name] += (e.device_time_total if hasattr(e, "device_time_total")
+                                 else e.cuda_time_total) / 1e3
+    if span_ms and any(span_ms.values()):
+        rest = groups["everything else"] - sum(span_dev.values())
+        print("profiled step, device time (ms): " + ", ".join(
+            [f"md kernel {groups['md kernels (K1/K3/K4)']:.3f}"]
+            + [f"{k} {span_dev.get(k, 0.0):.3f} (stream span {v:.3f} by CUDA events)"
+               for k, v in span_ms.items() if v]
+            + [f"K2 {groups['pairwise_l2 (K2)']:.3f}", f"rest {rest:.3f}"]))
     busy = _device_busy_us(events)
     idle = 1.0 - busy / (w * 1e6)
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -133,7 +180,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "setup_s": setup_s, "step_s": walls, "md_jobs": jobs,
                       "repeat_s": rep, "repeat_md_jobs": rep_jobs, "profiled_step_s": w,
                       "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
-                      "idle_share": idle,
+                      "span_ms": span_ms, "span_device_ms": span_dev, "idle_share": idle,
                       "peak_mem_mib": peak}))
     return 0
 

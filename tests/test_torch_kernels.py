@@ -29,7 +29,11 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
   1e-4; the SHAKE residual |r^2 - d0^2| / d0^2 after the chunk stays below
   1e-3;
 * the other K3 flag sets (cutoff Coulomb, SHAKE off) on a small all-atom
-  box, to the same bounds."""
+  box, to the same bounds;
+* K4 (the gather-list pair loop) on the PEAA2240 box (2240 charged atoms,
+  K ~ 1112 slots, the PME split, SHAKE) and on the other flag sets (g0
+  chains, cutoff Coulomb, SHAKE off) with the same channels on both sides:
+  the bounds of K3, inactive jobs bit-identical."""
 import dataclasses
 
 import numpy as np
@@ -45,6 +49,7 @@ pytestmark = pytest.mark.requires_cuda
 
 G0 = M.MaterialSpec(name="g0", force_field="opls")  # 64 x 8 beads, 512 sites
 PEAA = M.PEAA  # 56 x C10H22, 1792 charged atoms, PME split, SHAKE
+PEAA2240 = M.PEAA2240  # 70 x C10H22, 2240 charged atoms, on the list kernel K4
 T_MD, DT = 300.0, 2.0  # HMMConfig's MD temperature (K) and timestep (fs)
 
 
@@ -285,4 +290,143 @@ def test_k3_flag_sets_match_plain(use_ewald, shake):
         return float((a.double() - b).abs().max())
 
     assert err(out[:, :3], ref64[:, :3]) <= 4 * err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+def _err(a, b):
+    return float((a.double() - b).abs().max())
+
+
+@pytest.fixture(scope="module")
+def peaa2240():
+    dev = _device()
+    sys, st = M.build_system(PEAA2240, dtype=torch.float32, device=dev)
+    assert sys.fused.spec.kernel == "K4" and sys.fused.spec.flags.endswith("+LIST")
+    st = E.minimize_fire(sys, st, n_steps=30, dt0=0.5)
+    gen = torch.Generator().manual_seed(0)
+    B = 4
+    vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
+                       for _ in range(B)])
+    batch = E.MDState(pos=st.pos.expand(B, -1, -1).contiguous(), vel=vel,
+                      h=st.h.expand(B, -1, -1).contiguous(),
+                      vxi=torch.zeros((B, 3), device=dev))
+    fk, _ = sys.fused.kspace(batch.pos, batch.h)
+    nbr = sys.fused.channels(batch.pos, batch.h)
+    return sys, batch, fk.transpose(1, 2).contiguous(), nbr
+
+
+def test_k4_forces_virial_match_plain(peaa2240):
+    sys, batch, _, nbr = peaa2240
+    pos = batch.pos.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(batch.h)
+    before = MF.md_forces_virial.launches_k4
+    F, W = MF.md_forces_virial(sys.fused, pos, h6, nbr=nbr)
+    torch.cuda.synchronize()
+    assert MF.md_forces_virial.launches_k4 == before + 1
+    Fp, Wp = MF.md_forces_virial_plain(sys.fused, pos, h6, nbr)
+    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+    F64, W64 = MF.md_forces_virial_plain(sys.fused.to(pos.device, torch.float64), pos.double(),
+                                         h6.double(), nbr64)
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    # no list row is full: every atom keeps a dead (self-padded) slot
+    n = sys.n_atoms
+    live = nbr["idx"] != torch.arange(n, dtype=torch.int32, device=pos.device)
+    assert int(live.sum(1).max()) < sys.fused.spec.k
+
+
+def test_k4_run_matches_plain_and_skips_inactive(peaa2240):
+    sys, batch, fk, nbr = peaa2240
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 7, 10], dtype=torch.int32, device=st.device)
+    g0 = torch.tensor([0, 0, 10, 20], dtype=torch.int32, device=st.device)
+    n_tot = torch.full_like(n_run, 30)
+    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
+    before = MF.md_run.launches_k4
+    out, vxi, _ = MF.md_run(sys.fused, st, *args, nbr=nbr)
+    torch.cuda.synchronize()
+    assert MF.md_run.launches_k4 == before + 1
+    assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
+    ref, vxi_ref, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbr)
+    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+    ref64, vxi64, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                      batch.vxi.double(), n_run, fscal.double(), True, False,
+                                      fk.double(), g0, n_tot, nbr=nbr64)
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+    assert _rel(vxi, vxi64) <= 4 * _rel(vxi_ref, vxi64) + 1e-4
+    cons = sys.constraints
+    i, j = (torch.as_tensor(cons.idx[:, k], device=st.device) for k in (0, 1))
+    d0sq = torch.as_tensor(cons.d0, device=st.device, dtype=torch.float64) ** 2
+    ran = out[n_run > 0]
+    rr = ran[:, :3, j].double() - ran[:, :3, i].double()
+    assert float(((rr * rr).sum(1) - d0sq).abs().div(d0sq).max()) < 1e-3
+
+
+def test_k4_sampling_pressure_sums_match_plain(peaa2240):
+    sys, batch, fk, nbr = peaa2240
+    st = MF.pack_state(batch.pos, batch.vel)
+    n = torch.full((st.shape[0],), 20, dtype=torch.int32, device=st.device)
+    fscal = MF.make_fscal(DT, T_MD, batch.h)
+    one = torch.ones_like(n)
+    _, _, pk = MF.md_run(sys.fused, st, batch.vxi, n, fscal, False, True, fk, 0 * n, one,
+                         nbr=nbr)
+    _, _, pp = MF.md_run_plain(sys.fused, st, batch.vxi, n, fscal, False, True, fk, 0 * n, one,
+                               nbr=nbr)
+    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+    _, _, p64 = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                batch.vxi.double(), n, fscal.double(), False, True,
+                                fk.double(), 0 * n, one, nbr=nbr64)
+    for c in range(6):
+        assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
+
+
+@pytest.mark.parametrize("case", ["g0", "cut_shake", "cut", "ewald"])
+def test_k4_flag_sets_match_plain(case):
+    """Every other K4 instantiation: forces/virial and a 10-step deform run
+    against float64 on small boxes, held to the bounds of the PEAA2240
+    tests."""
+    dev = _device()
+    if case == "g0":
+        spec = dataclasses.replace(G0, force_list_kernel=True)
+    else:
+        spec = dataclasses.replace(PEAA, n_chains=8, opls_lj_cutoff=5.0, opls_coul_cutoff=4.5,
+                                   use_ewald=case == "ewald", shake=case == "cut_shake",
+                                   validate=False, force_list_kernel=True)
+    sys, st = M.build_system(spec, dtype=torch.float32, device=dev)
+    st = E.minimize_fire(sys, st, n_steps=50, dt0=0.5)
+    r, r64 = sys.fused, sys.fused.to(dev, torch.float64)
+    assert r.spec.kernel == "K4"
+    B = 4
+    gen = torch.Generator().manual_seed(1)
+    vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
+                       for _ in range(B)])
+    pos, h = st.pos.expand(B, -1, -1).contiguous(), st.h.expand(B, -1, -1).contiguous()
+    nbr = r.channels(pos, h)
+    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+    p3, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(h)
+    F, W = MF.md_forces_virial(r, p3, h6, nbr=nbr)
+    Fp, Wp = MF.md_forces_virial_plain(r, p3, h6, nbr)
+    F64, W64 = MF.md_forces_virial_plain(r64, p3.double(), h6.double(), nbr64)
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    st6, vxi = MF.pack_state(pos, vel), torch.zeros((B, 3), device=dev)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=dev).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, h, eps)
+    n_run = torch.tensor([10, 0, 7, 10], dtype=torch.int32, device=dev)
+    fk = None
+    if case == "ewald":
+        fk = r.kspace(pos, h)[0].transpose(1, 2).contiguous()
+    g0, n_tot = 0 * n_run, torch.full_like(n_run, 10)
+    out, _, _ = MF.md_run(r, st6, vxi, n_run, fscal, True, False, fk, g0, n_tot, nbr=nbr)
+    ref, _, _ = MF.md_run_plain(r, st6, vxi, n_run, fscal, True, False, fk, g0, n_tot, nbr=nbr)
+    ref64, _, _ = MF.md_run_plain(r64, st6.double(), vxi.double(), n_run, fscal.double(), True,
+                                  False, None if fk is None else fk.double(), g0, n_tot,
+                                  nbr=nbr64)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], st6[1])
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
     assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
