@@ -51,16 +51,31 @@ failure exits non-zero before the result line:
 10. the coupled list slice: ``build_md_hmm(HMMConfig(), spec=PEAA2240,
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per
    step, float32, 2 macro-steps, its launch counters zeroed just before
-   and read just after; K2 and K4 must have launched.
+   and read just after; K2 and K4 must have launched;
+11. K5 (the Stillinger-Weber sweeps) against its plain version on the
+   prepared 216-atom diamond-Si box (float32): the force + virial entry at
+   the stiffness probe's 12 boxes against float32 and float64, a 576-job
+   10-step deform run, each job's 20-step sampling pressure sums against
+   float64; K5's and the plain version's times on 576 jobs x 10 steps at
+   N = 216 and at N = 512 (the largest cubic box of the fused gate), with
+   the bound; the stiffness ratios of a prepared box (0.01 K) against SW
+   silicon's;
+12. the SW slice: ``scema_tpu_torch.cli run`` on ``{"molecular dynamics
+   parameters": {"force field": "sw"}}`` with ``--quick-prep --steps 3``
+   (576 qps, a 216-atom SW box at each flagged qp), every launch counter
+   zeroed just before and read just after; K5 and K2 must have launched and
+   K1, K3, K4 must not have; md jobs 144, 288, 432 and 0.00048 m.
 
 The second-to-last line is a JSON object with one entry per kernel (K1
 and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
-on the coupled list slice; bounds from this run's shapes and the card's
-published peaks); the last line is ``{"ok": true, "device": {...}}``.
+on the coupled list slice, K5's on the SW slice; bounds from this run's
+shapes and the card's published peaks); the last line is ``{"ok": true,
+"device": {...}}``.
 Imports nothing of JAX.
 """
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -83,6 +98,11 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 # cutoff, and, inside either, applying the pair force to both atoms and,
 # when the virial is sampled, its six products
 FLOP_GEOM, FLOP_LJ, FLOP_EWALD, FLOP_APPLY, FLOP_VIRIAL = 26, 8, 24, 9, 12
+# K5 (csrc/md_kernel.cuh sw_forces) per live unordered SW pair, beside the
+# geometry of every pair: r and 1/r 2, u 3, r - rc 1, g 2, both atoms'
+# moments 38, the two-body phi2' and dg 20, w in both roles 106, both
+# atoms' forces 12; with sampling, both ordered pairs' virial 24
+FLOP_SW, FLOP_SW_VIRIAL = 184, 24
 # K1 times of the earlier, LJ-only kernel, measured on one H100 (PERF.md):
 # 576 jobs x 10 deform steps, and the force + virial entry on 12 boxes
 PREV_K1_MS = {"run": 6.331, "forces": 0.130}
@@ -1030,6 +1050,277 @@ def phase_list_slice(dev):
     return launches
 
 
+def sw_live_pairs(pos, h, rc2):
+    """Unordered pairs per box inside K5's mask (r2 < rc2, r2 > 1e-8) of
+    boxes pos (B, N, 3) in h (B, 3, 3), averaged over the boxes, in
+    float64 — the pairs the SW function needs arithmetic for."""
+    from scema_tpu_torch.md import box as B
+
+    tot = 0.0
+    for b in range(pos.shape[0]):
+        p = pos[b].double()
+        d = B.min_image_disp(h[b].double(), p[None, :, :] - p[:, None, :])
+        r2 = (d * d).sum(-1)
+        tot += float(((r2 < rc2) & (r2 > 1e-8)).sum()) / 2.0
+    return tot / pos.shape[0]
+
+
+def sw_flops(n_atoms, jobs_steps, live, virial=False):
+    """Operations of ``jobs_steps`` SW force calls on one box: the geometry
+    of its N(N-1)/2 unordered pairs, and the SW arithmetic on its ``live``
+    ones."""
+    return jobs_steps * (n_atoms * (n_atoms - 1) / 2.0 * FLOP_GEOM
+                         + live * (FLOP_SW + FLOP_SW_VIRIAL * virial))
+
+
+def _sw_run_batch(sys_, st, J, seed, dev):
+    """J jobs of one prepared box with their own Maxwell velocities and
+    random strains of at most 1e-3: (state, vxi, h, fscal)."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.ops import md_fused as MF
+
+    gen = torch.Generator().manual_seed(seed)
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    state = MF.pack_state(st.pos.expand(J, -1, -1), vel)
+    eps = (torch.rand((J, 6), generator=gen) * 2e-3 - 1e-3).to(dev)
+    return state, torch.zeros((J, 3), device=dev), hJ, MF.make_fscal(DT, T_MD, hJ, eps)
+
+
+def phase_k5(dev):
+    import torch
+
+    from scema_tpu_torch.md import box as B
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.md.homogenization import _LAMMPS_TO_FRAMEWORK, MDParams
+    from scema_tpu_torch.ops import md_fused as MF
+
+    t0 = time.perf_counter()
+    sys_, st = M.build_system(M.MaterialSpec(name="si", force_field="sw"), dtype=torch.float32,
+                              device=dev)
+    r = sys_.fused
+    n = sys_.n_atoms
+    # the slice's quick prep: FIRE 100, a Maxwell draw, NVT 100 at 300 K
+    st = M.equilibrate(sys_, st, MDParams(temperature=T_MD, dt=DT, strain_rate=1e-4,
+                                          nsteps_sample=100),
+                       torch.Generator().manual_seed(11), minimize_steps=100, equil_steps=100)
+    torch.cuda.synchronize()
+    print(f"[11 K5] SW box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags {r.spec.flags}, "
+          f"cutoff {r.spec.cutoff2 ** 0.5:.4f} A, prep (FIRE 100 + NVT 100 at {T_MD} K) "
+          f"{time.perf_counter() - t0:.2f}s")
+    r64 = r.to(dev, torch.float64)
+    rc2 = MF.sw_consts(r.spec)["rc2"]
+
+    # force + virial entry at the stiffness probe's 12 deformed boxes
+    eps = torch.zeros((12, 6), device=dev)
+    for d in range(6):
+        eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
+        eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
+    h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
+    pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    p12 = pos12.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(h12)
+    F, W = MF.md_forces_virial(r, p12, h6)
+    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
+    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
+    torch.cuda.synchronize()
+    f_err = float((F - Fp).abs().max())
+    fn = F64.norm(dim=1)
+    big = fn > 0.01 * fn.max()
+    pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+    ek = float((F.double() - F64).abs().max()) / fmax
+    ep = float((Fp.double() - F64).abs().max()) / fmax
+    wk = float((W.double() - W64).abs().max()) / wmax
+    wp = float((Wp.double() - W64).abs().max()) / wmax
+    if (not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6
+            or pa_k > 2 * pa_p + 1e-5):
+        fail(f"K5 forces: kernel error vs float64 {ek:.3e} (per atom {pa_k:.3e}, virial "
+             f"{wk:.3e}) exceeds twice the plain float32 error {ep:.3e} ({pa_p:.3e}, "
+             f"{wp:.3e}) + 1e-6 (per atom 1e-5)")
+    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6), reps=20)
+    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=5)
+    live12 = sw_live_pairs(pos12[:2], h12[:2], rc2)
+    fb_ms, fb_by = bound(4.0 * (2 * 12 * (3 * n + 6)), sw_flops(n, 12, live12, virial=True))
+    print(f"[11 K5 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: "
+          f"kernel {ek:.3e} plain-f32 {ep:.3e}, worst per-atom {pa_k:.3e} / {pa_p:.3e}, "
+          f"virial {wk:.3e} / {wp:.3e} (tol 2x plain + 1e-6, per atom + 1e-5)  kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {fb_ms:.5f} ms ({fb_by}; {live12:.1f} "
+          f"live of {n * (n - 1) // 2} pairs per box)")
+    forces_row = {"name": "md_sw_forces", "route": "cuda",
+                  "source": "scema_tpu_torch/csrc/md_sw.cu",
+                  "replaces": "scema_tpu/ops/md_fused.py:1850",
+                  "note": "K5: FusedSpec.sw -> forces_allpairs_sw (md_fused.py:910-1081)",
+                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+
+    # the main path's run shape: 576 jobs x 10 deform steps
+    J = 576
+    state, vxi, hJ, fscal = _sw_run_batch(sys_, st, J, 12, dev)
+    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
+    out, xo, _ = MF.md_run(r, state, vxi, n10, fscal, True, False)
+    ref, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(), True,
+                                  False)
+    torch.cuda.synchronize()
+    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
+    vmax = float(ref64[:, 3:].abs().max())
+    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+        fail(f"K5 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+    print(f"[11 K5 run] {J} jobs x 10 deform steps of {DT} fs: positions max_abs_err vs plain "
+          f"{p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 {pp:.3e} A, velocities rel "
+          f"{vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)")
+
+    # 20-step sampling: each job's pressure sums against float64
+    n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
+    f_s = MF.make_fscal(DT, T_MD, hJ)
+    _, _, sk = MF.md_run(r, out, xo, n20, f_s, False, True)
+    _, _, sp = MF.md_run_plain(r, out, xo, n20, f_s, False, True)
+    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True)
+    torch.cuda.synchronize()
+    smax = s64.abs().amax(0)
+    sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
+    sp_err = float(((sp.double() - s64).abs().amax(0) / smax).max())
+    if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
+        fail(f"K5 sampling: kernel pressure sums vs float64 rel {sk_err:.3e} exceed "
+             f"4x plain float32 {sp_err:.3e} + 1e-4")
+    print(f"[11 K5 sample20] {J} jobs x 20 sampling steps: per-job pressure sums rel to "
+          f"float64 (worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} "
+          f"(tol 4x plain + 1e-4)")
+
+    # times at N = 216 and at the fused gate's largest cubic box, N = 512
+    times = {}
+    for cells in (3, 4):
+        if cells == 3:
+            sys_c, st_c = sys_, st
+        else:
+            sys_c, st_c = M.build_system(M.MaterialSpec(name="si", n_cells=4),
+                                         dtype=torch.float32, device=dev)
+            st_c = M.equilibrate(sys_c, st_c, MDParams(temperature=T_MD, dt=DT,
+                                                       strain_rate=1e-4, nsteps_sample=100),
+                                 torch.Generator().manual_seed(13), minimize_steps=0,
+                                 equil_steps=100)
+        rc_ = sys_c.fused
+        nc = sys_c.n_atoms
+        args = _sw_run_batch(sys_c, st_c, J, 14, dev)
+        a = (args[0], args[1], n10, args[3], True, False)
+        k_ms = cuda_ms(lambda: MF.md_run(rc_, *a), reps=3)
+        p_ms = cuda_ms(lambda: MF.md_run_plain(rc_, *a), reps=1, warmup=0)
+        live = sw_live_pairs(st_c.pos[None], st_c.h[None], rc2)
+        b_ms, b_by = bound(4.0 * (J * (2 * (6 * nc + 3) + 16 + 6) + 2 * nc),
+                           sw_flops(nc, J * 10, live))
+        times[nc] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[11 K5 time] N={nc}, {J} jobs x 10 deform steps: kernel {k_ms:.3f} ms  plain "
+              f"{p_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}; {live:.1f} live of "
+              f"{nc * (nc - 1) // 2} pairs per box)  kernel at {100 * b_ms / k_ms:.2f}% of "
+              f"its bound")
+
+    # the prepared box's elastic constants against SW silicon's ratios (the
+    # CPU suite's bounds; C11 151.4, C12 76.4, C44 56.4 GPa)
+    p_cold = MDParams(temperature=0.01, dt=0.002, strain_rate=1e-3, nsteps_sample=50)
+    sys_s, st_s = M.build_system(M.MaterialSpec(name="si", force_field="sw"),
+                                 dtype=torch.float32, device=dev)
+    st_s = M.equilibrate(sys_s, st_s, p_cold, torch.Generator().manual_seed(15),
+                         minimize_steps=50, equil_steps=50)
+    data = M.measure(sys_s, st_s, p_cold)
+    C = data.stiff
+    r12, r44 = C[0, 1] / C[0, 0], C[3, 3] / C[0, 0]
+    ok = (abs(data.density / 2329.0 - 1.0) <= 0.01 and abs(r12 / (76.4 / 151.4) - 1.0) <= 0.08
+          and abs(r44 / (56.4 / 151.4) - 1.0) <= 0.25)
+    print(f"[11 K5 elastic] 216-atom box at 0.01 K, float32: density {data.density:.2f} kg/m^3, "
+          f"C11 {C[0, 0]:.4e} Pa, C12/C11 {r12:.4f} (SW Si {76.4 / 151.4:.4f}, tol 8%), "
+          f"C44/C11 {r44:.4f} ({56.4 / 151.4:.4f}, tol 25%)")
+    if not ok:
+        fail("K5: the prepared box's density or elastic ratios are off SW silicon's")
+    k216, p216, b216, by216 = times[216]
+    k512, p512, b512, _ = times[512]
+    run_row = {"name": "md_sw_run", "route": "cuda", "source": "scema_tpu_torch/csrc/md_sw.cu",
+               "replaces": "scema_tpu/ops/md_fused.py:1850",
+               "note": "K5: FusedSpec.sw -> forces_allpairs_sw (md_fused.py:910-1081); "
+                       "576 jobs x 10 deform steps at N=216, and at N=512 in *_n512",
+               "max_abs_err": p_err, "ms": k216, "plain_ms": p216, "bound_ms": b216,
+               "bound_by": by216, "library_ms": None, "ms_n512": k512,
+               "plain_ms_n512": p512, "bound_ms_n512": b512}
+    return run_row, forces_row
+
+
+def phase_sw_slice(dev):
+    import torch
+
+    from scema_tpu_torch import cli
+    from scema_tpu_torch.ops import md_fused as MF
+    from scema_tpu_torch.ops import pairwise_l2 as K2
+
+    counters = {"md_allpairs_run": (MF.md_run, "launches"),
+                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_charged_run": (MF.md_run, "launches_k3"),
+                "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
+                "md_list_run": (MF.md_run, "launches_k4"),
+                "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
+                "md_sw_run": (MF.md_run, "launches_k5"),
+                "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
+                "pairwise_l2": (K2.pairwise_l2, "launches")}
+    n_steps = 3
+    gc.collect()  # the earlier phases' runners (the list slice's 9 GB of channels)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        cfg = os.path.join(tmp, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump({"molecular dynamics parameters": {"force field": "sw"}}, f)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", cfg, "--quick-prep", "--steps", str(n_steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}")
+    if rc != 0:
+        fail(f"SW slice: cli run exited {rc}")
+    steps = re.findall(r"residual (\S+) -> (\S+)  flagged qps (\d+)  md jobs (\d+)  "
+                       r"reaction (\S+)  \((\S+)s\)", text)
+    setup = re.search(r"Setup \(mesh \+ material prep\) (\S+)s", text)
+    umax = re.search(r"Max displacement: (\S+) m", text)
+    if len(steps) != n_steps or setup is None or umax is None:
+        fail("SW slice: cli output is missing per-step lines, the setup time or the displacement")
+    for r0, r1, _, _, rf, _ in steps:
+        if not all(abs(float(x)) < float("inf") for x in (r0, r1, rf)):
+            fail(f"SW slice: non-finite residuals {r0} {r1} {rf}")
+    jobs = [int(s[3]) for s in steps]
+    if jobs != [144, 288, 432]:
+        fail(f"SW slice: md jobs {jobs}, expected [144, 288, 432]")
+    expect = n_steps * 0.002 * 0.08
+    if abs(float(umax.group(1)) - expect) > 1e-5 * expect:
+        fail(f"SW slice: max displacement {umax.group(1)} != {expect}")
+    for k in ("md_sw_run", "md_sw_forces", "pairwise_l2"):
+        if launches[k] <= 0:
+            fail(f"SW slice: kernel {k} was not launched by the main path")
+    others = {k: v for k, v in launches.items() if not k.startswith(("md_sw", "pairwise"))}
+    if any(others.values()):
+        fail(f"SW slice: kernels of other paths were launched: {others}")
+    step_s = [float(s[5]) for s in steps]
+    print(f"[12 sw slice] prep (setup) {float(setup.group(1)):.3f}s  s/macro-step {step_s}  "
+          f"md jobs {jobs}  launches {launches}  peak memory {peak / 2**20:.1f} MiB  "
+          f"wall {wall:.2f}s  max displacement {umax.group(1)} m (expect {expect:.6g})")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -1053,10 +1344,13 @@ def main() -> int:
     k4_run, k4_forces = phase_k4(dev)
     phase_bench(dev)
     launches_list = phase_list_slice(dev)
-    rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces]
+    k5_run, k5_forces = phase_k5(dev)
+    launches_sw = phase_sw_slice(dev)
+    rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
-                launches_list if row["name"].startswith("md_list") else launches)
+                launches_list if row["name"].startswith("md_list") else
+                launches_sw if row["name"].startswith("md_sw") else launches)
         row["launches"] = path[row["name"]]
     print(card)
     print(json.dumps({"kernels": rows}))

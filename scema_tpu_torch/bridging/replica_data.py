@@ -6,7 +6,9 @@ and load_replica_equilibration_data, :361-489).  Each piece is optional per
 replica: a missing ``<mat>_<n>.json`` falls back to the identity
 orientation, and missing ``init.<mat>_<n>.*`` files fall back to measuring
 the prepared box on the device.  Seeding microstates from LAMMPS binary
-restarts (``init.<mat>_<n>.bin``) is not ported yet.
+restarts (``init.<mat>_<n>.bin``) is not ported yet: where such a file
+exists the JAX package starts the replica from it (and sizes an SW lattice
+to match), so the port raises rather than equilibrate another microstate.
 """
 from __future__ import annotations
 
@@ -49,7 +51,10 @@ def _rotation_from_json(pt: dict, cg_vector) -> np.ndarray:
 
 def load_replica_metadata(nano_dir: str, materials, n_repl: int,
                           cg_vector=(1.0, 0.0, 0.0)) -> list[list[ReplicaMeta]]:
-    """[(material)][(replica)] metadata; silent identity fallbacks."""
+    """[(material)][(replica)] metadata; silent identity fallbacks.  Raises
+    NotImplementedError where an ``init.<mat>_<n>.bin`` LAMMPS restart
+    exists (replica_data.py:93-102 reads it; ``md/lammps_restart.py`` is
+    not ported, ROADMAP queue 1)."""
     out = []
     for mat in materials:
         rows = []
@@ -72,6 +77,11 @@ def load_replica_metadata(nano_dir: str, materials, n_repl: int,
             if os.path.exists(base + ".stiff"):
                 c4 = io.read_sym4(base + ".stiff")
                 meta.stiff = T.rank4_to_c66(torch.as_tensor(c4)).numpy()
+            if os.path.exists(base + ".bin"):
+                raise NotImplementedError(
+                    f"{base}.bin: seeding a replica from a LAMMPS binary restart "
+                    "(md/lammps_restart.py) is not ported (ROADMAP queue 1); remove the "
+                    "file to equilibrate the replica on the device instead")
             rows.append(meta)
         out.append(rows)
     return out

@@ -3,8 +3,12 @@
     python -m scema_tpu_torch.cli run <inputs.json> --quick-prep --steps N
 
 runs the coupled HMM time loop on one CUDA device: FE and MD in float32,
-every flagged quadrature point's MD job through kernel K1 and the
-clustering distance matrix through kernel K2.  ``--cpu`` runs the same
+every flagged quadrature point's MD job through the fused MD kernel of the
+config's force field — K1 for the default united-atom OPLS melt, K5 for
+the Stillinger-Weber diamond-Si box that ``"molecular dynamics
+parameters": {"force field": "sw"}`` (or a ``sisw`` scripts directory)
+selects, as in the JAX CLI — and the clustering distance matrix through
+kernel K2.  ``--cpu`` runs the same
 path on the CPU (FE in float64) with the kernels' plain versions; without
 it a missing CUDA device is an error, never a silent CPU run.  ``--hooke``
 replaces MD with sigma = C:eps (the reference's debug mode).
@@ -108,7 +112,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="scema_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("run", help="run the coupled HMM time loop")
-    pr.add_argument("config", help="reference-format inputs.json")
+    pr.add_argument("config", help="reference-format inputs.json (its 'molecular dynamics "
+                                   "parameters' pick the force field: opls, or sw)")
     pr.add_argument("--steps", type=int, default=0, help="override number of steps")
     pr.add_argument("--hooke", action="store_true",
                     help="force 'approximate md with hookes law' debug mode")

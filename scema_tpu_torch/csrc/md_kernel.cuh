@@ -1,8 +1,9 @@
-// K1, K3 and K4: fused MD — whole NVT + fix-deform or NVT +
-// virial-sampling runs of many OPLS boxes, one thread block per job.  The
-// device code shared by md_allpairs.cu (K1, K3: the all-pairs pair loop)
-// and md_list.cu (K4: the gather-list pair loop); each source instantiates
-// and exports one side, so nvcc builds the two in parallel.
+// K1, K3, K4 and K5: fused MD — whole NVT + fix-deform or NVT +
+// virial-sampling runs of many boxes, one thread block per job.  The
+// device code shared by md_allpairs.cu (K1, K3: the all-pairs pair loop),
+// md_list.cu (K4: the gather-list pair loop) and md_sw.cu (K5: the
+// Stillinger-Weber sweeps); each source instantiates and exports its own
+// side, so nvcc builds them in parallel.
 //
 // K1 replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk):
@@ -45,6 +46,29 @@
 // DMA has no counterpart (cp.async/TMA staging is later perf work).  What
 // bounds K4: the channel bytes, read every step (7 x 4 B per slot: 70 MB
 // per job-step at N = 2240, K = 1112), against ~25-60 FLOP per slot.
+//
+// K5 is the SW flag: the Stillinger-Weber branch of the TPU kernel
+// (FusedSpec.sw -> forces_allpairs_sw, md_fused.py:910-1081) for the
+// p = 4, q = 0 family, single element, no parameter planes and no bonded
+// terms.  Its force call is two sweeps over all j per atom i, with the
+// per-pair minimum image of K1 and live pairs r2 < (rc - 1e-6)^2, r2 >
+// 1e-8:
+//   sweep 1  thread i sums g = exp(gam sig / (r - rc)) and the moments
+//            s = sum g, m = sum g u, Q = sum g u (x) u in registers, then
+//            writes its ten adjoints (a_s = lam eps c0^2 s, a_m = -2 lam
+//            eps c0 m, a_Q = lam eps Q) to the role buffer; one barrier;
+//   sweep 2  thread i takes phi2', g and dg of each live pair, w_A with its
+//            own adjoints (registers) and w_B with atom j's (ten shared
+//            reads, live pairs only), f_i += w_A - w_B, and with sampling
+//            role A's virial W -= sym(w_A (x) d).
+// The sum of g^2 has a constant adjoint -(lam eps / 2)(1 - c0)^2, so it is
+// not accumulated.  exp(sig / (r - rc)) and exp(gam sig / (r - rc)) are
+// evaluated only on live pairs, where r - rc < 0 gives exp -> 0 and never
+// inf * 0.  What bounds K5: the geometry of 2 N^2 ordered pairs per force
+// call (N = 216: ~4 of 215 neighbours are live in the diamond lattice, so
+// the SW arithmetic is a few percent of the pairs; a warp still executes a
+// live body whenever any of its 32 lanes has a live j).  Walking sweep 1's
+// live j in sweep 2, or a cell list, is the lever for a later PR.
 //
 // What bounds K1/K3 on an H100: the pair loop.  A job does N^2 pair
 // evaluations per step, twice the N(N-1)/2 the function needs (no Newton
@@ -111,6 +135,15 @@ struct Box {
   float lx, ly, lz, xy, xz, yz;
 };
 
+// K5's constants, derived on the host in double precision
+// (ops/md_fused.sw_consts) and passed in float32: rc = a sig, the mask
+// bound rc2 = (rc - 1e-6)^2, gs = gam sig, aeps = A eps, b = B, m4b = -4 B,
+// lam_eps = lam eps, k_s = lam eps c0^2, k_m = -2 lam eps c0, a_gsq =
+// -(lam eps / 2)(1 - c0)^2
+struct SWC {
+  float rc, rc2, sig, gs, aeps, b, m4b, lam_eps, k_s, k_m, a_gsq;
+};
+
 struct Params {
   const float* lj1;   // (N, N)
   const float* lj2;   // (N, N)
@@ -126,6 +159,8 @@ struct Params {
   const int* nidx;
   const float *nlj1, *nlj2, *nqq, *nimx, *nimy, *nimz;
   int K;
+  // K5 only
+  SWC sw;
 };
 
 // Offset patterns (PATTERNS) and SHAKE offsets, passed by value.  Pattern
@@ -145,7 +180,8 @@ struct Topo3 {
 // shared-memory views of one job
 struct Smem {
   float *px, *py, *pz, *vx, *vy, *vz, *fx, *fy, *fz;
-  float* q;    // 12 N: bonded role forces (4 roles x 3 components), SHAKE scratch
+  float* q;    // 12 N: bonded role forces (4 roles x 3 components), SHAKE
+               // scratch, K5's ten adjoint rows
   float* red;  // MAXW x NRED reduction scratch
   float* misc; // NHC chain + broadcasts
 };
@@ -464,14 +500,31 @@ __device__ __forceinline__ void apply_pair(float fp, float dx, float dy, float d
   }
 }
 
-// Forces (and, with want_w, this thread's virial partial sums) at the
-// positions in shared memory for box h.  Entry and exit are block-synced.
-// All-pairs (K1/K3): every j with the per-pair minimum image.  LIST (K4):
-// this block's job's K list slots, read slot-major so the reads coalesce
-// over i.
+// Minimum image of d = x_j - x_i in place and its r^2: the sequential
+// triclinic rounding (z, then y, then x) of the TPU kernel's
+// refresh_images / block_geom, exact while every box height exceeds twice
+// the cutoff
+__device__ __forceinline__ float min_image_r2(const Box& h, float ilx, float ily, float ilz,
+                                              float& dx, float& dy, float& dz) {
+  const float n3 = rintf(dz * ilz);
+  dz -= n3 * h.lz;
+  dy -= n3 * h.yz;
+  const float n2 = rintf(dy * ily);
+  dy -= n2 * h.ly;
+  dx -= n3 * h.xz + n2 * h.xy;
+  const float n1 = rintf(dx * ilx);
+  dx -= n1 * h.lx;
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// Pair (+ bonded) forces (and, with want_w, this thread's virial partial
+// sums) at the positions in shared memory for box h.  Entry and exit are
+// block-synced.  All-pairs (K1/K3): every j with the per-pair minimum
+// image.  LIST (K4): this block's job's K list slots, read slot-major so the
+// reads coalesce over i.
 template <bool COUL, bool EWALD, bool PAT, bool LIST>
-__device__ void compute_forces(const Params& P, const Topo3& T, const Smem& S,
-                               const Box& h, bool want_w, float w[6]) {
+__device__ void pair_forces(const Params& P, const Topo3& T, const Smem& S,
+                            const Box& h, bool want_w, float w[6]) {
   const int N = P.N;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float ilx = 1.f / h.lx, ily = 1.f / h.ly, ilz = 1.f / h.lz;
@@ -499,15 +552,7 @@ __device__ void compute_forces(const Params& P, const Topo3& T, const Smem& S,
     } else {
       for (int j = 0; j < N; ++j) {
         float dx = S.px[j] - xi, dy = S.py[j] - yi, dz = S.pz[j] - zi;
-        const float n3 = rintf(dz * ilz);
-        dz -= n3 * h.lz;
-        dy -= n3 * h.yz;
-        const float n2 = rintf(dy * ily);
-        dy -= n2 * h.ly;
-        dx -= n3 * h.xz + n2 * h.xy;
-        const float n1 = rintf(dx * ilx);
-        dx -= n1 * h.lx;
-        const float r2 = dx * dx + dy * dy + dz * dz;
+        const float r2 = min_image_r2(h, ilx, ily, ilz, dx, dy, dz);
         float fp;
         if (pair_force<COUL, EWALD>(P, r2, r2 < P.cutoff2, COUL && r2 < P.coul_cutoff2,
                                     P.lj1, P.lj2, P.qq, (size_t)j * N + i, fp))
@@ -563,6 +608,121 @@ __device__ void compute_forces(const Params& P, const Topo3& T, const Smem& S,
       __syncthreads();
     }
   }
+}
+
+// K5's w = dT/dd of one ordered pair along u for a centre with adjoints
+// a = (a_s, a_mx, a_my, a_mz, a_Qxx, a_Qyy, a_Qzz, a_Qxy, a_Qxz, a_Qyz)
+// (w_of, md_fused.py:1011-1029)
+__device__ __forceinline__ void sw_w(const SWC& C, float ux, float uy, float uz, float inv_r,
+                                     float g, float dg, float radial0, const float a[10],
+                                     float wv[3]) {
+  const float am_u = a[1] * ux + a[2] * uy + a[3] * uz;
+  const float qx = a[4] * ux + a[7] * uy + a[8] * uz;
+  const float qy = a[7] * ux + a[5] * uy + a[9] * uz;
+  const float qz = a[8] * ux + a[9] * uy + a[6] * uz;
+  const float uqu = ux * qx + uy * qy + uz * qz;
+  const float radial = radial0 + dg * (a[0] + 2.f * C.a_gsq * g + am_u + uqu);
+  const float tang = g * inv_r;
+  const float t2 = am_u + 2.f * uqu;
+  wv[0] = radial * ux + tang * (a[1] + 2.f * qx - t2 * ux);
+  wv[1] = radial * uy + tang * (a[2] + 2.f * qy - t2 * uy);
+  wv[2] = radial * uz + tang * (a[3] + 2.f * qz - t2 * uz);
+}
+
+// K5: Stillinger-Weber forces (and, with want_w, this thread's share of
+// role A's virial) in two all-pairs sweeps; the ten adjoint rows live in
+// S.q between them.  Entry and exit are block-synced.
+__device__ void sw_forces(const Params& P, const Smem& S, const Box& h, bool want_w,
+                          float w[6]) {
+  const int N = P.N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const SWC& C = P.sw;
+  const float ilx = 1.f / h.lx, ily = 1.f / h.ly, ilz = 1.f / h.lz;
+  float* adj = S.q;
+  for (int i = tid; i < N; i += nt) {
+    const float xi = S.px[i], yi = S.py[i], zi = S.pz[i];
+    float m[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < N; ++j) {  // j = i has r2 = 0: never live
+      float dx = S.px[j] - xi, dy = S.py[j] - yi, dz = S.pz[j] - zi;
+      const float r2 = min_image_r2(h, ilx, ily, ilz, dx, dy, dz);
+      if (r2 < C.rc2 && r2 > 1e-8f) {
+        const float r = sqrtf(r2);
+        const float inv_r = 1.f / r;
+        const float g = expf(C.gs / (r - C.rc));
+        const float ux = dx * inv_r, uy = dy * inv_r, uz = dz * inv_r;
+        const float gx = g * ux, gy = g * uy, gz = g * uz;
+        m[0] += g;
+        m[1] += gx; m[2] += gy; m[3] += gz;
+        m[4] += gx * ux; m[5] += gy * uy; m[6] += gz * uz;
+        m[7] += gx * uy; m[8] += gx * uz; m[9] += gy * uz;
+      }
+    }
+    adj[i] = C.k_s * m[0];
+    for (int k = 1; k < 4; ++k) adj[k * N + i] = C.k_m * m[k];
+    for (int k = 4; k < 10; ++k) adj[k * N + i] = C.lam_eps * m[k];
+  }
+  __syncthreads();
+  for (int i = tid; i < N; i += nt) {
+    const float xi = S.px[i], yi = S.py[i], zi = S.pz[i];
+    float a[10];
+    for (int k = 0; k < 10; ++k) a[k] = adj[k * N + i];
+    float fxi = 0.f, fyi = 0.f, fzi = 0.f;
+    float wl[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < N; ++j) {
+      float dx = S.px[j] - xi, dy = S.py[j] - yi, dz = S.pz[j] - zi;
+      const float r2 = min_image_r2(h, ilx, ily, ilz, dx, dy, dz);
+      if (r2 < C.rc2 && r2 > 1e-8f) {
+        const float r = sqrtf(r2);
+        const float inv_r = 1.f / r;
+        const float ux = dx * inv_r, uy = dy * inv_r, uz = dz * inv_r;
+        const float denom = r - C.rc;
+        const float expo = expf(C.sig / denom);
+        const float sr = C.sig * inv_r;
+        const float sr2 = sr * sr;
+        const float srp = sr2 * sr2;  // p = 4
+        const float phi2 = C.aeps * (C.b * srp - 1.f) * expo;  // q = 0
+        const float id2 = denom * denom;
+        const float dphi2 = C.aeps * (C.m4b * srp * inv_r) * expo + phi2 * (-C.sig / id2);
+        const float g = expf(C.gs / denom);
+        const float dg = g * (-C.gs / id2);
+        const float radial0 = 0.5f * dphi2;
+        float b[10];
+        for (int k = 0; k < 10; ++k) b[k] = adj[k * N + j];
+        float wa[3], wb[3];
+        sw_w(C, ux, uy, uz, inv_r, g, dg, radial0, a, wa);
+        sw_w(C, -ux, -uy, -uz, inv_r, g, dg, radial0, b, wb);
+        fxi += wa[0] - wb[0];
+        fyi += wa[1] - wb[1];
+        fzi += wa[2] - wb[2];
+        if (want_w) {  // role A enumerates every ordered pair once
+          wl[0] -= wa[0] * dx;
+          wl[1] -= wa[1] * dy;
+          wl[2] -= wa[2] * dz;
+          wl[3] -= 0.5f * (wa[0] * dy + wa[1] * dx);
+          wl[4] -= 0.5f * (wa[0] * dz + wa[2] * dx);
+          wl[5] -= 0.5f * (wa[1] * dz + wa[2] * dy);
+        }
+      }
+    }
+    S.fx[i] = fxi;
+    S.fy[i] = fyi;
+    S.fz[i] = fzi;
+    if (want_w)
+      for (int k = 0; k < 6; ++k) w[k] += wl[k];
+  }
+  __syncthreads();
+}
+
+// Forces at the positions in shared memory for box h: K5's sweeps with
+// SW, the pair loop (+ bonded terms) otherwise.  Entry and exit are
+// block-synced.
+template <bool COUL, bool EWALD, bool PAT, bool LIST, bool SW>
+__device__ __forceinline__ void compute_forces(const Params& P, const Topo3& T, const Smem& S,
+                                               const Box& h, bool want_w, float w[6]) {
+  if constexpr (SW)
+    sw_forces(P, S, h, want_w, w);
+  else
+    pair_forces<COUL, EWALD, PAT, LIST>(P, T, S, h, want_w, w);
 }
 
 // Half-step Nose-Hoover chain (MTK), the scalar twin of nhc_half: the
@@ -748,8 +908,10 @@ struct RunArgs {
 // atoms in 3 of 768 (<= 80), K1's 512 sites in one of 512.  Left to
 // itself ptxas spends 82-133 registers on the charged and list
 // instances, which narrows the block to 480-736 threads and adds a round
-// (one more pass over the pair loop per force call).
-template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, bool LIST>
+// (one more pass over the pair loop per force call).  K5 (SW) takes 512:
+// one round at N = 216 (224 threads) and at N = 512, <= 128 registers for
+// sweep 2's 20 adjoints and the pair geometry.
+template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, bool LIST, bool SW = false>
 __global__ void __launch_bounds__(LIST ? 768 : (COUL ? 896 : 512))
 md_run_kernel(Params P, Topo3 T, RunArgs A) {
   extern __shared__ float sm[];
@@ -790,11 +952,11 @@ md_run_kernel(Params P, Topo3 T, RunArgs A) {
     g0 = A.gstep0[job];
     if constexpr (FEXT) fext = A.fext + (size_t)job * 3 * N;
     // chunk-start forces at the chunk's own box, with this chunk's fext
-    compute_forces<COUL, EWALD, PAT, LIST>(
+    compute_forces<COUL, EWALD, PAT, LIST, SW>(
         P, T, S, deform ? h_at(h0, eps, (float)g0 / n_tot) : h0, false, w);
     add_fext<FEXT>(S, fext, N);
   } else {
-    compute_forces<COUL, EWALD, PAT, LIST>(P, T, S, h0, false, w);
+    compute_forces<COUL, EWALD, PAT, LIST, SW>(P, T, S, h0, false, w);
   }
   for (int s = 0; s < n_run; ++s) {
     const Box h = deform ? h_at(h0, eps, (float)(g0 + s) / n_tot) : h0;
@@ -820,7 +982,7 @@ md_run_kernel(Params P, Topo3 T, RunArgs A) {
       if (dt > 0.f) shake(P, T, S, invm, 1.f / dt);
     }
     for (int k = 0; k < 6; ++k) w[k] = 0.f;
-    compute_forces<COUL, EWALD, PAT, LIST>(P, T, S, h, sample != 0, w);
+    compute_forces<COUL, EWALD, PAT, LIST, SW>(P, T, S, h, sample != 0, w);
     add_fext<FEXT>(S, fext, N);
     for (int i = tid; i < N; i += nt) {
       const float im = invm[i];
@@ -880,7 +1042,7 @@ md_run_kernel(Params P, Topo3 T, RunArgs A) {
   if (tid < 6) A.press[job * 6 + tid] = pacc[tid];
 }
 
-template <bool COUL, bool EWALD, bool PAT, bool LIST>
+template <bool COUL, bool EWALD, bool PAT, bool LIST, bool SW = false>
 __global__ void __launch_bounds__(LIST ? 768 : (COUL ? 896 : 512))
 md_forces_kernel(Params P, Topo3 T, const float* __restrict__ pos,
                  const float* __restrict__ h6, float* __restrict__ force,
@@ -898,7 +1060,7 @@ md_forces_kernel(Params P, Topo3 T, const float* __restrict__ pos,
   const Box h = {hb[0], hb[1], hb[2], hb[3], hb[4], hb[5]};
   __syncthreads();
   float w[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  compute_forces<COUL, EWALD, PAT, LIST>(P, T, S, h, true, w);
+  compute_forces<COUL, EWALD, PAT, LIST, SW>(P, T, S, h, true, w);
   float* f = force + (size_t)job * 3 * N;
   for (int i = tid; i < N; i += nt) {
     f[i] = S.fx[i]; f[N + i] = S.fy[i]; f[2 * N + i] = S.fz[i];
@@ -926,10 +1088,10 @@ cudaError_t prepare(K kernel, int N, size_t bytes, int* threads) {
                               (int)bytes);
 }
 
-template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, bool LIST>
+template <bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, bool LIST, bool SW = false>
 cudaError_t launch_run(const Params& P, const Topo3& T, const RunArgs& A, int B,
                        cudaStream_t stream) {
-  auto kernel = md_run_kernel<COUL, EWALD, PAT, SHAKE, FEXT, LIST>;
+  auto kernel = md_run_kernel<COUL, EWALD, PAT, SHAKE, FEXT, LIST, SW>;
   const size_t bytes = smem_bytes(P.N);
   int threads = 0;
   cudaError_t err = prepare(kernel, P.N, bytes, &threads);
@@ -938,11 +1100,11 @@ cudaError_t launch_run(const Params& P, const Topo3& T, const RunArgs& A, int B,
   return cudaGetLastError();
 }
 
-template <bool COUL, bool EWALD, bool PAT, bool LIST>
+template <bool COUL, bool EWALD, bool PAT, bool LIST, bool SW = false>
 cudaError_t launch_forces(const Params& P, const Topo3& T, const float* pos,
                           const float* h6, float* force, float* virial, int B,
                           cudaStream_t stream) {
-  auto kernel = md_forces_kernel<COUL, EWALD, PAT, LIST>;
+  auto kernel = md_forces_kernel<COUL, EWALD, PAT, LIST, SW>;
   const size_t bytes = smem_bytes(P.N);
   int threads = 0;
   cudaError_t err = prepare(kernel, P.N, bytes, &threads);
@@ -958,6 +1120,7 @@ cudaError_t launch_forces(const Params& P, const Topo3& T, const float* pos,
 //   none                              K1: united-atom chain melts
 //   COUL+PATTERNS(+SHAKE)             all-atom PE with cutoff Coulomb
 //   COUL+EWALD+PATTERNS(+SHAKE)+FEXT  all-atom PE with the k-space split
+// K5 (SW) is one more instance with every other flag off (run_entry).
 template <bool LIST>
 cudaError_t dispatch_run(const Params& P, const Topo3& T, const RunArgs& A, bool coul,
                          bool ewald, int B, cudaStream_t s) {
@@ -984,11 +1147,11 @@ cudaError_t dispatch_forces(const Params& P, const Topo3& T, bool coul, bool ewa
                : launch_forces<true, false, true, LIST>(P, T, pos, h6, force, virial, B, s);
 }
 
-// Every operand of a K1/K3/K4 launch; mirrored field for field by
+// Every operand of a K1/K3/K4/K5 launch; mirrored field for field by
 // ops/md_fused.py's ctypes structure _MDArgs.  The flags coul and ewald,
 // the pattern and SHAKE counts in topo3 and a non-null fext select the
-// instantiation; the exported entry (md_allpairs_* or md_list_*) selects
-// the pair loop.
+// instantiation; the exported entry (md_allpairs_*, md_list_* or md_sw_*)
+// selects the pair loop, or K5's sweeps.
 struct MDArgs {
   const float *lj1, *lj2, *topo, *qq, *pat, *shk, *invm, *mftm;
   float *state, *vxi, *press;
@@ -1000,13 +1163,17 @@ struct MDArgs {
   int B, N, K, deform, sample, coul, ewald;
   float cutoff2, r2min, coul_cutoff2, alpha, ndof, boltz, nktv2p, tdamp;
   Topo3 topo3;
+  SWC sw;
 };
 
-template <bool LIST>
+template <bool LIST, bool SW = false>
 bool args_ok(const MDArgs* a) {
   // SHAKE keeps 3 + n_shk rows of N floats in the 12 N role buffer
   if (a->topo3.n_pat > MAXPAT || a->topo3.n_shk > MAXSHK) return false;
-  if constexpr (LIST) {
+  if constexpr (SW) {  // K5 has no planes, Coulomb, patterns, SHAKE or fext
+    return a->sw.rc > 0.f && !a->coul && !a->ewald && a->topo3.n_pat == 0 &&
+           a->topo3.n_shk == 0 && !a->fext;
+  } else if constexpr (LIST) {
     return a->K > 0 && a->nidx && a->nlj1 && a->nlj2 && a->nimx && a->nimy && a->nimz &&
            (!a->coul || a->nqq);
   } else {
@@ -1017,24 +1184,34 @@ bool args_ok(const MDArgs* a) {
 Params params_of(const MDArgs* a) {
   return Params{a->lj1, a->lj2, a->topo, a->N, a->cutoff2, a->r2min, a->qq, a->pat, a->shk,
                 a->coul_cutoff2, a->alpha, a->nidx, a->nlj1, a->nlj2, a->nqq, a->nimx,
-                a->nimy, a->nimz, a->K};
+                a->nimy, a->nimz, a->K, a->sw};
 }
 
-template <bool LIST>
+// SW: K5's one instance (no other flag); otherwise the flag sets above
+template <bool LIST, bool SW = false>
 int run_entry(const MDArgs* a, void* stream) {
-  if (!args_ok<LIST>(a)) return (int)cudaErrorInvalidValue;
+  if (!args_ok<LIST, SW>(a)) return (int)cudaErrorInvalidValue;
   RunArgs A{a->invm, a->mftm, a->state, a->vxi, a->press, a->n_run, a->gstep0, a->n_tot,
             a->fscal, a->fext, a->deform, a->sample, a->ndof, a->boltz, a->nktv2p, a->tdamp};
   if (LIST && (!a->gstep0 || !a->n_tot)) return (int)cudaErrorInvalidValue;
-  return static_cast<int>(dispatch_run<LIST>(params_of(a), a->topo3, A, a->coul != 0,
-                                             a->ewald != 0, a->B,
-                                             static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (SW)
+    return static_cast<int>(launch_run<false, false, false, false, false, false, true>(
+        params_of(a), a->topo3, A, a->B, s));
+  else
+    return static_cast<int>(dispatch_run<LIST>(params_of(a), a->topo3, A, a->coul != 0,
+                                               a->ewald != 0, a->B, s));
 }
 
-template <bool LIST>
+template <bool LIST, bool SW = false>
 int forces_entry(const MDArgs* a, void* stream) {
-  if (!args_ok<LIST>(a)) return (int)cudaErrorInvalidValue;
-  return static_cast<int>(dispatch_forces<LIST>(params_of(a), a->topo3, a->coul != 0,
+  if (!args_ok<LIST, SW>(a)) return (int)cudaErrorInvalidValue;
+  if constexpr (SW)
+    return static_cast<int>(launch_forces<false, false, false, false, true>(
+        params_of(a), a->topo3, a->pos, a->h6, a->force, a->virial, a->B,
+        static_cast<cudaStream_t>(stream)));
+  else
+    return static_cast<int>(dispatch_forces<LIST>(params_of(a), a->topo3, a->coul != 0,
                                                 a->ewald != 0, a->pos, a->h6, a->force,
                                                 a->virial, a->B,
                                                 static_cast<cudaStream_t>(stream)));

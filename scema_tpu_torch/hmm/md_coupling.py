@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..bridging import bridge
-from ..config import HMMConfig
+from ..config import HMMConfig, md_spec_kwargs
 from ..fem import assembly
 from ..fem import fe_problem as FE
 from ..fem import shapes
@@ -222,8 +222,11 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                  material: torch.Tensor | None = None) -> MDHMMProblem:
     """Assemble the MD-coupled HMM, preparing every material x replica on
     the device first (FIRE + NVT, then stress sampling and the stiffness
-    probe).  ``spec`` replaces the config's material (the charged all-atom
-    PE melt is selected this way, as the JAX package does).  ``device``
+    probe).  Without ``spec`` each material takes the config's effective
+    force field (``"force field": "sw"``, or a ``sisw`` scripts directory,
+    gives the 216-atom diamond-Si SW box on K5); ``spec`` replaces the
+    config's material (the charged all-atom PE melt is selected this way,
+    as the JAX package does).  ``device``
     None means the current CUDA device (an error without one);
     ``device="cpu"`` runs the kernels' plain versions.
 
@@ -245,8 +248,11 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
         specs = [M.MaterialSpec(**{**spec.__dict__, "name": name}) for name in materials] \
             if len(materials) > 1 else [spec]
     else:
-        specs = [M.MaterialSpec(name=name, force_field=cfg.md.force_field)
-                 for name in materials]
+        # the config's effective force field ("sw" for a sisw scripts
+        # directory), as the JAX package's md_spec_kwargs gives it
+        if cfg.md.force_field == "reax":
+            raise NotImplementedError("the ReaxFF force field is not ported (ROADMAP item 12)")
+        specs = [M.MaterialSpec(name=name, **md_spec_kwargs(cfg)) for name in materials]
     params = MDParams(temperature=cfg.md.temperature, dt=cfg.md.timestep_length,
                       strain_rate=cfg.md.strain_rate, nsteps_sample=cfg.md.nsteps_sample)
     problem = make_problem(cfg, dtype, device)

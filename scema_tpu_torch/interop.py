@@ -22,6 +22,7 @@ from .md.constraints import Constraints
 from .md.engine import MDState
 from .md.forcefields.coulomb import Ewald
 from .md.forcefields.pme import PME
+from .md.forcefields.sw import SW
 from .md.material import InitData
 from .md.neighbor import NeighborList
 
@@ -49,6 +50,11 @@ def micro_states(m, dtype=torch.float64, device=None) -> MicroStates:
                        h=_t(m.h, dtype, device), vxi=_t(m.vxi, dtype, device),
                        has_run=torch.as_tensor(np.asarray(m.has_run).astype(bool),
                                                device=device))
+
+
+def sw(ff) -> SW:
+    """JAX ``forcefields.sw.SW`` -> the port's, with the same ten constants."""
+    return SW(**{f: float(getattr(ff, f)) for f in SW.__dataclass_fields__})
 
 
 def replica_ensemble(ens, dtype=torch.float64, device=None) -> ReplicaEnsemble:

@@ -4,8 +4,9 @@ strain driving, virial pressure sampling, FIRE relaxation.
 Torch twin of the fused-path subset of ``scema_tpu/md/engine.py`` (the
 replacement for the LAMMPS instances the reference spawns per quadrature
 point, stmd_problem.h:83-383).  Every dynamics run goes through kernel K1
-(``ops/md_fused.py``), or through K3 for charged all-atom systems, or K4
-(the gather-list pair loop) for boxes above the all-pairs gate; FIRE and
+(``ops/md_fused.py``), or through K3 for charged all-atom systems, K4
+(the gather-list pair loop) for boxes above the all-pairs gate, or K5 for
+Stillinger-Weber silicon; FIRE and
 the stiffness probe take their forces from the kernel's force + virial
 entry (K4 builds a fresh list per call) plus, with Ewald/PME, the smooth
 k-space remainder.  The unfused
@@ -63,7 +64,7 @@ class MDState:
 class MDSystem:
     """Static MD configuration: force field, masses, units, kernel inputs."""
 
-    ff: object  # forcefields.opls.OPLS
+    ff: object  # forcefields.opls.OPLS or forcefields.sw.SW
     masses: torch.Tensor  # (N,)
     fused: MF.FusedRunner
     units: UnitSystem = REAL

@@ -12,7 +12,8 @@ stmd_problem.h:83-383):
    (ELASTIC/in.homogenization.lammps);
 5. ATM -> Pa with the reference's -1.01325e5 factor (stmd_problem.h:335-341).
 
-Here the whole batch of jobs runs in one kernel launch per phase (K1, or
+Here the whole batch of jobs runs in one kernel launch per phase (K1, K5 for
+SW silicon, or
 K3/K4 for charged all-atom boxes: one launch per chunk when the smooth
 k-space remainder and, on K4, the neighbor list are refreshed between
 chunks), and inactive batch entries are skipped by the kernel with their

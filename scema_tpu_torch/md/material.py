@@ -1,23 +1,26 @@
 """Material initialization: build + equilibrate a replica, measure its
 equilibrium length/stress/stiffness/density.
 
-Torch twin of the OPLS subset of ``scema_tpu/md/material.py`` (the
+Torch twin of the SW and OPLS subsets of ``scema_tpu/md/material.py`` (the
 on-device ``init_material``, init_material_problem.h:114-303): build the
-united-atom alkane melt or the charged all-atom PE melt (the reference's
-OPLS material: ``lj/cut/coul/long`` + ``pppm`` + ``fix shake ... m 1.0``),
-relax it with FIRE, thermalize with NVT (``equilibrate``, the quick
-fixed-box prep), then sample the residual stress and probe the 6x6
-stiffness (``measure``).  For Ewald/PME systems ``build_kspace_split``
-gives the smooth k-space remainder that kernels K3 and K4 hold frozen
-between chunks.  A box above the TPU kernel's all-pairs admission gate (or
-any with ``force_list_kernel``) runs K4's gather-list pair loop over a
-neighbor list rebuilt every ``rebuild_every`` steps.  The staged
-heatup/cooldown NPT prep (``equilibrate_staged``), the other force fields
-and systems read from data files are not ported yet.
+diamond-Si Stillinger-Weber box (the streched_polyhedron example's
+material, kernel K5), the united-atom alkane melt or the charged all-atom
+PE melt (the reference's OPLS material: ``lj/cut/coul/long`` + ``pppm`` +
+``fix shake ... m 1.0``), relax it with FIRE, thermalize with NVT
+(``equilibrate``, the quick fixed-box prep), then sample the residual
+stress and probe the 6x6 stiffness (``measure``). For Ewald/PME systems
+``build_kspace_split`` gives the smooth k-space remainder that kernels K3
+and K4 hold frozen between chunks. A box above the TPU kernel's all-pairs
+admission gate (or any with ``force_list_kernel``) runs K4's gather-list
+pair loop over a neighbor list rebuilt every ``rebuild_every`` steps. The
+staged heatup/cooldown NPT prep (``equilibrate_staged``), SW boxes off the
+fused all-pairs gate (the one-hot structure, the brick kernels, spatial
+shards), the LJ and ReaxFF force fields and systems read from data files
+are not ported yet.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -26,7 +29,9 @@ from ..ops import md_fused as MF
 from ..utils.device import resolve
 from . import box as B
 from . import engine as E
+from . import lattice
 from . import neighbor as NB
+from .forcefields import sw as SWmod
 from .homogenization import MDParams, stiffness_probe
 from .units import ATM_TO_PA, REAL
 
@@ -36,12 +41,21 @@ DENSITY_CONV = 1660.539
 
 @dataclass(frozen=True)
 class MaterialSpec:
-    """One MD material box: the fields of the JAX MaterialSpec that the
-    OPLS paths read, with the same defaults, except that ``force_field``
-    defaults to the one ported force field."""
+    """One MD material box: the fields of the JAX MaterialSpec that the SW
+    and OPLS paths read, with the same names and defaults."""
 
     name: str
-    force_field: str = "opls"  # only "opls" is ported
+    force_field: str = "sw"  # sw | opls (lj and reax are not ported)
+    n_cells: int = 3  # diamond lattice cells per dimension (sw)
+    # non-cubic cell counts (overrides n_cells)
+    n_cells_xyz: tuple | None = None
+    a0: float = 5.431  # lattice parameter (A)
+    mass: float = 28.0855  # g/mol
+    sw: SWmod.SW = field(default_factory=lambda: SWmod.SI)
+    # neighbor-list width; None = per-force-field default (sw 20, opls
+    # density-derived, at least MIN_LIST_WIDTH); an explicit value is
+    # honoured as given
+    neighbor_k: int | None = None
     # 64 chains x 8 beads => L ~ 25.8 A at 0.7 g/cm^3
     n_chains: int = 64
     chain_length: int = 8
@@ -63,6 +77,10 @@ class MaterialSpec:
     rebuild_every: int = 10
     # run K4 even where the all-pairs gate would admit the box
     force_list_kernel: bool = False
+    # sw extras of the JAX package, not ported: the brick kernels (K6c-e)
+    # and the sharded force path of one big box
+    use_pallas_bricks: bool = False
+    spatial_shards: int = 0
     # setup-time checks (min image, list width, cell capacity); disable
     # only for test fixtures
     validate: bool = True
@@ -89,6 +107,8 @@ PEAA2240 = MaterialSpec(name="peaa2240", force_field="opls", allatom=True, n_cha
 ALLPAIRS_PLANE_BYTES = 81 * 1024 * 1024
 # the narrowest neighbor list (slots per atom) a box gets
 MIN_LIST_WIDTH = 32
+# the largest SW box on the fused all-pairs kernel K5 (material.py:645-648)
+SW_ALLPAIRS_MAX_ATOMS = 640
 
 
 @dataclass(frozen=True)
@@ -209,21 +229,25 @@ def build_kspace_split(ff, n: int):
 
 def build_system(spec: MaterialSpec, dtype=torch.float64,
                  device=None) -> tuple[E.MDSystem, E.MDState]:
-    """The OPLS branch of material._build_system (material.py:658-713): the
-    built-in united-atom alkane melt (K1's chain path) or, with
-    ``allatom``, the charged all-atom PE melt with SHAKE on the bonds to
-    hydrogen and, with ``use_ewald``, the Ewald/PME k-space split (K3); a
-    box the all-pairs gate refuses, or ``force_list_kernel``, runs K4.
-    ``device`` None means the current CUDA device (an error without one);
-    ``device="cpu"`` runs the kernels' plain versions."""
+    """The SW and OPLS branches of material._build_system: the diamond-Si
+    Stillinger-Weber box on K5 (:func:`_build_sw`); the built-in
+    united-atom alkane melt (K1's chain path) or, with ``allatom``, the
+    charged all-atom PE melt with SHAKE on the bonds to hydrogen and, with
+    ``use_ewald``, the Ewald/PME k-space split (K3); an OPLS box the
+    all-pairs gate refuses, or ``force_list_kernel``, runs K4
+    (material.py:658-713).  ``device`` None means the current CUDA device
+    (an error without one); ``device="cpu"`` runs the kernels' plain
+    versions."""
     from . import constraints as CN
     from . import data_io
 
     device = resolve(device)
+    if spec.force_field == "sw":
+        return _build_sw(spec, dtype, device)
     if spec.force_field != "opls":
         raise NotImplementedError(
-            f"material {spec.name!r}: only the OPLS force field is ported "
-            "(ROADMAP queue 1)")
+            f"material {spec.name!r}: force field {spec.force_field!r} is not ported "
+            "(only sw and opls are; ROADMAP queue 1)")
     if spec.allatom:
         data = data_io.build_pe_melt_allatom(spec.n_chains, spec.chain_length,
                                              density=spec.pe_density)
@@ -244,7 +268,7 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
             d0 = np.asarray(data.bond_coeffs)[np.asarray(data.bond_types)[sel], 1]
             cons = CN.from_bonds(b[sel], d0)
     # the list width from the density, not a constant (material.py:690-696)
-    k_max = max(MIN_LIST_WIDTH, NB.required_k(n, data.box, ff.cutoff + 1.0))
+    k_max = max(spec.neighbor_k or MIN_LIST_WIDTH, NB.required_k(n, data.box, ff.cutoff + 1.0))
     k_max = ((k_max + 7) // 8) * 8
     nspec = NB.derive_spec(n, data.box, cutoff=ff.cutoff, skin=1.0, k_max=k_max)
     if spec.validate:
@@ -260,6 +284,47 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons)
     st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
                       torch.as_tensor(data.box, dtype=dtype, device=device))
+    return sys, st
+
+
+def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
+    """The SW branch of material._build_system (material.py:626-649,
+    :776-808): a diamond lattice of ``n_cells`` (or ``n_cells_xyz``) cells
+    of edge ``a0`` with uniform masses, checked by ``_validate_setup``
+    with a 20-slot list (cutoff + 1 A skin), on kernel K5 — the JAX
+    package's fused all-pairs gate: at most 640 atoms, p = 4, q = 0, no
+    brick kernels.  What the gate refuses ran elsewhere in the JAX package
+    (the one-hot structure, the brick kernels K6c-e with the unfused
+    engine, the spatially sharded loop) and raises NotImplementedError
+    here."""
+    cxyz = spec.n_cells_xyz or (spec.n_cells,) * 3
+    pos, h = lattice.diamond(spec.a0, *cxyz)
+    n = len(pos)
+    ff = spec.sw
+    if spec.use_pallas_bricks:
+        raise NotImplementedError(
+            f"material {spec.name!r}: the SW brick kernels (K6c-e, use_pallas_bricks) and "
+            "the unfused engine they run in are not ported (ROADMAP queue 1)")
+    if spec.spatial_shards:
+        raise NotImplementedError(
+            f"material {spec.name!r}: the spatially sharded SW force path "
+            "(spatial_shards) is not ported (ROADMAP item 14)")
+    if n > SW_ALLPAIRS_MAX_ATOMS:
+        raise NotImplementedError(
+            f"material {spec.name!r}: {n} SW atoms exceed the fused all-pairs gate "
+            f"({SW_ALLPAIRS_MAX_ATOMS}); the JAX package runs such boxes on its one-hot "
+            "neighbor structure, which is not ported (ROADMAP queue 1)")
+    # the SW cutoff spans the first two diamond shells; 20 slots cover
+    # moderate compression (material.py:632-634)
+    k_max = spec.neighbor_k if spec.neighbor_k is not None else 20
+    nspec = NB.derive_spec(n, h, cutoff=ff.cutoff, skin=1.0, k_max=k_max)
+    if spec.validate:
+        _validate_setup(spec, pos, h, nspec)
+    masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
+    fused = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
+    sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL)
+    st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
+                      torch.as_tensor(h, dtype=dtype, device=device))
     return sys, st
 
 

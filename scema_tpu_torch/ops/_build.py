@@ -1,9 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
-``nvcc`` process per source, all started together (``md_allpairs.cu`` and
-``md_list.cu`` share their device code through ``md_kernel.cuh``) — and
-the objects are
+``nvcc`` process per source, all started together (``md_allpairs.cu``,
+``md_list.cu`` and ``md_sw.cu`` share their device code through
+``md_kernel.cuh``) — and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
 ``build/scema_tpu_torch/`` at the repository root, and is keyed by a hash of
@@ -40,12 +40,14 @@ _I = ctypes.c_int
 # are passed as 64-bit values)
 SIGNATURES = {
     "pairwise_l2_f32": [_P, _P, _I, _I, _P],
-    # K1/K3 (all-pairs) and K4 (gather list): a pointer to the MDArgs
-    # structure (md_fused._MDArgs) and the stream
+    # K1/K3 (all-pairs), K4 (gather list) and K5 (SW): a pointer to the
+    # MDArgs structure (md_fused._MDArgs) and the stream
     "md_allpairs_run_f32": [_P, _P],
     "md_allpairs_forces_f32": [_P, _P],
     "md_list_run_f32": [_P, _P],
     "md_list_forces_f32": [_P, _P],
+    "md_sw_run_f32": [_P, _P],
+    "md_sw_forces_f32": [_P, _P],
 }
 
 _lib = None

@@ -31,10 +31,18 @@ at the build — the host packs at each chunk start (:func:`pack_channels`,
 runner whose ``spec.k`` is set (boxes above the all-pairs gate, or
 ``force_list_kernel``) launches K4, with K3's or K1's other flags.
 
+K5 is the Stillinger-Weber branch of the same TPU kernel (``FusedSpec.sw``
+-> ``forces_allpairs_sw``): the p = 4, q = 0 family (Si) over all pairs in
+two sweeps per force call — the per-atom three-body moments (s, m, Q),
+then the ordered-pair w = dT/dd from per-atom adjoints in both roles — with
+no parameter planes and no bonded terms.  A runner from
+:func:`make_runner_sw` launches K5.
+
 Two entries, each a wrapper that launches ``csrc/md_allpairs.cu`` (K1,
-K3) or ``csrc/md_list.cu`` (K4) on CUDA tensors (counting the launch:
-``launches`` for K1, ``launches_k3`` for K3, ``launches_k4`` for K4) and
-runs the plain PyTorch version of the same function on CPU tensors:
+K3), ``csrc/md_list.cu`` (K4) or ``csrc/md_sw.cu`` (K5) on CUDA tensors
+(counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
+``launches_k4`` for K4, ``launches_k5`` for K5) and runs the plain
+PyTorch version of the same function on CPU tensors:
 
 * :func:`md_run` — one whole run (``deform`` and/or ``sample`` mode) of B
   jobs; the kernel runs one thread block per job.
@@ -82,7 +90,7 @@ _PATTERN_KIND = {"bond": 0, "angle": 1, "dihedral": 2}
 
 @dataclass(frozen=True)
 class FusedSpec:
-    """Static configuration of K1/K3/K4 for one MD system."""
+    """Static configuration of K1/K3/K4/K5 for one MD system."""
 
     n_atoms: int
     cutoff2: float  # LJ cutoff squared
@@ -108,6 +116,11 @@ class FusedSpec:
     shake_relax: float = 0.8
     # K4: neighbor-list width (slots per atom); 0 = the all-pairs planes
     k: int = 0
+    # K5: Stillinger-Weber (p = 4, q = 0) over all pairs, with the eight
+    # constants in the JAX package's order (eps, sigma, a, lam, gamma,
+    # costheta0, A, B); no planes, no bonded terms
+    sw: bool = False
+    sw_params: tuple = ()
 
     @property
     def k3(self) -> bool:
@@ -116,7 +129,9 @@ class FusedSpec:
 
     @property
     def kernel(self) -> str:
-        """The kernel this runner launches: K4 (list), K3 or K1."""
+        """The kernel this runner launches: K5 (SW), K4 (list), K3 or K1."""
+        if self.sw:
+            return "K5"
         return "K4" if self.k else ("K3" if self.k3 else "K1")
 
     @property
@@ -125,22 +140,23 @@ class FusedSpec:
         on = [name for name, v in (("COUL", self.coul), ("EWALD", self.ewald_alpha > 0.0),
                                    ("PATTERNS", bool(self.bonded_pattern)),
                                    ("SHAKE", bool(self.shake_offsets)), ("FEXT", self.fext),
-                                   ("LIST", self.k > 0))
+                                   ("LIST", self.k > 0), ("SW", self.sw))
               if v]
         return "+".join(on) or "none"
 
 
 @dataclass(frozen=True)
 class FusedRunner:
-    """Position-independent device inputs of K1/K3/K4 for one MD system
-    (K4 gathers its per-slot lj1/lj2/qq from the same dense planes)."""
+    """Position-independent device inputs of K1/K3/K4/K5 for one MD system
+    (K4 gathers its per-slot lj1/lj2/qq from the same dense planes; K5
+    has no planes and no topology)."""
 
     spec: FusedSpec
     invm: torch.Tensor  # (N,) ftm2v / m
     mftm: torch.Tensor  # (N,) m / ftm2v
-    lj1: torch.Tensor  # (N, N) 48 eps sig^12 w, zero diagonal
-    lj2: torch.Tensor  # (N, N) 24 eps sig^6 w
-    topo: torch.Tensor  # (16, N) chain-term rows (zero with patterns)
+    lj1: torch.Tensor | None = None  # (N, N) 48 eps sig^12 w, zero diagonal
+    lj2: torch.Tensor | None = None  # (N, N) 24 eps sig^6 w
+    topo: torch.Tensor | None = None  # (16, N) chain-term rows (zero with patterns)
     qq: torch.Tensor | None = None  # (N, N) qqr2e q_i q_j w_coul (COUL)
     pat: torch.Tensor | None = None  # (R, N) pattern parameter rows (PATTERNS)
     shk: torch.Tensor | None = None  # (n_off, N) SHAKE d0^2 rows (SHAKE)
@@ -378,12 +394,57 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                      shake_offsets=shake_offsets, k=int(nspec.k_max) if nspec is not None else 0)
     lj1, lj2 = dense_planes(ff, dtype, device)
     return FusedRunner(
-        spec=spec,
-        invm=torch.where(m > 0, units.ftm2v / m, torch.zeros_like(m)).to(device=device, dtype=dtype),
-        mftm=(m / units.ftm2v).to(device=device, dtype=dtype),
-        lj1=lj1, lj2=lj2, topo=topo,
+        spec=spec, **_mass_rows(m, units, dtype, device), lj1=lj1, lj2=lj2, topo=topo,
         qq=dense_qq(ff, dtype, device) if coul else None, pat=pat, shk=shk,
         kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every)
+
+
+def make_runner_sw(sw, masses: torch.Tensor, units, tdamp: float = 100.0,
+                   dtype=torch.float64, device=None) -> FusedRunner:
+    """K5's inputs for a single-element Stillinger-Weber system ``sw``
+    (``forcefields.sw.SW``) — the JAX package's ``_build_fused_runner_sw``
+    (material.py:512-551): the SW constants go into the spec, the kernel
+    keeps no planes, and the thermostat counts 3N - 3 degrees of freedom.
+    Only the p = 4, q = 0 family (Si) has a kernel; any other raises
+    NotImplementedError (the JAX package falls back to its XLA engine,
+    which the port does not have yet)."""
+    if not (abs(float(sw.p) - 4.0) < 1e-12 and abs(float(sw.q)) < 1e-12):
+        raise NotImplementedError(
+            f"K5 computes the p = 4, q = 0 SW family only (got p = {sw.p}, q = {sw.q}); "
+            "the unfused SW engine is not ported (ROADMAP queue 1)")
+    n = int(masses.shape[0])
+    m = masses.to(torch.float64).cpu()
+    spec = FusedSpec(n_atoms=n, cutoff2=float(sw.cutoff) ** 2, ndof=3 * n - 3,
+                     boltz=units.boltz, ftm2v=units.ftm2v, nktv2p=units.nktv2p, tdamp=tdamp,
+                     sw=True,
+                     sw_params=(float(sw.epsilon), float(sw.sigma), float(sw.a), float(sw.lam),
+                                float(sw.gamma), float(sw.costheta0), float(sw.A), float(sw.B)))
+    return FusedRunner(spec=spec, **_mass_rows(m, units, dtype, device))
+
+
+def _mass_rows(m: torch.Tensor, units, dtype, device) -> dict:
+    """The runner's per-atom rows from float64 masses m (N,): invm =
+    ftm2v / m (zero for massless sites) and mftm = m / ftm2v."""
+    return dict(invm=torch.where(m > 0, units.ftm2v / m, torch.zeros_like(m)).to(device=device,
+                                                                              dtype=dtype),
+                mftm=(m / units.ftm2v).to(device=device, dtype=dtype))
+
+
+def sw_consts(spec: FusedSpec) -> dict:
+    """K5's constants, derived on the host in double precision from
+    ``spec.sw_params`` with the TPU kernel's association
+    (md_fused.py:923-1050), so that the kernel (which takes them in
+    float32) and the plain version see the same numbers: the cutoff rc =
+    a sig and the mask bound (rc - 1e-6)^2; gs = gam sig; the two-body
+    factors A eps, B and -4 B; the adjoint factors lam eps c0^2 (a_s),
+    -2 lam eps c0 (a_m), lam eps (a_Q) and the constant a_gsq =
+    -(lam eps / 2)(1 - c0)^2."""
+    eps, sig, a, lam, gam, c0, A, Bc = spec.sw_params
+    rc = a * sig
+    lam_eps = lam * eps
+    return dict(rc=rc, rc2=(rc - 1e-6) ** 2, sig=sig, gs=gam * sig, aeps=A * eps, b=Bc,
+                m4b=-4.0 * Bc, lam_eps=lam_eps, k_s=lam_eps * c0 * c0,
+                k_m=-2.0 * lam_eps * c0, a_gsq=-(lam_eps / 2.0) * (1.0 - c0) ** 2)
 
 
 def pack_channels(runner: FusedRunner, pos: torch.Tensor, h: torch.Tensor,
@@ -786,11 +847,115 @@ def _list_block_plain(spec, p, h6, nbr, want_virial):
     return _apply_plain(fpair, dx, dy, dz, 1, want_virial)
 
 
+def _sw_w(c, ux, uy, uz, inv_r, g, dg, radial0, adj):
+    """w = dT/dd of ordered pairs whose centres have the adjoints ``adj``
+    = (a_s, a_mx, a_my, a_mz, a_Qxx, a_Qyy, a_Qzz, a_Qxy, a_Qxz, a_Qyz),
+    broadcastable against the pair planes (``w_of``, md_fused.py:1011)."""
+    a_s, amx, amy, amz, qxx, qyy, qzz, qxy, qxz, qyz = adj
+    am_u = amx * ux + amy * uy + amz * uz
+    qu_x = qxx * ux + qxy * uy + qxz * uz
+    qu_y = qxy * ux + qyy * uy + qyz * uz
+    qu_z = qxz * ux + qyz * uy + qzz * uz
+    uqu = ux * qu_x + uy * qu_y + uz * qu_z
+    radial = radial0 + dg * (a_s + 2.0 * c["a_gsq"] * g + am_u + uqu)
+    tang = g * inv_r
+    t2 = am_u + 2.0 * uqu
+    return (radial * ux + tang * (amx + 2.0 * qu_x - t2 * ux),
+            radial * uy + tang * (amy + 2.0 * qu_y - t2 * uy),
+            radial * uz + tang * (amz + 2.0 * qu_z - t2 * uz))
+
+
+def _sw_block_plain(spec, p, h6, want_virial):
+    """K5's two sweeps on (b, N) rows over the (b, N, N) ordered pairs
+    (``forces_allpairs_sw``, md_fused.py:910-1081), centre i on axis 1,
+    neighbour j on axis 2, d = r_j - r_i by the sequential triclinic
+    minimum image (``block_geom``).
+
+    Sweep 1: per-atom moments s = sum g, m = sum g u, Q = sum g u (x) u with
+    g = exp(gam sig / (r - rc)) on live pairs (r2 < (rc - 1e-6)^2, r2 >
+    1e-8, j != i); sum g^2 is not needed, its adjoint being a constant.
+    Adjoints: a_s = lam eps c0^2 s, a_m = -2 lam eps c0 m, a_Q = lam eps Q.
+    Sweep 2: w_A with the centre's adjoints, w_B with the neighbour's
+    (direction -u); f_i = sum_j (w_A - w_B); the virial W -= sym(w_A (x) d)
+    over role A's ordered pairs."""
+    c = sw_consts(spec)
+    lx, ly, lz, xy, xz, yz = (h[:, None, None] for h in h6)
+    n = p[0].shape[-1]
+    dx = p[0][:, None, :] - p[0][:, :, None]
+    dy = p[1][:, None, :] - p[1][:, :, None]
+    dz = p[2][:, None, :] - p[2][:, :, None]
+    n3 = torch.round(dz * (1.0 / lz))
+    dz = dz - n3 * lz
+    dy = dy - n3 * yz
+    n2 = torch.round(dy * (1.0 / ly))
+    dy = dy - n2 * ly
+    dx = dx - n3 * xz - n2 * xy
+    n1 = torch.round(dx * (1.0 / lx))
+    dx = dx - n1 * lx
+    r2 = dx * dx + dy * dy + dz * dz
+    eye = torch.eye(n, dtype=torch.bool, device=r2.device)
+    mask = (r2 < c["rc2"]) & (r2 > 1e-8) & ~eye
+    one = torch.ones((), dtype=r2.dtype, device=r2.device)
+    zero = torch.zeros_like(one)
+    r = torch.sqrt(torch.where(mask, r2, one))
+    inv_r = 1.0 / r
+    ux, uy, uz = dx * inv_r, dy * inv_r, dz * inv_r
+    denom = torch.where(mask, r - c["rc"], -one)
+    g = torch.where(mask, torch.exp(c["gs"] / denom), zero)
+
+    # sweep 1: moments, then the per-atom adjoints
+    gx, gy, gz = g * ux, g * uy, g * uz
+    mom = [g, gx, gy, gz, gx * ux, gy * uy, gz * uz, gx * uy, gx * uz, gy * uz]
+    mom = [x.sum(-1) for x in mom]
+    adj = ([c["k_s"] * mom[0]] + [c["k_m"] * x for x in mom[1:4]]
+           + [c["lam_eps"] * x for x in mom[4:]])
+
+    # sweep 2: the pair term and both roles' w
+    expo = torch.exp(c["sig"] / denom)
+    sr2 = (c["sig"] * inv_r) ** 2
+    srp = sr2 * sr2
+    phi2 = c["aeps"] * (c["b"] * srp - 1.0) * expo
+    id2 = denom * denom
+    dphi2 = c["aeps"] * (c["m4b"] * srp * inv_r) * expo + phi2 * (-c["sig"] / id2)
+    dg = g * (-c["gs"] / id2)
+    radial0 = 0.5 * dphi2
+    wa = _sw_w(c, ux, uy, uz, inv_r, g, dg, radial0, [a[:, :, None] for a in adj])
+    wb = _sw_w(c, -ux, -uy, -uz, inv_r, g, dg, radial0, [a[:, None, :] for a in adj])
+    wa = [torch.where(mask, x, zero) for x in wa]
+    wb = [torch.where(mask, x, zero) for x in wb]
+    f = [(wa[k] - wb[k]).sum(-1) for k in range(3)]
+    w6 = None
+    if want_virial:
+        w6 = [-(wa[0] * dx).sum((-1, -2)), -(wa[1] * dy).sum((-1, -2)),
+              -(wa[2] * dz).sum((-1, -2)),
+              -0.5 * (wa[0] * dy + wa[1] * dx).sum((-1, -2)),
+              -0.5 * (wa[0] * dz + wa[2] * dx).sum((-1, -2)),
+              -0.5 * (wa[1] * dz + wa[2] * dy).sum((-1, -2))]
+    return f, w6
+
+
+def _sw_forces_plain(runner: FusedRunner, p, h6, want_virial: bool):
+    """K5's plain version on (B, N) rows, in slices of jobs that bound the
+    (b, N, N) pair temporaries, as :func:`_pair_forces_plain` does.
+    Returns ((fx, fy, fz), w6 list of (B,) or None)."""
+    n = p[0].shape[-1]
+    step = max(1, _PLAIN_PAIRS // max(n * n, 1))
+    parts = [_sw_block_plain(runner.spec, [x[s:s + step] for x in p],
+                             [h[s:s + step] for h in h6], want_virial)
+             for s in range(0, p[0].shape[0], step)]
+    f = [torch.cat([pt[0][a] for pt in parts]) for a in range(3)]
+    w6 = [torch.cat([pt[1][k] for pt in parts]) for k in range(6)] if want_virial else None
+    return f, w6
+
+
 def _forces_plain(runner: FusedRunner, p, h6, want_virial: bool, nbr: dict | None = None):
     """Pair + bonded (chain or pattern) forces on (B, N) rows; h6 is a list
-    of six (B,) box scalars; ``nbr`` K4's channels for a list runner.
+    of six (B,) box scalars; ``nbr`` K4's channels for a list runner; an
+    SW runner takes K5's two sweeps (no bonded terms).
     Returns ((fx, fy, fz), w6 list of (B,) or None).  The frozen k-space
     force is not included."""
+    if runner.spec.sw:
+        return _sw_forces_plain(runner, p, h6, want_virial)
     f, w6 = _pair_forces_plain(runner, p, h6, want_virial, nbr if runner.spec.k else None)
     if runner.spec.bonded_pattern:
         fb, wb = bonded_pattern_forces_plain(p, runner.pat, runner.spec.bonded_pattern)
@@ -954,8 +1119,9 @@ def _smem_rows(spec: FusedSpec) -> int:
     """Rows of N floats one block keeps: positions, velocities and forces
     (9) and the bonded role buffer (12: four roles x three components for
     the chain or pattern terms; SHAKE reuses it for the pre-drift
-    positions and one factor row per offset, 3 + n_offsets rows) — the
-    carve of csrc/md_allpairs.cu for every flag set."""
+    positions and one factor row per offset, 3 + n_offsets rows; K5 keeps
+    its ten per-atom adjoints there) — the carve of csrc/md_kernel.cuh for
+    every flag set."""
     if 3 + len(spec.shake_offsets) > 12:
         raise ValueError(f"K3: {len(spec.shake_offsets)} SHAKE offsets exceed the "
                          "12-row role buffer")
@@ -1028,6 +1194,13 @@ class _Topo3(ctypes.Structure):
                 ("relax", ctypes.c_float)]
 
 
+class _SWC(ctypes.Structure):
+    """Mirror of the kernel's SWC: K5's constants (:func:`sw_consts`)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "rc", "rc2", "sig", "gs", "aeps", "b", "m4b", "lam_eps", "k_s", "k_m", "a_gsq")]
+
+
 class _MDArgs(ctypes.Structure):
     """Mirror of the kernel's MDArgs, field for field."""
 
@@ -1039,7 +1212,7 @@ class _MDArgs(ctypes.Structure):
                                              "ewald")]
         + [(name, ctypes.c_float) for name in (
             "cutoff2", "r2min", "coul_cutoff2", "alpha", "ndof", "boltz", "nktv2p", "tdamp")]
-        + [("topo3", _Topo3)])
+        + [("topo3", _Topo3), ("sw", _SWC)])
 
 
 def _md_args(runner: FusedRunner, B_: int, nbr: dict | None = None, **ptrs) -> _MDArgs:
@@ -1048,11 +1221,14 @@ def _md_args(runner: FusedRunner, B_: int, nbr: dict | None = None, **ptrs) -> _
     if nbr is not None:
         for name, t in nbr.items():
             setattr(a, "n" + name, t.data_ptr())
-    a.lj1, a.lj2, a.topo, a.invm, a.mftm = (_f(t) for t in (
-        runner.lj1, runner.lj2, runner.topo, runner.invm, runner.mftm))
-    for name, t in (("qq", runner.qq), ("pat", runner.pat), ("shk", runner.shk)):
+    a.invm, a.mftm = _f(runner.invm), _f(runner.mftm)
+    for name, t in (("lj1", runner.lj1), ("lj2", runner.lj2), ("topo", runner.topo),
+                    ("qq", runner.qq), ("pat", runner.pat), ("shk", runner.shk)):
         if t is not None:
             setattr(a, name, _f(t))
+    if spec.sw:
+        for name, v in sw_consts(spec).items():
+            setattr(a.sw, name, v)
     for name, v in ptrs.items():
         setattr(a, name, v)
     a.B, a.N, a.K = B_, spec.n_atoms, spec.k
@@ -1129,22 +1305,28 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     ch = _check_channels(runner, nbr, Bn) if spec.k else None
     args = _md_args(runner, Bn, ch, **ptrs)
     args.deform, args.sample = int(deform), int(sample)
-    entry = "md_list_run_f32" if spec.k else "md_allpairs_run_f32"
+    entry = _ENTRY[spec.kernel] + "_run_f32"
     rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(st.device))
     _build.check(rc, f"{entry} (flags {spec.flags})")
     _count(md_run, spec)
     return st, xi, press
 
 
+# exported entry prefix and launch counter of each kernel
+_ENTRY = {"K1": "md_allpairs", "K3": "md_allpairs", "K4": "md_list", "K5": "md_sw"}
+_COUNTER = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4", "K5": "launches_k5"}
+
+
 def _count(fn, spec: FusedSpec) -> None:
     """One launch more on the wrapper's counter of this runner's kernel."""
-    attr = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4"}[spec.kernel]
+    attr = _COUNTER[spec.kernel]
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 md_run.launches = 0
 md_run.launches_k3 = 0
 md_run.launches_k4 = 0
+md_run.launches_k5 = 0
 
 
 def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
@@ -1176,7 +1358,7 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
     ch = _check_channels(runner, nbr, Bn) if spec.k else None
     args = _md_args(runner, Bn, ch, pos=pos.data_ptr(), h6=h6.data_ptr(),
                     force=force.data_ptr(), virial=vir.data_ptr())
-    entry = "md_list_forces_f32" if spec.k else "md_allpairs_forces_f32"
+    entry = _ENTRY[spec.kernel] + "_forces_f32"
     rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(pos.device))
     _build.check(rc, f"{entry} (flags {spec.flags})")
     _count(md_forces_virial, spec)
@@ -1186,6 +1368,7 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
 md_forces_virial.launches = 0
 md_forces_virial.launches_k3 = 0
 md_forces_virial.launches_k4 = 0
+md_forces_virial.launches_k5 = 0
 
 
 # --------------------------------------------------------------------------

@@ -3,13 +3,16 @@
     python -m scema_tpu_torch.profile_slice [--steps 8] [--repeats 10] [--trace out.json]
     python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --bigbox [--steps 3] [--repeats 3]
+    python -m scema_tpu_torch.profile_slice --sw [--steps 8] [--repeats 10]
 
 Builds the MD-coupled ``HMMConfig()`` dogbone on one CUDA card exactly as
 ``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes) — or,
 with ``--charged``, the charged slice (the 1792-atom all-atom PE material
 ``material.PEAA`` at every flagged qp, at most 128 MD jobs per step,
 ``equil_steps=50``, ``minimize_steps=100``) or, with ``--bigbox``, the same
-with the 2240-atom box ``material.PEAA2240`` on the gather-list kernel K4 —
+with the 2240-atom box ``material.PEAA2240`` on the gather-list kernel K4,
+or, with ``--sw``, the config with ``"force field": "sw"`` (the 216-atom
+diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) —
 times
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
@@ -60,6 +63,8 @@ def main(argv=None) -> int:
                     help="the charged all-atom PE slice (K3, PME) instead of the g0 slice")
     ap.add_argument("--bigbox", action="store_true",
                     help="the charged 2240-atom slice on the list kernel (K4, PME)")
+    ap.add_argument("--sw", action="store_true",
+                    help="the Stillinger-Weber silicon slice (K5) instead of the g0 slice")
     args = ap.parse_args(argv)
 
     import torch
@@ -89,6 +94,8 @@ def main(argv=None) -> int:
         hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
                            minimize_steps=100, device=dev)
     else:
+        if args.sw:
+            cfg = cfg.replace(md=dataclasses.replace(cfg.md, force_field="sw"))
         hmm = build_md_hmm(cfg, staged=False, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -153,9 +160,9 @@ def main(argv=None) -> int:
         t = _self_device_us(e)
         if t > 0:
             print(f"  {t / 1e3:10.3f} ms  {100 * t / dev_total:5.1f}%  n={e.count:5d}  {e.key[:80]}")
-    groups = {"md kernels (K1/K3/K4)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
+    groups = {"md kernels (K1/K3/K4/K5)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
     for name, d in dur:
-        key = ("md kernels (K1/K3/K4)" if "md_run_kernel" in name or "md_forces_kernel" in name
+        key = ("md kernels (K1/K3/K4/K5)" if "md_run_kernel" in name or "md_forces_kernel" in name
                else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")
         groups[key] += d / 1e3
     print("device time by group (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
@@ -168,7 +175,7 @@ def main(argv=None) -> int:
     if span_ms and any(span_ms.values()):
         rest = groups["everything else"] - sum(span_dev.values())
         print("profiled step, device time (ms): " + ", ".join(
-            [f"md kernel {groups['md kernels (K1/K3/K4)']:.3f}"]
+            [f"md kernel {groups['md kernels (K1/K3/K4/K5)']:.3f}"]
             + [f"{k} {span_dev.get(k, 0.0):.3f} (stream span {v:.3f} by CUDA events)"
                for k, v in span_ms.items() if v]
             + [f"K2 {groups['pairwise_l2 (K2)']:.3f}", f"rest {rest:.3f}"]))

@@ -33,7 +33,11 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K4 (the gather-list pair loop) on the PEAA2240 box (2240 charged atoms,
   K ~ 1112 slots, the PME split, SHAKE) and on the other flag sets (g0
   chains, cutoff Coulomb, SHAKE off) with the same channels on both sides:
-  the bounds of K3, inactive jobs bit-identical."""
+  the bounds of K3, inactive jobs bit-identical;
+* K5 (the Stillinger-Weber sweeps) on the slice's 216-atom diamond-Si box
+  and on the gate's largest, 640 atoms (two rounds of the block), with
+  perturbed positions and tilted boxes: the bounds of K1, inactive jobs
+  bit-identical."""
 import dataclasses
 
 import numpy as np
@@ -430,3 +434,86 @@ def test_k4_flag_sets_match_plain(case):
     assert torch.equal(out[1], st6[1])
     assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
     assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+SI = M.MaterialSpec(name="si", force_field="sw")  # 3^3 diamond cells, 216 atoms
+
+
+@pytest.fixture(scope="module", params=[(3, 3, 3), (4, 4, 5)], ids=["216", "640"])
+def si(request):
+    """SW boxes on K5: the slice's 216-atom box (one round of 224 threads)
+    and the gate's largest, 640 atoms (two rounds of 512 threads), each
+    batch with seeded displacements of 0.1 A, Maxwell velocities at 300 K
+    and tilted boxes."""
+    dev = _device()
+    sys, st = M.build_system(dataclasses.replace(SI, n_cells_xyz=request.param),
+                             dtype=torch.float32, device=dev)
+    B = 6
+    rng = np.random.default_rng(5)
+    pos = st.pos + torch.as_tensor(rng.normal(scale=0.1, size=(B,) + tuple(st.pos.shape)),
+                                   dtype=torch.float32, device=dev)
+    h = st.h.expand(B, -1, -1).clone()
+    h[:, 0, 1] = torch.linspace(-0.8, 0.8, B)
+    h[:, 1, 2] = 0.3
+    gen = torch.Generator().manual_seed(5)
+    vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
+                       for _ in range(B)])
+    return sys, E.MDState(pos=pos, vel=vel, h=h, vxi=torch.zeros((B, 3), device=dev))
+
+
+def test_k5_forces_virial_match_plain(si):
+    """K5 is held to the K1 bounds: forces and virial within twice the plain
+    float32 version's error against float64 (+1e-6)."""
+    sys, batch = si
+    assert sys.fused.spec.kernel == "K5"
+    pos = batch.pos.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(batch.h)
+    before = MF.md_forces_virial.launches_k5
+    F, W = MF.md_forces_virial(sys.fused, pos, h6)
+    torch.cuda.synchronize()
+    assert MF.md_forces_virial.launches_k5 == before + 1
+    Fp, Wp = MF.md_forces_virial_plain(sys.fused, pos, h6)
+    F64, W64 = MF.md_forces_virial_plain(sys.fused.to(pos.device, torch.float64),
+                                         pos.double(), h6.double())
+    assert torch.isfinite(F).all() and torch.isfinite(W).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+
+
+def test_k5_run_matches_plain_and_skips_inactive(si):
+    """A 10-step deform run: within four times the plain float32 run's
+    distance from float64 (+1e-4); inactive jobs bit-identical."""
+    sys, batch = si
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 10, 7, 0, 3], dtype=torch.int32, device=st.device)
+    before = MF.md_run.launches_k5
+    out, vxi, _ = MF.md_run(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    torch.cuda.synchronize()
+    assert MF.md_run.launches_k5 == before + 1
+    for j in (1, 4):
+        assert torch.equal(out[j], st[j]) and torch.equal(vxi[j], batch.vxi[j])
+    ref, vxi_ref, _ = MF.md_run_plain(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref64, vxi64, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                      batch.vxi.double(), n_run, fscal.double(), True, False)
+    assert torch.isfinite(out).all()
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+    assert _rel(vxi, vxi64) <= 4 * _rel(vxi_ref, vxi64) + 1e-4
+
+
+def test_k5_sampling_pressure_sums_match_plain(si):
+    """Each job's pressure sum over 20 sampling steps, per component, within
+    four times the plain float32 run's distance from float64 (+1e-4)."""
+    sys, batch = si
+    st = MF.pack_state(batch.pos, batch.vel)
+    n = torch.full((st.shape[0],), 20, dtype=torch.int32, device=st.device)
+    fscal = MF.make_fscal(DT, T_MD, batch.h)
+    _, _, pk = MF.md_run(sys.fused, st, batch.vxi, n, fscal, False, True)
+    _, _, pp = MF.md_run_plain(sys.fused, st, batch.vxi, n, fscal, False, True)
+    _, _, p64 = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                batch.vxi.double(), n, fscal.double(), False, True)
+    for c in range(6):
+        assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c

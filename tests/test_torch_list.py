@@ -133,7 +133,8 @@ def test_chunk_length_follows_rebuild_and_kspace_periods():
         sys_, _ = TM.build_system(TM.MaterialSpec(**{**spec.__dict__, "rebuild_every": rebuild,
                                                      "kspace_every": kspace}), device="cpu")
         assert TMF.launch_steps(sys_.fused) == want
-    g0 = TM.MaterialSpec(name="g0", force_list_kernel=True, rebuild_every=7)
+    g0 = TM.MaterialSpec(name="g0", force_field="opls", force_list_kernel=True,
+                         rebuild_every=7)
     sys_, _ = TM.build_system(g0, device="cpu")
     assert sys_.fused.kspace is None and TMF.launch_steps(sys_.fused) == 5
 

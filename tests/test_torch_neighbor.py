@@ -86,13 +86,14 @@ def test_validate_setup_errors_match_jax(g0, which):
     with pytest.raises(ValueError) as jerr:
         JM._validate_setup(JM.MaterialSpec(name="g0"), pos, h, JNB.NeighborSpec(**nspec))
     with pytest.raises(ValueError) as terr:
-        TM._validate_setup(TM.MaterialSpec(name="g0"), pos, h, TNB.NeighborSpec(**nspec))
+        TM._validate_setup(TM.MaterialSpec(name="g0", force_field="opls"), pos, h,
+                           TNB.NeighborSpec(**nspec))
     jmsg, tmsg = str(jerr.value), str(terr.value)
     if which == "k_max":  # the port's width is density-derived: its advice names r_list
         assert tmsg.endswith(f"reduce the list range r_list={11.0:.2f} A (cutoff + skin)")
         jmsg, tmsg = jmsg.rsplit("; ", 1)[0], tmsg.rsplit("; ", 1)[0]
     assert tmsg == jmsg
-    TM._validate_setup(TM.MaterialSpec(name="g0"), pos, h,
+    TM._validate_setup(TM.MaterialSpec(name="g0", force_field="opls"), pos, h,
                        TNB.NeighborSpec(cutoff=10.0, skin=1.0, k_max=224))
 
 
@@ -200,8 +201,9 @@ def test_path_choice_matches_reference_rule(which):
     rounded up to 8 (~1112)."""
     from scema_tpu.md import data_io as JD
 
-    spec = {"g0": TM.MaterialSpec(name="g0"), "peaa": TM.PEAA, "peaa2240": TM.PEAA2240,
-            "g0_forced": TM.MaterialSpec(name="g0", force_list_kernel=True)}[which]
+    g0 = TM.MaterialSpec(name="g0", force_field="opls")
+    spec = {"g0": g0, "peaa": TM.PEAA, "peaa2240": TM.PEAA2240,
+            "g0_forced": TM.MaterialSpec(**{**g0.__dict__, "force_list_kernel": True})}[which]
     data = (JD.build_pe_melt_allatom(spec.n_chains, spec.chain_length, density=spec.pe_density)
             if spec.allatom else JD.build_alkane_melt(spec.n_chains, spec.chain_length))
     n = len(data.pos)

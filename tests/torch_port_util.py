@@ -26,3 +26,14 @@ def np64(x) -> np.ndarray:
     if torch.is_tensor(x):
         return x.detach().cpu().double().numpy()
     return np.asarray(x, dtype=np.float64)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module whose float64 tolerances are
+    ~1e-12: on some hosts multi-threaded CPU elementwise kernels spread
+    more than that from run to run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
