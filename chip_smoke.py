@@ -64,12 +64,29 @@ failure exits non-zero before the result line:
    parameters": {"force field": "sw"}}`` with ``--quick-prep --steps 3``
    (576 qps, a 216-atom SW box at each flagged qp), every launch counter
    zeroed just before and read just after; K5 and K2 must have launched and
-   K1, K3, K4 must not have; md jobs 144, 288, 432 and 0.00048 m.
+   K1, K3, K4 must not have; md jobs 144, 288, 432 and 0.00048 m;
+13. K6 (the SW tile kernels) against their plain versions on the prepared
+   4096-atom diamond-Si box (8^3 cells, 48 bricks; float32): K6d's
+   moments, K6e's energy and K6c's forces + energy + virial on the
+   stiffness probe's 12 boxes, orthorhombic and tilted (xy 0.4, xz 0.2 A),
+   against float32 and float64; K6a (q = 0 and 0.5) and K6b on the box's
+   consecutive-atom tiles; each kernel's, its plain version's and the
+   bound's time on 128 jobs, the brick force call against the list route's
+   autograd force call and list build; 10 deform steps of 128 jobs through
+   the unfused engine on both routes from one state;
+14. the brick slice: ``build_md_hmm(HMMConfig(), spec=MaterialSpec(n_cells=8,
+   use_pallas_bricks=True))`` with at most 128 MD jobs per step, float32,
+   quick prep, 2 macro-steps, every launch counter zeroed just before and
+   read just after; K6c, K6d and K2 must have launched and no other MD
+   kernel; md jobs 128, 128 and 0.00032 m;
+15. the same box on the list route (no bricks) for 1 macro-step: K2 is
+   the only kernel launched.
 
 The second-to-last line is a JSON object with one entry per kernel (K1
 and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
-on the coupled list slice, K5's on the SW slice; bounds from this run's
-shapes and the card's published peaks); the last line is ``{"ok": true,
+on the coupled list slice, K5's on the SW slice, K6's on the brick slice;
+bounds from this run's shapes and the card's published peaks); the last
+line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -1321,6 +1338,312 @@ def phase_sw_slice(dev):
     return launches
 
 
+# K6 per live unordered pair (csrc/sw_bricks.cu), beside the geometry of
+# every candidate pair of the tile lists: the moments kernel r and 1/r 2, u
+# 3, r - rc 1, g 2, the two-body energy 8, both atoms' moments 38; the
+# forces kernel r, u, r - rc and g 8, phi2' and dg 20, w in both roles 106,
+# both atoms' forces 12, role 1's virial for both ordered pairs 24
+FLOP_K6_MOM, FLOP_K6_FRC = 54, 170
+# the brick slice: the smallest cubic diamond box on which the 27-stencil
+# prunes (8^3 cells, 4096 atoms), at most 128 MD jobs per macro-step
+SW_BIG_CELLS, SW_BIG_JOBS = 8, 128
+
+
+def tile_candidates(occ, nbr, valid):
+    """Unordered candidate pairs of a tile list: occupied slot pairs of
+    every valid (tile, entry), less each slot with itself."""
+    import torch
+
+    cnt = occ.double().sum(-1)  # (C,) occupied slots per tile
+    nb, va = nbr.long(), valid.bool()
+    ordered = float((cnt[:, None] * cnt[nb] * va).sum())
+    same = float((cnt * ((nb == torch.arange(nbr.shape[0], device=nbr.device)[:, None])
+                         & va).sum(-1)).sum())
+    return (ordered - same) / 2.0
+
+
+def k6_flops(cand, live, per_live):
+    """Operations of one K6 kernel call on one box: the geometry of its
+    candidate pairs and ``per_live`` per live pair."""
+    return cand * FLOP_GEOM + live * per_live
+
+
+def _rel(a, ref):
+    return float((a.double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+
+
+def phase_k6(dev):
+    import torch
+
+    from scema_tpu_torch.md import box as B
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.md.homogenization import _LAMMPS_TO_FRAMEWORK, MDParams
+    from scema_tpu_torch.ops import sw_bricks as SWB
+
+    t_phase = time.perf_counter()
+    sys_b, st = M.build_system(M.MaterialSpec(name="si", n_cells=SW_BIG_CELLS,
+                                              use_pallas_bricks=True),
+                               dtype=torch.float32, device=dev)
+    sys_l, _ = M.build_system(M.MaterialSpec(name="si", n_cells=SW_BIG_CELLS, use_fused=False),
+                              dtype=torch.float32, device=dev)
+    ff, sw = sys_b.ff, sys_b.ff.sw
+    n, C = sys_b.n_atoms, ff.n_bricks
+    occ = ff.slot_ids < n
+    st = M.equilibrate(sys_b, st, MDParams(temperature=T_MD, dt=DT, strain_rate=1e-4,
+                                           nsteps_sample=100),
+                       torch.Generator().manual_seed(16), minimize_steps=100, equil_steps=100)
+    torch.cuda.synchronize()
+    rc2 = SWB.sw_consts(sw)["rc2"]
+    cand = tile_candidates(occ, ff.nbr, ff.valid)
+    print(f"[13 K6] SW box: {n} atoms, box {float(st.h[0, 0]):.3f} A, {C} bricks of "
+          f"{int(occ.sum(1).min())}-{int(occ.sum(1).max())} atoms, "
+          f"{int(ff.valid.sum(1).min())}-{int(ff.valid.sum(1).max())} stencil entries, "
+          f"{cand:.0f} unordered candidate pairs; prep on the bricks (FIRE 100 + NVT 100 at "
+          f"{T_MD} K) {time.perf_counter() - t_phase:.2f}s")
+
+    # the stiffness probe's 12 boxes, orthorhombic and tilted (xy 0.4, xz 0.2 A)
+    eps = torch.zeros((12, 6), device=dev)
+    for d in range(6):
+        eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
+        eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
+    h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
+    sl = (ff.slot_ids, ff.nbr, ff.valid)
+    worst = {"K6d": 0.0, "K6c": 0.0, "K6e": 0.0}
+    for tilt in (0.0, 0.4):
+        ht = h12.clone()
+        ht[:, 0, 1] += tilt
+        ht[:, 0, 2] += 0.5 * tilt
+        p12 = B.remap_affine(st.h.expand(12, 3, 3), ht, st.pos.expand(12, -1, -1)).contiguous()
+        mom = SWB.sw_moments_bricks(sw, p12, ht, *sl)
+        mom_p = SWB.sw_moments_bricks(sw, p12, ht, *sl, plain=True)
+        mom64 = SWB.sw_moments_bricks(sw, p12.double(), ht.double(), *sl, plain=True)
+        e_k = SWB.sw_energy_bricks(sw, p12, ht, *sl)
+        e64 = SWB.energy_from_moments(sw, mom64)
+        F, E_, W = SWB.sw_forces_bricks(sw, p12, ht, *sl, atom_slot=ff.atom_slot)
+        Fp, Ep, Wp = SWB.sw_forces_bricks(sw, p12, ht, *sl, atom_slot=ff.atom_slot, plain=True)
+        F64, E64, W64 = SWB.sw_forces_bricks(sw, p12.double(), ht.double(), *sl,
+                                             atom_slot=ff.atom_slot, plain=True)
+        torch.cuda.synchronize()
+        mk, mp = _rel(mom, mom64), _rel(mom_p, mom64)
+        ek = float(((e_k.double() - e64).abs() / e64.abs()).max())
+        ep = float(((SWB.energy_from_moments(sw, mom_p).double() - e64).abs() / e64.abs()).max())
+        fk, fp = _rel(F, F64), _rel(Fp, F64)
+        wk, wp = _rel(W, W64), _rel(Wp, W64)
+        bad = (not (torch.isfinite(F).all() and torch.isfinite(mom).all())
+               or mk > 2 * mp + 1e-6 or ek > 2 * ep + 1e-6 or fk > 2 * fp + 1e-6
+               or wk > 2 * wp + 1e-6)
+        print(f"[13 K6 check] 12 boxes, tilt xy {tilt} xz {0.5 * tilt} A: rel error vs float64 "
+              f"(kernel / plain float32): K6d moments {mk:.3e} / {mp:.3e}, K6e energy {ek:.3e} / "
+              f"{ep:.3e}, K6c forces {fk:.3e} / {fp:.3e}, virial {wk:.3e} / {wp:.3e} (tol 2x "
+              f"plain + 1e-6); max_abs_err vs plain f32: moments "
+              f"{float((mom - mom_p).abs().max()):.3e}, forces {float((F - Fp).abs().max()):.3e}")
+        if bad:
+            fail(f"K6 disagrees with its plain version (tilt {tilt})")
+        worst["K6d"] = max(worst["K6d"], float((mom - mom_p).abs().max()))
+        worst["K6c"] = max(worst["K6c"], float((F - Fp).abs().max()))
+        worst["K6e"] = max(worst["K6e"], float((e_k - SWB.energy_from_moments(sw, mom_p))
+                                               .abs().max()))
+
+    # K6a (all tile pairs, general q: q = 0 and q = 0.5) and K6b (tile
+    # adjacency) on the same box's consecutive-atom tiles
+    import dataclasses as dc
+
+    pos1, h1 = st.pos[None], st.h[None]
+    nbr_b, val_b = SWB.tile_adjacency(st.pos.double().cpu().numpy(),
+                                      st.h.double().cpu().numpy(), sw.cutoff)
+    tiles1 = SWB.pack_tiles(pos1)
+    hh1, ih1 = SWB.boxes(h1, (1,), torch.float32, dev)
+    rows = {}
+    for name, sw_x, lst in (("K6a", sw, SWB.all_tile_pairs(tiles1.shape[1])),
+                            ("K6a_q", dc.replace(sw, q=0.5), SWB.all_tile_pairs(tiles1.shape[1])),
+                            ("K6b", sw, (nbr_b, val_b))):
+        nb = torch.as_tensor(lst[0], device=dev)
+        va = torch.as_tensor(lst[1], device=dev)
+        if name == "K6b":
+            mk_ = SWB.sw_moments_adj(sw_x, pos1, h1, nb, va)
+        else:
+            mk_ = SWB.sw_moments(sw_x, pos1, h1)
+        mp_ = SWB.sw_moments_plain(sw_x, tiles1, nb, va, hh1, ih1)
+        m64 = SWB.sw_moments_plain(sw_x, tiles1.double(), nb, va, hh1.double(), ih1.double())
+        torch.cuda.synchronize()
+        e1, e2 = _rel(mk_, m64), _rel(mp_, m64)
+        print(f"[13 {name}] {tiles1.shape[1]} tiles x {nb.shape[1]} entries "
+              f"({int(va.sum())} valid), q = {sw_x.q}: moments rel error vs float64 kernel "
+              f"{e1:.3e} plain-f32 {e2:.3e} (tol 2x plain + 1e-6)")
+        if not torch.isfinite(mk_).all() or e1 > 2 * e2 + 1e-6:
+            fail(f"{name} disagrees with its plain version")
+        rows[name] = (float((mk_ - mp_).abs().max()), nb, va)
+
+    # times at the slice's shape: 128 jobs of the prepared box
+    J = SW_BIG_JOBS
+    gen = torch.Generator().manual_seed(17)
+    vel = torch.stack([E.maxwell_velocities(sys_b, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    pJ = st.pos.expand(J, -1, -1).contiguous()
+    live = sw_live_pairs(pJ[:2], hJ[:2], rc2)
+    tilesJ = SWB.pack_bricks(pJ, ff.slot_ids)
+    hhJ, ihJ = SWB.boxes(hJ, (J,), torch.float32, dev)
+    momJ = SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ)
+    adjJ = SWB.adjoints(sw, momJ)
+    slot_bytes = 4.0 * J * C * 128
+    t = {}
+    t["K6d"] = (cuda_ms(lambda: SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ), 10),
+                cuda_ms(lambda: SWB.sw_moments_plain(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ), 2),
+                *bound(slot_bytes * (4 + 12), J * k6_flops(cand, live, FLOP_K6_MOM)))
+    t["K6c"] = (cuda_ms(lambda: SWB._launch_forces(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ),
+                        10),
+                cuda_ms(lambda: SWB.sw_forces_plain(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ,
+                                                    ihJ), 2),
+                *bound(slot_bytes * (4 + 11 + 9), J * k6_flops(cand, live, FLOP_K6_FRC)))
+    t["K6e"] = (cuda_ms(lambda: SWB.sw_energy_bricks(sw, pJ, hJ, *sl), 10),
+                cuda_ms(lambda: SWB.sw_energy_bricks(sw, pJ, hJ, *sl, plain=True), 2),
+                *bound(4.0 * J * 3 * n + 4.0 * J, J * k6_flops(cand, live, FLOP_K6_MOM)))
+    for name in ("K6a", "K6b"):
+        _, nb, va = rows[name]
+        tl = SWB.pack_tiles(pJ)
+        cand_x = tile_candidates(tl[0, :, 3] > 0.5, nb, va)
+        t[name] = (cuda_ms(lambda: SWB._launch_moments(sw, tl, nb.int(), va.int(), hhJ, ihJ), 3),
+                   cuda_ms(lambda: SWB.sw_moments_plain(sw, tl, nb, va, hhJ, ihJ), 1, warmup=0),
+                   *bound(4.0 * J * tl.shape[1] * 128 * 16, J * k6_flops(cand_x, live,
+                                                                         FLOP_K6_MOM)))
+    for name, (k_ms, p_ms, b_ms, b_by) in t.items():
+        print(f"[13 {name} time] {J} jobs x {n} atoms: kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}; {live:.1f} live pairs per box)  kernel at "
+              f"{100 * b_ms / k_ms:.2f}% of its bound")
+    # the force call of the unfused engine on both routes
+    fc_ms = cuda_ms(lambda: SWB.sw_forces_bricks(sw, pJ, hJ, *sl, atom_slot=ff.atom_slot), 10)
+    fc_plain = cuda_ms(lambda: SWB.sw_forces_bricks(sw, pJ, hJ, *sl, atom_slot=ff.atom_slot,
+                                                    plain=True), 2)
+    nbrJ = sys_l.build_neighbors(pJ, hJ)
+    nb_ms = cuda_ms(lambda: sys_l.build_neighbors(pJ, hJ), 2)
+    list_ms = cuda_ms(lambda: E.forces(sys_l, pJ, hJ, nbrJ), 5)
+    print(f"[13 K6 force call] {J} jobs: bricks (K6d + adjoints + K6c + gather) {fc_ms:.3f} ms  "
+          f"plain {fc_plain:.3f} ms; list route (autograd of SW.energy over the 20-slot list) "
+          f"{list_ms:.3f} ms + the list build {nb_ms:.3f} ms per rebuild")
+    del nbrJ
+
+    # 10 deform steps of the 128 jobs on both routes from one state
+    epsJ = (torch.rand((J, 6), generator=gen) * 2e-3 - 1e-3).to(dev)
+    stJ = E.MDState(pos=pJ, vel=vel, h=hJ, vxi=torch.zeros((J, 3), device=dev))
+    t0 = time.perf_counter()
+    ob = E.run_strain(sys_b, stJ, epsJ, 10, T_MD, DT)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ol = E.run_strain(sys_l, stJ, epsJ, 10, T_MD, DT)
+    torch.cuda.synchronize()
+    tl_ = time.perf_counter() - t0
+    dpos = float((ob.pos - ol.pos).abs().max())
+    dh = float((ob.h - ol.h).abs().max())
+    print(f"[13 K6 routes] {J} jobs x 10 deform steps: bricks {tb:.3f}s, list {tl_:.3f}s; "
+          f"positions max |bricks - list| {dpos:.3e} A (tol 1e-3), boxes {dh:.3e} A")
+    if not (torch.isfinite(ob.pos).all() and dpos < 1e-3 and dh < 1e-5):
+        fail(f"the brick and list routes disagree after 10 steps: {dpos:.3e} A")
+    print(f"[13 K6] phase wall {time.perf_counter() - t_phase:.2f}s")
+
+    src = "scema_tpu_torch/csrc/sw_bricks.cu"
+    out = {}
+    for name, fn, rep, err in (
+            ("K6d", "sw_moments_bricks", "scema_tpu/ops/sw_pallas.py:674", worst["K6d"]),
+            ("K6c", "sw_forces_bricks", "scema_tpu/ops/sw_pallas.py:585", worst["K6c"]),
+            ("K6e", "sw_energy_bricks", "scema_tpu/ops/sw_pallas.py:707", worst["K6e"]),
+            ("K6a", "sw_moments", "scema_tpu/ops/sw_pallas.py:133",
+             max(rows["K6a"][0], rows["K6a_q"][0])),
+            ("K6b", "sw_moments_adj", "scema_tpu/ops/sw_pallas.py:311", rows["K6b"][0])):
+        k_ms, p_ms, b_ms, b_by = t[name]
+        out[fn] = {"name": fn, "route": "cuda", "source": src, "replaces": rep,
+                   "note": f"{name}: {J} jobs x {n} atoms", "max_abs_err": err, "ms": k_ms,
+                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out["sw_forces_bricks"]["force_call_ms"] = fc_ms
+    out["sw_forces_bricks"]["list_route_force_ms"] = list_ms
+    return out
+
+
+def _k6_counters():
+    from scema_tpu_torch.ops import md_fused as MF
+    from scema_tpu_torch.ops import pairwise_l2 as K2
+    from scema_tpu_torch.ops import sw_bricks as SWB
+
+    return {"md_allpairs_run": (MF.md_run, "launches"),
+            "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+            "md_charged_run": (MF.md_run, "launches_k3"),
+            "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
+            "md_list_run": (MF.md_run, "launches_k4"),
+            "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
+            "md_sw_run": (MF.md_run, "launches_k5"),
+            "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
+            "sw_moments": (SWB.sw_moments, "launches"),
+            "sw_moments_adj": (SWB.sw_moments_adj, "launches"),
+            "sw_moments_bricks": (SWB.sw_moments_bricks, "launches"),
+            "sw_energy_bricks": (SWB.sw_energy_bricks, "launches"),
+            "sw_forces_bricks": (SWB.sw_forces_bricks, "launches"),
+            "pairwise_l2": (K2.pairwise_l2, "launches")}
+
+
+def phase_sw_big_slice(dev, bricks: bool, n_steps: int):
+    """Phase 14 (bricks) or 15 (the list route): the 4096-atom SW box at
+    every flagged qp of the HMMConfig() dogbone, float32, quick prep, at
+    most 128 MD jobs per macro-step."""
+    import torch
+
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import material as M
+
+    tag = "[14 sw bricks slice]" if bricks else "[15 sw list slice]"
+    counters = _k6_counters()
+    cfg = HMMConfig()
+    cfg = cfg.replace(dtype="float32", md_dtype="float32",
+                      resources=dataclasses.replace(cfg.resources, max_md_jobs=SW_BIG_JOBS))
+    spec = M.MaterialSpec(name="si", n_cells=SW_BIG_CELLS, use_pallas_bricks=bricks)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    hmm = build_md_hmm(cfg, spec=spec, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state = hmm.init_state()
+    step_s, jobs = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, out = hmm.step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        jobs.append(int(out.n_jobs))
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
+            fail(f"{tag} non-finite residuals")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    if abs(umax - expect) > 1e-5 * expect:
+        fail(f"{tag} max displacement {umax} != {expect}")
+    if jobs != [SW_BIG_JOBS] * n_steps:
+        fail(f"{tag} md jobs {jobs}, expected {[SW_BIG_JOBS] * n_steps}")
+    micro = state[1][0]
+    if not torch.isfinite(micro.pos[micro.has_run]).all():
+        fail(f"{tag} non-finite MD states")
+    need = ("sw_moments_bricks", "sw_forces_bricks", "pairwise_l2") if bricks else ("pairwise_l2",)
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"{tag} kernel {k} was not launched by the main path")
+    others = {k: v for k, v in launches.items() if k not in need}
+    if any(others.values()):
+        fail(f"{tag} kernels of other paths were launched: {others}")
+    print(f"{tag} {hmm.backend.sys.n_atoms}-atom Si boxes ({'bricks: K6c/K6d' if bricks else 'list route: autograd SW.energy'}), "
+          f"qps {hmm.geom.n_qp_total}: setup {setup_s:.3f}s  s/macro-step "
+          f"{[round(x, 4) for x in step_s]}  md jobs {jobs}  launches {launches}  peak memory "
+          f"{peak / 2**20:.1f} MiB  max displacement {umax:.6g} m (expect {expect:.6g})  "
+          f"phase wall {wall:.2f}s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -1346,12 +1669,18 @@ def main() -> int:
     launches_list = phase_list_slice(dev)
     k5_run, k5_forces = phase_k5(dev)
     launches_sw = phase_sw_slice(dev)
+    k6 = phase_k6(dev)
+    launches_bricks = phase_sw_big_slice(dev, bricks=True, n_steps=2)
+    phase_sw_big_slice(dev, bricks=False, n_steps=1)
     rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
                 launches_list if row["name"].startswith("md_list") else
                 launches_sw if row["name"].startswith("md_sw") else launches)
         row["launches"] = path[row["name"]]
+    for row in k6.values():  # K6's launches on the brick slice (phase 14)
+        row["launches"] = launches_bricks[row["name"]]
+        rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,12 @@ subtraction, replica averaging, and scatter-back into the FE stress field.
 Differences from the JAX version, all of form rather than result:
 
 * All active (job, replica) pairs of a step go to ONE kernel launch per
-  phase (K1, or K3/K4 per k-space or list-rebuild chunk; one thread block
-  per job); there is no job-chunk scan, no ``shard_map``, no multi-job
+  phase (K1 or K5, or K3/K4 per k-space or list-rebuild chunk; one thread
+  block per job) — or, on the unfused engine (SW boxes above K5's gate),
+  to one force evaluation per step over all running jobs (the brick
+  kernels K6d + K6c, or autograd of ``SW.energy``; at 128 jobs of 4096
+  atoms the list route's autograd peaks at ~4.5 GB, so its jobs are not
+  sliced); there is no job-chunk scan, no ``shard_map``, no multi-job
   packing, and no clamp of the job chunk for streamed list kernels
   (md_coupling.py:582-588, a TPU workaround).
 * The fixed-capacity job list (``jnp.nonzero(size=K, fill_value=0)``) is

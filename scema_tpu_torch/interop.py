@@ -7,8 +7,8 @@ tests hand the port what JAX drew at random (``assign_materials``,
 ``maxwell_velocities``) or prepared (equilibrated microstates, measured
 replica ensembles), since torch cannot reproduce ``jax.random`` bits, and
 how they hand it a charged system's JAX-made pieces (k-space objects,
-Coulomb plane, pattern and SHAKE rows, constraint lists) to hold the
-port's own against.
+Coulomb plane, pattern and SHAKE rows, constraint lists) or an SW brick
+structure to hold the port's own against.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .md.forcefields.pme import PME
 from .md.forcefields.sw import SW
 from .md.material import InitData
 from .md.neighbor import NeighborList
+from .ops.sw_bricks import SWBricksFF
 
 
 def _t(x, dtype=None, device=None) -> torch.Tensor:
@@ -55,6 +56,13 @@ def micro_states(m, dtype=torch.float64, device=None) -> MicroStates:
 def sw(ff) -> SW:
     """JAX ``forcefields.sw.SW`` -> the port's, with the same ten constants."""
     return SW(**{f: float(getattr(ff, f)) for f in SW.__dataclass_fields__})
+
+
+def sw_bricks(ff, n_atoms: int, device=None) -> SWBricksFF:
+    """JAX ``sw_pallas.SWBricksFF`` -> the port's, on the same brick
+    structure (slot_ids, nbr, valid) and ``SW`` constants."""
+    return SWBricksFF.from_structure(sw(ff.sw), ff.slot_ids, ff.nbr, ff.valid, n_atoms,
+                                     device=device)
 
 
 def replica_ensemble(ens, dtype=torch.float64, device=None) -> ReplicaEnsemble:

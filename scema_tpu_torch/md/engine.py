@@ -1,20 +1,30 @@
 """The batched MD engine: velocity Verlet + Nose-Hoover chains, fix-deform
 strain driving, virial pressure sampling, FIRE relaxation.
 
-Torch twin of the fused-path subset of ``scema_tpu/md/engine.py`` (the
-replacement for the LAMMPS instances the reference spawns per quadrature
-point, stmd_problem.h:83-383).  Every dynamics run goes through kernel K1
-(``ops/md_fused.py``), or through K3 for charged all-atom systems, K4
-(the gather-list pair loop) for boxes above the all-pairs gate, or K5 for
-Stillinger-Weber silicon; FIRE and
-the stiffness probe take their forces from the kernel's force + virial
-entry (K4 builds a fresh list per call) plus, with Ewald/PME, the smooth
-k-space remainder.  The unfused
-neighbor-list engine with autograd forces is not ported yet.
+Torch twin of ``scema_tpu/md/engine.py`` (the replacement for the LAMMPS
+instances the reference spawns per quadrature point,
+stmd_problem.h:83-383), with two paths, as in the JAX package:
+
+* the fused path (``MDSystem.fused`` set): every dynamics run goes through
+  kernel K1 (``ops/md_fused.py``), or K3 for charged all-atom systems, K4
+  (the gather-list pair loop) for boxes above the all-pairs gate, or K5
+  for Stillinger-Weber silicon; FIRE and the stiffness probe take their
+  forces from the kernel's force + virial entry (K4 builds a fresh list per
+  call) plus, with Ewald/PME, the smooth k-space remainder;
+* the unfused path (``fused`` None): the XLA engine's chunked loops
+  (engine.py:313-353, :580-624, :627-674) in PyTorch — one neighbor list
+  per ``rebuild_every``-step chunk (``build_neighbors``; a force field with
+  a static structure of its own, the SW brick kernels K6c/K6d, needs none),
+  forces re-evaluated at each chunk start after the deform remap, and
+  forces from the force field's own entry or autograd of its energy.  SW
+  boxes above K5's gate run here (``material.build_system``).  Constraints
+  are refused on this path (the segment-sum SHAKE is not ported).
 
 States carry any leading batch shape: pos/vel (..., N, 3), h (..., 3, 3),
-vxi (..., 3).  The runs flatten the batch into K1's job axis, so B jobs
-integrate in one launch.
+vxi (..., 3).  Both paths flatten the batch into one job axis: the fused
+kernels integrate B jobs in one launch, the unfused loops evaluate the
+force field on all running jobs at once.  Every job runs its own step
+count; a job with 0 steps comes back bit-identical.
 """
 from __future__ import annotations
 
@@ -25,12 +35,11 @@ import torch
 
 from ..ops import md_fused as MF
 from . import box as B
+from . import neighbor as NB
 from .units import REAL, UnitSystem
 
 NHC_LEN = 3  # thermostat chain length (LAMMPS default tchain=3)
-# FIRE restarts its velocities every FIRE_CHUNK steps: the JAX version's
-# neighbor-rebuild chunk (MaterialSpec.rebuild_every, default 10)
-FIRE_CHUNK = 10
+TDAMP = 100.0  # thermostat damping, time units (fix nvt ... 100.0)
 
 
 @dataclass(frozen=True)
@@ -64,11 +73,15 @@ class MDState:
 class MDSystem:
     """Static MD configuration: force field, masses, units, kernel inputs."""
 
-    ff: object  # forcefields.opls.OPLS or forcefields.sw.SW
+    ff: object  # forcefields.opls.OPLS, forcefields.sw.SW or ops.sw_bricks.SWBricksFF
     masses: torch.Tensor  # (N,)
-    fused: MF.FusedRunner
+    fused: MF.FusedRunner | None = None  # None: the unfused engine
     units: UnitSystem = REAL
     constraints: object = None  # constraints.Constraints (SHAKE/RATTLE in K3)
+    nspec: NB.NeighborSpec | None = None  # the unfused engine's neighbor list
+    # neighbor-list reuse (neigh_modify analog): the unfused loops' chunk
+    # length, and FIRE's velocity-restart period on both paths
+    rebuild_every: int = 10
 
     @property
     def n_atoms(self) -> int:
@@ -79,6 +92,15 @@ class MDSystem:
         # fix shake subtracts each rigid bond from the temperature DOF count
         n_cons = 0 if self.constraints is None else int(self.constraints.mask.sum())
         return 3 * self.n_atoms - 3 - n_cons
+
+    def build_neighbors(self, pos: torch.Tensor, h: torch.Tensor):
+        """The unfused force field's interaction structure at pos (B, N, 3)
+        in boxes h (B, 3, 3): a neighbor list, or None for a force field
+        with a static structure of its own (``slot_ids``, the brick
+        kernels; engine.py:76-93)."""
+        if getattr(self.ff, "slot_ids", None) is not None:
+            return None
+        return NB.build(self.nspec, pos, h)
 
 
 def init_state(pos, h, vel=None) -> MDState:
@@ -110,16 +132,59 @@ def temperature(sys: MDSystem, vel: torch.Tensor) -> torch.Tensor:
     return ke2 / (sys.ndof * sys.units.boltz)
 
 
+def _voigt(W: torch.Tensor) -> torch.Tensor:
+    return torch.stack([W[..., 0, 0], W[..., 1, 1], W[..., 2, 2], W[..., 0, 1], W[..., 0, 2],
+                        W[..., 1, 2]], -1)
+
+
+def forces(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr) -> torch.Tensor:
+    """Unfused forces (B, N, 3) at pos (B, N, 3) in boxes h (B, 3, 3) over
+    the structure ``nbr``: the force field's own ``forces`` (the brick
+    kernels) or -grad of its energy (engine.py:124-127)."""
+    if hasattr(sys.ff, "forces"):
+        return sys.ff.forces(pos, h, nbr)
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(sys.ff.energy(p, h, nbr).sum(), p)
+    return -g
+
+
+def forces_energy_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr):
+    """Unfused (F (B, N, 3), E (B,), W (B, 6)): forces, potential energy and
+    the Voigt potential virial W_ab = -dE/d eps_ab for the affine
+    deformation pos -> (1 + eps) pos, h -> (1 + eps) h with a full 3x3 eps,
+    symmetrised (engine.py:130-148, where W is 3x3) — one backward pass for
+    both gradients; or the force field's own entry (the brick kernels)."""
+    if hasattr(sys.ff, "forces_energy_virial"):
+        return sys.ff.forces_energy_virial(pos, h, nbr)
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        eps = torch.zeros(pos.shape[:-2] + (3, 3), dtype=pos.dtype, device=pos.device,
+                          requires_grad=True)
+        F = torch.eye(3, dtype=pos.dtype, device=pos.device) + eps
+        E = sys.ff.energy(p @ F.transpose(-1, -2), F @ h, nbr)
+        gp, ge = torch.autograd.grad(E.sum(), (p, eps))
+    return -gp, E.detach(), _voigt(-0.5 * (ge + ge.transpose(-1, -2)))
+
+
 def forces_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor,
                   want_virial: bool = True):
-    """(F (..., N, 3), W (..., 6)): forces and Voigt potential virial from
+    """(F (..., N, 3), W (..., 6)): forces and Voigt potential virial.  Fused:
     the kernel's force entry (W_ab = -dE/d eps_ab, symmetric), plus the
     smooth k-space remainder's force and virial for Ewald/PME systems — so
-    F is the full Ewald gradient, as the JAX package's FIRE takes it.
-    ``want_virial=False`` skips the remainder's virial (W then lacks it)."""
+    F is the full Ewald gradient, as the JAX package's FIRE takes it;
+    ``want_virial=False`` skips the remainder's virial (W then lacks it).
+    Unfused: a fresh neighbor structure and :func:`forces_energy_virial`,
+    or with ``want_virial=False`` :func:`forces` alone (W is then None)."""
     bs = pos.shape[:-2]
     n = pos.shape[-2]
     pf, hf = pos.reshape(-1, n, 3), h.reshape(-1, 3, 3)
+    if sys.fused is None:
+        nbr = sys.build_neighbors(pf, hf)
+        if not want_virial:
+            return forces(sys, pf, hf, nbr).reshape(bs + (n, 3)), None
+        F, _, W = forces_energy_virial(sys, pf, hf, nbr)
+        return F.reshape(bs + (n, 3)), W.reshape(bs + (6,))
     F, W = MF.md_forces_virial(sys.fused, pf.transpose(1, 2), MF.h6_of(hf))
     F = F.transpose(1, 2)
     if sys.fused.kspace is not None:
@@ -145,17 +210,155 @@ def _steps(n_steps, batch: int, device) -> torch.Tensor:
     return n.expand(batch).contiguous() if n.dim() == 0 else n.reshape(batch)
 
 
+def _unfused_only(sys: MDSystem) -> None:
+    if sys.constraints is not None:
+        raise NotImplementedError(
+            "the unfused engine has no SHAKE/RATTLE (the segment-sum constraints are not "
+            "ported, ROADMAP queue 1); constrained systems run the fused kernel K3/K4")
+
+
+def _nhc_half(sys: MDSystem, vel: torch.Tensor, vxi: torch.Tensor, T: float, dt: float):
+    """Half-step Nose-Hoover chain update (MTK) of each job's velocities
+    (B, N, 3) and chain (B, 3) (engine.py:194-235); returns (vel, vxi)."""
+    u = sys.units
+    kt = u.boltz * T
+    ndof = sys.ndof
+    q = [ndof * kt * TDAMP ** 2] + [kt * TDAMP ** 2] * (NHC_LEN - 1)
+    dt2, dt4, dt8 = dt / 2.0, dt / 4.0, dt / 8.0
+    ke2 = torch.sum(sys.masses[:, None] * vel * vel, (-1, -2)) / u.ftm2v  # 2 KE
+    x = list(vxi.unbind(-1))
+
+    def g(k, ke2_):
+        if k == 0:
+            return (ke2_ - ndof * kt) / q[0]
+        return (q[k - 1] * x[k - 1] ** 2 - kt) / q[k]
+
+    def sweep(ks, ke2_):
+        for k in ks:
+            if k == NHC_LEN - 1:
+                x[k] = x[k] + dt4 * g(k, ke2_)
+            else:
+                s = torch.exp(-dt8 * x[k + 1])
+                x[k] = s * (s * x[k] + dt4 * g(k, ke2_))
+
+    sweep(range(NHC_LEN - 1, -1, -1), ke2)  # chain tail -> head
+    scale = torch.exp(-dt2 * x[0])
+    vel = vel * scale[:, None, None]
+    sweep(range(NHC_LEN), ke2 * scale * scale)  # head -> tail
+    return vel, torch.stack(x, -1)
+
+
+def _verlet_step(sys: MDSystem, st: MDState, F: torch.Tensor, T: float, dt: float,
+                 force_fn):
+    """One NVT velocity-Verlet step of the running jobs (engine.py:238-281,
+    no constraints).  ``force_fn(pos, h) -> (F, extra)`` evaluates the new
+    forces (the sampling loop takes the virial from the same evaluation);
+    returns (state, F_new, extra)."""
+    minv = (sys.units.ftm2v / sys.masses)[:, None]
+    vel, vxi = _nhc_half(sys, st.vel, st.vxi, T, dt)
+    vel = vel + 0.5 * dt * F * minv
+    pos = st.pos + dt * vel
+    F_new, extra = force_fn(pos, st.h)
+    vel = vel + 0.5 * dt * F_new * minv
+    vel, vxi = _nhc_half(sys, vel, vxi, T, dt)
+    return st.replace(pos=pos, vel=vel, vxi=vxi), F_new, extra
+
+
+def _subset(st: MDState, act: torch.Tensor, full: bool) -> MDState:
+    if full:
+        return st
+    return MDState(pos=st.pos[act], vel=st.vel[act], h=st.h[act], vxi=st.vxi[act])
+
+
+def _merge(st: MDState, act: torch.Tensor, sub: MDState, full: bool) -> MDState:
+    if full:
+        return sub
+    return MDState(*(getattr(st, f).index_copy(0, act, getattr(sub, f))
+                     for f in ("pos", "vel", "h", "vxi")))
+
+
+def _chunks(n_chunks: torch.Tensor):
+    """Per chunk c, the jobs that still run it: (c, act, all jobs run)."""
+    c_max = int(n_chunks.max()) if n_chunks.numel() else 0
+    for c in range(c_max):
+        act = torch.nonzero(n_chunks > c).flatten()
+        yield c, act, act.numel() == n_chunks.numel()
+
+
+def _run_strain_unfused(sys: MDSystem, st: MDState, eps: torch.Tensor,
+                        n_steps: torch.Tensor, T: float, dt: float) -> MDState:
+    """The XLA engine's chunked strain run (engine.py:313-353) on (B,) jobs:
+    a running job takes max(n, R) // R chunks of R = rebuild_every steps
+    (the JAX floor; 0 steps: untouched), each starting with a fresh list
+    and a force evaluation after the previous chunk's remap, and the box
+    moves to deform_path(h0, eps, (step + 1) / max(n, R)) after each step."""
+    R = sys.rebuild_every
+    h0 = st.h
+    n_eff = torch.where(n_steps > 0, torch.clamp(n_steps, min=R), torch.zeros_like(n_steps))
+    for c, act, full in _chunks(n_eff // R):
+        sub = _subset(st, act, full)
+        h0a, ea = (h0, eps) if full else (h0[act], eps[act])
+        ne = (n_eff if full else n_eff[act]).to(st.pos.dtype)
+        nbr = sys.build_neighbors(sub.pos, sub.h)
+        F = forces(sys, sub.pos, sub.h, nbr)
+
+        def fn(pos, h):
+            return forces(sys, pos, h, nbr), None
+
+        for i in range(R):
+            sub, F, _ = _verlet_step(sys, sub, F, T, dt, fn)
+            # fix deform end_of_step: the box at its target for step + 1
+            h_new = B.deform_path(h0a, ea, (c * R + i + 1) / ne)
+            sub = sub.replace(pos=B.remap_affine(sub.h, h_new, sub.pos), h=h_new)
+        st = _merge(st, act, sub, full)
+    return st
+
+
+def _sample_stress_unfused(sys: MDSystem, st: MDState, n_steps: torch.Tensor, T: float,
+                           dt: float):
+    """The XLA engine's sampling run (engine.py:580-624) on (B,) jobs:
+    max(1, n // R) chunks per running job, one energy evaluation per step
+    for the force and the virial; returns (state, mean pressure (B, 6))."""
+    R = sys.rebuild_every
+    n_chunks = torch.where(n_steps > 0, torch.clamp(n_steps // R, min=1),
+                           torch.zeros_like(n_steps))
+    acc = torch.zeros(st.pos.shape[:-2] + (6,), dtype=st.pos.dtype, device=st.pos.device)
+    for _, act, full in _chunks(n_chunks):
+        sub = _subset(st, act, full)
+        nbr = sys.build_neighbors(sub.pos, sub.h)
+        F = forces(sys, sub.pos, sub.h, nbr)
+
+        def fn(pos, h):
+            Fx, _, Wx = forces_energy_virial(sys, pos, h, nbr)
+            return Fx, Wx
+
+        acc_c = torch.zeros_like(acc[:act.numel()])
+        for _ in range(R):
+            sub, F, W = _verlet_step(sys, sub, F, T, dt, fn)
+            acc_c = acc_c + pressure_tensor(sys, sub, W)
+        st = _merge(st, act, sub, full)
+        acc = acc + acc_c if full else acc.index_add(0, act, acc_c)
+    press = acc / torch.clamp(n_chunks * R, min=1).to(acc.dtype)[:, None]
+    return st, press
+
+
 def run_strain(sys: MDSystem, state: MDState, eps_eff: torch.Tensor, n_steps,
                T: float, dt: float) -> MDState:
     """NVT run with ``fix deform ... erate`` toward strain ``eps_eff``
-    (in.strain.lammps), one kernel launch for the whole batch (one per
-    chunk with the k-space split or a list).  ``n_steps`` is a
-    scalar or per-job; a job with 0 steps is returned unchanged."""
+    (in.strain.lammps).  Fused: one kernel launch for the whole batch (one
+    per chunk with the k-space split or a list); unfused: the chunked loop.
+    ``n_steps`` is a scalar or per-job; a job with 0 steps is returned
+    unchanged."""
     bs = state.batch_shape
     flat = state.flat()
     Bn = flat.pos.shape[0]
     eps = eps_eff.to(flat.pos).expand(bs + (6,)).reshape(Bn, 6)
-    out = MF.run_strain_fused(sys.fused, flat, eps, _steps(n_steps, Bn, flat.pos.device), T, dt)
+    steps = _steps(n_steps, Bn, flat.pos.device)
+    if sys.fused is None:
+        _unfused_only(sys)
+        out = _run_strain_unfused(sys, flat, eps, steps, T, dt)
+    else:
+        out = MF.run_strain_fused(sys.fused, flat, eps, steps, T, dt)
     return out.unflat(bs)
 
 
@@ -173,8 +376,12 @@ def sample_stress(sys: MDSystem, state: MDState, n_steps, T: float,
     bs = state.batch_shape
     flat = state.flat()
     Bn = flat.pos.shape[0]
-    out, press = MF.sample_stress_fused(sys.fused, flat, _steps(n_steps, Bn, flat.pos.device),
-                                        T, dt)
+    steps = _steps(n_steps, Bn, flat.pos.device)
+    if sys.fused is None:
+        _unfused_only(sys)
+        out, press = _sample_stress_unfused(sys, flat, steps, T, dt)
+    else:
+        out, press = MF.sample_stress_fused(sys.fused, flat, steps, T, dt)
     return out.unflat(bs), press.reshape(bs + (6,))
 
 
@@ -182,7 +389,8 @@ def minimize_fire(sys: MDSystem, state: MDState, n_steps: int = 200,
                   dt0: float = 1.0, fmax_dt: float = 4.0) -> MDState:
     """FIRE relaxation (engine.py:627-674), batched: every box keeps its own
     dt and mixing alpha.  Velocities restart from zero every
-    ``FIRE_CHUNK`` steps, as in the JAX version's chunked loop."""
+    ``rebuild_every`` steps, as in the JAX version's chunked loop, where
+    the unfused path also rebuilds its neighbor structure."""
     u = sys.units
     bs = state.batch_shape
     st = state.flat()
@@ -192,10 +400,15 @@ def minimize_fire(sys: MDSystem, state: MDState, n_steps: int = 200,
     minv = (u.ftm2v / sys.masses)[:, None]
     dt = torch.full((Bn, 1, 1), dt0, dtype=dtype, device=dev)
     alpha = torch.full((Bn, 1, 1), 0.1, dtype=dtype, device=dev)
-    for _ in range(max(1, n_steps // FIRE_CHUNK)):
+    R = sys.rebuild_every
+    for _ in range(max(1, n_steps // R)):
         vel = torch.zeros_like(pos)
-        for _ in range(FIRE_CHUNK):
-            F, _ = forces_virial(sys, pos, h, want_virial=False)
+        nbr = sys.build_neighbors(pos, h) if sys.fused is None else None
+        for _ in range(R):
+            if sys.fused is None:
+                F = forces(sys, pos, h, nbr)
+            else:
+                F, _ = forces_virial(sys, pos, h, want_virial=False)
             vel = vel + dt * F * minv
             fnorm = torch.sqrt(torch.sum(F * F, dim=(1, 2), keepdim=True)) + 1e-30
             vnorm = torch.sqrt(torch.sum(vel * vel, dim=(1, 2), keepdim=True))

@@ -11,9 +11,11 @@ examples/.../lammps_scripts_sisw/in.set.lammps).  Functional form
                                       exp(gam sig/(r_ik - a sig))
 
 both cut at r = a*sig.  :meth:`SW.energy` is the moment form over a full
-neighbor list; kernel K5 (``ops/md_fused.py``) computes the same function
-over all pairs with hand-derived forces, and the tests hold its plain
-version to autograd of this energy.  No run of the port calls it.
+neighbor list: the unfused engine's list route takes its forces and
+virial by autograd (SW boxes above K5's gate without the brick kernels).
+Kernel K5 (``ops/md_fused.py``) computes the same function over all pairs,
+and K6c/K6d (``ops/sw_bricks.py``) over brick tiles, with hand-derived
+forces; the tests hold their plain versions to autograd of this energy.
 
 As in the JAX package and the reference, the .sw file's metal-unit numbers
 are read under ``units real`` verbatim.

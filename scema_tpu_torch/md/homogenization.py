@@ -12,13 +12,15 @@ stmd_problem.h:83-383):
    (ELASTIC/in.homogenization.lammps);
 5. ATM -> Pa with the reference's -1.01325e5 factor (stmd_problem.h:335-341).
 
-Here the whole batch of jobs runs in one kernel launch per phase (K1, K5 for
-SW silicon, or
-K3/K4 for charged all-atom boxes: one launch per chunk when the smooth
-k-space remainder and, on K4, the neighbor list are refreshed between
-chunks), and inactive batch entries are skipped by the kernel with their
-state left unchanged — on the list path too, where the JAX package runs
-them for their full length and discards them.
+On the fused engine the whole batch of jobs runs in one kernel launch per
+phase (K1, K5 for SW silicon, or K3/K4 for charged all-atom boxes: one
+launch per chunk when the smooth k-space remainder and, on K4, the
+neighbor list are refreshed between chunks); on the unfused engine (SW
+boxes above K5's gate: the brick kernels K6c/K6d or the list route) the
+chunked loops evaluate every running job's forces at once.  Inactive batch
+entries get zero steps on both engines, their state left unchanged —
+where the JAX package's list and unfused paths run them for their full
+length (at least 10 steps) and discard them.
 """
 from __future__ import annotations
 

@@ -12,20 +12,24 @@ stress and probe the 6x6 stiffness (``measure``). For Ewald/PME systems
 ``build_kspace_split`` gives the smooth k-space remainder that kernels K3
 and K4 hold frozen between chunks. A box above the TPU kernel's all-pairs
 admission gate (or any with ``force_list_kernel``) runs K4's gather-list
-pair loop over a neighbor list rebuilt every ``rebuild_every`` steps. The
-staged heatup/cooldown NPT prep (``equilibrate_staged``), SW boxes off the
-fused all-pairs gate (the one-hot structure, the brick kernels, spatial
-shards), the LJ and ReaxFF force fields and systems read from data files
-are not ported yet.
+pair loop over a neighbor list rebuilt every ``rebuild_every`` steps. SW
+boxes off K5's gate run the unfused engine: on the brick kernels K6c/K6d
+(``use_pallas_bricks``) or on autograd of ``SW.energy`` over a neighbor
+list (the route that replaces the JAX package's one-hot structure). The
+staged heatup/cooldown NPT prep (``equilibrate_staged``), spatially
+sharded SW boxes, the LJ and ReaxFF force fields and systems read from data
+files are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..ops import md_fused as MF
+from ..ops import sw_bricks as SWB
 from ..utils.device import resolve
 from . import box as B
 from . import engine as E
@@ -77,10 +81,14 @@ class MaterialSpec:
     rebuild_every: int = 10
     # run K4 even where the all-pairs gate would admit the box
     force_list_kernel: bool = False
-    # sw extras of the JAX package, not ported: the brick kernels (K6c-e)
-    # and the sharded force path of one big box
+    # sw: the brick kernels K6c/K6d on the unfused engine (p = 4, q = 0);
+    # the sharded force path of one big box is not ported
     use_pallas_bricks: bool = False
     spatial_shards: int = 0
+    # sw: None = the fused kernel K5 wherever its gate admits the box
+    # (<= 640 atoms, p = 4, q = 0, no bricks); False = the unfused engine
+    # (the JAX field, material.py:97, whose None means fused on the TPU)
+    use_fused: bool | None = None
     # setup-time checks (min image, list width, cell capacity); disable
     # only for test fixtures
     validate: bool = True
@@ -230,7 +238,8 @@ def build_kspace_split(ff, n: int):
 def build_system(spec: MaterialSpec, dtype=torch.float64,
                  device=None) -> tuple[E.MDSystem, E.MDState]:
     """The SW and OPLS branches of material._build_system: the diamond-Si
-    Stillinger-Weber box on K5 (:func:`_build_sw`); the built-in
+    Stillinger-Weber box on K5, or above its gate on the unfused engine
+    with the brick kernels K6c/K6d or a neighbor list (:func:`_build_sw`); the built-in
     united-atom alkane melt (K1's chain path) or, with ``allatom``, the
     charged all-atom PE melt with SHAKE on the bonds to hydrogen and, with
     ``use_ewald``, the Ewald/PME k-space split (K3); an OPLS box the
@@ -281,7 +290,8 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
                            kspace=kspace, kspace_every=spec.kspace_every,
                            nspec=nspec if use_list else None,
                            rebuild_every=spec.rebuild_every)
-    sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons)
+    sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons,
+                     rebuild_every=spec.rebuild_every)
     st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
                       torch.as_tensor(data.box, dtype=dtype, device=device))
     return sys, st
@@ -290,30 +300,36 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
 def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
     """The SW branch of material._build_system (material.py:626-649,
     :776-808): a diamond lattice of ``n_cells`` (or ``n_cells_xyz``) cells
-    of edge ``a0`` with uniform masses, checked by ``_validate_setup``
-    with a 20-slot list (cutoff + 1 A skin), on kernel K5 — the JAX
-    package's fused all-pairs gate: at most 640 atoms, p = 4, q = 0, no
-    brick kernels.  What the gate refuses ran elsewhere in the JAX package
-    (the one-hot structure, the brick kernels K6c-e with the unfused
-    engine, the spatially sharded loop) and raises NotImplementedError
-    here."""
+    of edge ``a0`` with uniform masses, checked by ``_validate_setup`` with
+    a 20-slot list (cutoff + 1 A skin), routed as the JAX package routes it:
+
+    * kernel K5 (the fused engine) where its gate admits the box: at most
+      640 atoms, p = 4, q = 0, no brick kernels, ``use_fused`` not False;
+    * with ``use_pallas_bricks``, the unfused engine on the brick kernels
+      K6c/K6d (``ops.sw_bricks.SWBricksFF``), p = 4 and q = 0 only;
+    * any other box, the unfused engine on autograd of ``SW.energy`` over
+      a 20-slot list rebuilt every ``rebuild_every`` steps — the route that
+      replaces the JAX package's one-hot structure (boxes of 512 atoms and
+      more) and its XLA engine.  The dense list build gives the same pairs
+      as the cell-binned one, which is not ported.
+
+    ``spatial_shards`` raises NotImplementedError."""
     cxyz = spec.n_cells_xyz or (spec.n_cells,) * 3
     pos, h = lattice.diamond(spec.a0, *cxyz)
     n = len(pos)
     ff = spec.sw
-    if spec.use_pallas_bricks:
-        raise NotImplementedError(
-            f"material {spec.name!r}: the SW brick kernels (K6c-e, use_pallas_bricks) and "
-            "the unfused engine they run in are not ported (ROADMAP queue 1)")
     if spec.spatial_shards:
         raise NotImplementedError(
             f"material {spec.name!r}: the spatially sharded SW force path "
             "(spatial_shards) is not ported (ROADMAP item 14)")
-    if n > SW_ALLPAIRS_MAX_ATOMS:
+    family = abs(float(ff.p) - 4.0) < 1e-12 and abs(float(ff.q)) < 1e-12
+    if spec.use_pallas_bricks and not family:
         raise NotImplementedError(
-            f"material {spec.name!r}: {n} SW atoms exceed the fused all-pairs gate "
-            f"({SW_ALLPAIRS_MAX_ATOMS}); the JAX package runs such boxes on its one-hot "
-            "neighbor structure, which is not ported (ROADMAP queue 1)")
+            f"material {spec.name!r}: the SW brick kernels compute the p = 4, q = 0 family "
+            f"only (got p = {ff.p}, q = {ff.q}); the TPU kernels would compute p = 4 "
+            "silently — run this force field without use_pallas_bricks")
+    fused = (spec.use_fused is not False and n <= SW_ALLPAIRS_MAX_ATOMS
+             and not spec.use_pallas_bricks and family)
     # the SW cutoff spans the first two diamond shells; 20 slots cover
     # moderate compression (material.py:632-634)
     k_max = spec.neighbor_k if spec.neighbor_k is not None else 20
@@ -321,11 +337,18 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     if spec.validate:
         _validate_setup(spec, pos, h, nspec)
     masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
-    fused = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
-    sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL)
     st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
                       torch.as_tensor(h, dtype=dtype, device=device))
-    return sys, st
+    if fused:
+        runner = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
+        return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL,
+                          rebuild_every=spec.rebuild_every), st
+    if spec.use_pallas_bricks:
+        ff = SWB.SWBricksFF(ff, pos, h, device=device)
+    # the dense build at every size: the same pairs as build_cells
+    nspec = dataclasses.replace(nspec, cells=(0, 0, 0), n2_threshold=n)
+    return E.MDSystem(ff=ff, masses=masses, units=REAL, nspec=nspec,
+                      rebuild_every=spec.rebuild_every), st
 
 
 def equilibrate(sys: E.MDSystem, state: E.MDState, params: MDParams,

@@ -2,7 +2,9 @@
 
 Torch twin of ``scema_tpu/md/neighbor.py`` with a leading job axis: a
 *full* list (each pair in both rows) of width K, ``idx (..., N, K)`` with
-``mask (..., N, K)``, dead slots self-padded.  The setup-time diagnostics
+``mask (..., N, K)``, dead slots self-padded.  K4 reads it through its
+packed channels; the unfused engine's SW list route hands it to
+``SW.energy``.  The setup-time diagnostics
 (``derive_spec``, ``required_k``, ``max_in_range``,
 ``max_cell_occupancy``) are numpy, as in the JAX package.
 
@@ -11,7 +13,9 @@ Only the dense O(N^2) build is ported.  Every box the port runs takes it:
 edge 1.2 r_list fit along an axis, which holds below ~47 A at the charged
 material's r_list = 13 A.  The cell-binned builds (``build_cells``,
 ``build_cells_structured``) are not ported yet; :func:`build` raises for a
-spec that asks for cells.
+spec that asks for cells.  SW boxes take the dense build at every size
+(``material._build_sw`` clears the cells of their spec): it gives the same
+pairs as the cell build.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
 ``md_list.cu`` and ``md_sw.cu`` share their device code through
-``md_kernel.cuh``) — and the objects are
+``md_kernel.cuh``; ``pairwise_l2.cu`` and ``sw_bricks.cu`` stand alone) —
+and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
 ``build/scema_tpu_torch/`` at the repository root, and is keyed by a hash of
@@ -48,6 +49,10 @@ SIGNATURES = {
     "md_list_forces_f32": [_P, _P],
     "md_sw_run_f32": [_P, _P],
     "md_sw_forces_f32": [_P, _P],
+    # K6 (SW tiles): tiles, [adjoints,] nbr, valid, h, h^-1, out, B, C, K,
+    # a pointer to the constants (sw_bricks._SWK) and the stream
+    "sw_moments_f32": [_P] * 6 + [_I] * 3 + [_P, _P],
+    "sw_forces_f32": [_P] * 7 + [_I] * 3 + [_P, _P],
 }
 
 _lib = None

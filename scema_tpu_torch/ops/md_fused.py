@@ -67,7 +67,9 @@ import torch
 from ..md import box as B
 from ..md import neighbor as NB
 from ..md.forcefields.coulomb import QQR2E_REAL
+from ..md.forcefields.sw import SW
 from . import _build
+from . import sw_bricks as SWB
 
 NHC_LEN = 3
 
@@ -406,12 +408,12 @@ def make_runner_sw(sw, masses: torch.Tensor, units, tdamp: float = 100.0,
     (material.py:512-551): the SW constants go into the spec, the kernel
     keeps no planes, and the thermostat counts 3N - 3 degrees of freedom.
     Only the p = 4, q = 0 family (Si) has a kernel; any other raises
-    NotImplementedError (the JAX package falls back to its XLA engine,
-    which the port does not have yet)."""
+    NotImplementedError (``material.build_system`` sends such a box to the
+    unfused engine, as the JAX package sends it to its XLA engine)."""
     if not (abs(float(sw.p) - 4.0) < 1e-12 and abs(float(sw.q)) < 1e-12):
         raise NotImplementedError(
             f"K5 computes the p = 4, q = 0 SW family only (got p = {sw.p}, q = {sw.q}); "
-            "the unfused SW engine is not ported (ROADMAP queue 1)")
+            "other families run on the unfused engine (material.build_system)")
     n = int(masses.shape[0])
     m = masses.to(torch.float64).cpu()
     spec = FusedSpec(n_atoms=n, cutoff2=float(sw.cutoff) ** 2, ndof=3 * n - 3,
@@ -431,20 +433,18 @@ def _mass_rows(m: torch.Tensor, units, dtype, device) -> dict:
 
 
 def sw_consts(spec: FusedSpec) -> dict:
-    """K5's constants, derived on the host in double precision from
-    ``spec.sw_params`` with the TPU kernel's association
+    """K5's constants (K6's, ``sw_bricks.sw_consts``, without q and c0),
+    derived on the host in double precision from ``spec.sw_params`` with
+    the TPU kernel's association
     (md_fused.py:923-1050), so that the kernel (which takes them in
     float32) and the plain version see the same numbers: the cutoff rc =
     a sig and the mask bound (rc - 1e-6)^2; gs = gam sig; the two-body
     factors A eps, B and -4 B; the adjoint factors lam eps c0^2 (a_s),
     -2 lam eps c0 (a_m), lam eps (a_Q) and the constant a_gsq =
     -(lam eps / 2)(1 - c0)^2."""
-    eps, sig, a, lam, gam, c0, A, Bc = spec.sw_params
-    rc = a * sig
-    lam_eps = lam * eps
-    return dict(rc=rc, rc2=(rc - 1e-6) ** 2, sig=sig, gs=gam * sig, aeps=A * eps, b=Bc,
-                m4b=-4.0 * Bc, lam_eps=lam_eps, k_s=lam_eps * c0 * c0,
-                k_m=-2.0 * lam_eps * c0, a_gsq=-(lam_eps / 2.0) * (1.0 - c0) ** 2)
+    c = SWB.sw_consts(SW(*spec.sw_params, p=4.0, q=0.0))
+    return {k: c[k] for k in ("rc", "rc2", "sig", "gs", "aeps", "b", "m4b", "lam_eps", "k_s",
+                              "k_m", "a_gsq")}
 
 
 def pack_channels(runner: FusedRunner, pos: torch.Tensor, h: torch.Tensor,

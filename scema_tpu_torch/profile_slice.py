@@ -4,6 +4,8 @@
     python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --bigbox [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --sw [--steps 8] [--repeats 10]
+    python -m scema_tpu_torch.profile_slice --sw-bricks [--steps 8] [--repeats 10]
+    python -m scema_tpu_torch.profile_slice --sw-list [--steps 2] [--repeats 2]
 
 Builds the MD-coupled ``HMMConfig()`` dogbone on one CUDA card exactly as
 ``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes) — or,
@@ -12,17 +14,20 @@ with ``--charged``, the charged slice (the 1792-atom all-atom PE material
 ``equil_steps=50``, ``minimize_steps=100``) or, with ``--bigbox``, the same
 with the 2240-atom box ``material.PEAA2240`` on the gather-list kernel K4,
 or, with ``--sw``, the config with ``"force field": "sw"`` (the 216-atom
-diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) —
-times
+diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) or,
+with ``--sw-bricks`` / ``--sw-list``, the SW box above K5's gate (8^3
+cells, 4096 atoms, at most 128 MD jobs per step) on the unfused engine with
+the brick kernels K6c/K6d or on the list route (autograd of ``SW.energy``)
+— times
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
 ``torch.profiler``: the script prints the kernels by device time, the share
 of the step's wall time in which the device was idle, and the peak device
 memory.  On the charged slices the k-space remainder and (K4) the neighbor
-list rebuilds are timed by CUDA events around each call, so the profiled
-step's device time splits into the MD kernel, the rebuilds, PME and the
-rest.  The last line is one JSON object with these numbers.
+list rebuilds are timed by CUDA events around each call, and on the SW
+list route the list rebuilds, so the profiled step's device time splits
+into the MD kernels, the rebuilds, PME and the rest.  The last line is one JSON object with these numbers.
 """
 from __future__ import annotations
 
@@ -65,6 +70,10 @@ def main(argv=None) -> int:
                     help="the charged 2240-atom slice on the list kernel (K4, PME)")
     ap.add_argument("--sw", action="store_true",
                     help="the Stillinger-Weber silicon slice (K5) instead of the g0 slice")
+    ap.add_argument("--sw-bricks", action="store_true",
+                    help="the 4096-atom SW slice on the brick kernels (K6c/K6d)")
+    ap.add_argument("--sw-list", action="store_true",
+                    help="the 4096-atom SW slice on the list route (autograd SW.energy)")
     args = ap.parse_args(argv)
 
     import torch
@@ -86,13 +95,18 @@ def main(argv=None) -> int:
 
     cfg = HMMConfig().replace(dtype="float32")
     t0 = time.perf_counter()
-    if args.charged or args.bigbox:
-        from .md.material import PEAA, PEAA2240
+    if args.charged or args.bigbox or args.sw_bricks or args.sw_list:
+        from .md.material import PEAA, PEAA2240, MaterialSpec
 
         cfg = cfg.replace(md_dtype="float32", resources=dataclasses.replace(
             cfg.resources, max_md_jobs=128))
-        hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
-                           minimize_steps=100, device=dev)
+        if args.sw_bricks or args.sw_list:
+            hmm = build_md_hmm(cfg, spec=MaterialSpec(name="si", n_cells=8,
+                                                      use_pallas_bricks=args.sw_bricks),
+                               device=dev)
+        else:
+            hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
+                               minimize_steps=100, device=dev)
     else:
         if args.sw:
             cfg = cfg.replace(md=dataclasses.replace(cfg.md, force_field="sw"))
@@ -100,12 +114,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"setup {setup_s:.3f}s (mesh + quick prep, kernel build included if not cached)")
-    # CUDA events around the k-space remainder and the list rebuilds
-    runner = hmm.backend.sys.fused
+    # CUDA events around the k-space remainder and the list rebuilds (the
+    # fused runner's, or the unfused engine's build_neighbors)
+    sys_ = hmm.backend.sys
+    runner = sys_.fused if sys_.fused is not None else sys_
     spans = {"PME remainder": [], "neighbor build": []}
-    for key, name in (("PME remainder", "kspace"), ("neighbor build", "channels")):
+    hooks = ((("PME remainder", "kspace"), ("neighbor build", "channels"))
+             if sys_.fused is not None else (("neighbor build", "build_neighbors"),))
+    for key, name in hooks:
         fn = getattr(runner, name)
-        if name == "kspace" and fn is None or name == "channels" and not runner.spec.k:
+        if (name == "kspace" and fn is None or name == "channels" and not runner.spec.k
+                or name == "build_neighbors" and hasattr(sys_.ff, "slot_ids")):
             continue
 
         def timed(*a, _fn=fn, _key=key, **kw):
@@ -160,9 +179,11 @@ def main(argv=None) -> int:
         t = _self_device_us(e)
         if t > 0:
             print(f"  {t / 1e3:10.3f} ms  {100 * t / dev_total:5.1f}%  n={e.count:5d}  {e.key[:80]}")
-    groups = {"md kernels (K1/K3/K4/K5)": 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
+    md = "md kernels (K1/K3/K4/K5/K6)"
+    groups = {md: 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
     for name, d in dur:
-        key = ("md kernels (K1/K3/K4/K5)" if "md_run_kernel" in name or "md_forces_kernel" in name
+        key = (md if any(k in name for k in ("md_run_kernel", "md_forces_kernel",
+                                              "sw_moments_kernel", "sw_forces_kernel"))
                else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")
         groups[key] += d / 1e3
     print("device time by group (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
@@ -175,7 +196,7 @@ def main(argv=None) -> int:
     if span_ms and any(span_ms.values()):
         rest = groups["everything else"] - sum(span_dev.values())
         print("profiled step, device time (ms): " + ", ".join(
-            [f"md kernel {groups['md kernels (K1/K3/K4/K5)']:.3f}"]
+            [f"md kernels {groups[md]:.3f}"]
             + [f"{k} {span_dev.get(k, 0.0):.3f} (stream span {v:.3f} by CUDA events)"
                for k, v in span_ms.items() if v]
             + [f"K2 {groups['pairwise_l2 (K2)']:.3f}", f"rest {rest:.3f}"]))

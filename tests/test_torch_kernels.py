@@ -37,7 +37,12 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K5 (the Stillinger-Weber sweeps) on the slice's 216-atom diamond-Si box
   and on the gate's largest, 640 atoms (two rounds of the block), with
   perturbed positions and tilted boxes: the bounds of K1, inactive jobs
-  bit-identical."""
+  bit-identical;
+* K6d/K6e (SW brick moments, energy) and K6c (adjoint forces, energy,
+  virial) on 512- and 4096-atom boxes with perturbed positions and tilted
+  boxes, K6a/K6b on a 512-atom box: the K1 force bounds; ten deform steps
+  of the unfused engine on the bricks against the list route within 1e-3 A
+  (float32 noise of two force orders), a 0-step job bit-identical."""
 import dataclasses
 
 import numpy as np
@@ -48,6 +53,7 @@ from scema_tpu_torch.md import engine as E
 from scema_tpu_torch.md import material as M
 from scema_tpu_torch.ops import md_fused as MF
 from scema_tpu_torch.ops import pairwise_l2 as K2
+from scema_tpu_torch.ops import sw_bricks as SWB
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -517,3 +523,119 @@ def test_k5_sampling_pressure_sums_match_plain(si):
                                 batch.vxi.double(), n, fscal.double(), False, True)
     for c in range(6):
         assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
+
+
+@pytest.fixture(scope="module", params=[4, 8], ids=["512", "4096"])
+def si_big(request):
+    """SW boxes on the brick kernels (K6c/K6d/K6e): 512 atoms (8 bricks of
+    the 96-atom target) and the brick slice's 4096 atoms (48 bricks, the
+    full 27-stencil), each batch with seeded displacements of 0.1 A and
+    tilted boxes."""
+    dev = _device()
+    sys, st = M.build_system(dataclasses.replace(SI, n_cells=request.param,
+                                                 use_pallas_bricks=True),
+                             dtype=torch.float32, device=dev)
+    B = 4
+    rng = np.random.default_rng(7)
+    pos = st.pos + torch.as_tensor(rng.normal(scale=0.1, size=(B,) + tuple(st.pos.shape)),
+                                   dtype=torch.float32, device=dev)
+    h = st.h.expand(B, -1, -1).clone()
+    h[:, 0, 1] = torch.linspace(-0.6, 0.6, B)
+    h[:, 0, 2] = 0.2
+    return sys, pos, h
+
+
+def test_k6_moments_and_energy_match_plain(si_big):
+    """K6d's channels and K6e's energy within twice the plain float32
+    version's error against float64 (+1e-6)."""
+    sys, pos, h = si_big
+    ff = sys.ff
+    sl = (ff.slot_ids, ff.nbr, ff.valid)
+    before = (SWB.sw_moments_bricks.launches, SWB.sw_energy_bricks.launches)
+    mom = SWB.sw_moments_bricks(ff.sw, pos, h, *sl)
+    e = SWB.sw_energy_bricks(ff.sw, pos, h, *sl)
+    torch.cuda.synchronize()
+    assert (SWB.sw_moments_bricks.launches, SWB.sw_energy_bricks.launches) == (
+        before[0] + 1, before[1] + 1)
+    mp = SWB.sw_moments_bricks(ff.sw, pos, h, *sl, plain=True)
+    m64 = SWB.sw_moments_bricks(ff.sw, pos.double(), h.double(), *sl, plain=True)
+    e64 = SWB.energy_from_moments(ff.sw, m64)
+    assert torch.isfinite(mom).all()
+    assert _rel(mom, m64) <= 2 * _rel(mp, m64) + 1e-6
+    assert _rel(e, e64) <= 2 * _rel(SWB.energy_from_moments(ff.sw, mp), e64) + 1e-6
+
+
+def test_k6c_forces_energy_virial_match_plain(si_big):
+    """K6c (after K6d and the adjoints): forces, energy and virial within
+    twice the plain float32 version's error against float64 (+1e-6)."""
+    sys, pos, h = si_big
+    ff = sys.ff
+    before = SWB.sw_forces_bricks.launches
+    F, e, W = ff.forces_energy_virial(pos, h)
+    torch.cuda.synchronize()
+    assert SWB.sw_forces_bricks.launches == before + 1
+    args = (ff.sw, ff.slot_ids, ff.nbr, ff.valid)
+    Fp, ep, Wp = SWB.sw_forces_bricks(args[0], pos, h, *args[1:], plain=True)
+    F64, e64, W64 = SWB.sw_forces_bricks(args[0], pos.double(), h.double(), *args[1:],
+                                         plain=True)
+    assert torch.isfinite(F).all() and torch.isfinite(W).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(e, e64) <= 2 * _rel(ep, e64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5])
+def test_k6a_k6b_match_plain(q):
+    """K6a (all tile pairs, general q) and K6b (tile adjacency, q = 0) on a
+    perturbed 512-atom box: channels within twice the plain float32
+    version's error against float64 (+1e-6)."""
+    dev = _device()
+    sys, st = M.build_system(dataclasses.replace(SI, n_cells=4), dtype=torch.float32,
+                             device=dev)
+    sw = dataclasses.replace(SI.sw, q=q)
+    pos = st.pos + torch.as_tensor(np.random.default_rng(8).normal(scale=0.1, size=st.pos.shape),
+                                   dtype=torch.float32, device=dev)
+    h = st.h.clone()
+    h[0, 1] = 0.3
+    tiles = SWB.pack_tiles(pos[None])
+    hh, ih = SWB.boxes(h[None], (1,), torch.float32, dev)
+    lists = [("K6a", SWB.all_tile_pairs(tiles.shape[1]))]
+    if q == 0.0:
+        lists.append(("K6b", SWB.tile_adjacency(pos.double().cpu().numpy(),
+                                                h.double().cpu().numpy(), SI.sw.cutoff)))
+    for name, (nbr, valid) in lists:
+        nb, va = torch.as_tensor(nbr, device=dev), torch.as_tensor(valid, device=dev)
+        fn = SWB.sw_moments if name == "K6a" else SWB.sw_moments_adj
+        before = fn.launches
+        mk = (SWB.sw_moments(sw, pos[None], h[None]) if name == "K6a"
+              else SWB.sw_moments_adj(sw, pos[None], h[None], nb, va))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        mp = SWB.sw_moments_plain(sw, tiles, nb, va, hh, ih)
+        m64 = SWB.sw_moments_plain(sw, tiles.double(), nb, va, hh.double(), ih.double())
+        assert torch.isfinite(mk).all()
+        assert _rel(mk, m64) <= 2 * _rel(mp, m64) + 1e-6, name
+
+
+def test_k6_unfused_run_matches_list_route(si_big):
+    """Ten deform steps through the unfused engine on the brick kernels and
+    on the list route (autograd of SW.energy) from one state agree to the
+    float32 noise; a job with 0 steps comes back bit-identical."""
+    sys, pos, h = si_big
+    dev = pos.device
+    n = sys.n_atoms
+    sys_l, _ = M.build_system(dataclasses.replace(SI, n_cells=round((n / 8) ** (1 / 3)),
+                                                  use_fused=False),
+                              dtype=torch.float32, device=dev)
+    B = pos.shape[0]
+    gen = torch.Generator().manual_seed(9)
+    vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
+                       for _ in range(B)])
+    st = E.MDState(pos=pos, vel=vel, h=h, vxi=torch.zeros((B, 3), device=dev))
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=dev).expand(B, 6)
+    steps = torch.tensor([10, 0, 10, 20][:B], device=dev)
+    ob = E.run_strain(sys, st, eps, steps, T_MD, DT)
+    ol = E.run_strain(sys_l, st, eps, steps, T_MD, DT)
+    assert torch.equal(ob.pos[1], pos[1]) and torch.equal(ob.vel[1], vel[1])
+    assert torch.isfinite(ob.pos).all()
+    assert float((ob.pos - ol.pos).abs().max()) < 1e-3

@@ -9,8 +9,9 @@ package, float64, on the CPU.
   forces 1e-10 relative, virial 1e-9 (W = -dE/dF for a 3x3 deformation F
   of positions and box, symmetrised; measured ~1e-15).
 * The builders and the gate: the lattice, K5's spec against the JAX
-  runner's, the refusals (more than 640 atoms, brick kernels, spatial
-  shards, p != 4), the ``force_field`` default, the LAMMPS-restart refusal,
+  runner's, the routing off the gate (more than 640 atoms or p != 4: the
+  list route; brick kernels: the bricks), the refusals (spatial shards,
+  bricks with p != 4), the ``force_field`` default, the LAMMPS-restart refusal,
   the config selecting SW (``"force field": "sw"`` or a sisw scripts
   directory) through ``build_md_hmm``.
 """
@@ -155,9 +156,17 @@ def test_build_system_and_gate():
     # the gate's largest cubic box still runs K5
     assert TM.build_system(TM.MaterialSpec(name="si", n_cells=4),
                            device="cpu")[0].fused.spec.n_atoms == 512
-    for bad in (dict(n_cells_xyz=(4, 4, 6)), dict(n_cells=5), dict(use_pallas_bricks=True),
-                dict(spatial_shards=2),
-                dict(sw=dataclasses.replace(TSW.SI, p=6.0))):
+    # above the gate, or with the brick kernels, the unfused engine: the
+    # list route (autograd of SW.energy) or the bricks (K6c/K6d)
+    for kw, route in ((dict(n_cells_xyz=(4, 4, 6)), "list"), (dict(n_cells=5), "list"),
+                      (dict(use_pallas_bricks=True), "bricks"),
+                      (dict(sw=dataclasses.replace(TSW.SI, p=6.0)), "list")):
+        big, _ = TM.build_system(TM.MaterialSpec(name="si", **kw), device="cpu")
+        assert big.fused is None
+        assert (route == "bricks") == hasattr(big.ff, "slot_ids")
+        assert route == "bricks" or big.nspec.cells == (0, 0, 0)
+    for bad in (dict(spatial_shards=2),
+                dict(use_pallas_bricks=True, sw=dataclasses.replace(TSW.SI, p=6.0))):
         with pytest.raises(NotImplementedError):
             TM.build_system(TM.MaterialSpec(name="si", **bad), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
