@@ -80,11 +80,28 @@ failure exits non-zero before the result line:
    read just after; K6c, K6d and K2 must have launched and no other MD
    kernel; md jobs 128, 128 and 0.00032 m;
 15. the same box on the list route (no bricks) for 1 macro-step: K2 is
-   the only kernel launched.
+   the only kernel launched;
+16. K1m (K1's run with J = 2 jobs per block, the coupler's pack_jobs)
+   on the prepared g0 box at 576 jobs: a 10-step deform run and a 20-step
+   sampling run against K1 (bit for bit expected) and against float64 at
+   phase 4's tolerances, (live, dead) pairs with the dead job
+   bit-identical; K1m's (J = 2 and 4), K1's and the plain version's times,
+   the bound, and both kernels' registers and spill stores;
+17. the staged slice: ``scema_tpu_torch.cli run cfg.json --steps 3`` on
+   an empty config without ``--quick-prep`` (the staged heatup/cooldown
+   NPT prep; md jobs 144, 288, 432, 0.00048 m; K1's entries and K2 only)
+   and the prepared g0 density (the band of the JAX package's prep); the
+   g0 prep at ns_init 60 (450-950 kg/m^3, tests/test_opls_hmm.py:69-81);
+   2 macro-steps of the same built problem with pack_jobs 1, 1 again and 2
+   (K1m launched, K1's run entry not; stresses within 1e-4 relative, and
+   the MD layer alone bit for bit on identical inputs), and the staged
+   prep of the 216-atom SW box on K5's entry (density in the band of the
+   JAX package's prep).
 
 The second-to-last line is a JSON object with one entry per kernel (K1
 and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
-on the coupled list slice, K5's on the SW slice, K6's on the brick slice;
+on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
+K1m's on phase 17's pack_jobs=2 steps;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -1644,6 +1661,337 @@ def phase_sw_big_slice(dev, bricks: bool, n_steps: int):
     return launches
 
 
+def kernel_registers(name_part: str):
+    """[(registers, spill store bytes)] of the compiled entries whose
+    mangled name holds ``name_part``, from the build's ptxas report (empty
+    when the library came from the cache)."""
+    from scema_tpu_torch.ops import _build
+
+    out, cur = [], None
+    for line in _build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = [m.group(1), None, None]
+            continue
+        if cur is None or name_part not in cur[0]:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            cur[2] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+            out.append((cur[1], cur[2]))
+            cur = None
+    return out
+
+
+# K1m's jobs per block on the coupled path (MDBackend.pack_jobs)
+K1M_JOBS = 2
+# K1 (every flag off; md_allpairs.cu) and K1m's (J = 2, 4; md_multi.cu) mangled kernel names
+K1_KERNEL = "md_run_kernelILb0ELb0ELb0ELb0ELb0ELb0ELb0E"
+K1M_KERNELS = {J: f"md_run_multi_kernelILi{J}E" for J in (2, 4)}
+
+
+def phase_k1m(dev):
+    """Phase 16: K1m (K1's run with J = 2 jobs per block) against K1, its
+    plain version and float64 on the prepared g0 box at 576 jobs."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+
+    t0 = time.perf_counter()
+    sys_, st = M.build_system(M.MaterialSpec(name="g0", force_field="opls"),
+                              dtype=torch.float32, device=dev)
+    st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
+    r, n, J = sys_.fused, sys_.n_atoms, 576
+    gen = torch.Generator().manual_seed(16)
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    state = MF.pack_state(st.pos.expand(J, -1, -1), vel)
+    vxi = torch.zeros((J, 3), device=dev)
+    epsJ = (torch.rand((J, 6), generator=gen) * 2e-3 - 1e-3).to(dev)
+    fscal = MF.make_fscal(DT, T_MD, hJ, epsJ)
+    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
+    r64 = r.to(dev, torch.float64)
+
+    # 10-step deform run: K1m against K1 (bit for bit expected) and, at
+    # phase 4's tolerances, against float64
+    out, xo, _ = MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS)
+    ref, xr, _ = MF.md_run(r, state, vxi, n10, fscal, True, False)
+    pl, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(),
+                                  True, False)
+    torch.cuda.synchronize()
+    d_run = float((out - ref).abs().max())
+    p_err = float((out[:, :3] - pl[:, :3]).abs().max())
+    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    pp = float((pl[:, :3].double() - ref64[:, :3]).abs().max())
+    vmax = float(ref64[:, 3:].abs().max())
+    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    vp = float((pl[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+        fail(f"K1m run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+    print(f"[16 K1m run] {J} jobs x 10 deform steps, J = {K1M_JOBS} per block: max |K1m - K1| "
+          f"{d_run:.3e} (state), {float((xo - xr).abs().max()):.3e} (NHC); positions max_abs_err "
+          f"vs plain {p_err:.3e} A; vs float64: K1m {pk:.3e} A plain-f32 {pp:.3e} A, velocities "
+          f"rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)")
+
+    # 20-step sampling run: per-job pressure sums
+    f_s = MF.make_fscal(DT, T_MD, hJ)
+    n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
+    _, _, sk = MF.md_run_multi(r, out, xo, n20, f_s, False, True, K1M_JOBS)
+    _, _, s1 = MF.md_run(r, out, xo, n20, f_s, False, True)
+    _, _, sp = MF.md_run_plain(r, out, xo, n20, f_s, False, True)
+    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True)
+    torch.cuda.synchronize()
+    smax = s64.abs().amax(0)
+    sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
+    sp_err = float(((sp.double() - s64).abs().amax(0) / smax).max())
+    d_s = float((sk - s1).abs().max())
+    if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
+        fail(f"K1m sampling: pressure sums vs float64 rel {sk_err:.3e} exceed 4x plain "
+             f"float32 {sp_err:.3e} + 1e-4")
+    print(f"[16 K1m sample20] {J} jobs x 20 sampling steps: max |K1m - K1| {d_s:.3e} atm; "
+          f"rel to float64 (worst component): K1m {sk_err:.3e} plain-f32 {sp_err:.3e} "
+          f"(tol 4x plain + 1e-4)")
+
+    # (live, dead) pairs: every second job runs 0 steps
+    n_pair = torch.tensor([20, 0] * (J // 2), dtype=torch.int32, device=dev)
+    o2, x2, p2 = MF.md_run_multi(r, out, xo, n_pair, f_s, False, True, K1M_JOBS)
+    o1, _, p1 = MF.md_run(r, out, xo, n_pair, f_s, False, True)
+    torch.cuda.synchronize()
+    dead_ok = (torch.equal(o2[1::2], out[1::2]) and torch.equal(x2[1::2], xo[1::2])
+               and not bool(p2[1::2].any()))
+    d_live = float((o2[0::2] - o1[0::2]).abs().max())
+    if not dead_ok or not torch.isfinite(o2).all():
+        fail("K1m: a dead job of a (live, dead) pair was modified")
+    print(f"[16 K1m pairs] {J // 2} (live, dead) pairs x 20 sampling steps: dead jobs "
+          f"bit-identical; live jobs max |K1m - K1| {d_live:.3e} (state), "
+          f"{float((p2[0::2] - p1[0::2]).abs().max()):.3e} atm")
+
+    # times: K1m (J = 2 and 4) and K1 on the same 576-job deform run
+    ms = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS),
+                 reps=3)
+    ms4 = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, 4), reps=3)
+    k1_ms = cuda_ms(lambda: MF.md_run(r, state, vxi, n10, fscal, True, False), reps=3)
+    plain_ms = cuda_ms(lambda: MF.md_run_plain(r, state, vxi, n10, fscal, True, False),
+                       reps=1, warmup=0)
+    f_lj, _ = pair_fractions(st.pos.expand(2, -1, -1), hJ[:2], r.spec.cutoff2)
+    b_ms, b_by = bound(4.0 * (2 * n * n + 16 * n + 2 * J * (6 * n + 3) + J * 16),
+                       pair_flops(n, J * 10, f_lj))
+    regs = {"K1": kernel_registers(K1_KERNEL)[:1],
+            **{f"K1m J={J}": kernel_registers(k) for J, k in K1M_KERNELS.items()}}
+    print(f"[16 K1m] {J} jobs x 10 deform steps: K1m J=2 {ms:.3f} ms  J=4 {ms4:.3f} ms  "
+          f"K1 {k1_ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
+          f"(registers, spill stores) {regs}  phase wall {time.perf_counter() - t0:.2f}s")
+    return {"name": "md_allpairs_run_multi", "route": "cuda",
+            "source": "scema_tpu_torch/csrc/md_multi.cu",
+            "replaces": "scema_tpu/ops/md_fused.py:1850",
+            "max_abs_err": max(d_run, d_s), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _all_counters():
+    from scema_tpu_torch.ops import md_fused as MF
+
+    return {**_k6_counters(), "md_allpairs_run_multi": (MF.md_run_multi, "launches_k1m")}
+
+
+# Density bands (kg/m^3) after the staged prep at ns_init 100, about 10%
+# around what the JAX package's own prep gives on these boxes
+# (tests/torch_staged_density.py, CPU float64, keys 1-3: g0 432.3-452.3,
+# SW silicon 1513.4-1595.9; the port on the same draws gives the same).
+# Both boxes leave their start density: the octane melt expands while it is
+# held at 500 K, and the SW box melts, because the reference reads the
+# metal-units Si.sw energies as kcal/mol (scema_tpu/md/units.py).
+G0_RHO_NS100 = (390.0, 950.0)
+SI_RHO_NS100 = (1360.0, 1730.0)
+# (job, replica) runs of phase 17's MD-layer packing check: odd, so the last
+# J-tuple holds a zero-step pad job
+PACK_MD_RUNS = 145
+
+
+def phase_staged_slice(dev):
+    """Phase 17: the g0 slice as its users launch it — ``cli run cfg.json
+    --steps 3`` without ``--quick-prep`` (the staged heatup/cooldown NPT
+    prep) — then 2 macro-steps of the built problem with pack_jobs 1 and
+    2 (K1m), and the staged prep of the 216-atom SW box on K5's entry."""
+    import torch
+
+    from scema_tpu_torch import cli
+    from scema_tpu_torch.hmm import md_coupling as MC
+    from scema_tpu_torch.md import box as B
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.md.homogenization import MDParams
+
+    counters = _all_counters()
+
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    def only(launches, need, what):
+        for k in need:
+            if launches[k] <= 0:
+                fail(f"{what}: kernel {k} was not launched")
+        others = {k: v for k, v in launches.items() if k not in need}
+        if any(others.values()):
+            fail(f"{what}: kernels of other paths were launched: {others}")
+
+    n_steps = 3
+    built = {}
+    build = MC.build_md_hmm
+
+    def keep(*a, **kw):  # the CLI's own problem, kept for the packing runs
+        built["hmm"], built["staged"] = build(*a, **kw), kw.get("staged")
+        return built["hmm"]
+
+    gc.collect()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        cfg = os.path.join(tmp, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump({}, f)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        MC.build_md_hmm = keep
+        zero()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["run", cfg, "--steps", str(n_steps)])
+            torch.cuda.synchronize()
+        finally:
+            MC.build_md_hmm = build
+        wall = time.perf_counter() - t0
+        launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}")
+    if rc != 0 or built.get("staged") is not True:
+        fail(f"staged slice: cli run exited {rc} (staged={built.get('staged')})")
+    steps = re.findall(r"residual (\S+) -> (\S+)  flagged qps (\d+)  md jobs (\d+)  "
+                       r"reaction (\S+)  \((\S+)s\)", text)
+    setup = re.search(r"Setup \(mesh \+ material prep\) (\S+)s", text)
+    umax = re.search(r"Max displacement: (\S+) m", text)
+    if len(steps) != n_steps or setup is None or umax is None:
+        fail("staged slice: cli output is missing per-step lines, the setup time or the "
+             "displacement")
+    for r0, r1, _, _, rf, _ in steps:
+        if not all(abs(float(x)) < float("inf") for x in (r0, r1, rf)):
+            fail(f"staged slice: non-finite residuals {r0} {r1} {rf}")
+    jobs = [int(s[3]) for s in steps]
+    expect = n_steps * 0.002 * 0.08
+    if jobs != [144, 288, 432] or abs(float(umax.group(1)) - expect) > 1e-5 * expect:
+        fail(f"staged slice: md jobs {jobs} (expected [144, 288, 432]), max displacement "
+             f"{umax.group(1)} (expected {expect})")
+    only(launches, ("md_allpairs_run", "md_allpairs_forces_virial", "pairwise_l2"),
+         "staged slice")
+    hmm = built["hmm"]
+    rho = float(hmm.backend.ensemble.rho.mean())
+    if not G0_RHO_NS100[0] < rho < G0_RHO_NS100[1]:
+        fail(f"staged slice: prepared g0 density {rho} kg/m^3 outside {G0_RHO_NS100}")
+    print(f"[17 staged slice] prep (setup, staged NPT) {float(setup.group(1)):.3f}s  "
+          f"g0 density {rho:.2f} kg/m^3  s/macro-step "
+          f"{[float(s[5]) for s in steps]}  md jobs {jobs}  launches {launches}  peak memory "
+          f"{peak / 2**20:.1f} MiB  wall {wall:.2f}s  max displacement {umax.group(1)} m")
+
+    # tests/test_opls_hmm.py:69-81 on the card: the g0 box's staged prep at
+    # ns_init 60 (FIRE 80) in float32 settles at 450-950 kg/m^3
+    sys_, st = M.build_system(M.MaterialSpec(name="g0", force_field="opls"),
+                              dtype=torch.float32, device=dev)
+    params = MDParams(temperature=300.0, dt=2.0, strain_rate=1e-4, nsteps_sample=40)
+    t0 = time.perf_counter()
+    st = M.equilibrate_staged(sys_, st, params, torch.Generator().manual_seed(1), ns_init=60,
+                              minimize_steps=80)
+    torch.cuda.synchronize()
+    prep60 = time.perf_counter() - t0
+    rho60 = float(torch.sum(sys_.masses)) * M.DENSITY_CONV / float(B.volume(st.h))
+    if not torch.isfinite(st.pos).all() or not 450.0 < rho60 < 950.0:
+        fail(f"g0 staged prep at ns_init 60: density {rho60} kg/m^3 outside 450-950")
+    print(f"[17 g0 density] staged prep ns_init 100 (the CLI's): {rho:.2f} kg/m^3 (band "
+          f"{G0_RHO_NS100}); ns_init 60, FIRE 80 (test_opls_hmm.py:69-81): {rho60:.2f} kg/m^3 "
+          f"(band 450-950) in {prep60:.3f}s")
+
+    # the same problem and initial state, 2 macro-steps unpacked and packed
+    def two_steps(problem):
+        state = problem.init_state()
+        step_s = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            state, out = problem.step(state)
+            torch.cuda.synchronize()
+            step_s.append(round(time.perf_counter() - t1, 4))
+        return state, step_s
+
+    s1, t1 = two_steps(hmm)
+    s1b, t1b = two_steps(hmm)  # the unpacked run again: its run-to-run spread
+    packed = dataclasses.replace(hmm, backends=tuple(
+        dataclasses.replace(be, pack_jobs=K1M_JOBS) for be in hmm.backends))
+    zero()
+    s2, t2 = two_steps(packed)
+    launches_k1m = read()
+    only(launches_k1m, ("md_allpairs_run_multi", "pairwise_l2"), "pack_jobs=2 steps")
+    sig1, sig1b, sig2 = (c[0].qp.new_stress for c in (s1, s1b, s2))
+    smax = max(float(sig1.abs().max()), 1e-30)
+    d_rep = float((sig1b - sig1).abs().max())
+    d_sig = float((sig2 - sig1).abs().max())
+    if not torch.isfinite(sig2).all() or d_sig / smax > 1e-4:
+        fail(f"pack_jobs=2 stresses differ from pack_jobs=1 by {d_sig:.3e} (rel "
+             f"{d_sig / smax:.3e}, tol 1e-4)")
+    # the MD layer alone on identical inputs: 145 (job, replica) runs, an odd
+    # count, so the last pair holds a zero-step pad job; bit for bit expected
+    be = hmm.backend
+    st0 = be.initial_md_state
+    n_md = PACK_MD_RUNS
+    st_md = E.MDState(*(x.expand((n_md,) + x.shape).contiguous()
+                        for x in (st0.pos, st0.vel, st0.h, st0.vxi)))
+    gen = torch.Generator().manual_seed(171)
+    dl = ((torch.rand((n_md, be.n_repl, 6), generator=gen) * 2 - 1) * 1e-2).to(st0.pos)
+    o1, p1 = be._run_jobs(st_md, dl)
+    o2, p2 = dataclasses.replace(be, pack_jobs=K1M_JOBS)._run_jobs(st_md, dl)
+    torch.cuda.synchronize()
+    md_equal = torch.equal(p1, p2) and all(torch.equal(getattr(o1, f), getattr(o2, f))
+                                           for f in ("pos", "vel", "h", "vxi"))
+    if not md_equal:
+        fail(f"pack_jobs=2 MD runs differ from pack_jobs=1 on identical inputs: max |stress "
+             f"diff| {float((p2 - p1).abs().max()):.3e} Pa")
+    print(f"[17 pack_jobs] 2 macro-steps from the built problem: pack_jobs=1 {t1} and {t1b} "
+          f"s, pack_jobs={K1M_JOBS} {t2} s per step; max |stress diff| packed {d_sig:.3e} Pa "
+          f"(rel {d_sig / smax:.3e}, tol 1e-4), unpacked run-to-run {d_rep:.3e} Pa (rel "
+          f"{d_rep / smax:.3e}); the MD layer alone ({n_md} runs, one pad job) bit-identical "
+          f"{md_equal}  launches {launches_k1m}")
+
+    # the SW config's staged prep: 216-atom diamond-Si box on K5's entry
+    sys_, st = M.build_system(M.MaterialSpec(name="si"), dtype=torch.float32, device=dev)
+    params = MDParams(temperature=T_MD, dt=DT, strain_rate=1e-4, nsteps_sample=100)
+    zero()
+    t0 = time.perf_counter()
+    st = M.equilibrate_staged(sys_, st, params, torch.Generator().manual_seed(17),
+                              ns_init=100)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    sw_launches = read()
+    only(sw_launches, ("md_sw_run", "md_sw_forces"), "SW staged prep")
+    rho_si = float(torch.sum(sys_.masses)) * M.DENSITY_CONV / float(B.volume(st.h))
+    if not torch.isfinite(st.pos).all() or not SI_RHO_NS100[0] < rho_si < SI_RHO_NS100[1]:
+        fail(f"SW staged prep: density {rho_si} kg/m^3 outside {SI_RHO_NS100}")
+    print(f"[17 sw staged] 216-atom Si box, equilibrate_staged ns_init 100 (FIRE 100, NVT "
+          f"100, MTK NPT 900 steps): {prep_s:.3f}s  density {rho_si:.2f} kg/m^3 (band "
+          f"{SI_RHO_NS100}; the quick prep keeps 2329)  launches {sw_launches}")
+    return launches_k1m
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -1672,6 +2020,8 @@ def main() -> int:
     k6 = phase_k6(dev)
     launches_bricks = phase_sw_big_slice(dev, bricks=True, n_steps=2)
     phase_sw_big_slice(dev, bricks=False, n_steps=1)
+    k1m = phase_k1m(dev)
+    k1m["launches"] = phase_staged_slice(dev)["md_allpairs_run_multi"]
     rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
@@ -1681,6 +2031,7 @@ def main() -> int:
     for row in k6.values():  # K6's launches on the brick slice (phase 14)
         row["launches"] = launches_bricks[row["name"]]
         rows.append(row)
+    rows.append(k1m)  # K1m's launches on the pack_jobs=2 steps (phase 17)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

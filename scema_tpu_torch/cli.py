@@ -1,8 +1,11 @@
 """Command-line entry point of the port (the reference's dealammps).
 
-    python -m scema_tpu_torch.cli run <inputs.json> --quick-prep --steps N
+    python -m scema_tpu_torch.cli run <inputs.json> --steps N
 
-runs the coupled HMM time loop on one CUDA device: FE and MD in float32,
+runs the coupled HMM time loop on one CUDA device after the staged
+material prep (the reference's in.init.lammps heatup/cooldown NPT cycle,
+``material.equilibrate_staged``; ``--quick-prep`` takes the short
+fixed-box FIRE + NVT prep instead): FE and MD in float32,
 every flagged quadrature point's MD job through the fused MD kernel of the
 config's force field — K1 for the default united-atom OPLS melt, K5 for
 the Stillinger-Weber diamond-Si box that ``"molecular dynamics
@@ -13,8 +16,7 @@ path on the CPU (FE in float64) with the kernels' plain versions; without
 it a missing CUDA device is an error, never a silent CPU run.  ``--hooke``
 replaces MD with sigma = C:eps (the reference's debug mode).
 
-Only the ``run`` subcommand and only the quick material prep are ported
-(ROADMAP queue 1 lists the rest).
+Only the ``run`` subcommand is ported (ROADMAP queue 1 lists the rest).
 """
 from __future__ import annotations
 
@@ -73,8 +75,8 @@ def cmd_run(args) -> int:
     else:
         from .hmm.md_coupling import build_md_hmm
 
-        # without --quick-prep this raises NotImplementedError: the staged
-        # NPT prep is the next slice
+        # production material prep = the staged heatup/cooldown NPT cycle;
+        # --quick-prep takes the short fixed-box prep (debug and smoke runs)
         hmm = build_md_hmm(cfg, staged=not args.quick_prep, device=device)
     _sync(device)
     setup_s = time.perf_counter() - t_setup
@@ -122,8 +124,8 @@ def main(argv=None) -> int:
     pr.add_argument("--max-jobs", type=int, default=0,
                     help="cap the MD job-list capacity")
     pr.add_argument("--quick-prep", action="store_true",
-                    help="short fixed-box material prep (FIRE + NVT); the staged "
-                         "NPT prep is not ported yet")
+                    help="short fixed-box material prep (FIRE + NVT) instead of the "
+                         "staged heatup/cooldown NPT prep")
     pr.set_defaults(fn=cmd_run)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,9 +1,10 @@
-// K1, K3, K4 and K5: fused MD — whole NVT + fix-deform or NVT +
-// virial-sampling runs of many boxes, one thread block per job.  The
-// device code shared by md_allpairs.cu (K1, K3: the all-pairs pair loop),
-// md_list.cu (K4: the gather-list pair loop) and md_sw.cu (K5: the
-// Stillinger-Weber sweeps); each source instantiates and exports its own
-// side, so nvcc builds them in parallel.
+// K1, K3, K4, K5 and K1m: fused MD — whole NVT + fix-deform or NVT +
+// virial-sampling runs of many boxes, one thread block per job (K1m: J
+// jobs per block).  The device code shared by md_allpairs.cu (K1, K3: the
+// all-pairs pair loop), md_list.cu (K4: the gather-list pair loop),
+// md_sw.cu (K5: the Stillinger-Weber sweeps) and md_multi.cu (K1m); each
+// source instantiates and exports its own side, so nvcc builds them in
+// parallel.
 //
 // K1 replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk):
@@ -1069,8 +1070,176 @@ md_forces_kernel(Params P, Topo3 T, const float* __restrict__ pos,
   if (tid < 6) virial[job * 6 + tid] = w[tid];
 }
 
+// K1m: K1's run entry with J jobs per block, the TPU kernel's
+// FusedSpec.jobs = J > 1 (scema_tpu/ops/md_fused.py:881-902, :1445-1590;
+// entries run_strain_fused_multi :2415 and sample_stress_fused_multi
+// :2450).  K1's flag set only (no Coulomb, patterns, SHAKE, fext, list or
+// SW), as the TPU asserts.  Block b owns jobs b J .. b J + J - 1, each
+// with its own shared-memory set of 21 N floats (86 KB at N = 512, J = 2;
+// above 48 KB only with prepare()'s opt-in), its own NHC chain and
+// broadcasts (MISC floats), block reductions, pressure sums and n_run;
+// the reduction scratch is shared.  One trip loop runs to the longest
+// job's count, and at each step the block takes the live jobs' step
+// bodies in turn, each K1's own code (the same device functions in the
+// same order), so every job's arithmetic is K1's and its result K1's bit
+// for bit at the same block width.  A job past its count is skipped (its
+// state frozen, no free-wheeling at dt = 0); a job with n_run = 0 is never
+// loaded and is left bit-identical.  What bounds it: K1's pair loop, J
+// times per block; the design changes how many blocks fill the card (at
+// 576 jobs and 132 SMs: K1 4.36 waves of one job per block, K1m J = 2
+// 2.18 waves of two) and shares nothing else yet — sharing each step's
+// barriers between the jobs, or interleaving their pair loops for ILP, is
+// the lever for a later PR.
+constexpr int MISC = 16;  // per-job NHC chain + broadcasts (floats)
+
 size_t smem_bytes(int N) {
-  return sizeof(float) * (size_t)(21 * N + MAXW * NRED + 16);
+  return sizeof(float) * (size_t)(21 * N + MAXW * NRED + MISC);
+}
+
+size_t smem_bytes_multi(int N, int J) {
+  return sizeof(float) * ((size_t)J * (21 * N + MISC) + MAXW * NRED);
+}
+
+// Job j's views in a block of J shared-memory sets: 21 N floats each, then
+// the shared reduction scratch, then J misc slots.
+__device__ __forceinline__ Smem carve_job(float* sm, int N, int J, int j) {
+  Smem s = carve(sm + (size_t)j * 21 * N, N);
+  s.red = sm + (size_t)J * 21 * N;
+  s.misc = s.red + MAXW * NRED + j * MISC;
+  return s;
+}
+
+template <int J>
+__global__ void __launch_bounds__(512) md_run_multi_kernel(Params P, Topo3 T, RunArgs A) {
+  extern __shared__ float sm[];
+  const int N = P.N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* __restrict__ invm = A.invm;
+  const float* __restrict__ mftm = A.mftm;
+  const int deform = A.deform, sample = A.sample;
+  int n_run[J];
+  int n_max = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int job = blockIdx.x * J + j;
+    n_run[j] = A.n_run[job];
+    n_max = n_run[j] > n_max ? n_run[j] : n_max;
+    if (n_run[j] <= 0) {
+      if (tid < 6) A.press[job * 6 + tid] = 0.f;
+      continue;
+    }
+    const Smem S = carve_job(sm, N, J, j);
+    const float* st = A.state + (size_t)job * 6 * N;
+    for (int i = tid; i < N; i += nt) {
+      S.px[i] = st[i]; S.py[i] = st[N + i]; S.pz[i] = st[2 * N + i];
+      S.vx[i] = st[3 * N + i]; S.vy[i] = st[4 * N + i]; S.vz[i] = st[5 * N + i];
+    }
+    if (tid < NHC) S.misc[tid] = A.vxi[job * NHC + tid];
+  }
+  if (n_max <= 0) return;
+  __syncthreads();
+
+  float w[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float pacc[J][6];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    for (int k = 0; k < 6; ++k) pacc[j][k] = 0.f;
+    if (n_run[j] <= 0) continue;
+    const float* fs = A.fscal + (size_t)(blockIdx.x * J + j) * FSCAL;
+    const Box h0 = {fs[F_H0], fs[F_H0 + 1], fs[F_H0 + 2], fs[F_H0 + 3], fs[F_H0 + 4],
+                    fs[F_H0 + 5]};
+    compute_forces<false, false, false, false, false>(P, T, carve_job(sm, N, J, j), h0, false,
+                                                      w);
+  }
+  for (int s = 0; s < n_max; ++s) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (s >= n_run[j]) continue;  // block-uniform
+      const Smem S = carve_job(sm, N, J, j);
+      const float* fs = A.fscal + (size_t)(blockIdx.x * J + j) * FSCAL;
+      const float dt = fs[F_DT];
+      const float kt = A.boltz * fs[F_T];
+      const Box h0 = {fs[F_H0], fs[F_H0 + 1], fs[F_H0 + 2], fs[F_H0 + 3], fs[F_H0 + 4],
+                      fs[F_H0 + 5]};
+      float eps[6];
+      for (int k = 0; k < 6; ++k) eps[k] = fs[F_EPS + k];
+      const float n_tot = (float)n_run[j];
+      // K1's step body (md_run_kernel with every flag off)
+      const Box h = deform ? h_at(h0, eps, (float)s / n_tot) : h0;
+      nhc_half(S, mftm, N, dt, kt, A.ndof, A.tdamp);
+      const float half = 0.5f * dt;
+      for (int i = tid; i < N; i += nt) {
+        const float im = invm[i];
+        S.vx[i] += half * S.fx[i] * im;
+        S.vy[i] += half * S.fy[i] * im;
+        S.vz[i] += half * S.fz[i] * im;
+        S.px[i] += dt * S.vx[i];
+        S.py[i] += dt * S.vy[i];
+        S.pz[i] += dt * S.vz[i];
+      }
+      __syncthreads();
+      for (int k = 0; k < 6; ++k) w[k] = 0.f;
+      compute_forces<false, false, false, false, false>(P, T, S, h, sample != 0, w);
+      for (int i = tid; i < N; i += nt) {
+        const float im = invm[i];
+        S.vx[i] += half * S.fx[i] * im;
+        S.vy[i] += half * S.fy[i] * im;
+        S.vz[i] += half * S.fz[i] * im;
+      }
+      nhc_half(S, mftm, N, dt, kt, A.ndof, A.tdamp);
+      if (sample) {
+        float r[12];
+        for (int k = 0; k < 6; ++k) r[6 + k] = w[k];
+        for (int k = 0; k < 6; ++k) r[k] = 0.f;
+        for (int i = tid; i < N; i += nt) {
+          const float m = mftm[i];
+          const float vx = S.vx[i], vy = S.vy[i], vz = S.vz[i];
+          r[0] += m * vx * vx;
+          r[1] += m * vy * vy;
+          r[2] += m * vz * vz;
+          r[3] += m * vx * vy;
+          r[4] += m * vx * vz;
+          r[5] += m * vy * vz;
+        }
+        block_sum<12>(r, S.red);
+        const float conv = A.nktv2p / (h.lx * h.ly * h.lz);
+        for (int k = 0; k < 6; ++k) pacc[j][k] += (r[k] + r[6 + k]) * conv;
+      }
+      if (deform) {
+        const Box hn = h_at(h0, eps, (float)(s + 1) / n_tot);
+        const float i00 = 1.f / h.lx, i11 = 1.f / h.ly, i22 = 1.f / h.lz;
+        const float i01 = -h.xy / (h.lx * h.ly);
+        const float i12 = -h.yz / (h.ly * h.lz);
+        const float i02 = (h.xy * h.yz - h.xz * h.ly) / (h.lx * h.ly * h.lz);
+        const float a00 = hn.lx * i00;
+        const float a01 = hn.lx * i01 + hn.xy * i11;
+        const float a02 = hn.lx * i02 + hn.xy * i12 + hn.xz * i22;
+        const float a11 = hn.ly * i11;
+        const float a12 = hn.ly * i12 + hn.yz * i22;
+        const float a22 = hn.lz * i22;
+        for (int i = tid; i < N; i += nt) {
+          const float x = S.px[i], y = S.py[i], z = S.pz[i];
+          S.px[i] = a00 * x + a01 * y + a02 * z;
+          S.py[i] = a11 * y + a12 * z;
+          S.pz[i] = a22 * z;
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (n_run[j] <= 0) continue;
+    const int job = blockIdx.x * J + j;
+    const Smem S = carve_job(sm, N, J, j);
+    float* st = A.state + (size_t)job * 6 * N;
+    for (int i = tid; i < N; i += nt) {
+      st[i] = S.px[i]; st[N + i] = S.py[i]; st[2 * N + i] = S.pz[i];
+      st[3 * N + i] = S.vx[i]; st[4 * N + i] = S.vy[i]; st[5 * N + i] = S.vz[i];
+    }
+    if (tid < NHC) A.vxi[job * NHC + tid] = S.misc[tid];
+    if (tid < 6) A.press[job * 6 + tid] = pacc[j][tid];
+  }
 }
 
 // Threads per block: one per atom up to what the kernel's register count
@@ -1110,6 +1279,18 @@ cudaError_t launch_forces(const Params& P, const Topo3& T, const float* pos,
   cudaError_t err = prepare(kernel, P.N, bytes, &threads);
   if (err != cudaSuccess) return err;
   kernel<<<B, threads, bytes, stream>>>(P, T, pos, h6, force, virial);
+  return cudaGetLastError();
+}
+
+template <int J>
+cudaError_t launch_run_multi(const Params& P, const Topo3& T, const RunArgs& A, int B,
+                             cudaStream_t stream) {
+  auto kernel = md_run_multi_kernel<J>;
+  const size_t bytes = smem_bytes_multi(P.N, J);
+  int threads = 0;
+  cudaError_t err = prepare(kernel, P.N, bytes, &threads);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / J, threads, bytes, stream>>>(P, T, A);
   return cudaGetLastError();
 }
 

@@ -10,13 +10,15 @@ Differences from the JAX version, all of form rather than result:
 
 * All active (job, replica) pairs of a step go to ONE kernel launch per
   phase (K1 or K5, or K3/K4 per k-space or list-rebuild chunk; one thread
-  block per job) — or, on the unfused engine (SW boxes above K5's gate),
-  to one force evaluation per step over all running jobs (the brick
-  kernels K6d + K6c, or autograd of ``SW.energy``; at 128 jobs of 4096
-  atoms the list route's autograd peaks at ~4.5 GB, so its jobs are not
-  sliced); there is no job-chunk scan, no ``shard_map``, no multi-job
-  packing, and no clamp of the job chunk for streamed list kernels
-  (md_coupling.py:582-588, a TPU workaround).
+  block per job, or J per block of K1m with ``pack_jobs`` = J) — or, on
+  the unfused engine (SW boxes above K5's gate), to one force evaluation
+  per step over all running jobs (the brick kernels K6d + K6c, or autograd
+  of ``SW.energy``; at 128 jobs of 4096 atoms the list route's autograd
+  peaks at ~4.5 GB, so its jobs are not sliced); there is no job-chunk
+  scan and its divisor rule (md_coupling.py:217-221) — the last J-tuple
+  is padded with a zero-step job instead — no ``shard_map``, and no clamp
+  of the job chunk for streamed list kernels (md_coupling.py:582-588, a
+  TPU workaround).
 * The fixed-capacity job list (``jnp.nonzero(size=K, fill_value=0)``) is
   built with explicit padding, and rows past the valid slots are masked
   out before any gather or scatter — torch's ``index_put_`` has no
@@ -39,7 +41,8 @@ from ..fem.problem_types import make_problem
 from ..fem.state import init_qp_state
 from ..md import engine as E
 from ..md import material as M
-from ..md.homogenization import MDParams, strain_and_homogenize
+from ..md.homogenization import MDParams, strain_and_homogenize, strain_and_homogenize_multi
+from ..ops import md_fused as MF
 from ..utils.device import resolve
 from .problem import HMMProblem, StepOutputs, assign_materials, clustering_mapping
 
@@ -87,6 +90,44 @@ class MDBackend:
     n_repl: int
     max_jobs: int  # job-list capacity
     initial_md_state: E.MDState  # (n_repl, ...) equilibrated replicas
+    # jobs per kernel block (K1m, md_coupling.py:90): J > 1 groups the
+    # step's (job, replica) pairs into J-tuples; K1 runners only
+    pack_jobs: int = 1
+
+    def __post_init__(self):
+        if self.pack_jobs != 1:
+            if self.sys.fused is None:
+                raise ValueError(f"pack_jobs={self.pack_jobs}: the unfused engine has no "
+                                 "multi-job kernel")
+            MF.check_multi(self.sys.fused, self.pack_jobs)
+
+    def _run_jobs(self, st: E.MDState, dlength: torch.Tensor):
+        """Every (job, replica) MD run of the step: one batch, or with
+        ``pack_jobs`` = J the flattened batch grouped into J-tuples, the
+        last padded with zero-step copies of the first job whose outputs
+        are dropped (md_coupling.py:158-183)."""
+        J = self.pack_jobs
+        n = st.pos.shape[0] * st.pos.shape[1]
+        if J == 1 or n == 0:
+            return strain_and_homogenize(self.sys, st, dlength, self.params)
+        pad = -n % J
+
+        def grouped(x):
+            x = x.reshape((n,) + x.shape[2:])
+            x = torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
+            return x.reshape((-1, J) + x.shape[1:])
+
+        active = grouped(torch.ones(st.pos.shape[:2], dtype=torch.bool, device=st.pos.device))
+        if pad:
+            active.view(-1)[n:] = False
+        out, sig = strain_and_homogenize_multi(
+            self.sys, E.MDState(*(grouped(getattr(st, f)) for f in ("pos", "vel", "h", "vxi"))),
+            grouped(dlength), self.params, active=active)
+
+        def back(x):
+            return x.reshape((-1,) + x.shape[2:])[:n].reshape(st.pos.shape[:2] + x.shape[2:])
+
+        return E.MDState(*(back(getattr(out, f)) for f in ("pos", "vel", "h", "vxi"))), back(sig)
 
     def update(self, micro: MicroStates, eps_cg, material, jobs, most_recent_id,
                timestep: int = 0):
@@ -123,9 +164,7 @@ class MDBackend:
         # -- batched MD (execute_inside_md_simulations): one kernel launch
         # per phase (per chunk with k-space or a list) for every (job,
         # replica)
-        md_dtype = micro.pos.dtype
-        st, sigma_rep = strain_and_homogenize(self.sys, st, dlength.to(md_dtype),
-                                              self.params)
+        st, sigma_rep = self._run_jobs(st, dlength.to(micro.pos.dtype))
         sigma_rep = sigma_rep.to(eps_cg.dtype)
 
         # -- replica averaging with init-stress subtraction
@@ -222,11 +261,14 @@ class MDHMMProblem:
 
 def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                  equil_steps: int = 100, minimize_steps: int = 100,
-                 staged: bool = False, device=None, prepared=None,
-                 material: torch.Tensor | None = None) -> MDHMMProblem:
+                 staged: bool = False, ns_init: int = 100, device=None, prepared=None,
+                 material: torch.Tensor | None = None, pack_jobs: int = 1) -> MDHMMProblem:
     """Assemble the MD-coupled HMM, preparing every material x replica on
-    the device first (FIRE + NVT, then stress sampling and the stiffness
-    probe).  Without ``spec`` each material takes the config's effective
+    the device first — with ``staged`` the reference's heatup/cooldown NPT
+    cycle (``material.equilibrate_staged``, stage lengths scaled by
+    ``ns_init``), else the quick FIRE + NVT — then stress sampling and the
+    stiffness probe.  ``pack_jobs`` sets :attr:`MDBackend.pack_jobs` (K1
+    runners only).  Without ``spec`` each material takes the config's effective
     force field (``"force field": "sw"``, or a ``sisw`` scripts directory,
     gives the 216-atom diamond-Si SW box on K5); ``spec`` replaces the
     config's material (the charged all-atom PE melt is selected this way,
@@ -238,11 +280,6 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     material, ``states`` an MDState stacked over replicas and
     ``init_data`` a list of InitData per replica.  ``material`` overrides
     the per-qp material draw."""
-    if staged:
-        raise NotImplementedError(
-            "staged material prep (equilibrate_staged: the in.init.lammps "
-            "NPT heatup/cooldown cycle, engine.run_npt MTK) is not ported yet "
-            "(ROADMAP queue 1); run with --quick-prep")
     device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     md_dtype = getattr(torch, cfg.md_dtype)
@@ -278,9 +315,13 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
             rep_states, rep_data = [], []
             for r in range(n_repl):
                 gen = torch.Generator().manual_seed(cfg.seed + 101 * mi + r)
-                st_r = M.equilibrate(sys, st_init, params, gen,
-                                     minimize_steps=minimize_steps,
-                                     equil_steps=equil_steps)
+                if staged:
+                    st_r = M.equilibrate_staged(sys, st_init, params, gen, ns_init=ns_init,
+                                                minimize_steps=minimize_steps)
+                else:
+                    st_r = M.equilibrate(sys, st_init, params, gen,
+                                         minimize_steps=minimize_steps,
+                                         equil_steps=equil_steps)
                 rep_states.append(st_r)
                 mr = meta[mi][r]
                 if mr.length is not None and mr.stress is not None and mr.stiff is not None:
@@ -310,7 +351,8 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
             init_stiff=rows("stiff"),
             rho=torch.tensor([[d.density for d in rep_data]], dtype=dtype, device=device))
         backends.append(MDBackend(sys=sys, params=params, ensemble=ens, n_repl=n_repl,
-                                  max_jobs=max_jobs, initial_md_state=st0))
+                                  max_jobs=max_jobs, initial_md_state=st0,
+                                  pack_jobs=pack_jobs))
         sc, rc = bridge.average_replica_data(ens)
         stiff_rows.append(sc[0])
         rho_rows.append(rc[0])

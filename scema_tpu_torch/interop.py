@@ -21,6 +21,7 @@ from .hmm.md_coupling import MicroStates
 from .md.constraints import Constraints
 from .md.engine import MDState
 from .md.forcefields.coulomb import Ewald
+from .md.forcefields.lj import LJ
 from .md.forcefields.pme import PME
 from .md.forcefields.sw import SW
 from .md.material import InitData
@@ -51,6 +52,15 @@ def micro_states(m, dtype=torch.float64, device=None) -> MicroStates:
                        h=_t(m.h, dtype, device), vxi=_t(m.vxi, dtype, device),
                        has_run=torch.as_tensor(np.asarray(m.has_run).astype(bool),
                                                device=device))
+
+
+def lj(ff, dtype=torch.float64, device=None) -> LJ:
+    """JAX ``forcefields.lj.LJ`` -> the port's, with the same type tables,
+    cutoff and atom types (the special-bond weight hook is not carried)."""
+    if getattr(ff, "special_weight_fn", None) is not None:
+        raise ValueError("interop.lj: an LJ with special_weight_fn has no port counterpart")
+    return LJ(epsilon=_t(ff.epsilon, dtype, device), sigma=_t(ff.sigma, dtype, device),
+              cutoff=float(ff.cutoff), types=_i(ff.types, device))
 
 
 def sw(ff) -> SW:

@@ -673,4 +673,7 @@ def to_opls(data: MolecularData, lj_cutoff: float = 12.0, coul_cutoff: float = 9
                      else np.zeros((1, 4))),
         excl=O.build_exclusions(len(data.pos), data.bonds),
         ewald=ewald,
+        improper_type=np.asarray(data.improper_types),
+        improper_k=t(col(data.improper_coeffs, 0, [0.0])),
+        improper_chi0=t(np.deg2rad(col(data.improper_coeffs, 1, [0.0]))),
     )

@@ -198,11 +198,13 @@ def forces_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor,
 def pressure_tensor(sys: MDSystem, state: MDState, W6: torch.Tensor) -> torch.Tensor:
     """Instantaneous virial pressure (Voigt-6, pressure units):
     P = (sum m v x v / ftm2v + W) / V * nktv2p (engine.py:183-191)."""
+    return _pressure(sys, state.vel, state.h, W6)
+
+
+def _pressure(sys: MDSystem, vel: torch.Tensor, h: torch.Tensor, W6: torch.Tensor):
     m = sys.masses[:, None]
-    kin = torch.einsum("...na,...nb->...ab", m * state.vel, state.vel) / sys.units.ftm2v
-    kin6 = torch.stack([kin[..., 0, 0], kin[..., 1, 1], kin[..., 2, 2],
-                        kin[..., 0, 1], kin[..., 0, 2], kin[..., 1, 2]], -1)
-    return (kin6 + W6) / B.volume(state.h)[..., None] * sys.units.nktv2p
+    kin = torch.einsum("...na,...nb->...ab", m * vel, vel) / sys.units.ftm2v
+    return (_voigt(kin) + W6) / B.volume(h)[..., None] * sys.units.nktv2p
 
 
 def _steps(n_steps, batch: int, device) -> torch.Tensor:
@@ -383,6 +385,153 @@ def sample_stress(sys: MDSystem, state: MDState, n_steps, T: float,
     else:
         out, press = MF.sample_stress_fused(sys.fused, flat, steps, T, dt)
     return out.unflat(bs), press.reshape(bs + (6,))
+
+
+def _npt_forces(sys: MDSystem):
+    """The NPT loops' force call: ``fv(pos, h, nbr) -> (F (B, N, 3), W (B,
+    6))`` from one evaluation — the fused kernel's force + virial entry
+    (with the k-space remainder), or :func:`forces_energy_virial` over the
+    chunk's list ``nbr`` on the unfused engine — and ``nb(pos, h)``, the
+    chunk's list (None on the fused engine)."""
+    if sys.fused is not None:
+        return (lambda pos, h, nbr: forces_virial(sys, pos, h)), (lambda pos, h: None)
+
+    def fv(pos, h, nbr):
+        F, _, W = forces_energy_virial(sys, pos, h, nbr)
+        return F, W
+
+    return fv, sys.build_neighbors
+
+
+def _p_iso(sys: MDSystem, vel: torch.Tensor, h: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    p6 = _pressure(sys, vel, h, W)
+    return (p6[..., 0] + p6[..., 1] + p6[..., 2]) / 3.0
+
+
+def run_npt(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_end: float,
+            dt: float, p_target: float = 1.0, pdamp: float = 1000.0,
+            compressibility: float = 4.5e-5, barostat: str = "mtk") -> MDState:
+    """NPT with a temperature ramp — the reference's material-prep stages
+    (``fix npt temp T1 T2 100.0 iso 1.0 1.0 1000``, in.init.lammps;
+    engine.py:362-419), batched over jobs: every box keeps its own
+    barostat.  ``barostat="mtk"`` is the isotropic Martyna-Tobias-Klein
+    barostat of ``fix npt`` (:func:`_run_npt_mtk`); ``"berendsen"`` the
+    weak-coupling relaxer, whose box scale mu = clip(1 - dt/pdamp
+    compressibility (p_target - p_iso), 0.9, 1.1)^(1/3) follows each NVT
+    step (``compressibility`` applies to it only).  The loop runs
+    max(1, n // R) chunks of R = rebuild_every steps, the temperature
+    ramping with frac = step / total, total = max(1, n // R) R.  Forces
+    and virial come from one evaluation per step (:func:`_npt_forces`).
+    Constraints raise."""
+    _unfused_only(sys)
+    if barostat == "mtk":
+        return _run_npt_mtk(sys, state, n_steps, T_start, T_end, dt, p_target, pdamp)
+    if barostat != "berendsen":
+        raise ValueError(f"run_npt: unknown barostat {barostat!r}")
+    bs = state.batch_shape
+    st = state.flat()
+    R = sys.rebuild_every
+    n_chunks = max(1, n_steps // R)
+    total = n_chunks * R
+    fv, nb = _npt_forces(sys)
+    for c in range(n_chunks):
+        nbr = nb(st.pos, st.h)
+        F, _ = fv(st.pos, st.h, nbr)
+        for i in range(R):
+            T = T_start + (T_end - T_start) * ((c * R + i) / total)
+            st, F, W = _verlet_step(sys, st, F, T, dt, lambda p, h: fv(p, h, nbr))
+            p_iso = _p_iso(sys, st.vel, st.h, W)
+            mu_base = torch.clamp(1.0 - dt / pdamp * compressibility * (p_target - p_iso),
+                                  0.9, 1.1)
+            mu = (mu_base ** (1.0 / 3.0))[:, None, None]
+            st = st.replace(pos=st.pos * mu, h=st.h * mu)
+    return st.unflat(bs)
+
+
+def _baro_nhc_half(vxi_b: torch.Tensor, omega_dot: torch.Tensor, w_b: float, kt: float,
+                   pdamp: float, dt: float):
+    """Half-step Nose-Hoover chain on each job's barostat momentum (LAMMPS
+    fix_nh::nhc_press_integrate; engine.py:422-452): one dof, chain masses
+    kT pdamp^2; vxi_b (B, 3), omega_dot (B,)."""
+    q = kt * pdamp * pdamp
+    dt2, dt4, dt8 = dt / 2.0, dt / 4.0, dt / 8.0
+    ke2 = w_b * omega_dot * omega_dot
+    x = list(vxi_b.unbind(-1))
+
+    def g(k, ke2_):
+        if k == 0:
+            return (ke2_ - kt) / q
+        return (q * x[k - 1] ** 2 - kt) / q
+
+    def sweep(ks, ke2_):
+        for k in ks:
+            if k == NHC_LEN - 1:
+                x[k] = x[k] + dt4 * g(k, ke2_)
+            else:
+                s = torch.exp(-dt8 * x[k + 1])
+                x[k] = s * (s * x[k] + dt4 * g(k, ke2_))
+
+    sweep(range(NHC_LEN - 1, -1, -1), ke2)
+    scale = torch.exp(-dt2 * x[0])
+    omega_dot = omega_dot * scale
+    sweep(range(NHC_LEN), ke2 * scale * scale)
+    return torch.stack(x, -1), omega_dot
+
+
+def _run_npt_mtk(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_end: float,
+                 dt: float, p_target: float, pdamp: float) -> MDState:
+    """Isotropic MTK NPT in LAMMPS fix_nh's order (engine.py:455-557), per
+    step: particle and barostat chains (dt/2) -> omega_dot (dt/2) -> MTK
+    velocity scale exp(-dt/2 (1 + 1/N) omega_dot) -> kick (dt/2) ->
+    dilated drift x = (x e1 + dt v) e1, h = h e1^2 with e1 = exp(dt/2
+    omega_dot) -> forces and virial -> kick -> MTK scale -> omega_dot ->
+    chains.  f_omega = (3 V (P - P0) / nktv2p + 2 KE / N) / W_b with W_b =
+    3 (N + 1) kT pdamp^2 reads the half-scaled velocities and the virial
+    of the previous force call.  Each job carries omega_dot (B,) and its
+    barostat chain (B, 3), both from zero; the barostat scalars stay on
+    the device."""
+    u = sys.units
+    bs = state.batch_shape
+    st = state.flat()
+    R = sys.rebuild_every
+    n_chunks = max(1, n_steps // R)
+    total = n_chunks * R
+    N = float(sys.n_atoms)
+    minv = (u.ftm2v / sys.masses)[:, None]
+    dt2 = dt / 2.0
+    fv, nb = _npt_forces(sys)
+
+    def f_omega(vel, h, p_iso, kt_t):
+        ke2 = torch.sum(sys.masses[:, None] * vel * vel, (-1, -2)) / u.ftm2v
+        w_b = 3.0 * (N + 1.0) * kt_t * pdamp * pdamp
+        return ((p_iso - p_target) * 3.0 * B.volume(h) / u.nktv2p + ke2 / N) / w_b
+
+    omega_dot = torch.zeros(st.pos.shape[:1], dtype=st.pos.dtype, device=st.pos.device)
+    vxi_b = torch.zeros_like(st.vxi)
+    for c in range(n_chunks):
+        nbr = nb(st.pos, st.h)
+        F, W = fv(st.pos, st.h, nbr)
+        for i in range(R):
+            T = T_start + (T_end - T_start) * ((c * R + i) / total)
+            kt_t = u.boltz * T
+            w_b = 3.0 * (N + 1.0) * kt_t * pdamp * pdamp
+            vel, vxi = _nhc_half(sys, st.vel, st.vxi, T, dt)
+            vxi_b, omega_dot = _baro_nhc_half(vxi_b, omega_dot, w_b, kt_t, pdamp, dt)
+            omega_dot = omega_dot + dt2 * f_omega(vel, st.h, _p_iso(sys, vel, st.h, W), kt_t)
+            mtk_scale = torch.exp(-dt2 * (1.0 + 1.0 / N) * omega_dot)[:, None, None]
+            vel = vel * mtk_scale
+            vel = vel + dt2 * F * minv
+            e1 = torch.exp(dt2 * omega_dot)[:, None, None]
+            pos = (st.pos * e1 + dt * vel) * e1
+            h = st.h * (e1 * e1)
+            F, W = fv(pos, h, nbr)
+            vel = vel + dt2 * F * minv
+            vel = vel * mtk_scale
+            omega_dot = omega_dot + dt2 * f_omega(vel, h, _p_iso(sys, vel, h, W), kt_t)
+            vxi_b, omega_dot = _baro_nhc_half(vxi_b, omega_dot, w_b, kt_t, pdamp, dt)
+            vel, vxi = _nhc_half(sys, vel, vxi, T, dt)
+            st = MDState(pos=pos, vel=vel, h=h, vxi=vxi)
+    return st.unflat(bs)
 
 
 def minimize_fire(sys: MDSystem, state: MDState, n_steps: int = 200,

@@ -6,7 +6,9 @@ fused charged path reads (reference physics: ``pair_style lj/cut/coul/long
 12.0 9.0`` + ``kspace_style pppm 0.0001``, in.set.lammps).  The real-space
 sum runs inside kernel K3 (``ops/md_fused.py``); here live the k-space
 energy, batched over a leading job axis with each job's own box, and the
-self energy.  ``data_io.to_opls`` picks this dense sum below 2048 atoms and
+self energy, and the plain cutoff Coulomb energy over a neighbor list
+(:func:`coulomb_cut_energy`, the unfused engine's route).
+``data_io.to_opls`` picks this dense sum below 2048 atoms and
 PME (``pme.py``) above, as the JAX package does.
 
 Real units: qqr2e = 332.06371 converts q_i q_j / r (e^2/A) to kcal/mol.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import box as B
+from .. import neighbor as NB
 
 QQR2E_REAL = 332.06371
 
@@ -85,3 +88,19 @@ class Ewald:
 
     def self_energy(self) -> torch.Tensor:
         return -self.qqr2e * self.alpha / math.sqrt(math.pi) * torch.sum(self.charges ** 2)
+
+
+def coulomb_cut_energy(charges, pos, h, nbr, cutoff: float, weights=None,
+                       qqr2e: float = QQR2E_REAL) -> torch.Tensor:
+    """Plain truncated Coulomb (coul/cut, coulomb.py:120) of positions pos
+    (..., N, 3) in boxes h (..., 3, 3) over the full list ``nbr``, halved:
+    energies (...)."""
+    dr = NB.neighbor_disp(pos, h, nbr)
+    r2 = torch.sum(dr * dr, -1)
+    mask = nbr.mask & (r2 < cutoff ** 2)
+    r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+    qq = charges[:, None] * charges[nbr.idx]
+    e = qqr2e * qq / r
+    if weights is not None:
+        e = e * weights
+    return 0.5 * torch.sum(torch.where(mask, e, torch.zeros_like(e)), (-1, -2))

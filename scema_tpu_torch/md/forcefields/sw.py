@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import box as B
+from .. import neighbor as NB
 
 
 @dataclass(frozen=True)
@@ -57,10 +57,7 @@ class SW:
         sum_{j!=k} g_j g_k (u_j.u_k)^2 = Tr[Q^2] - sum g_j^2, and likewise
         for |m|^2 and s^2, with m = sum g_j u_j, Q = sum g_j u_j u_j^T,
         s = sum g_j."""
-        lead, (n, k) = nbr.idx.shape[:-2], nbr.idx.shape[-2:]
-        flat = nbr.idx.reshape(lead + (n * k, 1)).expand(lead + (n * k, 3))
-        nb = torch.gather(pos, -2, flat).reshape(lead + (n, k, 3))
-        dr = B.min_image_disp(h[..., None, :, :], nb - pos[..., :, None, :])  # (..., N, K, 3)
+        dr = NB.neighbor_disp(pos, h, nbr)  # (..., N, K, 3)
         r2 = torch.sum(dr * dr, -1)
         rc = self.cutoff
         mask = nbr.mask & (r2 < (rc - 1e-6) ** 2)

@@ -20,7 +20,8 @@ boxes above K5's gate: the brick kernels K6c/K6d or the list route) the
 chunked loops evaluate every running job's forces at once.  Inactive batch
 entries get zero steps on both engines, their state left unchanged —
 where the JAX package's list and unfused paths run them for their full
-length (at least 10 steps) and discard them.
+length (at least 10 steps) and discard them.  ``strain_and_homogenize_multi``
+packs J jobs per block of K1 (K1m), the coupler's ``pack_jobs``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops import md_fused as MF
 from ..utils import tensors as T
 from . import box as B
 from . import engine as E
@@ -59,6 +61,18 @@ def nts_for_strain(eps_v: torch.Tensor, params: MDParams) -> torch.Tensor:
     return torch.clamp(nts, min=10.0).to(torch.int64)
 
 
+def _job_steps(state: E.MDState, dlength: torch.Tensor, params: MDParams, active):
+    """(eps_eff, nts, n_sample) of each job; inactive jobs get zero steps."""
+    eps_eff = effective_strain(state.h, dlength)
+    nts = nts_for_strain(eps_eff, params)
+    n_sample = torch.full_like(nts, params.nsteps_sample)
+    if active is not None:
+        nts = torch.where(active, nts, torch.zeros_like(nts))
+        n_sample = torch.where(active, n_sample, torch.zeros_like(n_sample))
+        eps_eff = torch.where(active[..., None], eps_eff, torch.zeros_like(eps_eff))
+    return eps_eff, nts, n_sample
+
+
 def strain_and_homogenize(sys: E.MDSystem, state: E.MDState, dlength: torch.Tensor,
                           params: MDParams, active: torch.Tensor | None = None):
     """Batched MD jobs: strain each box, then sample its virial stress.
@@ -67,15 +81,28 @@ def strain_and_homogenize(sys: E.MDSystem, state: E.MDState, dlength: torch.Tens
     Returns (new microstates, stress in Pa (..., 6), framework Voigt order).
     Entries with ``active`` False run zero steps: their state comes back
     unchanged and their stress is zero (the caller discards it)."""
-    eps_eff = effective_strain(state.h, dlength)
-    nts = nts_for_strain(eps_eff, params)
-    n_sample = torch.full_like(nts, params.nsteps_sample)
-    if active is not None:
-        nts = torch.where(active, nts, torch.zeros_like(nts))
-        n_sample = torch.where(active, n_sample, torch.zeros_like(n_sample))
-        eps_eff = torch.where(active[..., None], eps_eff, torch.zeros_like(eps_eff))
+    eps_eff, nts, n_sample = _job_steps(state, dlength, params, active)
     state = E.run_strain(sys, state, eps_eff, nts, params.temperature, params.dt)
     state, press = E.sample_stress(sys, state, n_sample, params.temperature, params.dt)
+    return state, -press * ATM_TO_PA
+
+
+def strain_and_homogenize_multi(sys: E.MDSystem, state: E.MDState, dlength: torch.Tensor,
+                                params: MDParams, active: torch.Tensor | None = None):
+    """:func:`strain_and_homogenize` with J jobs per kernel block (K1m,
+    homogenization.py:108-133): ``state`` leaves, ``dlength`` (G, J, 6) and
+    ``active`` (G, J) carry the (G, J) grouping.  Every job's result is the
+    unpacked one's; inactive jobs take zero steps and come back
+    bit-identical.  Only K1's runner packs (ValueError otherwise: K3, K4,
+    K5 and the unfused engine)."""
+    if sys.fused is None:
+        raise ValueError("multi-job packing runs the fused kernel K1m; this system runs the "
+                         "unfused engine")
+    eps_eff, nts, n_sample = _job_steps(state, dlength, params, active)
+    state = MF.run_strain_fused_multi(sys.fused, state, eps_eff, nts, params.temperature,
+                                      params.dt)
+    state, press = MF.sample_stress_fused_multi(sys.fused, state, n_sample, params.temperature,
+                                                params.dt)
     return state, -press * ATM_TO_PA
 
 

@@ -15,10 +15,15 @@ admission gate (or any with ``force_list_kernel``) runs K4's gather-list
 pair loop over a neighbor list rebuilt every ``rebuild_every`` steps. SW
 boxes off K5's gate run the unfused engine: on the brick kernels K6c/K6d
 (``use_pallas_bricks``) or on autograd of ``SW.energy`` over a neighbor
-list (the route that replaces the JAX package's one-hot structure). The
-staged heatup/cooldown NPT prep (``equilibrate_staged``), spatially
-sharded SW boxes, the LJ and ReaxFF force fields and systems read from data
-files are not ported yet.
+list (the route that replaces the JAX package's one-hot structure).  The
+single-type LJ fcc crystal runs K1 with no bonded terms.  With
+``use_fused=False`` an OPLS or LJ box runs the unfused engine on autograd
+of ``OPLS.energy`` or ``LJ.energy``, as the JAX package's XLA engine does.
+Every system carries a dense-built neighbor spec (``MDSystem.nspec``).
+``equilibrate_staged`` is the reference's heatup/cooldown prep
+(in.init.lammps): FIRE, NVT, then MTK NPT stages (``engine.run_npt``).
+Spatially sharded SW boxes, the ReaxFF force field and systems read from
+data files are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from . import box as B
 from . import engine as E
 from . import lattice
 from . import neighbor as NB
+from .forcefields import lj as LJmod
 from .forcefields import sw as SWmod
 from .homogenization import MDParams, stiffness_probe
 from .units import ATM_TO_PA, REAL
@@ -49,13 +55,17 @@ class MaterialSpec:
     and OPLS paths read, with the same names and defaults."""
 
     name: str
-    force_field: str = "sw"  # sw | opls (lj and reax are not ported)
+    force_field: str = "sw"  # sw | lj | opls (reax is not ported)
     n_cells: int = 3  # diamond lattice cells per dimension (sw)
     # non-cubic cell counts (overrides n_cells)
     n_cells_xyz: tuple | None = None
     a0: float = 5.431  # lattice parameter (A)
     mass: float = 28.0855  # g/mol
     sw: SWmod.SW = field(default_factory=lambda: SWmod.SI)
+    # lj: single-type fcc crystal of n_cells^3 cells of edge a0
+    lj_epsilon: float = 0.238
+    lj_sigma: float = 3.405
+    lj_cutoff: float = 8.0
     # neighbor-list width; None = per-force-field default (sw 20, opls
     # density-derived, at least MIN_LIST_WIDTH); an explicit value is
     # honoured as given
@@ -85,9 +95,10 @@ class MaterialSpec:
     # the sharded force path of one big box is not ported
     use_pallas_bricks: bool = False
     spatial_shards: int = 0
-    # sw: None = the fused kernel K5 wherever its gate admits the box
-    # (<= 640 atoms, p = 4, q = 0, no bricks); False = the unfused engine
-    # (the JAX field, material.py:97, whose None means fused on the TPU)
+    # None = the fused kernel (K1/K3/K4, or K5 for sw wherever its gate
+    # admits the box: <= 640 atoms, p = 4, q = 0, no bricks); False = the
+    # unfused engine (the JAX field, material.py:97, whose None means fused
+    # on the TPU)
     use_fused: bool | None = None
     # setup-time checks (min image, list width, cell capacity); disable
     # only for test fixtures
@@ -237,26 +248,30 @@ def build_kspace_split(ff, n: int):
 
 def build_system(spec: MaterialSpec, dtype=torch.float64,
                  device=None) -> tuple[E.MDSystem, E.MDState]:
-    """The SW and OPLS branches of material._build_system: the diamond-Si
-    Stillinger-Weber box on K5, or above its gate on the unfused engine
-    with the brick kernels K6c/K6d or a neighbor list (:func:`_build_sw`); the built-in
-    united-atom alkane melt (K1's chain path) or, with ``allatom``, the
-    charged all-atom PE melt with SHAKE on the bonds to hydrogen and, with
-    ``use_ewald``, the Ewald/PME k-space split (K3); an OPLS box the
-    all-pairs gate refuses, or ``force_list_kernel``, runs K4
-    (material.py:658-713).  ``device`` None means the current CUDA device
-    (an error without one); ``device="cpu"`` runs the kernels' plain
-    versions."""
+    """The SW, LJ and OPLS branches of material._build_system: the
+    diamond-Si Stillinger-Weber box on K5, or above its gate on the unfused
+    engine with the brick kernels K6c/K6d or a neighbor list
+    (:func:`_build_sw`); the single-type LJ fcc crystal on K1
+    (:func:`_build_lj`); the built-in united-atom alkane melt (K1's chain
+    path) or, with ``allatom``, the charged all-atom PE melt with SHAKE on
+    the bonds to hydrogen and, with ``use_ewald``, the Ewald/PME k-space
+    split (K3); an OPLS box the all-pairs gate refuses, or
+    ``force_list_kernel``, runs K4 (material.py:650-713).  With
+    ``use_fused=False`` an LJ or OPLS box runs the unfused engine.
+    ``device`` None means the current CUDA device (an error without one);
+    ``device="cpu"`` runs the kernels' plain versions."""
     from . import constraints as CN
     from . import data_io
 
     device = resolve(device)
     if spec.force_field == "sw":
         return _build_sw(spec, dtype, device)
+    if spec.force_field == "lj":
+        return _build_lj(spec, dtype, device)
     if spec.force_field != "opls":
         raise NotImplementedError(
             f"material {spec.name!r}: force field {spec.force_field!r} is not ported "
-            "(only sw and opls are; ROADMAP queue 1)")
+            "(sw, lj and opls are; reax is ROADMAP queue 1 item 9)")
     if spec.allatom:
         data = data_io.build_pe_melt_allatom(spec.n_chains, spec.chain_length,
                                              density=spec.pe_density)
@@ -285,16 +300,47 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     use_list = not allpairs_admitted(n, bool(np.any(data.charges != 0.0)),
                                      spec.force_list_kernel)
     masses = torch.as_tensor(data.masses[data.types], dtype=dtype, device=device)
-    kspace = build_kspace_split(ff, n) if ff.ewald is not None else None
-    fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device, constraints=cons,
-                           kspace=kspace, kspace_every=spec.kspace_every,
-                           nspec=nspec if use_list else None,
-                           rebuild_every=spec.rebuild_every)
-    sys = E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons,
-                     rebuild_every=spec.rebuild_every)
     st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
                       torch.as_tensor(data.box, dtype=dtype, device=device))
-    return sys, st
+    fused = None
+    if spec.use_fused is not False:
+        kspace = build_kspace_split(ff, n) if ff.ewald is not None else None
+        fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device, constraints=cons,
+                               kspace=kspace, kspace_every=spec.kspace_every,
+                               nspec=nspec if use_list else None,
+                               rebuild_every=spec.rebuild_every)
+    return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons,
+                      nspec=_dense(nspec, n), rebuild_every=spec.rebuild_every), st
+
+
+def _dense(nspec: NB.NeighborSpec, n: int) -> NB.NeighborSpec:
+    """The spec with the dense build at every size (the same pairs as the
+    cell-binned build, which is not ported)."""
+    return dataclasses.replace(nspec, cells=(0, 0, 0), n2_threshold=n)
+
+
+def _build_lj(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
+    """The LJ branch of material._build_system (material.py:650-657,
+    :805-806): a single-type fcc crystal of ``n_cells``^3 cells of edge
+    ``a0`` with uniform masses, a density-derived list width, on K1 with
+    the bonded terms empty (its runner, :305-307), or on the unfused engine
+    with ``use_fused=False``."""
+    pos, h = lattice.fcc(spec.a0, spec.n_cells, spec.n_cells, spec.n_cells)
+    n = len(pos)
+    ff = LJmod.single_type(spec.lj_epsilon, spec.lj_sigma, spec.lj_cutoff, n, dtype, device)
+    k_max = max(spec.neighbor_k or MIN_LIST_WIDTH, NB.required_k(n, h, spec.lj_cutoff + 1.0))
+    k_max = ((k_max + 7) // 8) * 8
+    nspec = NB.derive_spec(n, h, cutoff=spec.lj_cutoff, skin=1.0, k_max=k_max)
+    if spec.validate:
+        _validate_setup(spec, pos, h, nspec)
+    masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
+    fused = None
+    if spec.use_fused is not False:
+        fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device)
+    st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
+                      torch.as_tensor(h, dtype=dtype, device=device))
+    return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, nspec=_dense(nspec, n),
+                      rebuild_every=spec.rebuild_every), st
 
 
 def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
@@ -339,15 +385,12 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
     st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
                       torch.as_tensor(h, dtype=dtype, device=device))
+    runner = None
     if fused:
         runner = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
-        return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL,
-                          rebuild_every=spec.rebuild_every), st
-    if spec.use_pallas_bricks:
+    elif spec.use_pallas_bricks:
         ff = SWB.SWBricksFF(ff, pos, h, device=device)
-    # the dense build at every size: the same pairs as build_cells
-    nspec = dataclasses.replace(nspec, cells=(0, 0, 0), n2_threshold=n)
-    return E.MDSystem(ff=ff, masses=masses, units=REAL, nspec=nspec,
+    return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL, nspec=_dense(nspec, n),
                       rebuild_every=spec.rebuild_every), st
 
 
@@ -364,6 +407,28 @@ def equilibrate(sys: E.MDSystem, state: E.MDState, params: MDParams,
     state = state.replace(vel=velocities.to(state.pos))
     if equil_steps > 0:
         state = E.run_nvt(sys, state, equil_steps, params.temperature, params.dt)
+    return state
+
+
+def equilibrate_staged(sys: E.MDSystem, state: E.MDState, params: MDParams,
+                       generator: torch.Generator | None = None, ns_init: int = 100,
+                       minimize_steps: int = 100,
+                       velocities: torch.Tensor | None = None) -> E.MDState:
+    """The reference's full heatup/cooldown prep (in.init.lammps;
+    material.py:867-891): FIRE, Maxwell-Boltzmann velocities at 200 K, NVT
+    at 300 K, then isotropic 1 atm MTK NPT 300 -> 500 K, at 500 K (5x),
+    500 K -> T and at T (2x), each stage ``ns_init`` steps times its
+    factor.  ``velocities`` replaces the Maxwell draw."""
+    T, dt = params.temperature, params.dt
+    state = E.minimize_fire(sys, state, n_steps=minimize_steps, dt0=0.5)
+    if velocities is None:
+        velocities = E.maxwell_velocities(sys, 200.0, generator, dtype=state.pos.dtype,
+                                          device=state.pos.device)
+    state = state.replace(vel=velocities.to(state.pos))
+    state = E.run_nvt(sys, state, ns_init, 300.0, dt)
+    for n, t0, t1 in ((ns_init, 300.0, 500.0), (5 * ns_init, 500.0, 500.0),
+                      (ns_init, 500.0, T), (2 * ns_init, T, T)):
+        state = E.run_npt(sys, state, n, t0, t1, dt)
     return state
 
 

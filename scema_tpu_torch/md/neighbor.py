@@ -173,3 +173,12 @@ def build(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborLis
     raise NotImplementedError(
         f"neighbor.build: the cell-binned list (cells {spec.cells}) is not ported "
         "(build_cells / build_cells_structured, ROADMAP queue 1)")
+
+
+def neighbor_disp(pos: torch.Tensor, h: torch.Tensor, nbr: NeighborList) -> torch.Tensor:
+    """Min-image displacement r_j - r_i for every list entry: pos (..., N,
+    3), h (..., 3, 3) -> (..., N, K, 3) (neighbor.py:389)."""
+    lead, (n, k) = nbr.idx.shape[:-2], nbr.idx.shape[-2:]
+    flat = nbr.idx.reshape(lead + (n * k, 1)).expand(lead + (n * k, 3))
+    nb = torch.gather(pos.expand(lead + pos.shape[-2:]), -2, flat).reshape(lead + (n, k, 3))
+    return B.min_image_disp(h[..., None, :, :], nb - pos[..., :, None, :])

@@ -2,7 +2,7 @@
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
-``md_list.cu`` and ``md_sw.cu`` share their device code through
+``md_list.cu``, ``md_sw.cu`` and ``md_multi.cu`` share their device code through
 ``md_kernel.cuh``; ``pairwise_l2.cu`` and ``sw_bricks.cu`` stand alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
@@ -45,6 +45,8 @@ SIGNATURES = {
     # MDArgs structure (md_fused._MDArgs) and the stream
     "md_allpairs_run_f32": [_P, _P],
     "md_allpairs_forces_f32": [_P, _P],
+    # K1m: the MDArgs pointer, jobs per block, the stream
+    "md_allpairs_run_multi_f32": [_P, _I, _P],
     "md_list_run_f32": [_P, _P],
     "md_list_forces_f32": [_P, _P],
     "md_sw_run_f32": [_P, _P],

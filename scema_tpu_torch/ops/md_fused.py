@@ -38,14 +38,20 @@ then the ordered-pair w = dT/dd from per-atom adjoints in both roles — with
 no parameter planes and no bonded terms.  A runner from
 :func:`make_runner_sw` launches K5.
 
-Two entries, each a wrapper that launches ``csrc/md_allpairs.cu`` (K1,
-K3), ``csrc/md_list.cu`` (K4) or ``csrc/md_sw.cu`` (K5) on CUDA tensors
-(counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
-``launches_k4`` for K4, ``launches_k5`` for K5) and runs the plain
-PyTorch version of the same function on CPU tensors:
+K1m is K1's run with J jobs per thread block (the TPU kernel's
+``FusedSpec.jobs``): :func:`md_run_multi`, behind
+:func:`run_strain_fused_multi` and :func:`sample_stress_fused_multi` over a
+(G, J) grouping of the batch — the coupler's ``pack_jobs``.
+
+Three entries, each a wrapper that launches ``csrc/md_allpairs.cu`` (K1,
+K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_list.cu`` (K4) or
+``csrc/md_sw.cu`` (K5) on CUDA tensors (counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
+``launches_k4`` for K4, ``launches_k5`` for K5, ``launches_k1m`` for K1m)
+and runs the plain PyTorch version of the same function on CPU tensors:
 
 * :func:`md_run` — one whole run (``deform`` and/or ``sample`` mode) of B
-  jobs; the kernel runs one thread block per job.
+  jobs; the kernel runs one thread block per job;
+* :func:`md_run_multi` — the same run of a K1 runner, J jobs per block.
 * :func:`md_forces_virial` — one force + virial evaluation of B boxes (FIRE
   minimisation and the stiffness probe; K4 builds a fresh list per call);
   the k-space remainder is added by the caller.
@@ -67,6 +73,7 @@ import torch
 from ..md import box as B
 from ..md import neighbor as NB
 from ..md.forcefields.coulomb import QQR2E_REAL
+from ..md.forcefields.lj import LJ
 from ..md.forcefields.sw import SW
 from . import _build
 from . import sw_bricks as SWB
@@ -326,11 +333,17 @@ def pack_shake(cons_idx, d0, n_atoms: int, dtype=torch.float64, device=None):
 def dense_planes(ff, dtype=torch.float64, device=None):
     """Dense (N, N) LAMMPS pair_lj force coefficients with the special-bond
     weights folded in (material.py:397-424): lj1 = 48 eps sig^12 w,
-    lj2 = 24 eps sig^6 w, so that F/r = lj1/r^14 - lj2/r^8."""
+    lj2 = 24 eps sig^6 w, so that F/r = lj1/r^14 - lj2/r^8.  A plain
+    ``LJ`` has weight 1 off the diagonal."""
     types = ff.types.cpu().numpy()
-    eps = ff.lj_epsilon.cpu().double().numpy()[types[:, None], types[None, :]]
-    sig = ff.lj_sigma.cpu().double().numpy()[types[:, None], types[None, :]]
-    W = ff.pair_weights(ff.special_lj)
+    if isinstance(ff, LJ):
+        eps_t, sig_t = ff.epsilon, ff.sigma
+        W = 1.0 - np.eye(len(types))
+    else:
+        eps_t, sig_t = ff.lj_epsilon, ff.lj_sigma
+        W = ff.pair_weights(ff.special_lj)
+    eps = eps_t.cpu().double().numpy()[types[:, None], types[None, :]]
+    sig = sig_t.cpu().double().numpy()[types[:, None], types[None, :]]
     sig6 = sig ** 6
     lj1 = 48.0 * eps * sig6 * sig6 * W
     lj2 = 24.0 * eps * sig6 * W
@@ -350,7 +363,8 @@ def dense_qq(ff, dtype=torch.float64, device=None) -> torch.Tensor:
 def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                 dtype=torch.float64, device=None, constraints=None, kspace=None,
                 kspace_every: int = 10, nspec=None, rebuild_every: int = 10) -> FusedRunner:
-    """K1's, K3's or K4's inputs for one system.
+    """K1's, K3's or K4's inputs for one system: an OPLS force field, or a
+    plain ``LJ`` (K1 with no bonded terms and no charges).
 
     A linear-chain topology takes the chain terms, any other the offset
     patterns; nonzero charges add the qq plane (cutoff Coulomb, or the
@@ -364,6 +378,13 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
     NotImplementedError."""
     n = int(masses.shape[0])
     m = masses.to(torch.float64).cpu()
+    if isinstance(ff, LJ):
+        spec = FusedSpec(n_atoms=n, cutoff2=float(ff.cutoff) ** 2, ndof=3 * n - 3,
+                         boltz=units.boltz, ftm2v=units.ftm2v, nktv2p=units.nktv2p,
+                         tdamp=tdamp)
+        lj1, lj2 = dense_planes(ff, dtype, device)
+        return FusedRunner(spec=spec, **_mass_rows(m, units, dtype, device), lj1=lj1, lj2=lj2,
+                           topo=torch.zeros((TOPO, n), dtype=dtype, device=device))
     patterns, pat = (), None
     try:
         topo = pack_topo(ff, n, dtype, device)
@@ -1112,7 +1133,8 @@ def md_forces_virial_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Ten
 # Wrappers: the CUDA kernel on CUDA tensors, the plain version on the CPU
 
 _MAX_SMEM = 232448  # bytes of shared memory a Hopper block can opt into
-_SMEM_FIXED = 32 * 12 + 16  # reduction scratch + NHC chain and broadcasts (floats)
+_SMEM_RED, _SMEM_MISC = 32 * 12, 16  # reduction scratch; NHC chain + broadcasts (floats)
+_SMEM_FIXED = _SMEM_RED + _SMEM_MISC
 
 
 def _smem_rows(spec: FusedSpec) -> int:
@@ -1128,9 +1150,11 @@ def _smem_rows(spec: FusedSpec) -> int:
     return 9 + 12
 
 
-def smem_bytes(spec: FusedSpec) -> int:
-    """Shared memory one block of this runner's kernel keeps."""
-    return 4 * (_smem_rows(spec) * spec.n_atoms + _SMEM_FIXED)
+def smem_bytes(spec: FusedSpec, jobs: int = 1) -> int:
+    """Shared memory one block of this runner's kernel keeps: ``jobs`` sets
+    of the per-job rows and NHC slots (K1m keeps J), one reduction
+    scratch."""
+    return 4 * (jobs * (_smem_rows(spec) * spec.n_atoms + _SMEM_MISC) + _SMEM_RED)
 
 
 def max_atoms(spec: FusedSpec) -> int:
@@ -1328,6 +1352,67 @@ md_run.launches_k3 = 0
 md_run.launches_k4 = 0
 md_run.launches_k5 = 0
 
+# jobs per block K1m is built for (csrc/md_kernel.cuh run_multi_entry)
+MULTI_JOBS = (2, 4)
+
+
+def check_multi(runner: FusedRunner, jobs: int) -> None:
+    """Raise ValueError unless K1m takes this runner at ``jobs`` per block:
+    K1's flag set only, as the JAX package asserts ``allpairs and not sw
+    and not fext`` (md_fused.py:2427, :2458)."""
+    if runner.spec.kernel != "K1" or runner.kspace is not None:
+        raise ValueError(f"pack_jobs={jobs}: multi-job packing (K1m) runs K1's all-pairs "
+                         f"runner only, not {runner.spec.kernel} (flags {runner.spec.flags})")
+    if jobs not in MULTI_JOBS:
+        raise ValueError(f"pack_jobs={jobs}: K1m is built for {MULTI_JOBS} jobs per block")
+
+
+def md_run_multi(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+                 n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                 jobs: int):
+    """K1m: :func:`md_run` of a K1 runner with ``jobs`` (J) jobs per thread
+    block — the TPU kernel's ``FusedSpec.jobs`` packing.  The batch is
+    grouped (G, J) in order: jobs g J .. g J + J - 1 share block g; B must
+    be a multiple of J (the caller pads with zero-step jobs).  Every job
+    keeps K1's per-job semantics, so the result equals :func:`md_run`'s,
+    and on the CPU the plain version is :func:`md_run_plain` over the
+    grouped batch.  Counts its launches in ``launches_k1m``."""
+    check_multi(runner, jobs)
+    Bn = state.shape[0]
+    if Bn % jobs:
+        raise ValueError(f"md_run_multi: {Bn} jobs are not a multiple of {jobs} per block")
+    if state.device.type == "cpu":
+        return md_run_plain(runner, state, vxi, n_run, fscal, deform, sample)
+    if state.device.type != "cuda":
+        raise ValueError(f"md_run_multi: unsupported device {state.device}")
+    spec = runner.spec
+    if state.shape[1:] != (6, spec.n_atoms):
+        raise ValueError(f"md_run_multi: state shape {tuple(state.shape)} != "
+                         f"(B, 6, {spec.n_atoms})")
+    need = smem_bytes(spec, jobs)
+    if need > _MAX_SMEM:
+        raise ValueError(f"K1m: {jobs} jobs of {spec.n_atoms} atoms need {need} B of shared "
+                         f"memory per block, above the {_MAX_SMEM} B a Hopper block can use")
+    st = state.contiguous().clone()
+    xi = vxi.contiguous().clone()
+    nr = n_run.to(torch.int32).contiguous()
+    fs = fscal.contiguous()
+    _check_cuda(runner, st, xi, nr, fs)
+    press = torch.zeros((Bn, 6), dtype=st.dtype, device=st.device)
+    if Bn == 0:
+        return st, xi, press
+    args = _md_args(runner, Bn, None, state=st.data_ptr(), vxi=xi.data_ptr(),
+                    press=press.data_ptr(), n_run=nr.data_ptr(), fscal=fs.data_ptr())
+    args.deform, args.sample = int(deform), int(sample)
+    rc = _build.library().md_allpairs_run_multi_f32(ctypes.byref(args), jobs,
+                                                    _build.stream_handle(st.device))
+    _build.check(rc, f"md_allpairs_run_multi_f32 (jobs {jobs})")
+    md_run_multi.launches_k1m += 1
+    return st, xi, press
+
+
+md_run_multi.launches_k1m = 0
+
 
 def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
                      nbr: dict | None = None):
@@ -1491,6 +1576,46 @@ def run_strain_fused(runner: FusedRunner, state, eps_eff: torch.Tensor,
     frac_end = (n_steps > 0).to(state.pos.dtype)
     h_end = B.deform_path(state.h, eps, frac_end)
     return MDState(pos=pos, vel=vel, h=h_end, vxi=vxi)
+
+
+def _grouped(state):
+    """A multi-job run's (G, J)-grouped batch: (flat MDState, J)."""
+    if state.pos.dim() != 4:
+        raise ValueError(f"multi-job run: state batch {tuple(state.pos.shape[:-2])} is not (G, J)")
+    return state.flat(), state.pos.shape[1]
+
+
+def run_strain_fused_multi(runner: FusedRunner, state, eps_eff: torch.Tensor,
+                           n_steps: torch.Tensor, T, dt):
+    """:func:`run_strain_fused` on K1m (md_fused.py:2411-2445): ``state``
+    leaves, ``eps_eff`` (G, J, 6) and ``n_steps`` (G, J) carry the (G, J)
+    grouping, J jobs per block; each job's result is the unpacked run's
+    (a job with 0 steps comes back unchanged)."""
+    from ..md.engine import MDState
+
+    flat, J = _grouped(state)
+    n = torch.as_tensor(n_steps, device=flat.pos.device).to(torch.int64).reshape(-1)
+    eps = eps_eff.to(flat.pos.dtype).reshape(-1, 6)
+    st6, vxi, _ = md_run_multi(runner, pack_state(flat.pos, flat.vel), flat.vxi, n,
+                               make_fscal(dt, T, flat.h, eps), True, False, J)
+    pos, vel = unpack_state(st6)
+    h_end = B.deform_path(flat.h, eps, (n > 0).to(flat.pos.dtype))
+    return MDState(pos=pos, vel=vel, h=h_end, vxi=vxi).unflat(state.batch_shape)
+
+
+def sample_stress_fused_multi(runner: FusedRunner, state, n_steps: torch.Tensor, T, dt):
+    """:func:`sample_stress_fused` on K1m (md_fused.py:2448-2475), over the
+    (G, J) grouping; returns (state, mean pressure (G, J, 6))."""
+    from ..md.engine import MDState
+
+    flat, J = _grouped(state)
+    n = torch.as_tensor(n_steps, device=flat.pos.device).to(torch.int64).reshape(-1)
+    st6, vxi, pacc = md_run_multi(runner, pack_state(flat.pos, flat.vel), flat.vxi, n,
+                                  make_fscal(dt, T, flat.h), False, True, J)
+    pos, vel = unpack_state(st6)
+    press = pacc / torch.clamp(n, min=1).to(pacc.dtype)[:, None]
+    out = MDState(pos=pos, vel=vel, h=flat.h, vxi=vxi).unflat(state.batch_shape)
+    return out, press.reshape(state.batch_shape + (6,))
 
 
 def sample_stress_fused(runner: FusedRunner, state, n_steps: torch.Tensor, T, dt):

@@ -37,9 +37,26 @@ def test_run_without_cpu_needs_cuda(empty_cfg, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_run_without_quick_prep_names_the_roadmap_item(empty_cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["run", empty_cfg, "--cpu", "--steps", "1"])
+def test_run_without_quick_prep_names_the_roadmap_item(empty_cfg, monkeypatch):
+    """``run`` without ``--quick-prep`` builds with the staged NPT prep (the
+    JAX CLI's default), with it the quick prep; the build is stubbed so the
+    check stays cheap."""
+    from scema_tpu_torch.hmm import md_coupling
+
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def stub(cfg, **kw):
+        seen.append(kw["staged"])
+        raise Built
+
+    monkeypatch.setattr(md_coupling, "build_md_hmm", stub)
+    for flags, staged in (([], True), (["--quick-prep"], False)):
+        with pytest.raises(Built):
+            cli.main(["run", empty_cfg, "--cpu", "--steps", "1", *flags])
+        assert seen[-1] is staged
 
 
 def test_port_never_imports_jax():

@@ -22,6 +22,9 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K1 sampling over 100 steps: the job-mean pressures agree within four
   standard errors of the job scatter (chaotic divergence makes individual
   long runs differ);
+* K1m (K1 with J = 2 or 4 jobs per block): equal to K1 bit for bit, each
+  job's step body being K1's code at K1's block width; a dead job of a
+  (live, dead) pair comes back bit-identical;
 * K3 (the charged PEAA box: 1792 atoms, real-space Ewald, offset patterns,
   SHAKE, frozen k-space force) is held to the same relative bounds as K1:
   forces/virial 2x plain float32 + 1e-6, a 10-step deform chunk 4x plain +
@@ -173,6 +176,47 @@ def test_k1_sampled_stress_matches_plain_statistically(g0):
     se = pp.double().std(0) / np.sqrt(pp.shape[0])
     diff = (p.double().mean(0) - pp.double().mean(0)).abs()
     assert bool((diff <= 4.0 * se + 1.0).all()), (diff, se)
+
+
+@pytest.mark.parametrize("jobs", [2, 4])
+def test_k1m_equals_k1(g0, jobs):
+    """K1m (J jobs per block) runs each job's step body in K1's order at
+    K1's block width: deform and sampling runs equal K1's bit for bit,
+    jobs of different lengths included."""
+    sys, batch = g0
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 7, 10, 3, 10, 10, 4, 10], dtype=torch.int32, device=st.device)
+    before = MF.md_run_multi.launches_k1m
+    out, vxi, _ = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, True, False, jobs)
+    torch.cuda.synchronize()
+    assert MF.md_run_multi.launches_k1m == before + 1
+    ref, vxi_ref, _ = MF.md_run(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    assert torch.equal(out, ref) and torch.equal(vxi, vxi_ref)
+    f_s = MF.make_fscal(DT, T_MD, batch.h)
+    n20 = torch.full((B,), 20, dtype=torch.int32, device=st.device)
+    _, _, pk = MF.md_run_multi(sys.fused, out, vxi, n20, f_s, False, True, jobs)
+    _, _, pr = MF.md_run(sys.fused, out, vxi, n20, f_s, False, True)
+    assert torch.equal(pk, pr)
+
+
+def test_k1m_dead_job_is_bit_identical(g0):
+    """A (live, dead) pair: the dead job comes back untouched with zero
+    pressure, the live one as K1 runs it alone."""
+    sys, batch = g0
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    fscal = MF.make_fscal(DT, T_MD, batch.h)
+    n_run = torch.tensor([20, 0] * (B // 2), dtype=torch.int32, device=st.device)
+    out, vxi, p = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, False, True, 2)
+    ref, _, pr = MF.md_run(sys.fused, st[0::2], batch.vxi[0::2], n_run[0::2], fscal[0::2],
+                           False, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1::2], st[1::2]) and torch.equal(vxi[1::2], batch.vxi[1::2])
+    assert torch.equal(p[1::2], torch.zeros_like(p[1::2]))
+    assert torch.equal(out[0::2], ref) and torch.equal(p[0::2], pr)
 
 
 @pytest.fixture(scope="module")

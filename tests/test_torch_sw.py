@@ -169,8 +169,16 @@ def test_build_system_and_gate():
                 dict(use_pallas_bricks=True, sw=dataclasses.replace(TSW.SI, p=6.0))):
         with pytest.raises(NotImplementedError):
             TM.build_system(TM.MaterialSpec(name="si", **bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.build_system(TM.MaterialSpec(name="x", force_field="lj"), device="cpu")
+    # an lj box builds on K1 (no bonded terms), and on the unfused engine
+    # with use_fused=False, as the JAX package's lj branch
+    ar = dict(name="ar", force_field="lj", a0=5.26, n_cells=4, mass=39.948)
+    lj, lj_st = TM.build_system(TM.MaterialSpec(**ar), device="cpu")
+    jlj, jlj_st = JM.build_system(JM.MaterialSpec(**ar, use_fused=False))
+    assert lj.fused.spec.kernel == "K1" and not bool(lj.fused.topo.any())
+    assert np.array_equal(np64(lj_st.pos), np.asarray(jlj_st.pos))
+    assert lj.nspec.k_max == jlj.nspec.k_max
+    lj_u, _ = TM.build_system(TM.MaterialSpec(**ar, use_fused=False), device="cpu")
+    assert lj_u.fused is None and lj_u.nspec.cells == (0, 0, 0)
 
 
 def test_force_field_default_matches_jax():
