@@ -96,12 +96,22 @@ failure exits non-zero before the result line:
    (K1m launched, K1's run entry not; stresses within 1e-4 relative, and
    the MD layer alone bit for bit on identical inputs), and the staged
    prep of the 216-atom SW box on K5's entry (density in the band of the
-   JAX package's prep).
+   JAX package's prep);
+18. P1 (the kernel lab's slim all-pairs LJ runs, ``ops.md_slim``, variants
+   v1-v8) on the prepared g0 box (float32): each variant's kernel on a
+   25-step run of 576 jobs (one image-cache refresh mid-run) against its
+   plain version and float64 (K1's rule: 4x plain float32 + 1e-4) and
+   against v1, and its int8 image guard against the plain version's;
+   kernel, plain and bound times of that run, with each kernel's blocks
+   per SM; then the lab itself, ``probe_allpairs.main`` over v0 (K1), v0p
+   (K1m) and every slim variant at 576 jobs x 500 steps (best of 3 runs,
+   each state finite), its launch counters zeroed just before and read
+   just after.
 
 The second-to-last line is a JSON object with one entry per kernel (K1
 and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
 on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
-K1m's on phase 17's pack_jobs=2 steps;
+K1m's on phase 17's pack_jobs=2 steps, P1's on phase 18's lab runs;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -1992,6 +2002,175 @@ def phase_staged_slice(dev):
     return launches_k1m
 
 
+# phase 18's check runs: the lab's 576 jobs (in programs of J jobs), each
+# with its own velocities and strain, for 25 steps, so the image cache is
+# refreshed once mid-run (every 20 steps, and before the first force call)
+P1_JOBS, P1_STEPS = 576, 25
+P1_SOURCE = "scema_tpu_torch/csrc/md_slim.cu"
+P1_REPLACES = "scripts/probe_allpairs.py:616"
+
+
+def events_ms(fn):
+    """(output, device ms) of one call of ``fn``, by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_p1(dev, n_steps: int = 500):
+    """Phase 18: P1 (the kernel lab's slim all-pairs runs, variants v1-v8)
+    on the prepared g0 box, made once: each variant's kernel against its
+    plain version and float64 on 25 steps of 576 jobs (one image refresh
+    mid-run), and against v1; the int8 image guard (an atom 200 box lengths
+    out turns its program's positions NaN in kernel and plain version
+    alike); the kernel's and the plain version's times on the check run,
+    with the bound and the kernel's blocks per SM; then the lab itself
+    (``probe_allpairs.main``) over v0, v0p and every slim variant at 576
+    jobs x ``n_steps``, its launch counters zeroed just before and read
+    just after.  Returns the kernels' rows."""
+    import torch
+
+    from scema_tpu_torch import probe_allpairs as PA
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.ops import md_fused as MF
+    from scema_tpu_torch.ops import md_slim as MS
+
+    t0 = time.perf_counter()
+    g0 = PA.prepared_g0(dev)
+    sys_, st = g0
+    state1, w4e, sig2, h6 = PA.slim_box(g0)
+    n, nt = sys_.n_atoms, state1.shape[1]
+    gen = torch.Generator().manual_seed(18)
+    jobs = state1.expand(P1_JOBS, -1, -1, -1).clone()
+    for j in range(P1_JOBS):
+        v = E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+        jobs[j, 3:6] = v.T.reshape(3, nt, MS.LANE)
+    eps = (torch.rand((P1_JOBS, 6), generator=gen, dtype=torch.float64) * 2e-3 - 1e-3).numpy()
+    fscal = torch.stack([torch.as_tensor(MS.make_fscal(h6.cpu().numpy(), e), dtype=torch.float32)
+                         for e in eps]).to(dev)
+    n_chk = torch.tensor([P1_STEPS, P1_STEPS], dtype=torch.int32, device=dev)
+    n_one = torch.tensor([1, 1], dtype=torch.int32, device=dev)
+    f_lj, _ = pair_fractions(st.pos[None], st.h[None], MS.CUTOFF2)
+    print(f"[18 P1] g0 box: {n} sites, box {float(st.h[0, 0]):.3f} A, {f_lj:.4f} of pairs "
+          f"inside the cutoff; prep {time.perf_counter() - t0:.2f}s")
+    # the bound of one check run: the function's LJ pair work over this box's
+    # live pairs, the state in and out, the two planes once
+    b_ms, b_by = bound(4.0 * (2 * n * n + 2 * P1_JOBS * 8 * n + P1_JOBS * 30),
+                       pair_flops(n, P1_JOBS * P1_STEPS, f_lj))
+
+    def grouped(x, J):  # (B, 8, NT, 128) jobs -> (B / J, 8, J NT, 128) programs
+        return x.reshape(-1, J, 8, nt, MS.LANE).transpose(1, 2).reshape(-1, 8, J * nt, MS.LANE)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    rows, v1_out = {}, None
+    for name, v in MS.VARIANTS.items():
+        J = v.jobs
+        w, s = MS.variant_planes(name, w4e, sig2)
+        x, fs = grouped(jobs, J), fscal[::J].contiguous()
+        out, sacc = MS.slim_run(name, x, w, s, n_chk, fs)
+        ms = cuda_ms(lambda: MS.slim_run(name, x, w, s, n_chk, fs), reps=3, warmup=0)
+        (pl, spl), plain_ms = events_ms(lambda: MS.slim_run_plain(name, x, w, s, n_chk, fs))
+        p64, s64 = MS.slim_run_plain(name, x.double(), w.double(), s.double(), n_chk,
+                                     fs.double())
+        torch.cuda.synchronize()
+        pk, pp = err(out[:, :3], p64[:, :3]), err(pl[:, :3], p64[:, :3])
+        vmax = float(p64[:, 3:6].abs().max())
+        vk, vp = err(out[:, 3:6], p64[:, 3:6]) / vmax, err(pl[:, 3:6], p64[:, 3:6]) / vmax
+        smax = s64[:, :4].abs().amax(0)
+        sk = float(((sacc[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
+        sp = float(((spl[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
+        if (not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4
+                or sk > 4 * sp + 1e-4 or not torch.equal(out[:, 6:], x[:, 6:])):
+            fail(f"P1 {name}: kernel vs float64 positions {pk:.3e} A, velocities rel {vk:.3e}, "
+                 f"chain and 2 KE rel {sk:.3e} exceed 4x plain float32 ({pp:.3e}, {vp:.3e}, "
+                 f"{sp:.3e}) + 1e-4")
+        # against v1: the J = 1 variants against the v1 kernel on the same
+        # jobs; J > 1 on programs of J copies of one job, against plain
+        # float64 v1 over the same J copies under one chain
+        if v1_out is None:
+            v1_out, v1_err = out, pk
+        if J == 1:
+            oc, ref = out, v1_out
+        else:
+            xc = grouped(jobs[:P1_JOBS // J].repeat_interleave(J, 0), J)
+            fc = fscal[:P1_JOBS // J].contiguous()
+            oc, _ = MS.slim_run(name, xc, w, s, n_chk, fc)
+            ref = MS.slim_run_plain("v1", xc.double(), w4e.double(), sig2.double(), n_chk,
+                                    fc.double(), jobs=J)[0]
+        torch.cuda.synchronize()
+        d1 = err(oc[:, :6], ref[:, :6])
+        if not torch.isfinite(oc).all() or d1 > 4 * pp + 4 * v1_err + 1e-4:
+            fail(f"P1 {name}: differs from v1 by {d1:.3e} (tol 4x (plain f32 + v1's kernel) "
+                 f"error vs float64 + 1e-4)")
+        # the int8 image guard: the first atom of program 1 moved 200 box
+        # lengths out (the same box for a cached image, beyond int8)
+        xg = x[:2].clone()
+        xg[1, 0, 0, 0] += 200.0 * float(h6[0])
+        og, _ = MS.slim_run(name, xg, w, s, n_one, fs[:2])
+        pg, _ = MS.slim_run_plain(name, xg, w, s, n_one, fs[:2])
+        nan_k = torch.isnan(og[:, :3]).flatten(1).any(1).tolist()
+        nan_p = torch.isnan(pg[:, :3]).flatten(1).any(1).tolist()
+        if nan_k != nan_p or nan_k != [False, v.cache]:
+            fail(f"P1 {name}: image guard: NaN programs kernel {nan_k}, plain {nan_p}, "
+                 f"expected {[False, v.cache]}")
+        rows[name] = {"name": f"md_slim_{name}", "route": "cuda", "source": P1_SOURCE,
+                      "replaces": P1_REPLACES, "max_abs_err": err(out[:, :3], pl[:, :3]),
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+        print(f"[18 P1 {name}] J={J}: {P1_JOBS} jobs x {P1_STEPS} steps vs float64: kernel "
+              f"{pk:.3e} A plain-f32 {pp:.3e} A, velocities rel {vk:.3e} / {vp:.3e}, chain and "
+              f"2 KE rel {sk:.3e} / {sp:.3e} (tol 4x plain + 1e-4); max |kernel - plain| "
+              f"{rows[name]['max_abs_err']:.3e} A; vs v1 {d1:.3e} A; guard NaN {nan_k}; "
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}); "
+              f"(registers, spill stores) {kernel_registers(p1_kernel(v))}, "
+              f"{MS.occupancy(name, n)} blocks per SM")
+    print(f"[18 P1] check runs {time.perf_counter() - t0:.2f}s")
+
+    # the lab itself on the same prepared box: v0 (K1), v0p (K1m) and every
+    # slim variant at 576 jobs
+    counters = {name: (MS.slim_run, "launches_" + name) for name in MS.VARIANTS}
+    counters.update(v0=(MF.md_run, "launches"), v0p=(MF.md_run_multi, "launches_k1m"))
+    del out, pl, p64, oc, ref
+    gc.collect()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t_lab = time.perf_counter()
+    res = PA.main(["v0", "v0p", *MS.VARIANTS], n_jobs=P1_JOBS, n_steps=n_steps, device=dev,
+                  out=lambda line: print(f"    {line}"), g0=g0)
+    torch.cuda.synchronize()
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    lab_b_ms = b_ms * n_steps / P1_STEPS
+    bad = [k for k, r in res.items() if not r["finite"] or launches[k] <= 0]
+    if bad:
+        fail(f"P1 lab: variants {bad} gave a non-finite state or launched no kernel "
+             f"(launches {launches})")
+    print(f"[18 P1 lab] {P1_JOBS} jobs x {n} atoms x {n_steps} steps, best of 3: "
+          + "  ".join(f"{k} {r['ms']:.2f} ms" for k, r in res.items())
+          + f"  bound {lab_b_ms:.3f} ms ({b_by}); launches {launches}; "
+          f"wall {time.perf_counter() - t_lab:.2f}s, phase {time.perf_counter() - t0:.2f}s")
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    return list(rows.values())
+
+
+def p1_kernel(v) -> str:
+    """The mangled name of a P1 variant's instance in md_slim.cu (template
+    flags CACHE TRIM UNISIG FORM NEWTON J)."""
+    form = {"sig": 0, "lj": 1, "rsqrt": 2}[v.form]
+    newton = {"": 0, "atomic": 1, "partials": 2, "shuffle": 3}[v.newton]
+    return (f"md_slim_kernelILb{int(v.cache)}ELb{int(v.trim)}ELb{int(v.unisig)}ELi{form}E"
+            f"Li{newton}ELi{v.jobs}E")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -2022,6 +2201,7 @@ def main() -> int:
     phase_sw_big_slice(dev, bricks=False, n_steps=1)
     k1m = phase_k1m(dev)
     k1m["launches"] = phase_staged_slice(dev)["md_allpairs_run_multi"]
+    p1 = phase_p1(dev)
     rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
@@ -2032,6 +2212,7 @@ def main() -> int:
         row["launches"] = launches_bricks[row["name"]]
         rows.append(row)
     rows.append(k1m)  # K1m's launches on the pack_jobs=2 steps (phase 17)
+    rows.extend(p1)  # P1's launches on the lab's path (phase 18)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

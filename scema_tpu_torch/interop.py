@@ -180,3 +180,13 @@ def kspace(ew, dtype=torch.float64, device=None):
     return Ewald(charges=_t(ew.charges, dtype, device), cutoff=float(ew.cutoff),
                  alpha=float(ew.alpha), kvecs=_t(ew.kvecs, dtype, device),
                  qqr2e=float(ew.qqr2e))
+
+
+def slim_inputs_from_jax(state, w4e, sig2, iscal, fscal, dtype=torch.float64, device=None):
+    """The kernel lab's ``run_slim`` operands (scripts/probe_allpairs.py:
+    state (8, J NT, 128), the (N, N) w4e and sig2 planes, iscal (2,),
+    fscal (20,)) -> the port's ``md_slim`` operands for one program:
+    state (1, 8, J NT, 128), the planes, iscal (1, 2) int32, fscal (1, 20)."""
+    return (_t(state, dtype, device)[None], _t(w4e, dtype, device), _t(sig2, dtype, device),
+            torch.as_tensor(np.asarray(iscal).astype(np.int32), device=device)[None],
+            _t(fscal, dtype, device)[None])

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
 ``md_list.cu``, ``md_sw.cu`` and ``md_multi.cu`` share their device code through
-``md_kernel.cuh``; ``pairwise_l2.cu`` and ``sw_bricks.cu`` stand alone) —
+``md_kernel.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and ``md_slim.cu``
+stand alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
@@ -55,6 +56,11 @@ SIGNATURES = {
     # a pointer to the constants (sw_bricks._SWK) and the stream
     "sw_moments_f32": [_P] * 6 + [_I] * 3 + [_P, _P],
     "sw_forces_f32": [_P] * 7 + [_I] * 3 + [_P, _P],
+    # P1 (the kernel lab's slim runs): a pointer to SlimArgs
+    # (md_slim._SlimArgs), the variant id, the stream
+    "md_slim_run_f32": [_P, _I, _P],
+    # the variant id, atoms per box, a pointer to the int result
+    "md_slim_occupancy": [_I, _I, _P],
 }
 
 _lib = None

@@ -35,7 +35,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -81,6 +80,7 @@ def main(argv=None) -> int:
 
     from .config import HMMConfig
     from .hmm.md_coupling import build_md_hmm
+    from .utils.device import card_line
 
     if not torch.cuda.is_available():
         print("error: no CUDA device available", file=sys.stderr)
@@ -88,9 +88,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip()
+    card = card_line(dev)
     print(card)
 
     cfg = HMMConfig().replace(dtype="float32")

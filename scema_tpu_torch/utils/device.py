@@ -1,6 +1,8 @@
 """Where the port's entry points put their tensors."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -18,3 +20,15 @@ def resolve(device=None) -> torch.device:
             "no CUDA device available: the port runs on one NVIDIA GPU; pass "
             "device='cpu' for the CPU reference path")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, for the line a script
+    prints beside its times; "device cpu" off the card."""
+    if device.type != "cuda":
+        return "device cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[device.index or 0] if smi.returncode == 0 and lines else "nvidia-smi failed"

@@ -45,16 +45,24 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
   virial) on 512- and 4096-atom boxes with perturbed positions and tilted
   boxes, K6a/K6b on a 512-atom box: the K1 force bounds; ten deform steps
   of the unfused engine on the bricks against the list route within 1e-3 A
-  (float32 noise of two force orders), a 0-step job bit-identical."""
+  (float32 noise of two force orders), a 0-step job bit-identical;
+* P1 (the kernel lab's slim all-pairs runs, each variant v1-v8) on the
+  prepared g0 box, 576 jobs x 25 steps (one image refresh mid-run): K1's
+  run bounds on positions, velocities, chain and 2 KE; a 0-step program
+  bit-identical for the one-box variants (v7, v7d4 and v7p run J boxes
+  under one chain, so a program has no dead job); the int8 image guard's
+  NaN programs equal to the plain version's."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from scema_tpu_torch import probe_allpairs as PA
 from scema_tpu_torch.md import engine as E
 from scema_tpu_torch.md import material as M
 from scema_tpu_torch.ops import md_fused as MF
+from scema_tpu_torch.ops import md_slim as MS
 from scema_tpu_torch.ops import pairwise_l2 as K2
 from scema_tpu_torch.ops import sw_bricks as SWB
 
@@ -683,3 +691,88 @@ def test_k6_unfused_run_matches_list_route(si_big):
     assert torch.equal(ob.pos[1], pos[1]) and torch.equal(ob.vel[1], vel[1])
     assert torch.isfinite(ob.pos).all()
     assert float((ob.pos - ol.pos).abs().max()) < 1e-3
+
+
+# P1's check runs: the lab's 576 jobs for 25 steps, so the image cache is
+# refreshed once mid-run (every 20 steps, and before the first force call)
+P1_JOBS, P1_STEPS = 576, 25
+
+
+@pytest.fixture(scope="module")
+def g0_slim():
+    """P1's inputs: the prepared g0 box (the lab's v0 state), 576 jobs with
+    their own Maxwell velocities and strains."""
+    dev = _device()
+    g0 = PA.prepared_g0(dev)
+    state1, w4e, sig2, h6 = PA.slim_box(g0)
+    nt = state1.shape[1]
+    gen = torch.Generator().manual_seed(7)
+    jobs = state1.expand(P1_JOBS, -1, -1, -1).clone()
+    fscal = []
+    for j in range(P1_JOBS):
+        vel = E.maxwell_velocities(g0[0], T_MD, gen, torch.float32, dev)
+        jobs[j, 3:6] = vel.T.reshape(3, nt, MS.LANE)
+        eps = torch.rand(6, generator=gen, dtype=torch.float64).numpy() * 2e-3 - 1e-3
+        fscal.append(torch.as_tensor(MS.make_fscal(h6.cpu().numpy(), eps), dtype=torch.float32))
+    return jobs, w4e, sig2, torch.stack(fscal).to(dev), float(h6[0])
+
+
+def _p1_programs(jobs, fscal, J):
+    """(B, 8, NT, 128) jobs -> (B / J, 8, J NT, 128) programs and their fscal."""
+    nt = jobs.shape[2]
+    x = jobs.reshape(-1, J, 8, nt, MS.LANE).transpose(1, 2).reshape(-1, 8, J * nt, MS.LANE)
+    return x, fscal[::J].contiguous()
+
+
+@pytest.mark.parametrize("variant", list(MS.VARIANTS))
+def test_p1_variant_matches_plain(g0_slim, variant):
+    """P1 (ops.md_slim, the kernel lab's slim all-pairs runs): 25 steps of
+    the lab's 576 jobs on the prepared g0 box, so the cached variants
+    refresh their images mid-run; the kernel within four times the plain
+    float32 run's distance from float64 (+1e-4) in positions, velocities,
+    chain and 2 KE.  A program with n_run = 0 comes back bit-identical for
+    the one-box variants; v7, v7d4 and v7p have no dead-job check, because
+    their J boxes share one chain (a program runs all of them or none)."""
+    jobs, w4e, sig2, fscal, _ = g0_slim
+    v = MS.VARIANTS[variant]
+    J = v.jobs
+    x, fs = _p1_programs(jobs, fscal, J)
+    P = x.shape[0]
+    n_run = torch.full((P, 2), P1_STEPS, dtype=torch.int32, device=x.device)
+    if J == 1:
+        n_run[1, 0] = 0
+    w, s = MS.variant_planes(variant, w4e, sig2)
+    name = "launches_" + variant
+    before = getattr(MS.slim_run, name)
+    out, sacc = MS.slim_run(variant, x, w, s, n_run, fs)
+    torch.cuda.synchronize()
+    assert getattr(MS.slim_run, name) == before + 1
+    if J == 1:
+        assert torch.equal(out[1], x[1]) and torch.equal(sacc[1, :3], fs[1, 14:17])
+    ref, sref = MS.slim_run_plain(variant, x, w, s, n_run, fs)
+    r64, s64 = MS.slim_run_plain(variant, x.double(), w.double(), s.double(), n_run, fs.double())
+    assert torch.isfinite(out).all() and torch.isfinite(sacc).all()
+    for rows in (slice(0, 3), slice(3, 6)):  # positions, velocities
+        assert _err(out[:, rows], r64[:, rows]) <= 4 * _err(ref[:, rows], r64[:, rows]) + 1e-4
+    assert _rel(sacc[:, :4], s64[:, :4]) <= 4 * _rel(sref[:, :4], s64[:, :4]) + 1e-4
+    assert torch.equal(out[:, 6:], x[:, 6:])
+
+
+@pytest.mark.parametrize("variant", list(MS.VARIANTS))
+def test_p1_image_guard_matches_plain(g0_slim, variant):
+    """P1's int8 image cache: an atom 200 box lengths out (the same box, an
+    image beyond int8) turns its program's positions NaN in the kernel and
+    the plain version alike, and leaves the other program finite; v1 keeps
+    no cache and stays finite."""
+    jobs, w4e, sig2, fscal, lx = g0_slim
+    v = MS.VARIANTS[variant]
+    x, fs = _p1_programs(jobs[:2 * v.jobs], fscal[:2 * v.jobs], v.jobs)
+    x = x.clone()
+    x[1, 0, 0, 0] += 200.0 * lx
+    n_run = torch.tensor([1, 1], dtype=torch.int32, device=x.device)
+    w, s = MS.variant_planes(variant, w4e, sig2)
+    out, _ = MS.slim_run(variant, x, w, s, n_run, fs)
+    ref, _ = MS.slim_run_plain(variant, x, w, s, n_run, fs)
+    for o in (out, ref):
+        assert torch.isnan(o[:, :3]).flatten(1).any(1).tolist() == [False, v.cache]
+        assert torch.isfinite(o[0]).all()
