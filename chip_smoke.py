@@ -10,15 +10,22 @@ failure exits non-zero before the result line:
 2. the kernel build from the sources in the checkout (nvcc, sm_90a), timed;
 3. K2 (pairwise L2) against its plain PyTorch version at n = 576 and 4608,
    d = 60: max error, kernel and plain times;
-4. K1 (fused all-pairs MD) against its plain version on the prepared g0 box
-   (512-site united-atom alkane melt, float32): the force + virial entry at
-   the stiffness probe's batch of 12, a 576-job deform run of 10 steps, a
-   576-job 20-step sampling run (each job's pressure sums against float64)
-   and a 576-job 100-step sampling run (stress compared statistically);
+4. K1 (fused all-pairs MD, csrc/md_k1.cu) against its plain version on
+   the prepared g0 box (512-site united-atom alkane melt, float32): the
+   force + virial entry at the stiffness probe's batch of 12 and at the
+   staged NPT's one box, a 576-job deform run of 10 steps, a 576-job
+   20-step sampling run (each job's pressure sums against float64) and a
+   576-job 100-step sampling run (stress compared statistically); K1's
+   first design (md_kernel.cuh with every flag off) held to the same
+   rules on the same force calls and deform run, and timed in turns with
+   the redesign (old, new, new, old) at 576 and 144 jobs x 10 steps and at
+   B = 12 and 1 (device time by the profiler, and time per call); the
+   registers, local (spill) bytes and blocks per SM of K1's two kernels;
 5. the slice: ``scema_tpu_torch.cli run cfg.json --quick-prep --steps 3`` on
    an empty config (the HMMConfig() dogbone: 576 qps, a 512-site box at each
    flagged qp), with every launch counter zeroed just before and read just
-   after; each kernel of the path must have launched;
+   after; each kernel of the path must have launched, and K1's first design
+   not;
 6. K3 (fused all-pairs MD with the charged all-atom additions) against its
    plain version on the prepared PEAA box (56 C10H22 chains, 1792 charged
    atoms, SHAKE on C-H, PME k-space split, float32): the force + virial
@@ -81,20 +88,22 @@ failure exits non-zero before the result line:
    kernel; md jobs 128, 128 and 0.00032 m;
 15. the same box on the list route (no bricks) for 1 macro-step: K2 is
    the only kernel launched;
-16. K1m (K1's run with J = 2 jobs per block, the coupler's pack_jobs)
-   on the prepared g0 box at 576 jobs: a 10-step deform run and a 20-step
-   sampling run against K1 (bit for bit expected) and against float64 at
-   phase 4's tolerances, (live, dead) pairs with the dead job
-   bit-identical; K1m's (J = 2 and 4), K1's and the plain version's times,
-   the bound, and both kernels' registers and spill stores;
+16. K1m (K1's first design with J = 2 jobs per block, the coupler's
+   pack_jobs) on the prepared g0 box at 576 jobs: a 10-step deform run and
+   a 20-step sampling run against that design (bit for bit, checked) and
+   against float64 at phase 4's tolerances, (live, dead) pairs with the dead
+   job bit-identical; K1m's (J = 2 and 4), the first design's, K1's and the
+   plain version's times, the bound, and the registers and spill stores;
 17. the staged slice: ``scema_tpu_torch.cli run cfg.json --steps 3`` on
    an empty config without ``--quick-prep`` (the staged heatup/cooldown
    NPT prep; md jobs 144, 288, 432, 0.00048 m; K1's entries and K2 only)
    and the prepared g0 density (the band of the JAX package's prep); the
    g0 prep at ns_init 60 (450-950 kg/m^3, tests/test_opls_hmm.py:69-81);
-   2 macro-steps of the same built problem with pack_jobs 1, 1 again and 2
-   (K1m launched, K1's run entry not; stresses within 1e-4 relative, and
-   the MD layer alone bit for bit on identical inputs), and the staged
+   2 macro-steps of the same built problem with pack_jobs 1 (K1), 1 again,
+   1 on K1's first design and 2 (K1m launched, K1's run entry not;
+   K1's stresses and the packed ones each within 1e-4 relative of the
+   first design's, and the MD layer
+   alone bit for bit with it on identical inputs), and the staged
    prep of the 216-atom SW box on K5's entry (density in the band of the
    JAX package's prep);
 18. P1 (the kernel lab's slim all-pairs LJ runs, ``ops.md_slim``, variants
@@ -106,10 +115,11 @@ failure exits non-zero before the result line:
    per SM; then the lab itself, ``probe_allpairs.main`` over v0 (K1), v0p
    (K1m) and every slim variant at 576 jobs x 500 steps (best of 3 runs,
    each state finite), its launch counters zeroed just before and read
-   just after.
+   just after (v0 on K1, never on its first design).
 
-The second-to-last line is a JSON object with one entry per kernel (K1
-and K2 launches counted on the g0 slice, K3's on the charged slice, K4's
+The second-to-last line is a JSON object with one entry per kernel (K1,
+K1's first design (0) and K2 launches counted on the g0 slice, K3's on the
+charged slice, K4's
 on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
 K1m's on phase 17's pack_jobs=2 steps, P1's on phase 18's lab runs;
 bounds from this run's shapes and the card's published peaks); the last
@@ -147,9 +157,16 @@ FLOP_GEOM, FLOP_LJ, FLOP_EWALD, FLOP_APPLY, FLOP_VIRIAL = 26, 8, 24, 9, 12
 # moments 38, the two-body phi2' and dg 20, w in both roles 106, both
 # atoms' forces 12; with sampling, both ordered pairs' virial 24
 FLOP_SW, FLOP_SW_VIRIAL = 184, 24
-# K1 times of the earlier, LJ-only kernel, measured on one H100 (PERF.md):
-# 576 jobs x 10 deform steps, and the force + virial entry on 12 boxes
-PREV_K1_MS = {"run": 6.331, "forces": 0.130}
+# K1 times of its first design, measured on one H100 (PERF.md): 576
+# jobs x 10 deform steps, and the force + virial entry on 12 boxes
+PREV_K1_MS = {"run": 6.529, "forces": 0.129}
+# K1 (csrc/md_k1.cu) and its first design (md_kernel.cuh with
+# every flag off, md_allpairs.cu), both replacing the same TPU kernel
+K1_SOURCE = "scema_tpu_torch/csrc/md_k1.cu"
+FIRST_SOURCE = "scema_tpu_torch/csrc/md_allpairs.cu"
+K1_REPLACES = "scema_tpu/ops/md_fused.py:1850"
+# the kernels of each K1 design's force entry, by name
+K1_KERNELS = {"first": ("md_forces_kernel",), "path": ("k1_forces_kernel", "k1_virial_kernel")}
 
 
 def fail(msg: str) -> None:
@@ -321,6 +338,44 @@ def phase_k2(dev):
     return row
 
 
+def k1_ptxas():
+    """{kernel<template arguments>: (registers, spill store bytes)} of
+    md_k1.cu's kernels, from the build's ptxas report (empty when the
+    library came from the cache)."""
+    out = {}
+    for name, regs, spills in ptxas_entries():
+        kind = re.search(r"\dk1_(\w+?)_kernel", name)
+        if kind:
+            out[kind.group(1)] = (regs, spills)
+    return out
+
+
+def device_ms(fn, reps: int, names) -> float:
+    """Device time per call of ``fn`` in ms: the durations of the kernels
+    whose names hold one of ``names``, from the profiler, over ``reps``
+    calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == cuda and any(k in e.name for k in names))
+    if us <= 0:
+        fail(f"the profiler saw no device time of kernels {names}")
+    return us / reps / 1e3
+
+
+def turns(t) -> str:
+    """The times of an old, new, new, old sequence, in that order."""
+    return " ".join(f"{x:.4f}" for x in (t["first"][0], *t["path"], t["first"][1]))
+
+
 def phase_k1(dev):
     import torch
 
@@ -338,48 +393,81 @@ def phase_k1(dev):
     print(f"[4 K1] g0 box: {sys_.n_atoms} sites, box {float(st.h[0, 0]):.3f} A, "
           f"FIRE prep {time.perf_counter() - t0:.2f}s")
     r = sys_.fused
+    r64 = r.to(dev, torch.float64)
+    n = sys_.n_atoms
 
-    # force + virial entry at the stiffness probe's 12 deformed boxes
+    # force + virial entry at the stiffness probe's 12 deformed boxes, and
+    # at the staged NPT's one box
     eps = torch.zeros((12, 6), device=dev)
     for d in range(6):
         eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
         eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
     h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
     pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
-    p12 = pos12.transpose(1, 2).contiguous()
-    h6 = MF.h6_of(h12)
-    F, W = MF.md_forces_virial(r, p12, h6)
-    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
-    # float64 truth: pair forces cancel (repulsive/attractive terms of ~100x
-    # the net force), so float32 results are judged against float64 and the
-    # kernel must be as accurate as the plain version in float32
-    F64, W64 = MF.md_forces_virial_plain(r.to(dev, torch.float64), p12.double(),
-                                         h6.double())
-    torch.cuda.synchronize()
-    f_err = float((F - Fp).abs().max())
-    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
-    ek = float((F.double() - F64).abs().max()) / fmax
-    ep = float((Fp.double() - F64).abs().max()) / fmax
-    wk = float((W.double() - W64).abs().max()) / wmax
-    wp = float((Wp.double() - W64).abs().max()) / wmax
-    if not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6:
-        fail(f"K1 forces: kernel error vs float64 {ek:.3e} (virial {wk:.3e}) exceeds "
-             f"twice the plain float32 error {ep:.3e} (virial {wp:.3e}) + 1e-6")
-    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6), reps=20)
-    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=5)
-    n = sys_.n_atoms
     f_lj, _ = pair_fractions(pos12[:2], h12[:2], r.spec.cutoff2)
-    fb_ms, fb_by = bound(4.0 * (2 * n * n + 16 * n + 12 * (6 * n + 12)),
-                         pair_flops(n, 12, f_lj, virial=True))
-    print(f"[4 K1 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: "
-          f"kernel {ek:.3e} plain-f32 {ep:.3e} (virial {wk:.3e} / {wp:.3e}; tol 2x plain "
-          f"+ 1e-6)  kernel {ms:.4f} ms (earlier: {PREV_K1_MS['forces']} ms)  plain {plain_ms:.4f} ms"
-          f"  bound {fb_ms:.4f} ms ({fb_by}; {f_lj:.3f} of pairs inside the cutoff)")
-    forces_row = {"name": "md_allpairs_forces_virial", "route": "cuda",
-                  "source": "scema_tpu_torch/csrc/md_allpairs.cu",
-                  "replaces": "scema_tpu/ops/md_fused.py:1850",
-                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+    # the bounds' job-independent inputs: the type table, the codes, the
+    # window and the chain rows (the first design reads two N x N planes in
+    # place of the first three; the function needs no more than these)
+    T = int(r.k1_tbl.shape[0])
+    k1_consts = 2 * T * T + 24 * n
+    # the bounds of the first design's function: it reads two N x N planes
+    # in place of the table, the codes and the window
+    first_consts = 2 * n * n + 16 * n
+    # K1 (the path's) and its first design, on the same inputs
+    forces_entry = {"path": MF.md_forces_virial, "first": MF._forces_first}
+    f_ms = {}
+    for Bn in (12, 1):
+        p12 = pos12[:Bn].transpose(1, 2).contiguous()
+        h6 = MF.h6_of(h12[:Bn])
+        out_f = {d: fn(r, p12, h6) for d, fn in forces_entry.items()}
+        Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
+        # float64 truth: pair forces cancel (repulsive/attractive terms of
+        # ~100x the net force), so float32 results are judged against
+        # float64 and each kernel must be as accurate as the plain version
+        F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
+        torch.cuda.synchronize()
+        fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+        ep = float((Fp.double() - F64).abs().max()) / fmax
+        wp = float((Wp.double() - W64).abs().max()) / wmax
+        f_err, errs = {}, []
+        for d, (F, W) in out_f.items():
+            f_err[d] = float((F - Fp).abs().max())
+            ek = float((F.double() - F64).abs().max()) / fmax
+            wk = float((W.double() - W64).abs().max()) / wmax
+            if not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6:
+                fail(f"K1 forces ({d}) B={Bn}: kernel error vs float64 {ek:.3e} (virial "
+                     f"{wk:.3e}) exceeds twice the plain float32 error {ep:.3e} (virial "
+                     f"{wp:.3e}) + 1e-6")
+            errs.append(f"{d} {f_err[d]:.3e} vs plain, {ek:.3e} (virial {wk:.3e}) vs float64")
+        # the first design and the redesign in turns (old, new, new, old): the
+        # device time of their kernels (profiler), and the time per call of
+        # back-to-back calls (CUDA events), which the host's launch path
+        # bounds once the device time is below it
+        t = {"first": [], "path": []}
+        call = {"first": [], "path": []}
+        for d in ("first", "path", "path", "first"):
+            fn = forces_entry[d]
+            t[d].append(device_ms(lambda: fn(r, p12, h6), 50, K1_KERNELS[d]))
+            call[d].append(cuda_ms(lambda: fn(r, p12, h6), reps=50, warmup=3))
+        f_ms[Bn] = (min(t["first"]), min(t["path"]))
+        plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=5)
+        fb_ms, fb_by = bound(4.0 * (k1_consts + Bn * (6 * n + 12)),
+                             pair_flops(n, Bn, f_lj, virial=True))
+        print(f"[4 K1 forces] B={Bn}: max_abs_err and rel error: {'; '.join(errs)}; plain-f32 "
+              f"{ep:.3e} (virial {wp:.3e}) vs float64 (tol 2x plain + 1e-6)  device ms (old, "
+              f"new, new, old): {turns(t)}; ms per call: {turns(call)} (earlier: "
+              f"{PREV_K1_MS['forces']} ms at B=12)  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} "
+              f"ms ({fb_by}; {f_lj:.3f} of pairs inside the cutoff)")
+        if Bn == 12:  # the kernels line's shape (the probe's)
+            ffb_ms, ffb_by = bound(4.0 * (first_consts + Bn * (6 * n + 12)),
+                                   pair_flops(n, Bn, f_lj, virial=True))
+            forces_row = {"name": "md_k1_forces_virial", "route": "cuda", "source": K1_SOURCE,
+                          "replaces": K1_REPLACES, "max_abs_err": f_err["path"],
+                          "ms": f_ms[Bn][1], "plain_ms": plain_ms, "bound_ms": fb_ms,
+                          "bound_by": fb_by, "library_ms": None}
+            first_forces_row = dict(forces_row, name="md_allpairs_forces_virial",
+                                    source=FIRST_SOURCE, max_abs_err=f_err["first"],
+                                    ms=f_ms[Bn][0], bound_ms=ffb_ms, bound_by=ffb_by)
 
     # 576-job deform run (nts = 10), every job its own velocities and strain
     J = 576
@@ -394,30 +482,69 @@ def phase_k1(dev):
     n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
     out, xo, _ = MF.md_run(r, state, vxi, n10, fscal, True, False)
     ref, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
-    ref64, _, _ = MF.md_run_plain(r.to(dev, torch.float64), state.double(), vxi.double(),
-                                  n10, fscal.double(), True, False)
+    ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(), True,
+                                  False)
     torch.cuda.synchronize()
-    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
     # rounding differences grow chaotically along a trajectory: the kernel's
     # float32 run must stay as close to float64 as the plain float32 run
-    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
     pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
     vmax = float(ref64[:, 3:].abs().max())
-    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
     vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-        fail(f"K1 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
-             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
-    run_ms = cuda_ms(lambda: MF.md_run(r, state, vxi, n10, fscal, True, False), reps=3)
+
+    def run_errors(o, what):
+        pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
+        vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+        if not torch.isfinite(o).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+            fail(f"{what}: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+                 f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+        return pk, vk
+
+    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    pk, vk = run_errors(out, "K1 run")
+    # the first design on the same run, to the same rule
+    out1, _, _ = MF._run_first(r, state, vxi, n10, fscal, True, False)
+    torch.cuda.synchronize()
+    p_err1 = float((out1[:, :3] - ref[:, :3]).abs().max())
+    pk1, vk1 = run_errors(out1, "K1 first design run")
     run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, state, vxi, n10, fscal, True, False),
                            reps=1, warmup=0)
-    rb_ms, rb_by = bound(4.0 * (2 * n * n + 16 * n + 2 * J * (6 * n + 3) + J * 16),
-                         pair_flops(n, J * 10, f_lj))
+    jobs_bytes = 2 * J * (6 * n + 3) + J * 16
+    rb_ms, rb_by = bound(4.0 * (k1_consts + 2 * n + jobs_bytes), pair_flops(n, J * 10, f_lj))
+    rb1_ms, rb1_by = bound(4.0 * (first_consts + 2 * n + jobs_bytes),
+                           pair_flops(n, J * 10, f_lj))
+    # the first design and the redesign in turns, at 576 jobs and at the
+    # slice's first step's 144
+    run_entry = {"path": MF.md_run, "first": MF._run_first}
+    r_ms = {}
+    for Jt in (J, 144):
+        t = {"first": [], "path": []}
+        for d in ("first", "path", "path", "first"):
+            fn = run_entry[d]
+            t[d].append(cuda_ms(lambda: fn(r, state[:Jt], vxi[:Jt], n10[:Jt], fscal[:Jt], True,
+                                           False), reps=3))
+        r_ms[Jt] = t
+    run_ms = min(r_ms[J]["path"])
     print(f"[4 K1 run] {J} jobs x 10 deform steps: positions max_abs_err vs plain "
-          f"{p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 {pp:.3e} A, velocities "
-          f"rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)  kernel {run_ms:.3f} ms "
-          f"(earlier: {PREV_K1_MS['run']} ms)  plain {run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms "
+          f"{p_err:.3e} A (first design {p_err1:.3e}); vs float64: kernel {pk:.3e} A (first "
+          f"design {pk1:.3e}) plain-f32 {pp:.3e} A, velocities rel {vk:.3e} ({vk1:.3e}) / "
+          f"{vp:.3e} (tol 4x plain + 1e-4)  kernel {run_ms:.3f} ms (earlier: "
+          f"{PREV_K1_MS['run']} ms)  plain {run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms "
           f"({rb_by})")
+    for Jt, t in r_ms.items():
+        print(f"[4 K1 A/B] {Jt} jobs x 10 deform steps, ms (old, new, new, old): first design "
+              f"{t['first'][0]:.3f} / {t['first'][1]:.3f}, redesign {t['path'][0]:.3f} / "
+              f"{t['path'][1]:.3f}: {min(t['first']) / min(t['path']):.3f}x")
+    for Bn, (old, new) in f_ms.items():
+        print(f"[4 K1 A/B] force entry B={Bn}: first design {old:.4f} ms, redesign {new:.4f} ms:"
+              f" {old / new:.3f}x")
+
+    # registers, spill bytes and occupancy of K1's two kernels at the g0 box
+    info = {e: MF.k1_kernel_info(e, n, T) for e in ("run", "forces")}
+    print("[4 K1 kernels] " + "; ".join(
+        f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
+        f"blocks per SM of {x['threads']} threads" for e, x in info.items())
+        + f"; first design {kernel_registers(K1_KERNEL)[:1]} (registers, spill stores), one "
+        f"block per SM; ptxas (registers, spill stores) {k1_ptxas()}")
 
     # sampling entry, deterministic: each job's pressure sum over a 20-step
     # sampling run against float64, per Voigt component, held to the same
@@ -426,8 +553,7 @@ def phase_k1(dev):
     n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
     _, _, sk = MF.md_run(r, out, xo, n20, f_s, False, True)
     _, _, sp = MF.md_run_plain(r, out, xo, n20, f_s, False, True)
-    _, _, s64 = MF.md_run_plain(r.to(dev, torch.float64), out.double(), xo.double(), n20,
-                                f_s.double(), False, True)
+    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True)
     torch.cuda.synchronize()
     smax = s64.abs().amax(0)
     sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
@@ -468,12 +594,16 @@ def phase_k1(dev):
     print(f"[4 K1 sample] {J} jobs x 100 steps: |mean pressure diff| (atm) "
           f"{[round(x, 3) for x in diff.tolist()]} <= 4 SE {[round(4 * x, 3) for x in se.tolist()]}"
           f"  kernel {t_s['kernel']:.3f} ms  plain {t_s['plain']:.3f} ms (host clock)")
-    run_row = {"name": "md_allpairs_run", "route": "cuda",
-               "source": "scema_tpu_torch/csrc/md_allpairs.cu",
-               "replaces": "scema_tpu/ops/md_fused.py:1850",
-               "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
-               "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
-    return run_row, forces_row
+    run_row = {"name": "md_k1_run", "route": "cuda", "source": K1_SOURCE,
+               "replaces": K1_REPLACES, "max_abs_err": p_err, "ms": run_ms,
+               "plain_ms": run_plain_ms, "bound_ms": rb_ms, "bound_by": rb_by,
+               "library_ms": None}
+    # the first design (md_kernel.cuh, every flag off): no path launches it;
+    # the plain version is the same function on the same inputs
+    first_rows = [dict(run_row, name="md_allpairs_run", source=FIRST_SOURCE, max_abs_err=p_err1,
+                       ms=min(r_ms[J]["first"]), bound_ms=rb1_ms, bound_by=rb1_by),
+                  first_forces_row]
+    return [run_row, forces_row], first_rows
 
 
 def phase_slice(dev):
@@ -483,8 +613,10 @@ def phase_slice(dev):
     from scema_tpu_torch.ops import md_fused as MF
     from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_allpairs_run": (MF.md_run, "launches"),
-                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+    counters = {"md_k1_run": (MF.md_run, "launches"),
+                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_allpairs_run": (MF._run_first, "launches"),
+                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
                 "md_charged_run": (MF.md_run, "launches_k3"),
                 "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
                 "pairwise_l2": (K2.pairwise_l2, "launches")}
@@ -523,9 +655,12 @@ def phase_slice(dev):
     expect = n_steps * 0.002 * 0.08
     if abs(float(umax.group(1)) - expect) > 1e-5 * expect:
         fail(f"max displacement {umax.group(1)} != {expect}")
-    for k in ("md_allpairs_run", "md_allpairs_forces_virial", "pairwise_l2"):
+    for k in ("md_k1_run", "md_k1_forces_virial", "pairwise_l2"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the main path")
+    for k in ("md_allpairs_run", "md_allpairs_forces_virial"):  # K1's first design
+        if launches[k]:
+            fail(f"the main path launched {k}, K1's first design ({launches[k]} times)")
     step_s = [float(s[5]) for s in steps]
     jobs = [int(s[3]) for s in steps]
     print(f"[5 slice] prep (setup) {float(setup.group(1)):.3f}s  s/macro-step {step_s}  "
@@ -690,8 +825,10 @@ def phase_charged_slice(dev):
     from scema_tpu_torch.ops import md_fused as MF
     from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_allpairs_run": (MF.md_run, "launches"),
-                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+    counters = {"md_k1_run": (MF.md_run, "launches"),
+                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_allpairs_run": (MF._run_first, "launches"),
+                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
                 "md_charged_run": (MF.md_run, "launches_k3"),
                 "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
                 "pairwise_l2": (K2.pairwise_l2, "launches")}
@@ -983,7 +1120,7 @@ def phase_bench(dev):
     batch = E.run_strain(sys_, batch, eps * 0.0, 20, T, dt)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    counters = {"md_allpairs_run": (MF.md_run, "launches"),
+    counters = {"md_k1_run": (MF.md_run, "launches"),
                 "md_charged_run": (MF.md_run, "launches_k3"),
                 "md_list_run": (MF.md_run, "launches_k4")}
     for fn, attr in counters.values():
@@ -997,7 +1134,7 @@ def phase_bench(dev):
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     if not torch.isfinite(out.pos).all():
         fail("bench path: non-finite positions")
-    if launches["md_list_run"] <= 0 or launches["md_allpairs_run"] or launches["md_charged_run"]:
+    if launches["md_list_run"] <= 0 or launches["md_k1_run"] or launches["md_charged_run"]:
         fail(f"bench path: the timed runs did not go through K4 alone: {launches}")
     rate = n_jobs * sys_.n_atoms * n_steps / best
     print(f"[9 bench] md_charged_bigbox path: {n_jobs} jobs x {n_steps} run_strain steps of "
@@ -1016,8 +1153,10 @@ def phase_list_slice(dev):
     from scema_tpu_torch.ops import md_fused as MF
     from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_allpairs_run": (MF.md_run, "launches"),
-                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+    counters = {"md_k1_run": (MF.md_run, "launches"),
+                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_allpairs_run": (MF._run_first, "launches"),
+                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
                 "md_charged_run": (MF.md_run, "launches_k3"),
                 "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
                 "md_list_run": (MF.md_run, "launches_k4"),
@@ -1305,8 +1444,10 @@ def phase_sw_slice(dev):
     from scema_tpu_torch.ops import md_fused as MF
     from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_allpairs_run": (MF.md_run, "launches"),
-                "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+    counters = {"md_k1_run": (MF.md_run, "launches"),
+                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+                "md_allpairs_run": (MF._run_first, "launches"),
+                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
                 "md_charged_run": (MF.md_run, "launches_k3"),
                 "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
                 "md_list_run": (MF.md_run, "launches_k4"),
@@ -1593,8 +1734,10 @@ def _k6_counters():
     from scema_tpu_torch.ops import pairwise_l2 as K2
     from scema_tpu_torch.ops import sw_bricks as SWB
 
-    return {"md_allpairs_run": (MF.md_run, "launches"),
-            "md_allpairs_forces_virial": (MF.md_forces_virial, "launches"),
+    return {"md_k1_run": (MF.md_run, "launches"),
+            "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+            "md_allpairs_run": (MF._run_first, "launches"),
+            "md_allpairs_forces_virial": (MF._forces_first, "launches"),
             "md_charged_run": (MF.md_run, "launches_k3"),
             "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
             "md_list_run": (MF.md_run, "launches_k4"),
@@ -1671,10 +1814,10 @@ def phase_sw_big_slice(dev, bricks: bool, n_steps: int):
     return launches
 
 
-def kernel_registers(name_part: str):
-    """[(registers, spill store bytes)] of the compiled entries whose
-    mangled name holds ``name_part``, from the build's ptxas report (empty
-    when the library came from the cache)."""
+def ptxas_entries():
+    """[(mangled name, registers, spill store bytes)] of every compiled
+    entry, from the build's ptxas report (empty when the library came from
+    the cache)."""
     from scema_tpu_torch.ops import _build
 
     out, cur = [], None
@@ -1683,7 +1826,7 @@ def kernel_registers(name_part: str):
         if m:
             cur = [m.group(1), None, None]
             continue
-        if cur is None or name_part not in cur[0]:
+        if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -1691,9 +1834,36 @@ def kernel_registers(name_part: str):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur[1] = int(m.group(1))
-            out.append((cur[1], cur[2]))
+            out.append(tuple(cur))
             cur = None
     return out
+
+
+def kernel_registers(name_part: str):
+    """[(registers, spill store bytes)] of the compiled entries whose
+    mangled name holds ``name_part`` (empty when the library came from the
+    cache)."""
+    return [(regs, spills) for name, regs, spills in ptxas_entries() if name_part in name]
+
+
+@contextlib.contextmanager
+def k1_first_design():
+    """K1 runners' runs on K1's first design for the duration: the design
+    K1m copies per job, for the checks that hold K1m to it bit for bit."""
+    from scema_tpu_torch.ops import md_fused as MF
+
+    md_run = MF.md_run
+
+    def first_run(runner, state, vxi, n_run, fscal, deform, sample, **kw):
+        if runner.spec.kernel != "K1" or any(v is not None for v in kw.values()):
+            fail(f"k1_first_design: a {runner.spec.kernel} run reached the first design")
+        return MF._run_first(runner, state, vxi, n_run, fscal, deform, sample)
+
+    MF.md_run = first_run
+    try:
+        yield
+    finally:
+        MF.md_run = md_run
 
 
 # K1m's jobs per block on the coupled path (MDBackend.pack_jobs)
@@ -1704,8 +1874,9 @@ K1M_KERNELS = {J: f"md_run_multi_kernelILi{J}E" for J in (2, 4)}
 
 
 def phase_k1m(dev):
-    """Phase 16: K1m (K1's run with J = 2 jobs per block) against K1, its
-    plain version and float64 on the prepared g0 box at 576 jobs."""
+    """Phase 16: K1m (K1's first design with J = 2 jobs per block) against
+    that design, its plain version and float64 on the prepared g0 box at
+    576 jobs."""
     import torch
 
     from scema_tpu_torch.md import engine as E
@@ -1728,10 +1899,11 @@ def phase_k1m(dev):
     n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
     r64 = r.to(dev, torch.float64)
 
-    # 10-step deform run: K1m against K1 (bit for bit expected) and, at
-    # phase 4's tolerances, against float64
+    # 10-step deform run: K1m against K1's first design, which it copies J
+    # times per block (bit for bit expected), and, at phase 4's tolerances,
+    # against float64
     out, xo, _ = MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS)
-    ref, xr, _ = MF.md_run(r, state, vxi, n10, fscal, True, False)
+    ref, xr, _ = MF._run_first(r, state, vxi, n10, fscal, True, False)
     pl, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
     ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(),
                                   True, False)
@@ -1746,7 +1918,8 @@ def phase_k1m(dev):
     if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
         fail(f"K1m run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
              f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
-    print(f"[16 K1m run] {J} jobs x 10 deform steps, J = {K1M_JOBS} per block: max |K1m - K1| "
+    print(f"[16 K1m run] {J} jobs x 10 deform steps, J = {K1M_JOBS} per block: max |K1m - K1 "
+          f"(first design)| "
           f"{d_run:.3e} (state), {float((xo - xr).abs().max()):.3e} (NHC); positions max_abs_err "
           f"vs plain {p_err:.3e} A; vs float64: K1m {pk:.3e} A plain-f32 {pp:.3e} A, velocities "
           f"rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)")
@@ -1755,7 +1928,7 @@ def phase_k1m(dev):
     f_s = MF.make_fscal(DT, T_MD, hJ)
     n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
     _, _, sk = MF.md_run_multi(r, out, xo, n20, f_s, False, True, K1M_JOBS)
-    _, _, s1 = MF.md_run(r, out, xo, n20, f_s, False, True)
+    _, _, s1 = MF._run_first(r, out, xo, n20, f_s, False, True)
     _, _, sp = MF.md_run_plain(r, out, xo, n20, f_s, False, True)
     _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True)
     torch.cuda.synchronize()
@@ -1766,38 +1939,46 @@ def phase_k1m(dev):
     if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
         fail(f"K1m sampling: pressure sums vs float64 rel {sk_err:.3e} exceed 4x plain "
              f"float32 {sp_err:.3e} + 1e-4")
-    print(f"[16 K1m sample20] {J} jobs x 20 sampling steps: max |K1m - K1| {d_s:.3e} atm; "
+    print(f"[16 K1m sample20] {J} jobs x 20 sampling steps: max |K1m - K1 (first design)| "
+          f"{d_s:.3e} atm; "
           f"rel to float64 (worst component): K1m {sk_err:.3e} plain-f32 {sp_err:.3e} "
           f"(tol 4x plain + 1e-4)")
 
     # (live, dead) pairs: every second job runs 0 steps
     n_pair = torch.tensor([20, 0] * (J // 2), dtype=torch.int32, device=dev)
     o2, x2, p2 = MF.md_run_multi(r, out, xo, n_pair, f_s, False, True, K1M_JOBS)
-    o1, _, p1 = MF.md_run(r, out, xo, n_pair, f_s, False, True)
+    o1, _, p1 = MF._run_first(r, out, xo, n_pair, f_s, False, True)
     torch.cuda.synchronize()
     dead_ok = (torch.equal(o2[1::2], out[1::2]) and torch.equal(x2[1::2], xo[1::2])
                and not bool(p2[1::2].any()))
     d_live = float((o2[0::2] - o1[0::2]).abs().max())
     if not dead_ok or not torch.isfinite(o2).all():
         fail("K1m: a dead job of a (live, dead) pair was modified")
+    if d_run or d_s or d_live or not torch.equal(xo, xr):
+        fail(f"K1m differs from K1's first design, which it copies per job: {d_run:.3e} (deform "
+             f"state), {d_s:.3e} atm (sampling), {d_live:.3e} (live jobs of the pairs)")
     print(f"[16 K1m pairs] {J // 2} (live, dead) pairs x 20 sampling steps: dead jobs "
-          f"bit-identical; live jobs max |K1m - K1| {d_live:.3e} (state), "
+          f"bit-identical; live jobs max |K1m - K1 (first design)| {d_live:.3e} (state), "
           f"{float((p2[0::2] - p1[0::2]).abs().max()):.3e} atm")
 
-    # times: K1m (J = 2 and 4) and K1 on the same 576-job deform run
+    # times: K1m (J = 2 and 4), K1's first design and K1 on the same 576-job
+    # deform run
     ms = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS),
                  reps=3)
     ms4 = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, 4), reps=3)
+    first_ms = cuda_ms(lambda: MF._run_first(r, state, vxi, n10, fscal, True, False),
+                     reps=3)
     k1_ms = cuda_ms(lambda: MF.md_run(r, state, vxi, n10, fscal, True, False), reps=3)
     plain_ms = cuda_ms(lambda: MF.md_run_plain(r, state, vxi, n10, fscal, True, False),
                        reps=1, warmup=0)
     f_lj, _ = pair_fractions(st.pos.expand(2, -1, -1), hJ[:2], r.spec.cutoff2)
     b_ms, b_by = bound(4.0 * (2 * n * n + 16 * n + 2 * J * (6 * n + 3) + J * 16),
                        pair_flops(n, J * 10, f_lj))
-    regs = {"K1": kernel_registers(K1_KERNEL)[:1],
+    regs = {"K1 (first design)": kernel_registers(K1_KERNEL)[:1],
             **{f"K1m J={J}": kernel_registers(k) for J, k in K1M_KERNELS.items()}}
     print(f"[16 K1m] {J} jobs x 10 deform steps: K1m J=2 {ms:.3f} ms  J=4 {ms4:.3f} ms  "
-          f"K1 {k1_ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
+          f"K1's first design {first_ms:.3f} ms  K1 {k1_ms:.3f} ms  plain {plain_ms:.3f} ms  "
+          f"bound {b_ms:.3f} ms ({b_by})  "
           f"(registers, spill stores) {regs}  phase wall {time.perf_counter() - t0:.2f}s")
     return {"name": "md_allpairs_run_multi", "route": "cuda",
             "source": "scema_tpu_torch/csrc/md_multi.cu",
@@ -1905,8 +2086,7 @@ def phase_staged_slice(dev):
     if jobs != [144, 288, 432] or abs(float(umax.group(1)) - expect) > 1e-5 * expect:
         fail(f"staged slice: md jobs {jobs} (expected [144, 288, 432]), max displacement "
              f"{umax.group(1)} (expected {expect})")
-    only(launches, ("md_allpairs_run", "md_allpairs_forces_virial", "pairwise_l2"),
-         "staged slice")
+    only(launches, ("md_k1_run", "md_k1_forces_virial", "pairwise_l2"), "staged slice")
     hmm = built["hmm"]
     rho = float(hmm.backend.ensemble.rho.mean())
     if not G0_RHO_NS100[0] < rho < G0_RHO_NS100[1]:
@@ -1944,21 +2124,29 @@ def phase_staged_slice(dev):
             step_s.append(round(time.perf_counter() - t1, 4))
         return state, step_s
 
+    # K1m copies K1's first design per job, so the packed steps are held to
+    # unpacked steps on that design; the path's K1 runs beside them
     s1, t1 = two_steps(hmm)
     s1b, t1b = two_steps(hmm)  # the unpacked run again: its run-to-run spread
+    with k1_first_design():
+        s0, t0 = two_steps(hmm)
     packed = dataclasses.replace(hmm, backends=tuple(
         dataclasses.replace(be, pack_jobs=K1M_JOBS) for be in hmm.backends))
     zero()
     s2, t2 = two_steps(packed)
     launches_k1m = read()
     only(launches_k1m, ("md_allpairs_run_multi", "pairwise_l2"), "pack_jobs=2 steps")
-    sig1, sig1b, sig2 = (c[0].qp.new_stress for c in (s1, s1b, s2))
-    smax = max(float(sig1.abs().max()), 1e-30)
+    sig1, sig1b, sig0, sig2 = (c[0].qp.new_stress for c in (s1, s1b, s0, s2))
+    smax = max(float(sig0.abs().max()), 1e-30)
     d_rep = float((sig1b - sig1).abs().max())
-    d_sig = float((sig2 - sig1).abs().max())
+    d_sig = float((sig2 - sig0).abs().max())
+    d_new = float((sig1 - sig0).abs().max())
     if not torch.isfinite(sig2).all() or d_sig / smax > 1e-4:
-        fail(f"pack_jobs=2 stresses differ from pack_jobs=1 by {d_sig:.3e} (rel "
+        fail(f"pack_jobs=2 stresses differ from pack_jobs=1 (first design) by {d_sig:.3e} (rel "
              f"{d_sig / smax:.3e}, tol 1e-4)")
+    if not torch.isfinite(sig1).all() or d_new / smax > 1e-4:
+        fail(f"pack_jobs=1 stresses on K1 differ from its first design by {d_new:.3e} (rel "
+             f"{d_new / smax:.3e}, tol 1e-4)")
     # the MD layer alone on identical inputs: 145 (job, replica) runs, an odd
     # count, so the last pair holds a zero-step pad job; bit for bit expected
     be = hmm.backend
@@ -1968,7 +2156,8 @@ def phase_staged_slice(dev):
                         for x in (st0.pos, st0.vel, st0.h, st0.vxi)))
     gen = torch.Generator().manual_seed(171)
     dl = ((torch.rand((n_md, be.n_repl, 6), generator=gen) * 2 - 1) * 1e-2).to(st0.pos)
-    o1, p1 = be._run_jobs(st_md, dl)
+    with k1_first_design():
+        o1, p1 = be._run_jobs(st_md, dl)
     o2, p2 = dataclasses.replace(be, pack_jobs=K1M_JOBS)._run_jobs(st_md, dl)
     torch.cuda.synchronize()
     md_equal = torch.equal(p1, p2) and all(torch.equal(getattr(o1, f), getattr(o2, f))
@@ -1977,10 +2166,12 @@ def phase_staged_slice(dev):
         fail(f"pack_jobs=2 MD runs differ from pack_jobs=1 on identical inputs: max |stress "
              f"diff| {float((p2 - p1).abs().max()):.3e} Pa")
     print(f"[17 pack_jobs] 2 macro-steps from the built problem: pack_jobs=1 {t1} and {t1b} "
-          f"s, pack_jobs={K1M_JOBS} {t2} s per step; max |stress diff| packed {d_sig:.3e} Pa "
-          f"(rel {d_sig / smax:.3e}, tol 1e-4), unpacked run-to-run {d_rep:.3e} Pa (rel "
+          f"s on K1, {t0} s on its first design, pack_jobs={K1M_JOBS} {t2} s per step; max "
+          f"|stress diff| packed vs first design {d_sig:.3e} Pa (rel {d_sig / smax:.3e}, tol "
+          f"1e-4), K1 vs first design {d_new:.3e} Pa (rel {d_new / smax:.3e}, tol 1e-4; "
+          f"float32 trajectories of two designs), K1 run-to-run {d_rep:.3e} Pa (rel "
           f"{d_rep / smax:.3e}); the MD layer alone ({n_md} runs, one pad job) bit-identical "
-          f"{md_equal}  launches {launches_k1m}")
+          f"to the first design {md_equal}  launches {launches_k1m}")
 
     # the SW config's staged prep: 216-atom diamond-Si box on K5's entry
     sys_, st = M.build_system(M.MaterialSpec(name="si"), dtype=torch.float32, device=dev)
@@ -2138,7 +2329,8 @@ def phase_p1(dev, n_steps: int = 500):
     # the lab itself on the same prepared box: v0 (K1), v0p (K1m) and every
     # slim variant at 576 jobs
     counters = {name: (MS.slim_run, "launches_" + name) for name in MS.VARIANTS}
-    counters.update(v0=(MF.md_run, "launches"), v0p=(MF.md_run_multi, "launches_k1m"))
+    counters.update(v0=(MF.md_run, "launches"), v0p=(MF.md_run_multi, "launches_k1m"),
+                    first=(MF._run_first, "launches"))
     del out, pl, p64, oc, ref
     gc.collect()
     for fn, attr in counters.values():
@@ -2150,6 +2342,8 @@ def phase_p1(dev, n_steps: int = 500):
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     lab_b_ms = b_ms * n_steps / P1_STEPS
     bad = [k for k, r in res.items() if not r["finite"] or launches[k] <= 0]
+    if launches["first"]:
+        fail(f"P1 lab: v0 launched K1's first design ({launches['first']} times), not K1")
     if bad:
         fail(f"P1 lab: variants {bad} gave a non-finite state or launched no kernel "
              f"(launches {launches})")
@@ -2187,7 +2381,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     k2 = phase_k2(dev)
-    k1_run, k1_forces = phase_k1(dev)
+    k1_rows, k1_first_design_rows = phase_k1(dev)
     launches = phase_slice(dev)
     k3_run, k3_forces = phase_k3(dev)
     launches_charged = phase_charged_slice(dev)
@@ -2202,7 +2396,8 @@ def main() -> int:
     k1m = phase_k1m(dev)
     k1m["launches"] = phase_staged_slice(dev)["md_allpairs_run_multi"]
     p1 = phase_p1(dev)
-    rows = [k1_run, k1_forces, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces]
+    rows = [*k1_rows, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces,
+            *k1_first_design_rows]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
                 launches_list if row["name"].startswith("md_list") else

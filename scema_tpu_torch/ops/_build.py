@@ -2,9 +2,9 @@
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
-``md_list.cu``, ``md_sw.cu`` and ``md_multi.cu`` share their device code through
-``md_kernel.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and ``md_slim.cu``
-stand alone) —
+``md_list.cu``, ``md_sw.cu``, ``md_multi.cu`` and ``md_k1.cu`` share device
+code through ``md_kernel.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and
+``md_slim.cu`` stand alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
@@ -42,10 +42,16 @@ _I = ctypes.c_int
 # are passed as 64-bit values)
 SIGNATURES = {
     "pairwise_l2_f32": [_P, _P, _I, _I, _P],
-    # K1/K3 (all-pairs), K4 (gather list) and K5 (SW): a pointer to the
-    # MDArgs structure (md_fused._MDArgs) and the stream
+    # K1's first design and K3 (all-pairs), K4 (gather list) and K5 (SW): a
+    # pointer to the MDArgs structure (md_fused._MDArgs) and the stream
     "md_allpairs_run_f32": [_P, _P],
     "md_allpairs_forces_f32": [_P, _P],
+    # K1 (md_k1.cu): a pointer to K1Args (md_fused._K1Args) and the stream,
+    # for the run and the force entry; and (entry: 0 run, 1 forces; atoms,
+    # types, int[4]) -> registers, local bytes, blocks per SM, threads
+    "md_k1_run_f32": [_P, _P],
+    "md_k1_forces_f32": [_P, _P],
+    "md_k1_info": [_I, _I, _I, _P],
     # K1m: the MDArgs pointer, jobs per block, the stream
     "md_allpairs_run_multi_f32": [_P, _I, _P],
     "md_list_run_f32": [_P, _P],

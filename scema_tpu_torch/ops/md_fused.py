@@ -8,7 +8,14 @@ dense lj1/lj2 parameter planes with the special-bond weights folded in
 (``forces_allpairs``), minimum image by sequential triclinic rounding
 (``refresh_images``), chain bonds, angles and OPLS dihedrals
 (``bonded_chain_forces``), the fix-deform remap (``_h_at``,
-``_remap_coeffs``) and per-step virial-pressure sampling.  That is K1.
+``_remap_coeffs``) and per-step virial-pressure sampling.  That is K1: its
+kernel (``csrc/md_k1.cu``, redesigned for Hopper) reads a per-type table and a
+window of chain offsets for the special-bond weights (:func:`k1_tables`)
+where the plain version reads the planes, and its force entry runs one
+block per (tile of 32 rows, box).  The earlier design, one block per job
+and per box over the planes, is ``csrc/md_kernel.cuh`` with every flag off
+(``md_allpairs.cu``): K1m copies it, and only the checks reach it
+(:func:`_run_first`, :func:`_forces_first`).
 
 K3 is the same kernel with the charged all-atom additions compiled in (the
 reference's OPLS material: ``lj/cut/coul/long`` + ``pppm`` + ``fix shake``):
@@ -43,9 +50,10 @@ K1m is K1's run with J jobs per thread block (the TPU kernel's
 :func:`run_strain_fused_multi` and :func:`sample_stress_fused_multi` over a
 (G, J) grouping of the batch — the coupler's ``pack_jobs``.
 
-Three entries, each a wrapper that launches ``csrc/md_allpairs.cu`` (K1,
-K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_list.cu`` (K4) or
-``csrc/md_sw.cu`` (K5) on CUDA tensors (counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
+Three entries, each a wrapper that launches ``csrc/md_k1.cu`` (K1),
+``csrc/md_allpairs.cu`` (K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_list.cu``
+(K4) or ``csrc/md_sw.cu`` (K5) on CUDA tensors (counting the launch:
+``launches`` for K1, ``launches_k3`` for K3,
 ``launches_k4`` for K4, ``launches_k5`` for K5, ``launches_k1m`` for K1m)
 and runs the plain PyTorch version of the same function on CPU tensors:
 
@@ -158,7 +166,8 @@ class FusedSpec:
 class FusedRunner:
     """Position-independent device inputs of K1/K3/K4/K5 for one MD system
     (K4 gathers its per-slot lj1/lj2/qq from the same dense planes; K5
-    has no planes and no topology)."""
+    has no planes and no topology; K1 reads its type table and special-bond
+    window, and keeps the planes for its plain version and for K1m)."""
 
     spec: FusedSpec
     invm: torch.Tensor  # (N,) ftm2v / m
@@ -169,6 +178,11 @@ class FusedRunner:
     qq: torch.Tensor | None = None  # (N, N) qqr2e q_i q_j w_coul (COUL)
     pat: torch.Tensor | None = None  # (R, N) pattern parameter rows (PATTERNS)
     shk: torch.Tensor | None = None  # (n_off, N) SHAKE d0^2 rows (SHAKE)
+    # K1 (:func:`k1_tables`): (T, T, 2) lj1/lj2 of (type i, type j), (N,)
+    # int32 atom codes, (N, 7) special-bond weights of the offsets -3..3
+    k1_tbl: torch.Tensor | None = None
+    k1_code: torch.Tensor | None = None
+    k1_win: torch.Tensor | None = None
     # smooth k-space remainder: kspace(pos (B, N, 3), h (B, 3, 3),
     # want_virial) -> (F (B, N, 3), W (B, 6) or None), refreshed every
     # kspace_every steps (material.build_kspace_split)
@@ -184,9 +198,11 @@ class FusedRunner:
         def mv(x):
             return None if x is None else x.to(device=device, dtype=dtype).contiguous()
 
+        code = None if self.k1_code is None else self.k1_code.to(device=device)
         return replace(self, invm=mv(self.invm), mftm=mv(self.mftm), lj1=mv(self.lj1),
                        lj2=mv(self.lj2), topo=mv(self.topo), qq=mv(self.qq),
-                       pat=mv(self.pat), shk=mv(self.shk))
+                       pat=mv(self.pat), shk=mv(self.shk), k1_tbl=mv(self.k1_tbl),
+                       k1_code=code, k1_win=mv(self.k1_win))
 
     @property
     def channel_names(self) -> tuple:
@@ -351,6 +367,83 @@ def dense_planes(ff, dtype=torch.float64, device=None):
             torch.as_tensor(lj2, dtype=dtype, device=device))
 
 
+# K1's special-bond window: offsets j - i = -3..3 of a linear chain's 1-2,
+# 1-3 and 1-4 partners, and the bit fields of an atom's code
+# (csrc/md_k1.cu): type, excluded offsets, offsets with another weight
+K1_REACH, K1_WIN = 3, 7
+K1_EXCL, K1_SPEC = 8, 16
+K1_MAX_TYPES = 256
+# rows of one box per block of K1's force + virial entry (md_k1.cu K1_ROWS)
+K1_TILE_ROWS = 32
+
+
+def k1_tables(ff, dtype=torch.float64, device=None):
+    """K1's pair parameters without N x N planes: the (T, T, 2) table
+    [type i, type j] -> (lj1, lj2) of the planes' entry [j, i] (48 eps
+    sig^12 and 24 eps sig^6, built in float64 as :func:`dense_planes`
+    builds them, then cast), the (N,) int32 atom codes (bits 0-7 the type,
+    bit 8 + d set where the weight of partner j = i + d - 3 is 0, bit 16 + d
+    where it is neither 0 nor 1) and the (N, 7) weights of those partners.
+    The planes are the table entry times that weight inside the window and
+    the bare entry outside it (:func:`k1_dense_planes`).  Raises
+    NotImplementedError when a special-bond partner lies outside |j - i| <=
+    3, or for more than 256 types."""
+    types = ff.types.cpu().numpy()
+    n = len(types)
+    if isinstance(ff, LJ):
+        eps_t, sig_t = ff.epsilon, ff.sigma
+        W = 1.0 - np.eye(n)
+    else:
+        eps_t, sig_t = ff.lj_epsilon, ff.lj_sigma
+        W = ff.pair_weights(ff.special_lj)
+    n_types = int(eps_t.shape[0])
+    if n_types > K1_MAX_TYPES:
+        raise NotImplementedError(f"K1: {n_types} atom types exceed its {K1_MAX_TYPES}-type table")
+    # the planes' entry [j, i] is eps[t_j, t_i]: the table [t_i, t_j] takes the transpose
+    eps = eps_t.cpu().double().numpy().T
+    sig = sig_t.cpu().double().numpy().T
+    sig6 = sig ** 6
+    tbl = np.stack([48.0 * eps * sig6 * sig6, 24.0 * eps * sig6], axis=-1)
+    off = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) > K1_REACH
+    if bool((W[off] != 1.0).any()):
+        j, i = np.argwhere(off & (W != 1.0))[0]
+        raise NotImplementedError(
+            f"K1: atoms {i} and {j} are special-bond partners {abs(int(j) - int(i))} apart; "
+            f"K1's window holds chain partners at most {K1_REACH} apart")
+    code = types.astype(np.int64).copy()
+    win = np.zeros((n, K1_WIN))
+    for d in range(K1_WIN):
+        i = np.arange(max(0, K1_REACH - d), min(n, n + K1_REACH - d))
+        w = W[i + d - K1_REACH, i]
+        win[i, d] = w
+        code[i] |= ((w == 0.0).astype(np.int64) << (K1_EXCL + d)
+                    | ((w != 0.0) & (w != 1.0)).astype(np.int64) << (K1_SPEC + d))
+    return (torch.as_tensor(tbl, dtype=dtype, device=device),
+            torch.as_tensor(code, dtype=torch.int32, device=device),
+            torch.as_tensor(win, dtype=dtype, device=device))
+
+
+def k1_dense_planes(tbl: torch.Tensor, code: torch.Tensor, win: torch.Tensor):
+    """The (N, N) lj1, lj2 planes [j, i] that K1's table and window stand
+    for, in their dtype: the entry of (type i, type j), times the window's
+    weight in that arithmetic where it is neither 0 nor 1, zero where it is
+    0 — what the kernel's pair loop reads."""
+    n = code.shape[0]
+    t = (code & 0xFF).long()
+    planes = tbl[t[None, :], t[:, None]]  # [j, i] -> tbl[t_i, t_j]
+    ii = torch.arange(n, device=code.device)
+    for d in range(K1_WIN):
+        i = ii[max(0, K1_REACH - d):min(n, n + K1_REACH - d)]
+        j = i + d - K1_REACH
+        excl = ((code[i] >> (K1_EXCL + d)) & 1).bool()
+        spec = ((code[i] >> (K1_SPEC + d)) & 1).bool()
+        w = win[i, d]
+        cur = planes[j, i]
+        cur = torch.where(spec[:, None], cur * w[:, None], cur)
+        planes[j, i] = torch.where(excl[:, None], torch.zeros_like(cur), cur)
+    return planes[..., 0], planes[..., 1]
+
+
 def dense_qq(ff, dtype=torch.float64, device=None) -> torch.Tensor:
     """Dense (N, N) Coulomb plane qqr2e q_i q_j w with the Coulomb
     special-bond weights (special_coul, separate from LJ's; material.py:
@@ -372,8 +465,10 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
     smooth remainder from ``material.build_kspace_split``, is required);
     ``constraints`` add SHAKE/RATTLE; a neighbor spec ``nspec`` selects
     K4's list of width ``nspec.k_max``, rebuilt every ``rebuild_every``
-    steps (the all-pairs planes otherwise).  What no kernel of the port
-    runs yet — impropers, irregular topologies, wide constraint offsets, for which
+    steps (the all-pairs planes otherwise).  A K1 runner also carries
+    its type table and special-bond window (:func:`k1_tables`).  What no
+    kernel of the port runs yet — impropers, irregular topologies, wide
+    constraint offsets, special-bond partners beyond K1's window, for which
     the JAX package falls back to its XLA path — raises
     NotImplementedError."""
     n = int(masses.shape[0])
@@ -384,7 +479,8 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                          tdamp=tdamp)
         lj1, lj2 = dense_planes(ff, dtype, device)
         return FusedRunner(spec=spec, **_mass_rows(m, units, dtype, device), lj1=lj1, lj2=lj2,
-                           topo=torch.zeros((TOPO, n), dtype=dtype, device=device))
+                           topo=torch.zeros((TOPO, n), dtype=dtype, device=device),
+                           **_k1_fields(ff, dtype, device))
     patterns, pat = (), None
     try:
         topo = pack_topo(ff, n, dtype, device)
@@ -415,11 +511,19 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                      ewald_alpha=float(ewald.alpha) if ewald is not None else 0.0,
                      fext=ewald is not None, bonded_pattern=patterns,
                      shake_offsets=shake_offsets, k=int(nspec.k_max) if nspec is not None else 0)
+    k1 = _k1_fields(ff, dtype, device) if spec.kernel == "K1" else {}
     lj1, lj2 = dense_planes(ff, dtype, device)
     return FusedRunner(
         spec=spec, **_mass_rows(m, units, dtype, device), lj1=lj1, lj2=lj2, topo=topo,
         qq=dense_qq(ff, dtype, device) if coul else None, pat=pat, shk=shk,
-        kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every)
+        kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every,
+        **k1)
+
+
+def _k1_fields(ff, dtype, device) -> dict:
+    """A K1 runner's table, codes and window (:func:`k1_tables`)."""
+    tbl, code, win = k1_tables(ff, dtype, device)
+    return dict(k1_tbl=tbl, k1_code=code, k1_win=win)
 
 
 def make_runner_sw(sw, masses: torch.Tensor, units, tdamp: float = 100.0,
@@ -1129,6 +1233,48 @@ def md_forces_virial_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Ten
     return torch.stack(f, dim=1), torch.stack(w6, dim=1)
 
 
+def k1_tiles_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                   rows: int = K1_TILE_ROWS):
+    """K1's force + virial entry as its kernel tiles it, in the plain
+    version's arithmetic: the tile of rows [s, s + rows) takes those rows'
+    pair forces over every j, the chain roles of anchors s - 3 .. s + rows
+    - 1 (the 3 anchors before the tile recomputed as its halo) gathered on
+    its rows, and a partial virial — the pair halves of its rows and the
+    terms of the anchors it owns; the partials are summed in tile order.
+    Returns (F (B, 3, N), W (B, 6)), :func:`md_forces_virial_plain`'s."""
+    spec = runner.spec
+    n = spec.n_atoms
+    p = [pos[:, a] for a in range(3)]
+    lx, ly, lz, xy, xz, yz = (h6[:, k, None, None] for k in range(6))
+    force = torch.empty_like(pos)
+    vir = torch.zeros((pos.shape[0], 6), dtype=pos.dtype, device=pos.device)
+    for s in range(0, n, rows):
+        e = min(s + rows, n)
+        # d[b, i, j] = r_j - r_i for the tile's rows i
+        d = [p[a][:, None, :] - p[a][:, s:e, None] for a in range(3)]
+        n3 = torch.round(d[2] / lz)
+        d[2] = d[2] - n3 * lz
+        d[1] = d[1] - n3 * yz
+        n2 = torch.round(d[1] / ly)
+        d[1] = d[1] - n2 * ly
+        d[0] = d[0] - n3 * xz - n2 * xy
+        n1 = torch.round(d[0] / lx)
+        d[0] = d[0] - n1 * lx
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        fpair = _fpair_plain(spec, r2, runner.lj1[s:e], runner.lj2[s:e], None)
+        fp, wp = _apply_plain(fpair, *d, -1, True)
+        halo = torch.zeros_like(runner.topo)
+        halo[:, max(s - K1_REACH, 0):e] = runner.topo[:, max(s - K1_REACH, 0):e]
+        fb, _ = bonded_chain_forces_plain(p, halo)
+        own = torch.zeros_like(runner.topo)
+        own[:, s:e] = runner.topo[:, s:e]
+        _, Wb = bonded_chain_forces_plain(p, own)
+        for a in range(3):
+            force[:, a, s:e] = fp[a] + fb[a][:, s:e]
+        vir = vir + torch.stack([x + y for x, y in zip(wp, _sym6(Wb))], dim=1)
+    return force, vir
+
+
 # --------------------------------------------------------------------------
 # Wrappers: the CUDA kernel on CUDA tensors, the plain version on the CPU
 
@@ -1151,38 +1297,55 @@ def _smem_rows(spec: FusedSpec) -> int:
 
 
 def smem_bytes(spec: FusedSpec, jobs: int = 1) -> int:
-    """Shared memory one block of this runner's kernel keeps: ``jobs`` sets
-    of the per-job rows and NHC slots (K1m keeps J), one reduction
-    scratch."""
+    """Shared memory one block of this runner's md_kernel.cuh kernel keeps
+    (K3, K4, K5, K1m and K1's first design): ``jobs`` sets of the per-job
+    rows and NHC slots (K1m keeps J), one reduction scratch."""
     return 4 * (jobs * (_smem_rows(spec) * spec.n_atoms + _SMEM_MISC) + _SMEM_RED)
 
 
-def max_atoms(spec: FusedSpec) -> int:
-    """The largest box this runner's flag set fits in one block."""
+# K1 (csrc/md_k1.cu) keeps 22 rows of N floats (a float4 of position and
+# code, velocities, forces, the role buffer), its type table, the reduction
+# scratch and the NHC chain + broadcast
+_K1_ROWS, _K1_MISC = 22, 4
+
+
+def k1_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
+    """Shared memory one block of K1's run kernel keeps with a table of
+    ``n_types`` atom types (md_k1.cu k1_run_smem)."""
+    return 4 * (_K1_ROWS * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
+
+
+def max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
+    """The largest box this runner's flag set fits in one block (K1 with a
+    table of ``n_types`` atom types)."""
+    if spec.kernel == "K1":
+        return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // _K1_ROWS
     return (_MAX_SMEM // 4 - _SMEM_FIXED) // _smem_rows(spec)
 
 
-def check_smem(spec: FusedSpec) -> None:
-    """Raise on the host when a box exceeds its kernel's shared-memory budget."""
-    need = smem_bytes(spec)
+def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
+    """Raise on the host when a box exceeds its kernel's shared-memory budget
+    (K1's, with a table of ``n_types`` atom types, covers its first design's,
+    which keeps one row less)."""
+    need = k1_smem_bytes(spec, n_types) if spec.kernel == "K1" else smem_bytes(spec)
     if need > _MAX_SMEM:
         raise ValueError(
             f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
             f"memory per block, above the {_MAX_SMEM} B a Hopper block can use; this "
-            f"flag set fits at most {max_atoms(spec)} atoms")
+            f"flag set fits at most {max_atoms(spec, n_types)} atoms")
 
 
 def _check_cuda(runner: FusedRunner, *tensors):
     name = runner.spec.kernel
     for t in (runner.lj1, runner.lj2, runner.topo, runner.invm, runner.mftm, runner.qq,
-              runner.pat, runner.shk) + tensors:
+              runner.pat, runner.shk, runner.k1_tbl, runner.k1_code, runner.k1_win) + tensors:
         if t is None:
             continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be on the same CUDA device")
         if t.dtype not in (torch.float32, torch.int32):
             raise TypeError(f"{name} takes float32 (int32 counts and indices), got {t.dtype}")
-    check_smem(runner.spec)
+    check_smem(runner.spec, 1 if runner.k1_tbl is None else int(runner.k1_tbl.shape[0]))
 
 
 def _check_channels(runner: FusedRunner, nbr: dict | None, Bn: int) -> dict:
@@ -1302,19 +1465,16 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                             gstep0, n_tot, nbr)
     if state.device.type != "cuda":
         raise ValueError(f"md_run: unsupported device {state.device}")
-    Bn, six, N = state.shape
-    if six != 6 or N != spec.n_atoms:
-        raise ValueError(f"md_run: state shape {tuple(state.shape)} != (B, 6, {spec.n_atoms})")
-    st = state.contiguous().clone()
-    xi = vxi.contiguous().clone()
-    nr = n_run.to(torch.int32).contiguous()
-    fs = fscal.contiguous()
-    _check_cuda(runner, st, xi, nr, fs)
-    press = torch.zeros((Bn, 6), dtype=st.dtype, device=st.device)
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "md_run")
+    Bn, N = st.shape[0], spec.n_atoms
     if Bn == 0:
         return st, xi, press
     ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
+    if spec.kernel == "K1":
+        _k1_run(runner, Bn, deform, sample, ptrs)
+        _count(md_run, spec)
+        return st, xi, press
     if spec.fext or spec.k:
         g0 = (torch.zeros_like(nr) if gstep0 is None else gstep0.to(torch.int32)).contiguous()
         ntot = (nr if n_tot is None else n_tot.to(torch.int32)).contiguous()
@@ -1327,17 +1487,39 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
         _check_cuda(runner, fx)
         ptrs.update(fext=fx.data_ptr())
     ch = _check_channels(runner, nbr, Bn) if spec.k else None
-    args = _md_args(runner, Bn, ch, **ptrs)
-    args.deform, args.sample = int(deform), int(sample)
-    entry = _ENTRY[spec.kernel] + "_run_f32"
-    rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(st.device))
-    _build.check(rc, f"{entry} (flags {spec.flags})")
+    _md_run_entry(runner, _ENTRY[spec.kernel] + "_run_f32", st.device, Bn, deform, sample, ptrs,
+                  ch)
     _count(md_run, spec)
     return st, xi, press
 
 
-# exported entry prefix and launch counter of each kernel
-_ENTRY = {"K1": "md_allpairs", "K3": "md_allpairs", "K4": "md_list", "K5": "md_sw"}
+def _run_inputs(runner: FusedRunner, state, vxi, n_run, fscal, name: str):
+    """A run's CUDA operands as contiguous copies, checked, and its zeroed
+    pressure sums: (state', vxi', n_run int32, fscal, press)."""
+    spec = runner.spec
+    Bn, six, N = state.shape
+    if six != 6 or N != spec.n_atoms:
+        raise ValueError(f"{name}: state shape {tuple(state.shape)} != (B, 6, {spec.n_atoms})")
+    st = state.contiguous().clone()
+    xi = vxi.contiguous().clone()
+    nr = n_run.to(torch.int32).contiguous()
+    fs = fscal.contiguous()
+    _check_cuda(runner, st, xi, nr, fs)
+    return st, xi, nr, fs, torch.zeros((Bn, 6), dtype=st.dtype, device=st.device)
+
+
+def _md_run_entry(runner: FusedRunner, entry: str, device, Bn: int, deform: bool,
+                  sample: bool, ptrs: dict, nbr: dict | None = None) -> None:
+    """Launch an md_kernel.cuh run entry (K1's first design, K3, K4, K5)."""
+    args = _md_args(runner, Bn, nbr, **ptrs)
+    args.deform, args.sample = int(deform), int(sample)
+    rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(device))
+    _build.check(rc, f"{entry} (flags {runner.spec.flags})")
+
+
+# exported entry prefix of each md_kernel.cuh kernel (K1 has md_k1.cu's
+# entries) and launch counter of each kernel
+_ENTRY = {"K3": "md_allpairs", "K4": "md_list", "K5": "md_sw"}
 _COUNTER = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4", "K5": "launches_k5"}
 
 
@@ -1430,30 +1612,156 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
     if pos.device.type != "cuda":
         raise ValueError(f"md_forces_virial: unsupported device {pos.device}")
     spec = runner.spec
+    pos, h6, force, vir = _forces_inputs(runner, pos, h6)
+    Bn = pos.shape[0]
+    if Bn == 0:
+        return force, vir
+    if spec.kernel == "K1":
+        _k1_forces(runner, pos, h6, force, vir)
+    else:
+        _md_forces_entry(runner, _ENTRY[spec.kernel] + "_forces_f32", pos, h6, force, vir,
+                         _check_channels(runner, nbr, Bn) if spec.k else None)
+    _count(md_forces_virial, spec)
+    return force, vir
+
+
+def _forces_inputs(runner: FusedRunner, pos, h6):
+    """A force call's CUDA operands, contiguous and checked, and its outputs:
+    (pos, h6, force, virial)."""
     Bn, three, N = pos.shape
-    if three != 3 or N != spec.n_atoms:
-        raise ValueError(f"md_forces_virial: pos shape {tuple(pos.shape)} != (B, 3, {spec.n_atoms})")
+    if three != 3 or N != runner.spec.n_atoms:
+        raise ValueError(f"md_forces_virial: pos shape {tuple(pos.shape)} != "
+                         f"(B, 3, {runner.spec.n_atoms})")
     pos = pos.contiguous()
     h6 = h6.contiguous()
     _check_cuda(runner, pos, h6)
-    force = torch.empty_like(pos)
-    vir = torch.empty((Bn, 6), dtype=pos.dtype, device=pos.device)
-    if Bn == 0:
-        return force, vir
-    ch = _check_channels(runner, nbr, Bn) if spec.k else None
-    args = _md_args(runner, Bn, ch, pos=pos.data_ptr(), h6=h6.data_ptr(),
+    return (pos, h6, torch.empty_like(pos),
+            torch.empty((Bn, 6), dtype=pos.dtype, device=pos.device))
+
+
+def _md_forces_entry(runner: FusedRunner, entry: str, pos, h6, force, vir,
+                     nbr: dict | None = None) -> None:
+    """Launch an md_kernel.cuh force entry (K1's first design, K3, K4, K5)."""
+    args = _md_args(runner, pos.shape[0], nbr, pos=pos.data_ptr(), h6=h6.data_ptr(),
                     force=force.data_ptr(), virial=vir.data_ptr())
-    entry = _ENTRY[spec.kernel] + "_forces_f32"
     rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(pos.device))
-    _build.check(rc, f"{entry} (flags {spec.flags})")
-    _count(md_forces_virial, spec)
-    return force, vir
+    _build.check(rc, f"{entry} (flags {runner.spec.flags})")
 
 
 md_forces_virial.launches = 0
 md_forces_virial.launches_k3 = 0
 md_forces_virial.launches_k4 = 0
 md_forces_virial.launches_k5 = 0
+
+
+# --------------------------------------------------------------------------
+# K1 (csrc/md_k1.cu): the type table and special-bond window in place of
+# the planes, two blocks per SM, the force entry over (box, tile) blocks
+
+class _K1Args(ctypes.Structure):
+    """Mirror of md_k1.cu's K1Args, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "tbl", "code", "win", "topo", "invm", "mftm", "state", "vxi", "press",
+        "n_run", "fscal", "pos", "h6", "force", "virial", "partial")]
+        + [(name, ctypes.c_int) for name in ("B", "N", "T", "deform", "sample", "tiles")]
+        + [(name, ctypes.c_float) for name in (
+            "cutoff2", "r2min", "ndof", "boltz", "nktv2p", "tdamp")])
+
+
+def k1_tiles(n_atoms: int) -> int:
+    """Row tiles of one box in K1's force entry."""
+    return -(-n_atoms // K1_TILE_ROWS)
+
+
+def _k1_args(runner: FusedRunner, B_: int, **ptrs) -> _K1Args:
+    spec = runner.spec
+    if runner.k1_tbl is None or runner.k1_code is None or runner.k1_win is None:
+        raise ValueError("K1: the runner has no type table and window (make_runner builds them)")
+    a = _K1Args()
+    for name, t in (("tbl", runner.k1_tbl), ("code", runner.k1_code), ("win", runner.k1_win),
+                    ("topo", runner.topo),
+                    ("invm", runner.invm), ("mftm", runner.mftm)):
+        setattr(a, name, _f(t))
+    for name, v in ptrs.items():
+        setattr(a, name, v)
+    a.B, a.N, a.T, a.tiles = B_, spec.n_atoms, int(runner.k1_tbl.shape[0]), k1_tiles(spec.n_atoms)
+    a.cutoff2, a.r2min = spec.cutoff2, spec.r2min
+    a.ndof, a.boltz, a.nktv2p, a.tdamp = float(spec.ndof), spec.boltz, spec.nktv2p, spec.tdamp
+    return a
+
+
+def _k1_run(runner: FusedRunner, Bn: int, deform: bool, sample: bool, ptrs: dict) -> None:
+    args = _k1_args(runner, Bn, **ptrs)
+    args.deform, args.sample = int(deform), int(sample)
+    rc = _build.library().md_k1_run_f32(ctypes.byref(args),
+                                        _build.stream_handle(runner.invm.device))
+    _build.check(rc, "md_k1_run_f32")
+
+
+def _k1_forces(runner: FusedRunner, pos, h6, force, vir) -> None:
+    """K1's force entry: one block per (tile, box), the tiles' partial
+    virials in a (B, tiles, 6) scratch summed in tile order by the entry's
+    second kernel."""
+    partial = torch.empty((pos.shape[0], k1_tiles(runner.spec.n_atoms), 6), dtype=pos.dtype,
+                          device=pos.device)
+    args = _k1_args(runner, pos.shape[0], pos=pos.data_ptr(), h6=h6.data_ptr(),
+                    force=force.data_ptr(), virial=vir.data_ptr(), partial=partial.data_ptr())
+    rc = _build.library().md_k1_forces_f32(ctypes.byref(args), _build.stream_handle(pos.device))
+    _build.check(rc, "md_k1_forces_f32")
+
+
+def _first_design(runner: FusedRunner, device, name: str) -> None:
+    if runner.spec.kernel != "K1":
+        raise ValueError(f"{name}: K1's first design takes a K1 runner, not {runner.spec.kernel}")
+    if device.type != "cuda":
+        raise ValueError(f"{name}: K1's first design runs on the card only, not on {device}")
+
+
+def _run_first(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+               n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool):
+    """:func:`md_run` of a K1 runner on K1's first design (md_kernel.cuh with
+    every flag off, one block per job over the planes), which K1m copies J
+    times per block: for the A/B timings and the bit-for-bit checks of
+    chip_smoke.py and the card tests; no path of the port calls it.  Counts
+    its launches in ``launches``."""
+    _first_design(runner, state.device, "_run_first")
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "_run_first")
+    Bn = st.shape[0]
+    if Bn == 0:
+        return st, xi, press
+    ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
+                n_run=nr.data_ptr(), fscal=fs.data_ptr())
+    _md_run_entry(runner, "md_allpairs_run_f32", st.device, Bn, deform, sample, ptrs)
+    _run_first.launches += 1
+    return st, xi, press
+
+
+def _forces_first(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor):
+    """:func:`md_forces_virial` of a K1 runner on K1's first design (one block
+    per box), as :func:`_run_first`."""
+    _first_design(runner, pos.device, "_forces_first")
+    pos, h6, force, vir = _forces_inputs(runner, pos, h6)
+    if pos.shape[0] == 0:
+        return force, vir
+    _md_forces_entry(runner, "md_allpairs_forces_f32", pos, h6, force, vir)
+    _forces_first.launches += 1
+    return force, vir
+
+
+_run_first.launches = 0
+_forces_first.launches = 0
+
+
+def k1_kernel_info(entry: str, n_atoms: int, n_types: int = 1) -> dict:
+    """Registers, local (spill) bytes per thread, resident blocks per SM (the
+    card's occupancy calculator) and block width of K1's run kernel
+    (``entry="run"``) or force kernel (``"forces"``) at ``n_atoms`` atoms of
+    ``n_types`` types."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().md_k1_info({"run": 0, "forces": 1}[entry], n_atoms, n_types, out)
+    _build.check(rc, f"md_k1_info ({entry})")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
 
 
 # --------------------------------------------------------------------------

@@ -180,7 +180,8 @@ def main(argv=None) -> int:
     md = "md kernels (K1/K3/K4/K5/K6)"
     groups = {md: 0.0, "pairwise_l2 (K2)": 0.0, "everything else": 0.0}
     for name, d in dur:
-        key = (md if any(k in name for k in ("md_run_kernel", "md_forces_kernel",
+        key = (md if any(k in name for k in ("md_run_kernel", "md_forces_kernel", "k1_run_kernel",
+                                              "k1_forces_kernel", "k1_virial_kernel",
                                               "sw_moments_kernel", "sw_forces_kernel"))
                else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")
         groups[key] += d / 1e3

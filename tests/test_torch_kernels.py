@@ -22,9 +22,12 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K1 sampling over 100 steps: the job-mean pressures agree within four
   standard errors of the job scatter (chaotic divergence makes individual
   long runs differ);
-* K1m (K1 with J = 2 or 4 jobs per block): equal to K1 bit for bit, each
-  job's step body being K1's code at K1's block width; a dead job of a
-  (live, dead) pair comes back bit-identical;
+* K1 (csrc/md_k1.cu) at one and at twelve boxes in its force entry, to
+  the same bounds; its first design (md_kernel.cuh with every flag off,
+  reached through md_fused._run_first / _forces_first) to the same bounds;
+* K1m (K1's first design with J = 2 or 4 jobs per block): equal to that
+  design bit for bit, each job's step body being its code at its block
+  width; a dead job of a (live, dead) pair comes back bit-identical;
 * K3 (the charged PEAA box: 1792 atoms, real-space Ewald, offset patterns,
   SHAKE, frozen k-space force) is held to the same relative bounds as K1:
   forces/virial 2x plain float32 + 1e-6, a 10-step deform chunk 4x plain +
@@ -130,6 +133,67 @@ def test_k1_forces_virial_match_plain(g0):
     assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
 
 
+@pytest.mark.parametrize("n_boxes", [1, 12])
+@pytest.mark.parametrize("design", ["path", "first"])
+def test_k1_force_entry_designs_match_plain(g0, n_boxes, design):
+    """The force entry at the staged NPT's one box and the probe's twelve
+    (perturbed, tilted): K1's tiles over (tile, box) blocks and its first
+    design's one block per box, each within twice the plain float32 error
+    against float64."""
+    sys, batch = g0
+    dev = batch.pos.device
+    gen = torch.Generator().manual_seed(n_boxes)
+    pos = batch.pos[:1].expand(n_boxes, -1, -1) + 0.02 * torch.randn(
+        (n_boxes, sys.n_atoms, 3), generator=gen).to(dev)
+    h = batch.h[:1].expand(n_boxes, 3, 3).clone()
+    h[:, 0, 1] = 0.3
+    p, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(h)
+    entry = MF.md_forces_virial if design == "path" else MF._forces_first
+    before = entry.launches
+    F, W = entry(sys.fused, p, h6)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    Fp, Wp = MF.md_forces_virial_plain(sys.fused, p, h6)
+    F64, W64 = MF.md_forces_virial_plain(sys.fused.to(dev, torch.float64), p.double(),
+                                         h6.double())
+    assert torch.isfinite(F).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+
+
+@pytest.mark.parametrize("design", ["path", "first"])
+def test_k1_run_designs_match_plain(g0, design):
+    """K1's run and its first design's, each within four times the plain
+    float32 run's distance from float64 over 10 deform steps, inactive jobs
+    bit-identical."""
+    sys, batch = g0
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 10, 7, 10, 0, 3, 10], dtype=torch.int32, device=st.device)
+    run = MF.md_run if design == "path" else MF._run_first
+    out, vxi, _ = run(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    torch.cuda.synchronize()
+    for j in (1, 5):
+        assert torch.equal(out[j], st[j]) and torch.equal(vxi[j], batch.vxi[j])
+    ref, _, _ = MF.md_run_plain(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                  batch.vxi.double(), n_run, fscal.double(), True, False)
+    err = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    assert err <= 4 * float((ref[:, :3].double() - ref64[:, :3]).abs().max()) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+def test_k1_kernels_fit_two_blocks_per_sm(g0):
+    """K1's run and force kernels hold 64 registers and two 512-thread
+    blocks per SM at the g0 box."""
+    sys, _ = g0
+    for entry in ("run", "forces"):
+        info = MF.k1_kernel_info(entry, sys.n_atoms, int(sys.fused.k1_tbl.shape[0]))
+        assert info["registers"] <= 64 and info["blocks_per_sm"] == 2, (entry, info)
+
+
 def test_k1_run_matches_plain_and_skips_inactive(g0):
     sys, batch = g0
     B = batch.pos.shape[0]
@@ -188,9 +252,9 @@ def test_k1_sampled_stress_matches_plain_statistically(g0):
 
 @pytest.mark.parametrize("jobs", [2, 4])
 def test_k1m_equals_k1(g0, jobs):
-    """K1m (J jobs per block) runs each job's step body in K1's order at
-    K1's block width: deform and sampling runs equal K1's bit for bit,
-    jobs of different lengths included."""
+    """K1m (J jobs per block) runs each job's step body in the order of
+    K1's first design at its block width: deform and sampling runs equal
+    that design's bit for bit, jobs of different lengths included."""
     sys, batch = g0
     B = batch.pos.shape[0]
     st = MF.pack_state(batch.pos, batch.vel)
@@ -201,26 +265,26 @@ def test_k1m_equals_k1(g0, jobs):
     out, vxi, _ = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, True, False, jobs)
     torch.cuda.synchronize()
     assert MF.md_run_multi.launches_k1m == before + 1
-    ref, vxi_ref, _ = MF.md_run(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref, vxi_ref, _ = MF._run_first(sys.fused, st, batch.vxi, n_run, fscal, True, False)
     assert torch.equal(out, ref) and torch.equal(vxi, vxi_ref)
     f_s = MF.make_fscal(DT, T_MD, batch.h)
     n20 = torch.full((B,), 20, dtype=torch.int32, device=st.device)
     _, _, pk = MF.md_run_multi(sys.fused, out, vxi, n20, f_s, False, True, jobs)
-    _, _, pr = MF.md_run(sys.fused, out, vxi, n20, f_s, False, True)
+    _, _, pr = MF._run_first(sys.fused, out, vxi, n20, f_s, False, True)
     assert torch.equal(pk, pr)
 
 
 def test_k1m_dead_job_is_bit_identical(g0):
     """A (live, dead) pair: the dead job comes back untouched with zero
-    pressure, the live one as K1 runs it alone."""
+    pressure, the live one as K1's first design runs it alone."""
     sys, batch = g0
     B = batch.pos.shape[0]
     st = MF.pack_state(batch.pos, batch.vel)
     fscal = MF.make_fscal(DT, T_MD, batch.h)
     n_run = torch.tensor([20, 0] * (B // 2), dtype=torch.int32, device=st.device)
     out, vxi, p = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, False, True, 2)
-    ref, _, pr = MF.md_run(sys.fused, st[0::2], batch.vxi[0::2], n_run[0::2], fscal[0::2],
-                           False, True)
+    ref, _, pr = MF._run_first(sys.fused, st[0::2], batch.vxi[0::2], n_run[0::2],
+                               fscal[0::2], False, True)
     torch.cuda.synchronize()
     assert torch.equal(out[1::2], st[1::2]) and torch.equal(vxi[1::2], batch.vxi[1::2])
     assert torch.equal(p[1::2], torch.zeros_like(p[1::2]))
