@@ -76,16 +76,25 @@ failure exits non-zero before the result line:
    4096-atom diamond-Si box (8^3 cells, 48 bricks; float32): K6d's
    moments, K6e's energy and K6c's forces + energy + virial on the
    stiffness probe's 12 boxes, orthorhombic and tilted (xy 0.4, xz 0.2 A),
-   against float32 and float64; K6a (q = 0 and 0.5) and K6b on the box's
-   consecutive-atom tiles; each kernel's, its plain version's and the
-   bound's time on 128 jobs, the brick force call against the list route's
-   autograd force call and list build; 10 deform steps of 128 jobs through
-   the unfused engine on both routes from one state;
+   against float32 and float64; K6's first design (the stencil sweep in
+   both kernels) on the same boxes to the same rule, the largest
+   difference between the designs (K6c on the same adjoints), and K6c's
+   overflow path (a live-list cap of 2) to the same rule; K6a (q = 0 and
+   0.5) and K6b on the box's consecutive-atom tiles; at 128 jobs the live
+   list's largest count and overflowing slots, the share of candidates the
+   sphere test prunes (the plain model), the first design and the path's
+   in turns (first, new, new, first) for K6d, K6c and the force call, each
+   kernel's, its plain version's and both bounds' times (the live pairs'
+   work, and the stencil candidates' work as the first design's rows
+   counted it), registers, local bytes and blocks per SM, the brick force
+   call against the list route's autograd force call and list build; 10
+   deform steps of 128 jobs through the unfused engine on both routes from
+   one state;
 14. the brick slice: ``build_md_hmm(HMMConfig(), spec=MaterialSpec(n_cells=8,
    use_pallas_bricks=True))`` with at most 128 MD jobs per step, float32,
    quick prep, 2 macro-steps, every launch counter zeroed just before and
    read just after; K6c, K6d and K2 must have launched and no other MD
-   kernel; md jobs 128, 128 and 0.00032 m;
+   kernel, K6's first design neither; md jobs 128, 128 and 0.00032 m;
 15. the same box on the list route (no bricks) for 1 macro-step: K2 is
    the only kernel launched;
 16. K1m (K1's first design with J = 2 jobs per block, the coupler's
@@ -1517,6 +1526,19 @@ FLOP_K6_MOM, FLOP_K6_FRC = 54, 170
 SW_BIG_CELLS, SW_BIG_JOBS = 8, 128
 
 
+def k6_pruned_share(tiles, nbr, valid, pruned):
+    """The share of the stencil's occupied candidate pairs that the sphere
+    test rules out: pruned (B, C, K, 4, 4) chunk pairs of tiles (B, C, 4,
+    128)."""
+    from scema_tpu_torch.ops import sw_bricks as SWB
+
+    B, C = tiles.shape[:2]
+    n = (tiles[:, :, 3] > 0.5).reshape(B, C, -1, SWB.CHUNK).sum(-1).double()
+    cand = (n[:, :, None, :, None] * n[:, nbr.long()][:, :, :, None, :]
+            * valid.double()[None, :, :, None, None])
+    return float((cand * pruned).sum() / cand.sum())
+
+
 def tile_candidates(occ, nbr, valid):
     """Unordered candidate pairs of a tile list: occupied slot pairs of
     every valid (tile, entry), less each slot with itself."""
@@ -1612,6 +1634,39 @@ def phase_k6(dev):
         worst["K6c"] = max(worst["K6c"], float((F - Fp).abs().max()))
         worst["K6e"] = max(worst["K6e"], float((e_k - SWB.energy_from_moments(sw, mom_p))
                                                .abs().max()))
+        # the first design on the same inputs, to the same rule, and both
+        # forces kernels on the same adjoints (those of the path's moments)
+        tl = SWB.pack_bricks(p12, ff.slot_ids)
+        hb, ib = SWB.boxes(ht, (12,), torch.float32, dev)
+        cnt = torch.empty((12, C, 128), dtype=torch.int32, device=dev)
+        lst = torch.empty((12, C, SWB.LIST_CAP, 128), dtype=torch.int32, device=dev)
+        mom_n = SWB._launch_moments(sw, tl, ff.nbr, ff.valid, hb, ib, (cnt, lst))
+        mom_f = SWB._moments_first(sw, tl, ff.nbr, ff.valid, hb, ib)
+        adj = SWB.adjoints(sw, mom_n)
+        ov = torch.zeros(1, dtype=torch.int32, device=dev)
+        fo_n = SWB._launch_forces(sw, tl, adj, ff.nbr, ff.valid, hb, ib, cnt, lst, ov)
+        fo_f = SWB._forces_first(sw, tl, adj, ff.nbr, ff.valid, hb, ib)
+        fo_p = SWB.sw_forces_plain(sw, tl, adj, ff.nbr, ff.valid, hb, ib)
+        fo_64 = SWB.sw_forces_plain(sw, tl.double(), adj.double(), ff.nbr, ff.valid, hb.double(),
+                                    ib.double())
+        # the overflow path: a cap of 2 sends most slots to the stencil sweep
+        Fo, Eo, Wo = SWB.sw_forces_bricks(sw, p12, ht, *sl, atom_slot=ff.atom_slot, cap=2)
+        n_over = int(SWB.sw_forces_bricks.overflow)
+        torch.cuda.synchronize()
+        mf, ff_rel = _rel(mom_f, mom64.reshape(mom_f.shape)), _rel(fo_f, fo_64)
+        fn_rel, fp_rel = _rel(fo_n, fo_64), _rel(fo_p, fo_64)
+        fko, wko = _rel(Fo, F64), _rel(Wo, W64)
+        d_mom = float((mom_n - mom_f).abs().max())
+        d_frc = float((fo_n - fo_f).abs().max())
+        print(f"[13 K6 designs] tilt {tilt}: first design rel error vs float64: moments "
+              f"{mf:.3e}, forces {ff_rel:.3e} (path's {fn_rel:.3e}, plain f32 {fp_rel:.3e}); "
+              f"max |path - first design|: moments {d_mom:.3e}, forces on the same adjoints "
+              f"{d_frc:.3e} (bit for bit: {d_mom == 0.0 and d_frc == 0.0}); live list max "
+              f"{int(cnt.max())} of cap {SWB.LIST_CAP}, {int(ov)} slots over; cap 2: {n_over} "
+              f"slots swept the stencil, forces {fko:.3e} / virial {wko:.3e} vs float64")
+        if (mf > 2 * mp + 1e-6 or ff_rel > 2 * fp_rel + 1e-6 or fn_rel > 2 * fp_rel + 1e-6
+                or fko > 2 * fp + 1e-6 or wko > 2 * wp + 1e-6 or n_over == 0 or int(ov) != 0):
+            fail(f"K6 designs or the overflow path break the rule (tilt {tilt})")
 
     # K6a (all tile pairs, general q: q = 0 and q = 0.5) and K6b (tile
     # adjacency) on the same box's consecutive-atom tiles
@@ -1653,35 +1708,79 @@ def phase_k6(dev):
     live = sw_live_pairs(pJ[:2], hJ[:2], rc2)
     tilesJ = SWB.pack_bricks(pJ, ff.slot_ids)
     hhJ, ihJ = SWB.boxes(hJ, (J,), torch.float32, dev)
-    momJ = SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ)
+    cntJ = torch.empty((J, C, 128), dtype=torch.int32, device=dev)
+    lstJ = torch.empty((J, C, SWB.LIST_CAP, 128), dtype=torch.int32, device=dev)
+    momJ = SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ, (cntJ, lstJ))
     adjJ = SWB.adjoints(sw, momJ)
+    ovJ = torch.zeros(1, dtype=torch.int32, device=dev)
+    SWB._launch_forces(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ, cntJ, lstJ, ovJ)
+    sph = SWB.chunk_spheres_plain(tilesJ[:1], hhJ[:1], ihJ[:1])
+    pruned = SWB.pruned_chunks_plain(sph, ff.nbr, ff.valid, hhJ[:1], ihJ[:1],
+                                     SWB.sw_consts(sw)["rc"])
+    share = k6_pruned_share(tilesJ[:1], ff.nbr, ff.valid, pruned)
+    tri = bool((hhJ[:, [1, 2, 2], [0, 0, 1]] == 0).all() and (ihJ[:, [1, 2, 2], [0, 0, 1]] == 0)
+               .all())
+    torch.cuda.synchronize()
+    print(f"[13 K6 list] {J} jobs: live list max {int(cntJ.max())} (mean "
+          f"{float(cntJ[tilesJ[:, :, 3] > 0.5].double().mean()):.2f}) of cap {SWB.LIST_CAP}, "
+          f"{int(ovJ)} slots over; the sphere test rules out {100 * share:.2f}% of the occupied "
+          f"stencil candidates; upper-triangular h and h^-1 (the 6-FMA image): {tri}")
+    if int(ovJ) != 0:
+        fail("K6: slots of the prepared box overflowed the live list")
     slot_bytes = 4.0 * J * C * 128
+    list_bytes = 4.0 * J * (C * 128 + 2 * live)  # counts and the live pairs' slots
     t = {}
-    t["K6d"] = (cuda_ms(lambda: SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ), 10),
+    # the first design and the path's in turns (first, new, new, first)
+    ab = {}
+    for name, new, first in (
+            ("K6d", lambda: SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ,
+                                                (cntJ, lstJ)),
+             lambda: SWB._moments_first(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ)),
+            ("K6c", lambda: SWB._launch_forces(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ,
+                                               cntJ, lstJ, ovJ),
+             lambda: SWB._forces_first(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ)),
+            ("call", lambda: SWB.sw_forces_bricks(sw, pJ, hJ, *sl, atom_slot=ff.atom_slot),
+             lambda: k6_first_force_call(sw, ff, pJ, hJ))):
+        f1 = cuda_ms(first, 10)
+        n1, n2 = cuda_ms(new, 10), cuda_ms(new, 10)
+        ab[name] = {"first": (f1, cuda_ms(first, 10)), "path": (n1, n2)}
+        print(f"[13 K6 A/B] {name}, {J} jobs, first design / path's in turns (ms): "
+              f"{turns(ab[name])}")
+    t["K6d"] = (min(ab["K6d"]["path"]),
                 cuda_ms(lambda: SWB.sw_moments_plain(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ), 2),
-                *bound(slot_bytes * (4 + 12), J * k6_flops(cand, live, FLOP_K6_MOM)))
-    t["K6c"] = (cuda_ms(lambda: SWB._launch_forces(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ),
-                        10),
-                cuda_ms(lambda: SWB.sw_forces_plain(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ,
-                                                    ihJ), 2),
-                *bound(slot_bytes * (4 + 11 + 9), J * k6_flops(cand, live, FLOP_K6_FRC)))
+                *bound(slot_bytes * (4 + 12) + list_bytes, J * live * FLOP_K6_MOM),
+                bound(slot_bytes * (4 + 12), J * k6_flops(cand, live, FLOP_K6_MOM))[0])
+    t["K6c"] = (min(ab["K6c"]["path"]),
+                cuda_ms(lambda: SWB.sw_forces_list_plain(sw, tilesJ, adjJ, cntJ, lstJ, ff.nbr,
+                                                         ff.valid, hhJ, ihJ), 2),
+                *bound(slot_bytes * (4 + 11 + 9) + list_bytes, J * live * FLOP_K6_FRC),
+                bound(slot_bytes * (4 + 11 + 9), J * k6_flops(cand, live, FLOP_K6_FRC))[0])
     t["K6e"] = (cuda_ms(lambda: SWB.sw_energy_bricks(sw, pJ, hJ, *sl), 10),
                 cuda_ms(lambda: SWB.sw_energy_bricks(sw, pJ, hJ, *sl, plain=True), 2),
-                *bound(4.0 * J * 3 * n + 4.0 * J, J * k6_flops(cand, live, FLOP_K6_MOM)))
+                *bound(4.0 * J * 3 * n + 4.0 * J, J * live * FLOP_K6_MOM),
+                bound(4.0 * J * 3 * n + 4.0 * J, J * k6_flops(cand, live, FLOP_K6_MOM))[0])
     for name in ("K6a", "K6b"):
         _, nb, va = rows[name]
         tl = SWB.pack_tiles(pJ)
         cand_x = tile_candidates(tl[0, :, 3] > 0.5, nb, va)
         t[name] = (cuda_ms(lambda: SWB._launch_moments(sw, tl, nb.int(), va.int(), hhJ, ihJ), 3),
                    cuda_ms(lambda: SWB.sw_moments_plain(sw, tl, nb, va, hhJ, ihJ), 1, warmup=0),
-                   *bound(4.0 * J * tl.shape[1] * 128 * 16, J * k6_flops(cand_x, live,
-                                                                         FLOP_K6_MOM)))
-    for name, (k_ms, p_ms, b_ms, b_by) in t.items():
+                   *bound(4.0 * J * tl.shape[1] * 128 * 16, J * live * FLOP_K6_MOM),
+                   bound(4.0 * J * tl.shape[1] * 128 * 16, J * k6_flops(cand_x, live,
+                                                                       FLOP_K6_MOM))[0])
+    for name, (k_ms, p_ms, b_ms, b_by, bs_ms) in t.items():
         print(f"[13 {name} time] {J} jobs x {n} atoms: kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}; {live:.1f} live pairs per box)  kernel at "
-              f"{100 * b_ms / k_ms:.2f}% of its bound")
+              f"{100 * b_ms / k_ms:.2f}% of its bound; the stencil's bound {bs_ms:.4f} ms")
+    info = {w: SWB.kernel_info(w) for w in ("moments", "forces", "spheres", "moments_first",
+                                           "forces_first")}
+    print("[13 K6 kernels] (registers, local bytes, blocks per SM) " + ", ".join(
+        f"{w} {v['registers']}/{v['local_bytes']}/{v['blocks_per_sm']}" for w, v in info.items()))
+    print("[13 K6 ptxas] (registers, spill stores) " + ", ".join(
+        f"{m.group(1)} {regs}/{spills}" for name, regs, spills in ptxas_entries()
+        for m in [re.search(r"\d(sw_[a-z_]+kernel(?:I(?:Lb[01]E)+E)?)", name)] if m))
     # the force call of the unfused engine on both routes
-    fc_ms = cuda_ms(lambda: SWB.sw_forces_bricks(sw, pJ, hJ, *sl, atom_slot=ff.atom_slot), 10)
+    fc_ms = min(ab["call"]["path"])
     fc_plain = cuda_ms(lambda: SWB.sw_forces_bricks(sw, pJ, hJ, *sl, atom_slot=ff.atom_slot,
                                                     plain=True), 2)
     nbrJ = sys_l.build_neighbors(pJ, hJ)
@@ -1720,13 +1819,33 @@ def phase_k6(dev):
             ("K6a", "sw_moments", "scema_tpu/ops/sw_pallas.py:133",
              max(rows["K6a"][0], rows["K6a_q"][0])),
             ("K6b", "sw_moments_adj", "scema_tpu/ops/sw_pallas.py:311", rows["K6b"][0])):
-        k_ms, p_ms, b_ms, b_by = t[name]
+        k_ms, p_ms, b_ms, b_by, bs_ms = t[name]
         out[fn] = {"name": fn, "route": "cuda", "source": src, "replaces": rep,
                    "note": f"{name}: {J} jobs x {n} atoms", "max_abs_err": err, "ms": k_ms,
-                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "bound_stencil_ms": bs_ms}
+    out["sw_moments_bricks"]["first_design_ms"] = min(ab["K6d"]["first"])
+    out["sw_forces_bricks"]["first_design_ms"] = min(ab["K6c"]["first"])
     out["sw_forces_bricks"]["force_call_ms"] = fc_ms
+    out["sw_forces_bricks"]["first_design_force_call_ms"] = min(ab["call"]["first"])
     out["sw_forces_bricks"]["list_route_force_ms"] = list_ms
     return out
+
+
+def k6_first_force_call(sw, ff, pos, h):
+    """The brick force call on K6's first design (the stencil sweep in both
+    kernels), as sw_forces_bricks made it before the live list: (F, E, W)."""
+    import torch
+
+    from scema_tpu_torch.ops import sw_bricks as SWB
+
+    J, C = pos.shape[0], ff.n_bricks
+    tiles = SWB.pack_bricks(pos, ff.slot_ids)
+    hh, ih = SWB.boxes(h, (J,), torch.float32, pos.device)
+    mom = SWB._moments_first(sw, tiles, ff.nbr, ff.valid, hh, ih)
+    fo = SWB._forces_first(sw, tiles, SWB.adjoints(sw, mom), ff.nbr, ff.valid, hh, ih)
+    F = fo[:, :, :3, :].transpose(-1, -2).reshape(J, C * 128, 3)[:, ff.atom_slot]
+    return F, SWB.energy_from_moments(sw, mom), -fo[:, :, 3:, :].sum((1, 3))
 
 
 def _k6_counters():
@@ -1749,6 +1868,8 @@ def _k6_counters():
             "sw_moments_bricks": (SWB.sw_moments_bricks, "launches"),
             "sw_energy_bricks": (SWB.sw_energy_bricks, "launches"),
             "sw_forces_bricks": (SWB.sw_forces_bricks, "launches"),
+            "sw_moments_first": (SWB._moments_first, "launches"),
+            "sw_forces_first": (SWB._forces_first, "launches"),
             "pairwise_l2": (K2.pairwise_l2, "launches")}
 
 

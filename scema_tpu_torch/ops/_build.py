@@ -58,10 +58,17 @@ SIGNATURES = {
     "md_list_forces_f32": [_P, _P],
     "md_sw_run_f32": [_P, _P],
     "md_sw_forces_f32": [_P, _P],
-    # K6 (SW tiles): tiles, [adjoints,] nbr, valid, h, h^-1, out, B, C, K,
-    # a pointer to the constants (sw_bricks._SWK) and the stream
+    # K6's first design (SW tiles): tiles, [adjoints,] nbr, valid, h, h^-1,
+    # out, B, C, K, a pointer to the constants (sw_bricks._SWK) and the stream
     "sw_moments_f32": [_P] * 6 + [_I] * 3 + [_P, _P],
     "sw_forces_f32": [_P] * 7 + [_I] * 3 + [_P, _P],
+    # K6 (the path's): tiles, nbr, valid, h, h^-1, spheres, out, count, list,
+    # cap, B, C, K, constants, stream; and tiles, adjoints, nbr, valid, h,
+    # h^-1, count, list, cap, out, overflow, B, C, K, constants, stream;
+    # (kernel, int[4]) -> registers, local bytes, blocks per SM, threads
+    "sw_moments_list_f32": [_P] * 9 + [_I] * 4 + [_P, _P],
+    "sw_forces_list_f32": [_P] * 8 + [_I] + [_P] * 2 + [_I] * 3 + [_P, _P],
+    "sw_kernel_info": [_I, _P],
     # P1 (the kernel lab's slim runs): a pointer to SlimArgs
     # (md_slim._SlimArgs), the variant id, the stream
     "md_slim_run_f32": [_P, _I, _P],

@@ -11,11 +11,21 @@ The port of ``scema_tpu/ops/sw_pallas.py``.  Two hand-written CUDA kernels
   (K6e, which reduces the channels to the energy) on the brick structure's
   27-stencil, :func:`sw_moments_adj` (K6b) on a bounding-sphere tile
   adjacency, and :func:`sw_moments` (K6a) over all tile pairs with the
-  general (sig/r)^q term;
+  general (sig/r)^q term.  Inside the force call it also writes the live
+  list: each slot's live neighbour slots in sweep order, up to ``cap``, and
+  their count (plain version :func:`live_list_plain`).  It skips 32-slot
+  chunk pairs that a bounding-sphere test rules out
+  (:func:`chunk_spheres_plain`, :func:`pruned_chunks_plain`);
 * the forces kernel (K6c, :func:`sw_forces_bricks`) — each slot's adjoint
-  pair forces in both roles and role 1's w (x) d virial channels, from the
-  per-atom adjoints that torch computes between the two launches, as JAX
-  does in jnp (sw_pallas.py:550-561).
+  pair forces in both roles and role 1's w (x) d virial channels over its
+  live list (a slot past ``cap`` sweeps the stencil), from the per-atom
+  adjoints that torch computes between the two launches, as JAX does in
+  jnp (sw_pallas.py:550-561); plain version :func:`sw_forces_list_plain`.
+
+The first design of both kernels (a stencil sweep per kernel) stays built
+for the checks, reached only through :func:`_moments_first` and
+:func:`_forces_first`; its plain versions are :func:`sw_moments_plain` and
+:func:`sw_forces_plain`, the same functions as the path's.
 
 On CUDA tensors a wrapper launches its kernel (float32) or raises; on CPU
 tensors it computes the same function with the plain version, in any
@@ -28,12 +38,14 @@ section 3).
 Layouts (leading job axes on every state argument): tiles (..., C, 4, 128)
 rows [x y z occ]; moments (..., C, 12, 128) [e2/2, s, gsq, mx my mz, Qxx
 Qyy Qzz Qxy Qxz Qyz]; adjoints (..., C, 11, 128) [A_s, A_gsq, A_m (3), A_Q
-(6)]; forces (..., C, 9, 128) [F (3), w (x) d (xx yy zz xy xz yz)].  The
+(6)]; forces (..., C, 9, 128) [F (3), w (x) d (xx yy zz xy xz yz)]; the
+live list's count (B, C, 128) and slots (B, C, cap, 128), int32.  The
 tile-pair lists nbr, valid (C, K) are int32 and shared by every job.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import numpy as np
 import torch
@@ -44,6 +56,13 @@ TILE = 128
 NMOM = 12
 NADJ = 11
 NFRC = 9
+CHUNK = 32  # slots of one warp, and of one bounding sphere
+# live-list entries per slot: at 300 K a slot of the prepared diamond box
+# has ~9 live pairs at rc = 3.77 A (at most 15 on the 4096-atom box); a
+# slot past the cap sweeps the stencil
+LIST_CAP = 32
+# the sphere test's margin (A), csrc/sw_bricks.cu's PRUNE_MARGIN
+PRUNE_MARGIN = 1e-2
 # (jobs x tiles x 128 x 128) pair-plane elements per slice of the plain versions
 _PLAIN_PAIRS = 1 << 24
 
@@ -219,20 +238,26 @@ def boxes(h: torch.Tensor, lead, dtype, device):
 # Plain versions (batched over jobs; the kernels' arithmetic)
 
 
+def _min_image(d, hh, ih):
+    """The kernels' minimum image of d = [dx, dy, dz], each (b, ...), in the
+    boxes hh, ih (b, 3, 3)."""
+    shape = (-1,) + (1,) * (d[0].dim() - 1)
+
+    def mat(m, a, b):
+        return m[:, a, b].reshape(shape)
+
+    s = [mat(ih, a, 0) * d[0] + mat(ih, a, 1) * d[1] + mat(ih, a, 2) * d[2] for a in range(3)]
+    s = [x - torch.round(x) for x in s]
+    return [mat(hh, a, 0) * s[0] + mat(hh, a, 1) * s[1] + mat(hh, a, 2) * s[2] for a in range(3)]
+
+
 def _geom(ci, nj, hh, ih, rc2, same):
     """Pair planes of centre slots ci (b, C, 4, T) (axis -2) against
     neighbour slots nj (b, C, 4, T) (axis -1): d = x_j - x_i by the
     minimum image of h, ih (b, 3, 3); the live mask (both occupied, r^2 <
     rc2, not the same slot of the same tile: ``same`` (C,) bool)."""
-    d = [nj[:, :, a, None, :] - ci[:, :, a, :, None] for a in range(3)]
-
-    def mat(m, a, b):
-        return m[:, a, b, None, None, None]
-
-    s = [mat(ih, a, 0) * d[0] + mat(ih, a, 1) * d[1] + mat(ih, a, 2) * d[2] for a in range(3)]
-    s = [x - torch.round(x) for x in s]
-    dx, dy, dz = (mat(hh, a, 0) * s[0] + mat(hh, a, 1) * s[1] + mat(hh, a, 2) * s[2]
-                  for a in range(3))
+    dx, dy, dz = _min_image([nj[:, :, a, None, :] - ci[:, :, a, :, None] for a in range(3)],
+                            hh, ih)
     r2 = dx * dx + dy * dy + dz * dz
     T = ci.shape[-1]
     eye = torch.eye(T, dtype=torch.bool, device=ci.device)
@@ -309,10 +334,38 @@ def _w(c, ux, uy, uz, inv_r, g, dg, radial0, a):
             radial * uz + tang * (amz + 2.0 * qz - t2 * uz))
 
 
+def _pair_forces(c, dx, dy, dz, r2, mask, a_i, a_j):
+    """The 9 force channels of pairs d = x_j - x_i (masked by ``mask``)
+    whose centres have the adjoints ``a_i`` and neighbours ``a_j`` (11
+    planes each, broadcastable against the pairs): both roles' forces and
+    role 1's w (x) d."""
+    one = torch.ones((), dtype=r2.dtype, device=r2.device)
+    zero = torch.zeros_like(one)
+    r = torch.sqrt(torch.where(mask, r2, one))
+    inv_r = 1.0 / r
+    ux, uy, uz = dx * inv_r, dy * inv_r, dz * inv_r
+    denom = torch.where(mask, r - c["rc"], -one)
+    expo = torch.exp(c["sig"] / denom)
+    sr = c["sig"] * inv_r
+    sr2 = sr * sr
+    srp = sr2 * sr2
+    phi2 = c["aeps"] * (c["b"] * srp - 1.0) * expo
+    id2 = denom * denom
+    dphi2 = c["aeps"] * (c["m4b"] * srp * inv_r) * expo + phi2 * (-c["sig"] / id2)
+    g = torch.exp(c["gs"] / denom)
+    dg = g * (-c["gs"] / id2)
+    radial0 = 0.5 * dphi2
+    wa = [torch.where(mask, x, zero) for x in _w(c, ux, uy, uz, inv_r, g, dg, radial0, a_i)]
+    wb = [torch.where(mask, x, zero) for x in _w(c, -ux, -uy, -uz, inv_r, g, dg, radial0, a_j)]
+    return [wa[0] - wb[0], wa[1] - wb[1], wa[2] - wb[2],
+            wa[0] * dx, wa[1] * dy, wa[2] * dz, 0.5 * (wa[0] * dy + wa[1] * dx),
+            0.5 * (wa[0] * dz + wa[2] * dx), 0.5 * (wa[1] * dz + wa[2] * dy)]
+
+
 def sw_forces_plain(sw, tiles, adj, nbr, valid, hh, ih) -> torch.Tensor:
     """Both roles' pair forces and role 1's w (x) d channels of tiles
     (B, C, 4, 128) with adjoints (B, C, 11, 128) over nbr/valid (C, K):
-    (B, C, 9, 128)."""
+    (B, C, 9, 128).  The first design's plain version: the stencil sweep."""
     c = sw_consts(sw)
     B, C = tiles.shape[:2]
     nbr, valid = nbr.long(), valid.bool()
@@ -329,35 +382,125 @@ def sw_forces_plain(sw, tiles, adj, nbr, valid, hh, ih) -> torch.Tensor:
             b = nbr[:, e]
             dx, dy, dz, r2, mask = _geom(ti, ti[:, b], h_, ih_, c["rc2"], b == cidx)
             mask = mask & valid[:, e, None, None]
-            one = torch.ones((), dtype=r2.dtype, device=r2.device)
-            zero = torch.zeros_like(one)
-            r = torch.sqrt(torch.where(mask, r2, one))
-            inv_r = 1.0 / r
-            ux, uy, uz = dx * inv_r, dy * inv_r, dz * inv_r
-            denom = torch.where(mask, r - c["rc"], -one)
-            expo = torch.exp(c["sig"] / denom)
-            sr = c["sig"] * inv_r
-            sr2 = sr * sr
-            srp = sr2 * sr2
-            phi2 = c["aeps"] * (c["b"] * srp - 1.0) * expo
-            id2 = denom * denom
-            dphi2 = c["aeps"] * (c["m4b"] * srp * inv_r) * expo + phi2 * (-c["sig"] / id2)
-            g = torch.exp(c["gs"] / denom)
-            dg = g * (-c["gs"] / id2)
-            radial0 = 0.5 * dphi2
             adb = ad[:, b]
             a_j = [adb[:, :, q, None, :] for q in range(NADJ)]
-            wa = [torch.where(mask, x, zero)
-                  for x in _w(c, ux, uy, uz, inv_r, g, dg, radial0, a_i)]
-            wb = [torch.where(mask, x, zero)
-                  for x in _w(c, -ux, -uy, -uz, inv_r, g, dg, radial0, a_j)]
-            ch = [wa[0] - wb[0], wa[1] - wb[1], wa[2] - wb[2],
-                  wa[0] * dx, wa[1] * dy, wa[2] * dz, 0.5 * (wa[0] * dy + wa[1] * dx),
-                  0.5 * (wa[0] * dz + wa[2] * dx), 0.5 * (wa[1] * dz + wa[2] * dy)]
+            ch = _pair_forces(c, dx, dy, dz, r2, mask, a_i, a_j)
             acc = [a + x.sum(-1) for a, x in zip(acc, ch)]
         out[js, ..., :w] = torch.stack([a if torch.is_tensor(a) else ti[:, :, 0] * 0.0
                                         for a in acc], 2)
     return out
+
+
+def live_list_plain(sw, tiles, nbr, valid, hh, ih, cap: int = LIST_CAP):
+    """The live list the moments kernel writes for tiles (B, C, 4, 128)
+    over nbr/valid (C, K): each slot's count of live pairs (B, C, 128) and
+    its first ``cap`` live neighbour slots (flat tile * 128 + lane) in
+    sweep order — entries in list order, lanes ascending — with -1 past
+    the count (B, C, cap, 128); int32."""
+    c = sw_consts(sw)
+    B, C = tiles.shape[:2]
+    nbr_l, valid_b = nbr.long(), valid.bool()
+    cidx = torch.arange(C, device=tiles.device)
+    count = torch.zeros((B, C, TILE), dtype=torch.int64, device=tiles.device)
+    lst = torch.full((B, C, cap, TILE), -1, dtype=torch.int64, device=tiles.device)
+    w = _width(tiles)
+    for js in _job_slices(B, C, w):
+        ti, cnt, ls = tiles[js, ..., :w], count[js], lst[js]
+        for e in range(nbr.shape[1]):
+            if not bool(valid_b[:, e].any()):
+                continue
+            b = nbr_l[:, e]
+            mask = _geom(ti, ti[:, b], hh[js], ih[js], c["rc2"], b == cidx)[-1]
+            mask = mask & valid_b[:, e, None, None]
+            at = cnt[..., :w, None] + mask.long().cumsum(-1) - 1
+            jb, cc, ii, jj = torch.nonzero(mask & (at < cap), as_tuple=True)
+            ls[jb, cc, at[jb, cc, ii, jj], ii] = b[cc] * TILE + jj
+            cnt[..., :w] += mask.sum(-1)
+    return count.to(torch.int32), lst.to(torch.int32)
+
+
+def sw_forces_list_plain(sw, tiles, adj, count, lst, nbr, valid, hh, ih) -> torch.Tensor:
+    """K6c's forces over the live list (``count``, ``lst`` of
+    :func:`live_list_plain`): each slot's first min(count, cap) listed
+    pairs with :func:`sw_forces_plain`'s arithmetic; a slot whose count
+    passes cap takes the stencil sweep, as the kernel does.  (B, C, 9, 128)."""
+    c = sw_consts(sw)
+    B, C = tiles.shape[:2]
+    cap = lst.shape[-2]
+    out = torch.zeros((B, C, NFRC, TILE), dtype=tiles.dtype, device=tiles.device)
+    kk = torch.arange(cap, device=tiles.device)[:, None]
+    step = max(1, _PLAIN_PAIRS // max(C * cap * TILE, 1))
+    for s0 in range(0, B, step):
+        js = slice(s0, s0 + step)
+        ti, ad = tiles[js], adj[js]
+        b = ti.shape[0]
+        listed = kk < count[js, :, None, :].long()  # entries past the count are not read
+        idx = torch.where(listed, lst[js].long(), 0).reshape(b, -1)
+
+        def gather(rows, q):  # row q of every listed neighbour: (b, C, cap, 128)
+            x = rows[:, :, q, :].reshape(b, C * TILE)
+            return torch.gather(x, 1, idx).reshape(b, C, cap, TILE)
+
+        d = [gather(ti, a) - ti[:, :, None, a, :] for a in range(3)]
+        dx, dy, dz = _min_image(d, hh[js], ih[js])
+        r2 = dx * dx + dy * dy + dz * dz
+        mask = listed & (r2 < c["rc2"]) & (ti[:, :, None, 3, :] > 0.5)
+        a_i = [ad[:, :, None, q, :] for q in range(NADJ)]
+        a_j = [gather(ad, q) for q in range(NADJ)]
+        ch = _pair_forces(c, dx, dy, dz, r2, mask, a_i, a_j)
+        out[js] = torch.stack([x.sum(2) for x in ch], 2)
+    over = count > cap
+    if bool(over.any()):
+        out = torch.where(over[:, :, None, :], sw_forces_plain(sw, tiles, adj, nbr, valid, hh, ih),
+                          out)
+    return out
+
+
+def chunk_spheres_plain(tiles, hh, ih) -> torch.Tensor:
+    """The sphere pass: each 32-slot chunk of tiles (B, C, 4, 128) as (cx,
+    cy, cz, r) — its slots by their minimum image from the chunk's first
+    occupied slot, the centre their mean, r the largest distance from it;
+    r = -1 for a chunk with no occupied slot.  (B, C, 4, 4)."""
+    B, C = tiles.shape[:2]
+    W = TILE // CHUNK
+    x = tiles[:, :, :3].reshape(B, C, 3, W, CHUNK)
+    occ = tiles[:, :, 3].reshape(B, C, W, CHUNK) > 0.5
+    first = occ.to(torch.uint8).argmax(-1)[:, :, None, :, None].expand(B, C, 3, W, 1)
+    ref = torch.gather(x, -1, first)[..., 0]  # (B, C, 3, W)
+    zero = torch.zeros((), dtype=tiles.dtype, device=tiles.device)
+    d = [torch.where(occ, v, zero)
+         for v in _min_image([x[:, :, a] - ref[:, :, a, :, None] for a in range(3)], hh, ih)]
+    n = occ.sum(-1).clamp(min=1)
+    mean = [v.sum(-1) / n for v in d]
+    e2 = sum((v - m[..., None]) ** 2 for v, m in zip(d, mean))
+    r = torch.sqrt(torch.where(occ, e2, zero).amax(-1))
+    r = torch.where(occ.any(-1), r, -torch.ones_like(r))
+    return torch.stack([ref[:, :, a] + mean[a] for a in range(3)] + [r], -1)
+
+
+def pruned_chunks_plain(sph, nbr, valid, hh, ih, rc: float) -> torch.Tensor:
+    """The sphere test over the spheres ``sph`` (B, C, 4, 4) of
+    :func:`chunk_spheres_plain`: (B, C, K, 4, 4) bool, True where centre
+    chunk u of tile c and chunk v of entry e's tile are both occupied and
+    ruled out — min over the 27 image offsets m in {-1, 0, 1}^3 of |d_cc +
+    h m| >= r_u + r_v + rc + PRUNE_MARGIN, d_cc the minimum image of the
+    centres — the test being made only while r_u + r_v is below half the
+    box's least height (csrc/sw_bricks.cu states why no live pair is lost)."""
+    B = sph.shape[0]
+    si = sph[:, :, None, :, None, :]
+    sj = sph[:, nbr.long()][:, :, :, None, :, :]
+    d = _min_image([sj[..., a] - si[..., a] for a in range(3)], hh, ih)
+    shape = (B,) + (1,) * (d[0].dim() - 1)
+    best = None
+    for m in itertools.product((-1.0, 0.0, 1.0), repeat=3):
+        e = [d[a] + sum(hh[:, a, b].reshape(shape) * m[b] for b in range(3)) for a in range(3)]
+        n2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
+        best = n2 if best is None else torch.minimum(best, n2)
+    rr = si[..., 3] + sj[..., 3]
+    hlim = (0.5 / ih.pow(2).sum(-1).amax(-1).sqrt()).reshape(shape)
+    lim = rr + rc + PRUNE_MARGIN
+    return ((si[..., 3] >= 0) & (sj[..., 3] >= 0) & (rr < hlim) & (best >= lim * lim)
+            & valid.bool()[None, :, :, None, None])
 
 
 def adjoints(sw, mom: torch.Tensor) -> torch.Tensor:
@@ -424,32 +567,98 @@ def _lists(nbr, valid, C: int, device):
     return nbr, valid
 
 
-def _launch_moments(sw, tiles, nbr, valid, hh, ih) -> torch.Tensor:
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_moments(sw, tiles, nbr, valid, hh, ih, lists=None) -> torch.Tensor:
+    """The path's moments kernel (after the sphere pass) on tiles
+    (B, C, 4, 128); with ``lists`` = (count (B, C, 128), slots (B, C, cap,
+    128)), int32, it writes the live list into them."""
     B, C = tiles.shape[:2]
     out = torch.empty((B, C, NMOM, TILE), dtype=torch.float32, device=tiles.device)
     if B * C == 0:
         return out
+    sph = torch.empty((B, C, TILE // CHUNK, 4), dtype=torch.float32, device=tiles.device)
+    count, lst = lists if lists is not None else (None, None)
     k = _swk(sw)
-    rc = _build.library().sw_moments_f32(
+    rc = _build.library().sw_moments_list_f32(
         tiles.data_ptr(), nbr.data_ptr(), valid.data_ptr(), hh.data_ptr(), ih.data_ptr(),
-        out.data_ptr(), B, C, nbr.shape[1], ctypes.addressof(k),
+        sph.data_ptr(), out.data_ptr(), _ptr(count), _ptr(lst),
+        0 if lst is None else lst.shape[-2], B, C, nbr.shape[1], ctypes.addressof(k),
         _build.stream_handle(tiles.device))
-    _build.check(rc, "sw_moments_f32")
+    _build.check(rc, "sw_moments_list_f32")
     return out
 
 
-def _launch_forces(sw, tiles, adj, nbr, valid, hh, ih) -> torch.Tensor:
+def _launch_forces(sw, tiles, adj, nbr, valid, hh, ih, count, lst, overflow) -> torch.Tensor:
+    """The path's forces kernel over the live list (count, lst) of
+    :func:`_launch_moments`; ``overflow`` (1,) int32, zeroed by the caller,
+    gains the slots past the list's cap."""
     B, C = tiles.shape[:2]
     out = torch.empty((B, C, NFRC, TILE), dtype=torch.float32, device=tiles.device)
     if B * C == 0:
         return out
     k = _swk(sw)
-    rc = _build.library().sw_forces_f32(
+    rc = _build.library().sw_forces_list_f32(
         tiles.data_ptr(), adj.data_ptr(), nbr.data_ptr(), valid.data_ptr(), hh.data_ptr(),
-        ih.data_ptr(), out.data_ptr(), B, C, nbr.shape[1], ctypes.addressof(k),
+        ih.data_ptr(), count.data_ptr(), lst.data_ptr(), lst.shape[-2], out.data_ptr(),
+        overflow.data_ptr(), B, C, nbr.shape[1], ctypes.addressof(k),
         _build.stream_handle(tiles.device))
-    _build.check(rc, "sw_forces_f32")
+    _build.check(rc, "sw_forces_list_f32")
     return out
+
+
+def _moments_first(sw, tiles, nbr, valid, hh, ih) -> torch.Tensor:
+    """The first design's moments kernel on tiles (B, C, 4, 128) (the
+    plain version on CPU tensors); for the checks only."""
+    if not _on_card(tiles, "_moments_first"):
+        return sw_moments_plain(sw, tiles, nbr, valid, hh, ih)
+    B, C = tiles.shape[:2]
+    nbr, valid = _lists(nbr, valid, C, tiles.device)
+    tiles = tiles.contiguous()
+    out = torch.empty((B, C, NMOM, TILE), dtype=torch.float32, device=tiles.device)
+    if B * C:
+        k = _swk(sw)
+        rc = _build.library().sw_moments_f32(
+            tiles.data_ptr(), nbr.data_ptr(), valid.data_ptr(), hh.data_ptr(), ih.data_ptr(),
+            out.data_ptr(), B, C, nbr.shape[1], ctypes.addressof(k),
+            _build.stream_handle(tiles.device))
+        _build.check(rc, "sw_moments_f32")
+        _moments_first.launches += 1
+    return out
+
+
+def _forces_first(sw, tiles, adj, nbr, valid, hh, ih) -> torch.Tensor:
+    """The first design's forces kernel (the stencil sweep), as
+    :func:`_moments_first`."""
+    if not _on_card(tiles, "_forces_first"):
+        return sw_forces_plain(sw, tiles, adj, nbr, valid, hh, ih)
+    B, C = tiles.shape[:2]
+    nbr, valid = _lists(nbr, valid, C, tiles.device)
+    tiles, adj = tiles.contiguous(), adj.contiguous()
+    out = torch.empty((B, C, NFRC, TILE), dtype=torch.float32, device=tiles.device)
+    if B * C:
+        k = _swk(sw)
+        rc = _build.library().sw_forces_f32(
+            tiles.data_ptr(), adj.data_ptr(), nbr.data_ptr(), valid.data_ptr(), hh.data_ptr(),
+            ih.data_ptr(), out.data_ptr(), B, C, nbr.shape[1], ctypes.addressof(k),
+            _build.stream_handle(tiles.device))
+        _build.check(rc, "sw_forces_f32")
+        _forces_first.launches += 1
+    return out
+
+
+def kernel_info(which: str) -> dict:
+    """Registers, local (spill) bytes per thread, resident blocks per SM
+    (the card's occupancy calculator) and block width of a K6 kernel:
+    "moments" and "forces" (the path's), "moments_first", "forces_first",
+    "spheres"."""
+    ids = {"moments": 0, "forces": 1, "moments_first": 2, "forces_first": 3, "spheres": 4}
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().sw_kernel_info(ids[which], out)
+    _build.check(rc, f"sw_kernel_info ({which})")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
 
 
 def _moments(fn, sw, tiles, nbr, valid, h, plain: bool = False):
@@ -513,39 +722,50 @@ def sw_energy_bricks(sw, pos: torch.Tensor, h: torch.Tensor, slot_ids, nbr, vali
 
 
 def sw_forces_bricks(sw, pos: torch.Tensor, h: torch.Tensor, slot_ids, nbr, valid,
-                     atom_slot: torch.Tensor | None = None, plain: bool = False):
+                     atom_slot: torch.Tensor | None = None, plain: bool = False,
+                     cap: int = LIST_CAP):
     """K6c: forces, energy and potential virial on the brick structure
-    (sw_forces_pallas_bricks, :541-604): K6d's moments (counted on
-    :func:`sw_moments_bricks`), the adjoints in torch, then the forces
-    kernel.  Returns (F (..., N, 3), E (...), W (..., 6) Voigt [xx yy zz xy
-    xz yz], W = -sym(sum over ordered pairs of w (x) d)).  Each atom owns
-    one slot, so the slot forces come back by a gather (``atom_slot``
-    (N,): each atom's flat slot, derived from ``slot_ids`` when not given)
-    where JAX scatter-adds."""
+    (sw_forces_pallas_bricks, :541-604): K6d's moments and live list
+    (counted on :func:`sw_moments_bricks`), the adjoints in torch, then the
+    forces kernel over the list (``cap`` entries per slot; a slot past it
+    sweeps the stencil, and ``sw_forces_bricks.overflow``, a (1,) int32
+    tensor on the call's device, holds the count of such slots).  Returns
+    (F (..., N, 3), E (...), W (..., 6) Voigt [xx yy zz xy xz yz], W =
+    -sym(sum over ordered pairs of w (x) d)).  Each atom owns one slot, so
+    the slot forces come back by a gather (``atom_slot`` (N,): each atom's
+    flat slot, derived from ``slot_ids`` when not given) where JAX
+    scatter-adds."""
     check_family(sw)
     n = pos.shape[-2]
-    lead = pos.shape[:-2]
+    lead = tuple(pos.shape[:-2])
     slots = torch.as_tensor(slot_ids, device=pos.device)
     C = slots.shape[0]
-    tiles = pack_bricks(pos, slots)
-    mom = _moments(sw_moments_bricks, sw, tiles, nbr, valid, h, plain)
-    adj = adjoints(sw, mom)
-    flat = tiles.reshape(-1, C, 4, TILE)
-    adj_f = adj.reshape(-1, C, NADJ, TILE)
+    flat = pack_bricks(pos, slots).reshape(-1, C, 4, TILE)
     hh, ih = boxes(h, lead, pos.dtype, pos.device)
     nb, va = _lists(nbr, valid, C, pos.device)
     if not plain and _on_card(pos, "sw_forces_bricks"):
-        fout = _launch_forces(sw, flat, adj_f, nb, va, hh, ih)
+        count = torch.empty(flat.shape[:2] + (TILE,), dtype=torch.int32, device=pos.device)
+        lst = torch.empty(flat.shape[:2] + (cap, TILE), dtype=torch.int32, device=pos.device)
+        mom = _launch_moments(sw, flat, nb, va, hh, ih, (count, lst))
+        sw_moments_bricks.launches += 1
+        adj = adjoints(sw, mom)
+        overflow = torch.zeros(1, dtype=torch.int32, device=pos.device)
+        fout = _launch_forces(sw, flat, adj, nb, va, hh, ih, count, lst, overflow)
         sw_forces_bricks.launches += 1
     else:
-        fout = sw_forces_plain(sw, flat, adj_f, nb, va, hh, ih)
+        mom = sw_moments_plain(sw, flat, nb, va, hh, ih)
+        count, lst = live_list_plain(sw, flat, nb, va, hh, ih, cap)
+        adj = adjoints(sw, mom)
+        fout = sw_forces_list_plain(sw, flat, adj, count, lst, nb, va, hh, ih)
+        overflow = (count > cap).sum().reshape(1).to(torch.int32)
+    sw_forces_bricks.overflow = overflow
     if atom_slot is None:
         atom_slot = slot_map(slots, n)
     f_slots = fout[:, :, :3, :].transpose(-1, -2).reshape(fout.shape[0], C * TILE, 3)
     F = f_slots[:, atom_slot.to(pos.device)]
     W = -fout[:, :, 3:, :].sum((1, 3))
-    return (F.reshape(tuple(lead) + (n, 3)), energy_from_moments(sw, mom),
-            W.reshape(tuple(lead) + (6,)))
+    return (F.reshape(lead + (n, 3)), energy_from_moments(sw, mom).reshape(lead),
+            W.reshape(lead + (6,)))
 
 
 def slot_map(slot_ids: torch.Tensor, n_atoms: int) -> torch.Tensor:
@@ -565,6 +785,9 @@ sw_moments_adj.launches = 0
 sw_moments_bricks.launches = 0
 sw_energy_bricks.launches = 0
 sw_forces_bricks.launches = 0
+sw_forces_bricks.overflow = None
+_moments_first.launches = 0
+_forces_first.launches = 0
 
 
 class SWBricksFF:

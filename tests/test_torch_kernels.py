@@ -46,7 +46,11 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
   bit-identical;
 * K6d/K6e (SW brick moments, energy) and K6c (adjoint forces, energy,
   virial) on 512- and 4096-atom boxes with perturbed positions and tilted
-  boxes, K6a/K6b on a 512-atom box: the K1 force bounds; ten deform steps
+  boxes, K6a/K6b on a 512-atom box: the K1 force bounds; K6's first design
+  (the stencil sweep in both kernels) to the same bounds, and the path's
+  within them of it on the same inputs; K6c's overflow path (a live-list
+  cap of 2) to the same bounds; the path's K6 kernels at <= 64 registers
+  and >= 8 blocks per SM; ten deform steps
   of the unfused engine on the bricks against the list route within 1e-3 A
   (float32 noise of two force orders), a 0-step job bit-identical;
 * P1 (the kernel lab's slim all-pairs runs, each variant v1-v8) on the
@@ -698,6 +702,68 @@ def test_k6c_forces_energy_virial_match_plain(si_big):
     assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
     assert _rel(e, e64) <= 2 * _rel(ep, e64) + 1e-6
     assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+
+
+def test_k6_first_design_matches_plain_and_path(si_big):
+    """K6's first design (reached through _moments_first / _forces_first)
+    and the path's kernels on the same tiles and adjoints: each within
+    twice the plain float32 version's error against float64, and the two
+    within that of each other."""
+    sys, pos, h = si_big
+    ff = sys.ff
+    B, C = pos.shape[0], ff.n_bricks
+    tiles = SWB.pack_bricks(pos, ff.slot_ids)
+    hh, ih = SWB.boxes(h, (B,), torch.float32, pos.device)
+    cnt = torch.empty((B, C, SWB.TILE), dtype=torch.int32, device=pos.device)
+    lst = torch.empty((B, C, SWB.LIST_CAP, SWB.TILE), dtype=torch.int32, device=pos.device)
+    mom = SWB._launch_moments(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, (cnt, lst))
+    before = (SWB._moments_first.launches, SWB._forces_first.launches)
+    mom_f = SWB._moments_first(ff.sw, tiles, ff.nbr, ff.valid, hh, ih)
+    adj = SWB.adjoints(ff.sw, mom)
+    ov = torch.zeros(1, dtype=torch.int32, device=pos.device)
+    fo = SWB._launch_forces(ff.sw, tiles, adj, ff.nbr, ff.valid, hh, ih, cnt, lst, ov)
+    fo_f = SWB._forces_first(ff.sw, tiles, adj, ff.nbr, ff.valid, hh, ih)
+    torch.cuda.synchronize()
+    assert (SWB._moments_first.launches, SWB._forces_first.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert int(ov) == 0 and int(cnt.max()) <= SWB.LIST_CAP
+    m64 = SWB.sw_moments_plain(ff.sw, tiles.double(), ff.nbr, ff.valid, hh.double(), ih.double())
+    mp = SWB.sw_moments_plain(ff.sw, tiles, ff.nbr, ff.valid, hh, ih)
+    f64 = SWB.sw_forces_plain(ff.sw, tiles.double(), adj.double(), ff.nbr, ff.valid,
+                              hh.double(), ih.double())
+    fp = SWB.sw_forces_plain(ff.sw, tiles, adj, ff.nbr, ff.valid, hh, ih)
+    for k, kf, p_, r64 in ((mom, mom_f, mp, m64), (fo, fo_f, fp, f64)):
+        tol = 2 * _rel(p_, r64) + 1e-6
+        assert _rel(k, r64) <= tol and _rel(kf, r64) <= tol and _rel(k, kf) <= tol
+
+
+def test_k6c_overflow_path_matches_plain(si_big):
+    """A live-list cap of 2 sends most slots through the forces kernel's
+    stencil sweep: counted in sw_forces_bricks.overflow, and forces, energy
+    and virial within twice the plain float32 version's error against
+    float64 (+1e-6)."""
+    sys, pos, h = si_big
+    ff = sys.ff
+    args = (ff.sw, ff.slot_ids, ff.nbr, ff.valid)
+    F, e, W = SWB.sw_forces_bricks(args[0], pos, h, *args[1:], atom_slot=ff.atom_slot, cap=2)
+    torch.cuda.synchronize()
+    assert int(SWB.sw_forces_bricks.overflow) > 0
+    Fp, ep, Wp = SWB.sw_forces_bricks(args[0], pos, h, *args[1:], plain=True, cap=2)
+    F64, e64, W64 = SWB.sw_forces_bricks(args[0], pos.double(), h.double(), *args[1:],
+                                         plain=True)
+    assert torch.isfinite(F).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(e, e64) <= 2 * _rel(ep, e64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+
+
+def test_k6_kernels_fit_eight_blocks_per_sm():
+    """The path's K6 moments and forces kernels hold <= 64 registers and at
+    least eight 128-thread blocks per SM (__launch_bounds__(128, 8))."""
+    _device()
+    for which in ("moments", "forces"):
+        info = SWB.kernel_info(which)
+        assert info["registers"] <= 64 and info["blocks_per_sm"] >= 8, (which, info)
 
 
 @pytest.mark.parametrize("q", [0.0, 0.5])

@@ -20,6 +20,14 @@ against the JAX package, float64, on the CPU.
 * The numpy structure builders equal JAX's; the brick structure and
   constants come across through ``interop.sw_bricks``; a box on the brick
   kernels refuses any SW family but p = 4, q = 0.
+* The path's design (the live list and chunk pruning), float64: the live
+  list equals a direct sweep (counts, slots in sweep order), the forces
+  over it equal ``sw_forces_plain`` to 1e-12 with and without overflowing
+  slots (a cap of 2), and through it K6c equals JAX's interpret mode to
+  1e-10; no live pair falls in a pruned chunk pair.  On orthorhombic,
+  tilted and drifted boxes (atoms moved up to 1.5 A after the bricks were
+  built).  The moments kernel's plain version stays ``sw_moments_plain``,
+  which the tests above hold to JAX.
 
 JAX's interpret-mode calls are made once, in a module fixture.
 """
@@ -212,3 +220,125 @@ def test_other_sw_families_are_refused():
     SWB.check_family(dataclasses.replace(TSW.SI, q=1.0), general_q=True)  # K6a takes any q
     with pytest.raises(NotImplementedError, match="p = 4, q = 0"):
         TM.build_system(TM.MaterialSpec(name="si", use_pallas_bricks=True, sw=p6), device="cpu")
+
+
+def _drifted(cells: int, tilt: float, drift: float, seed: int):
+    """A box whose bricks were built before its atoms moved: positions up
+    to ``drift`` A (each axis) from the ones the structure was built on,
+    and the box tilted (xy = tilt, xz = tilt / 2) afterwards."""
+    pos, h = _box(cells, seed=seed)
+    sl, nb, va = SWB.brick_structure(pos, h, TSW.SI.cutoff)
+    rng = np.random.default_rng(seed + 100)
+    pos = pos + rng.uniform(-drift, drift, pos.shape)
+    h = h.copy()
+    h[0, 1], h[0, 2] = tilt, 0.5 * tilt
+    return pos, h, (sl, nb, va)
+
+
+def _plain_inputs(pos, h, struct):
+    sl, nb, va = struct
+    tiles = SWB.pack_bricks(_t(pos)[None], torch.as_tensor(sl))
+    hh, ih = SWB.boxes(_t(h)[None], (1,), torch.float64, "cpu")
+    return tiles, torch.as_tensor(nb), torch.as_tensor(va), hh, ih
+
+
+# (cells, tilt xy in A, drift in A): orthorhombic, tilted, drifted and both
+LIST_BOXES = [(3, 0.0, 0.0), (3, 0.8, 0.0), (3, 0.0, 1.5), (4, 0.6, 1.0)]
+
+
+@pytest.mark.parametrize("cells,tilt,drift", LIST_BOXES)
+def test_live_list_is_the_sweep_in_order(cells, tilt, drift):
+    """Each slot's count and listed slots equal a direct sweep of its
+    stencil: entries in list order, lanes ascending, every occupied slot
+    of the entry's tile but itself within rc2 by the minimum image."""
+    pos, h, struct = _drifted(cells, tilt, drift, seed=cells)
+    tiles, nb, va, hh, ih = _plain_inputs(pos, h, struct)
+    count, lst = SWB.live_list_plain(TSW.SI, tiles, nb, va, hh, ih, cap=SWB.LIST_CAP)
+    rc2 = SWB.sw_consts(TSW.SI)["rc2"]
+    x = tiles[0, :, :3].transpose(1, 2).numpy()  # (C, 128, 3)
+    occ = tiles[0, :, 3].numpy() > 0.5
+    hn, ihn = hh[0].numpy(), ih[0].numpy()
+    for c in range(x.shape[0]):
+        want = [[] for _ in range(SWB.TILE)]
+        for e in range(nb.shape[1]):
+            if not va[c, e]:
+                continue
+            b = int(nb[c, e])
+            d = x[b][None, :, :] - x[c][:, None, :]
+            s = d @ ihn.T
+            d = (s - np.round(s)) @ hn.T
+            live = occ[c][:, None] & occ[b][None, :] & ((d * d).sum(-1) < rc2)
+            if b == c:
+                np.fill_diagonal(live, False)
+            for i in range(SWB.TILE):
+                want[i] += [b * SWB.TILE + j for j in np.nonzero(live[i])[0]]
+        for i in range(SWB.TILE):
+            n = len(want[i])
+            assert int(count[0, c, i]) == n
+            got = lst[0, c, :, i].tolist()
+            assert got[:min(n, SWB.LIST_CAP)] == want[i][:SWB.LIST_CAP]
+            assert all(v == -1 for v in got[n:])
+    assert int(count.max()) < SWB.LIST_CAP  # the cap's headroom on these boxes
+
+
+@pytest.mark.parametrize("cap", [SWB.LIST_CAP, 2])
+@pytest.mark.parametrize("cells,tilt,drift", LIST_BOXES)
+def test_forces_over_the_list_equal_the_sweep(cells, tilt, drift, cap):
+    """K6c's plain version over the live list (a slot past ``cap`` sweeping
+    the stencil) equals the first design's stencil sweep to 1e-12."""
+    pos, h, struct = _drifted(cells, tilt, drift, seed=cells)
+    tiles, nb, va, hh, ih = _plain_inputs(pos, h, struct)
+    mom = SWB.sw_moments_plain(TSW.SI, tiles, nb, va, hh, ih)
+    adj = SWB.adjoints(TSW.SI, mom)
+    count, lst = SWB.live_list_plain(TSW.SI, tiles, nb, va, hh, ih, cap=cap)
+    over = int((count > cap).sum())
+    assert (over > 0) == (cap == 2)
+    got = SWB.sw_forces_list_plain(TSW.SI, tiles, adj, count, lst, nb, va, hh, ih)
+    want = SWB.sw_forces_plain(TSW.SI, tiles, adj, nb, va, hh, ih)
+    assert rel_err(np64(got), np64(want)) < 1e-12
+    F, _, W = SWB.sw_forces_bricks(TSW.SI, _t(pos), _t(h), *struct, cap=cap)
+    assert int(SWB.sw_forces_bricks.overflow) == over
+    Er, Fr, Wr = _list_reference(pos, h)
+    assert rel_err(np64(F), Fr) < 1e-10 and rel_err(np64(W), Wr) < 1e-9
+
+
+@pytest.mark.parametrize("key", ["216", "tilted"])
+def test_k6c_over_an_overflowing_list_matches_interpret(jax_runs, key):
+    """Through the list with most slots past a cap of 2, K6c still equals
+    JAX's interpret-mode kernel (the 216-atom box; the tilted one against
+    JAX's list energy, as test_tilted_box_reference_fault)."""
+    r = jax_runs[key]
+    F, E, W = SWB.sw_forces_bricks(TSW.SI, _t(r["pos"]), _t(r["h"]), *r["struct"], cap=2)
+    assert int(SWB.sw_forces_bricks.overflow) > 0
+    if key == "216":
+        jF, jE, jW = r["fev"]
+        assert rel_err(np64(F), jF) < 1e-10
+        assert abs(float(E) - float(jE)) <= 1e-10 * abs(float(jE))
+        assert rel_err(np64(W), _voigt(jW)) < 1e-9
+    else:
+        Er, Fr, _ = _list_reference(r["pos"], r["h"])
+        assert rel_err(np64(F), Fr) < 1e-10 and abs(float(E) - Er) <= 1e-10 * abs(Er)
+
+
+@pytest.mark.parametrize("tilt,drift", [(0.0, 0.0), (2.0, 0.0), (1.0, 1.5)])
+def test_no_live_pair_in_a_pruned_chunk_pair(tilt, drift):
+    """On the slice's 4096-atom box (48 bricks), orthorhombic, tilted and
+    drifted: the sphere test prunes chunk pairs, and every pair of slots in
+    a pruned chunk pair is dead (at least rc apart by the minimum image)."""
+    pos, h, struct = _drifted(8, tilt, drift, seed=8)
+    tiles, nb, va, hh, ih = _plain_inputs(pos, h, struct)
+    sph = SWB.chunk_spheres_plain(tiles, hh, ih)
+    rc = SWB.sw_consts(TSW.SI)["rc"]
+    pruned = SWB.pruned_chunks_plain(sph, nb, va, hh, ih, rc)[0]  # (C, K, 4, 4)
+    assert 0.1 < float(pruned.double().mean()) < 0.9
+    C, W = tiles.shape[1], SWB.TILE // SWB.CHUNK
+    ti = tiles[0]
+    for e in range(nb.shape[1]):
+        b = nb[:, e].long()
+        d = SWB._min_image([ti[b, a][:, None, :] - ti[:, a, :, None] for a in range(3)],
+                           hh.expand(C, 3, 3), ih.expand(C, 3, 3))
+        r2 = (d[0] ** 2 + d[1] ** 2 + d[2] ** 2).reshape(C, W, SWB.CHUNK, W, SWB.CHUNK)
+        both = ((ti[:, 3] > 0.5).reshape(C, W, SWB.CHUNK, 1, 1)
+                & (ti[b, 3] > 0.5).reshape(C, 1, 1, W, SWB.CHUNK))
+        closest = torch.where(both, r2, torch.full_like(r2, float("inf"))).amin((2, 4))
+        assert bool((closest[pruned[:, e]] >= rc * rc).all()), e
