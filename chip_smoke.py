@@ -1640,7 +1640,8 @@ def phase_k6(dev):
         hb, ib = SWB.boxes(ht, (12,), torch.float32, dev)
         cnt = torch.empty((12, C, 128), dtype=torch.int32, device=dev)
         lst = torch.empty((12, C, SWB.LIST_CAP, 128), dtype=torch.int32, device=dev)
-        mom_n = SWB._launch_moments(sw, tl, ff.nbr, ff.valid, hb, ib, (cnt, lst))
+        sph = torch.empty((12, C, 4, 4), dtype=torch.float32, device=dev)
+        mom_n = SWB._launch_moments(sw, tl, ff.nbr, ff.valid, hb, ib, (cnt, lst), sph)
         mom_f = SWB._moments_first(sw, tl, ff.nbr, ff.valid, hb, ib)
         adj = SWB.adjoints(sw, mom_n)
         ov = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1649,13 +1650,24 @@ def phase_k6(dev):
         fo_p = SWB.sw_forces_plain(sw, tl, adj, ff.nbr, ff.valid, hb, ib)
         fo_64 = SWB.sw_forces_plain(sw, tl.double(), adj.double(), ff.nbr, ff.valid, hb.double(),
                                     ib.double())
-        # the overflow path: a cap of 2 sends most slots to the stencil sweep
-        Fo, Eo, Wo = SWB.sw_forces_bricks(sw, p12, ht, *sl, atom_slot=ff.atom_slot, cap=2)
-        n_over = int(SWB.sw_forces_bricks.overflow)
+        # the overflow path: a list of 2 per slot sends most slots to the
+        # forces kernel's stencil sweep
+        cnt2 = torch.empty((12, C, 128), dtype=torch.int32, device=dev)
+        lst2 = torch.empty((12, C, 2, 128), dtype=torch.int32, device=dev)
+        SWB._launch_moments(sw, tl, ff.nbr, ff.valid, hb, ib, (cnt2, lst2))
+        ov2 = torch.zeros(1, dtype=torch.int32, device=dev)
+        fo_o = SWB._launch_forces(sw, tl, adj, ff.nbr, ff.valid, hb, ib, cnt2, lst2, ov2)
         torch.cuda.synchronize()
+        n_over = int(ov2)
+        # the kernel's lists and spheres against their plain models (float64
+        # on the same tiles; a pair within 1e-4 of rc2 may go either way)
+        l_bad, l_margin = SWB.live_list_errors(sw, tl, ff.nbr, ff.valid, hb, ib, cnt, lst)
+        l2_bad, _ = SWB.live_list_errors(sw, tl, ff.nbr, ff.valid, hb, ib, cnt2, lst2)
+        d_sph = float((sph.double() - SWB.chunk_spheres_plain(tl.double(), hb.double(),
+                                                              ib.double())).abs().max())
         mf, ff_rel = _rel(mom_f, mom64.reshape(mom_f.shape)), _rel(fo_f, fo_64)
         fn_rel, fp_rel = _rel(fo_n, fo_64), _rel(fo_p, fo_64)
-        fko, wko = _rel(Fo, F64), _rel(Wo, W64)
+        fo_rel = _rel(fo_o, fo_64)
         d_mom = float((mom_n - mom_f).abs().max())
         d_frc = float((fo_n - fo_f).abs().max())
         print(f"[13 K6 designs] tilt {tilt}: first design rel error vs float64: moments "
@@ -1663,10 +1675,18 @@ def phase_k6(dev):
               f"max |path - first design|: moments {d_mom:.3e}, forces on the same adjoints "
               f"{d_frc:.3e} (bit for bit: {d_mom == 0.0 and d_frc == 0.0}); live list max "
               f"{int(cnt.max())} of cap {SWB.LIST_CAP}, {int(ov)} slots over; cap 2: {n_over} "
-              f"slots swept the stencil, forces {fko:.3e} / virial {wko:.3e} vs float64")
+              f"slots swept the stencil (of {int((cnt2 > 2).sum())} past 2), forces channels "
+              f"{fo_rel:.3e} vs float64")
+        print(f"[13 K6 list check] tilt {tilt}: kernel's live list vs the float64 sweep: "
+              f"{l_bad} violations at cap {SWB.LIST_CAP}, {l2_bad} at cap 2 ({l_margin} listed "
+              f"pairs within 1e-4 of rc2); spheres vs chunk_spheres_plain max abs {d_sph:.3e} A "
+              f"(tol 1e-3, the test's margin {SWB.PRUNE_MARGIN})")
         if (mf > 2 * mp + 1e-6 or ff_rel > 2 * fp_rel + 1e-6 or fn_rel > 2 * fp_rel + 1e-6
-                or fko > 2 * fp + 1e-6 or wko > 2 * wp + 1e-6 or n_over == 0 or int(ov) != 0):
+                or fo_rel > 2 * fp_rel + 1e-6 or n_over == 0 or n_over != int((cnt2 > 2).sum())
+                or int(ov) != 0):
             fail(f"K6 designs or the overflow path break the rule (tilt {tilt})")
+        if l_bad or l2_bad or not d_sph < 1e-3:
+            fail(f"K6's live list or spheres disagree with their plain models (tilt {tilt})")
 
     # K6a (all tile pairs, general q: q = 0 and q = 0.5) and K6b (tile
     # adjacency) on the same box's consecutive-atom tiles
@@ -1710,23 +1730,27 @@ def phase_k6(dev):
     hhJ, ihJ = SWB.boxes(hJ, (J,), torch.float32, dev)
     cntJ = torch.empty((J, C, 128), dtype=torch.int32, device=dev)
     lstJ = torch.empty((J, C, SWB.LIST_CAP, 128), dtype=torch.int32, device=dev)
-    momJ = SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ, (cntJ, lstJ))
+    sphJ = torch.empty((J, C, 4, 4), dtype=torch.float32, device=dev)
+    momJ = SWB._launch_moments(sw, tilesJ, ff.nbr, ff.valid, hhJ, ihJ, (cntJ, lstJ), sphJ)
     adjJ = SWB.adjoints(sw, momJ)
     ovJ = torch.zeros(1, dtype=torch.int32, device=dev)
     SWB._launch_forces(sw, tilesJ, adjJ, ff.nbr, ff.valid, hhJ, ihJ, cntJ, lstJ, ovJ)
-    sph = SWB.chunk_spheres_plain(tilesJ[:1], hhJ[:1], ihJ[:1])
-    pruned = SWB.pruned_chunks_plain(sph, ff.nbr, ff.valid, hhJ[:1], ihJ[:1],
+    # the share of candidates the sphere test rules out, on the kernel's spheres
+    pruned = SWB.pruned_chunks_plain(sphJ[:1], ff.nbr, ff.valid, hhJ[:1], ihJ[:1],
                                      SWB.sw_consts(sw)["rc"])
     share = k6_pruned_share(tilesJ[:1], ff.nbr, ff.valid, pruned)
+    lJ_bad, _ = SWB.live_list_errors(sw, tilesJ[:2], ff.nbr, ff.valid, hhJ[:2], ihJ[:2],
+                                     cntJ[:2], lstJ[:2])
     tri = bool((hhJ[:, [1, 2, 2], [0, 0, 1]] == 0).all() and (ihJ[:, [1, 2, 2], [0, 0, 1]] == 0)
                .all())
     torch.cuda.synchronize()
     print(f"[13 K6 list] {J} jobs: live list max {int(cntJ.max())} (mean "
           f"{float(cntJ[tilesJ[:, :, 3] > 0.5].double().mean()):.2f}) of cap {SWB.LIST_CAP}, "
-          f"{int(ovJ)} slots over; the sphere test rules out {100 * share:.2f}% of the occupied "
-          f"stencil candidates; upper-triangular h and h^-1 (the 6-FMA image): {tri}")
-    if int(ovJ) != 0:
-        fail("K6: slots of the prepared box overflowed the live list")
+          f"{int(ovJ)} slots over, {lJ_bad} violations against the float64 sweep (2 jobs); "
+          f"the sphere test on the kernel's spheres rules out {100 * share:.2f}% of the "
+          f"occupied stencil candidates; upper-triangular h and h^-1 (the 6-FMA image): {tri}")
+    if int(ovJ) != 0 or lJ_bad:
+        fail("K6: slots of the prepared box overflowed the live list, or it missed the sweep")
     slot_bytes = 4.0 * J * C * 128
     list_bytes = 4.0 * J * (C * 128 + 2 * live)  # counts and the live pairs' slots
     t = {}

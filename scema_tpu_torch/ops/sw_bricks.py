@@ -12,15 +12,18 @@ The port of ``scema_tpu/ops/sw_pallas.py``.  Two hand-written CUDA kernels
   27-stencil, :func:`sw_moments_adj` (K6b) on a bounding-sphere tile
   adjacency, and :func:`sw_moments` (K6a) over all tile pairs with the
   general (sig/r)^q term.  Inside the force call it also writes the live
-  list: each slot's live neighbour slots in sweep order, up to ``cap``, and
-  their count (plain version :func:`live_list_plain`).  It skips 32-slot
-  chunk pairs that a bounding-sphere test rules out
+  list: each slot's live neighbour slots in sweep order, up to
+  ``LIST_CAP``, and their count (plain model :func:`live_list_plain`; the
+  checks hold the kernel's list to it with :func:`live_list_errors`).  It
+  skips 32-slot chunk pairs that a bounding-sphere test rules out
   (:func:`chunk_spheres_plain`, :func:`pruned_chunks_plain`);
 * the forces kernel (K6c, :func:`sw_forces_bricks`) — each slot's adjoint
   pair forces in both roles and role 1's w (x) d virial channels over its
-  live list (a slot past ``cap`` sweeps the stencil), from the per-atom
+  live list (a slot past the cap sweeps the stencil), from the per-atom
   adjoints that torch computes between the two launches, as JAX does in
-  jnp (sw_pallas.py:550-561); plain version :func:`sw_forces_list_plain`.
+  jnp (sw_pallas.py:550-561); plain version :func:`sw_forces_plain`, and
+  over a given list :func:`sw_forces_list_plain`, the model the checks
+  time and hold the list's design to.
 
 The first design of both kernels (a stencil sweep per kernel) stays built
 for the checks, reached only through :func:`_moments_first` and
@@ -45,6 +48,7 @@ tile-pair lists nbr, valid (C, K) are int32 and shared by every job.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import itertools
 
 import numpy as np
@@ -503,6 +507,59 @@ def pruned_chunks_plain(sph, nbr, valid, hh, ih, rc: float) -> torch.Tensor:
             & valid.bool()[None, :, :, None, None])
 
 
+def live_list_errors(sw, tiles, nbr, valid, hh, ih, count, lst, rtol: float = 1e-4):
+    """Holds a kernel's live list (count (B, C, 128), slots (B, C, cap,
+    128) of float32 tiles (B, C, 4, 128)) to the plain sweep in float64,
+    forgiving only pairs whose r^2 lies within ``rtol`` of rc2, where the
+    float32 geometry may decide either way.  With lo, hi = rc2 (1 -/+
+    rtol): each slot's count lies between its pairs below lo and below hi;
+    its first min(count, cap) listed slots are distinct pairs below hi;
+    and, where count <= cap, they hold every pair below lo.  Returns
+    (violations, listed pairs within the margin)."""
+    dev = tiles.device
+    B, C = tiles.shape[:2]
+    t64, h64, i64 = tiles.double(), hh.double(), ih.double()
+    rc2 = sw_consts(sw)["rc2"]
+    # the sweep at hi (rc scaled through a), with every pair listed
+    sw_hi = dataclasses.replace(sw, a=float(sw.a) * (1.0 + rtol) ** 0.5)
+    cnt_u = live_list_plain(sw_hi, t64, nbr, valid, h64, i64, cap=1)[0]
+    cap_u = max(int(cnt_u.max()), 1)
+    cnt_u, lst_u = live_list_plain(sw_hi, t64, nbr, valid, h64, i64, cap=cap_u)
+
+    def r2_of(c, ls):  # r^2 of each listed pair (B, C, k, 128), inf past the count
+        k = ls.shape[-2]
+        listed = torch.arange(k, device=dev)[:, None] < c[:, :, None, :].long()
+        idx = torch.where(listed, ls.long(), 0).clamp(0, C * TILE - 1).reshape(B, -1)
+        d = [torch.gather(t64[:, :, a, :].reshape(B, C * TILE), 1, idx).reshape(B, C, k, TILE)
+             - t64[:, :, None, a, :] for a in range(3)]
+        d = _min_image(d, h64, i64)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        return listed, torch.where(listed, r2, torch.full_like(r2, float("inf")))
+
+    cap = lst.shape[-2]
+    shown = torch.minimum(count, torch.full_like(count, cap))
+    listed_k, r2_k = r2_of(shown, lst)
+    listed_u, r2_u = r2_of(cnt_u, lst_u)
+    strict = r2_u < rc2 * (1.0 - rtol)
+    bad = int(((count < strict.sum(2)) | (count > cnt_u)).sum())
+    # pairs as keys (job, slot, neighbour slot)
+    slot = (torch.arange(B * C * TILE, device=dev).reshape(B, C, 1, TILE)) * (C * TILE)
+
+    def keys(ls, sel):
+        return (slot + ls.long()).expand(sel.shape)[sel]
+
+    k_keys = keys(lst, listed_k)
+    u_keys = keys(lst_u, listed_u)
+    bad += int(k_keys.numel() - torch.unique(k_keys).numel())  # repeats
+    bad += int((listed_k & ((lst < 0) | (lst >= C * TILE))).sum())  # not a slot
+    bad += int((~torch.isin(k_keys, u_keys)).sum())  # listed, not below hi
+    whole = (count <= cap)[:, :, None, :]
+    s_keys = keys(lst_u, strict & whole)
+    bad += int((~torch.isin(s_keys, k_keys)).sum())  # below lo, not listed
+    margin = int((listed_k & (r2_k >= rc2 * (1.0 - rtol))).sum())
+    return bad, margin
+
+
 def adjoints(sw, mom: torch.Tensor) -> torch.Tensor:
     """Per-atom three-body adjoints from the moments (..., C, 12, 128):
     A_s = lam eps c0^2 s, A_gsq = -(lam eps / 2)(1 - c0)^2, A_m = -2 lam eps
@@ -571,15 +628,18 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch_moments(sw, tiles, nbr, valid, hh, ih, lists=None) -> torch.Tensor:
+def _launch_moments(sw, tiles, nbr, valid, hh, ih, lists=None, sph=None) -> torch.Tensor:
     """The path's moments kernel (after the sphere pass) on tiles
     (B, C, 4, 128); with ``lists`` = (count (B, C, 128), slots (B, C, cap,
-    128)), int32, it writes the live list into them."""
+    128)), int32, it writes the live list into them, and the sphere pass
+    writes the chunks' spheres into ``sph`` (B, C, 4, 4) float32 when given
+    (the checks hold both to their plain versions)."""
     B, C = tiles.shape[:2]
     out = torch.empty((B, C, NMOM, TILE), dtype=torch.float32, device=tiles.device)
     if B * C == 0:
         return out
-    sph = torch.empty((B, C, TILE // CHUNK, 4), dtype=torch.float32, device=tiles.device)
+    if sph is None:
+        sph = torch.empty((B, C, TILE // CHUNK, 4), dtype=torch.float32, device=tiles.device)
     count, lst = lists if lists is not None else (None, None)
     k = _swk(sw)
     rc = _build.library().sw_moments_list_f32(
@@ -722,30 +782,27 @@ def sw_energy_bricks(sw, pos: torch.Tensor, h: torch.Tensor, slot_ids, nbr, vali
 
 
 def sw_forces_bricks(sw, pos: torch.Tensor, h: torch.Tensor, slot_ids, nbr, valid,
-                     atom_slot: torch.Tensor | None = None, plain: bool = False,
-                     cap: int = LIST_CAP):
+                     atom_slot: torch.Tensor | None = None, plain: bool = False):
     """K6c: forces, energy and potential virial on the brick structure
     (sw_forces_pallas_bricks, :541-604): K6d's moments and live list
     (counted on :func:`sw_moments_bricks`), the adjoints in torch, then the
-    forces kernel over the list (``cap`` entries per slot; a slot past it
-    sweeps the stencil, and ``sw_forces_bricks.overflow``, a (1,) int32
-    tensor on the call's device, holds the count of such slots).  Returns
-    (F (..., N, 3), E (...), W (..., 6) Voigt [xx yy zz xy xz yz], W =
-    -sym(sum over ordered pairs of w (x) d)).  Each atom owns one slot, so
-    the slot forces come back by a gather (``atom_slot`` (N,): each atom's
-    flat slot, derived from ``slot_ids`` when not given) where JAX
-    scatter-adds."""
+    forces kernel over the list (``LIST_CAP`` entries per slot; a slot past
+    it sweeps the stencil, and on the card ``sw_forces_bricks.overflow``, a
+    (1,) int32 tensor, holds the count of such slots; None after the plain
+    version, :func:`sw_forces_plain`).  Returns (F (..., N, 3), E (...), W
+    (..., 6) Voigt [xx yy zz xy xz yz], W = -sym(sum over ordered pairs of
+    w (x) d)) by :func:`_fev`."""
     check_family(sw)
-    n = pos.shape[-2]
-    lead = tuple(pos.shape[:-2])
     slots = torch.as_tensor(slot_ids, device=pos.device)
     C = slots.shape[0]
     flat = pack_bricks(pos, slots).reshape(-1, C, 4, TILE)
-    hh, ih = boxes(h, lead, pos.dtype, pos.device)
+    hh, ih = boxes(h, tuple(pos.shape[:-2]), pos.dtype, pos.device)
     nb, va = _lists(nbr, valid, C, pos.device)
+    overflow = None
     if not plain and _on_card(pos, "sw_forces_bricks"):
         count = torch.empty(flat.shape[:2] + (TILE,), dtype=torch.int32, device=pos.device)
-        lst = torch.empty(flat.shape[:2] + (cap, TILE), dtype=torch.int32, device=pos.device)
+        lst = torch.empty(flat.shape[:2] + (LIST_CAP, TILE), dtype=torch.int32,
+                          device=pos.device)
         mom = _launch_moments(sw, flat, nb, va, hh, ih, (count, lst))
         sw_moments_bricks.launches += 1
         adj = adjoints(sw, mom)
@@ -754,13 +811,21 @@ def sw_forces_bricks(sw, pos: torch.Tensor, h: torch.Tensor, slot_ids, nbr, vali
         sw_forces_bricks.launches += 1
     else:
         mom = sw_moments_plain(sw, flat, nb, va, hh, ih)
-        count, lst = live_list_plain(sw, flat, nb, va, hh, ih, cap)
-        adj = adjoints(sw, mom)
-        fout = sw_forces_list_plain(sw, flat, adj, count, lst, nb, va, hh, ih)
-        overflow = (count > cap).sum().reshape(1).to(torch.int32)
+        fout = sw_forces_plain(sw, flat, adjoints(sw, mom), nb, va, hh, ih)
     sw_forces_bricks.overflow = overflow
+    return _fev(sw, fout, mom, pos, slots, atom_slot)
+
+
+def _fev(sw, fout, mom, pos, slot_ids, atom_slot=None):
+    """(F, E, W) of :func:`sw_forces_bricks` from the forces kernel's
+    channels ``fout`` (B, C, 9, 128) and the moments ``mom`` (B, C, 12,
+    128) of pos (..., N, 3).  Each atom owns one slot, so the slot forces
+    come back by a gather (``atom_slot`` (N,): each atom's flat slot,
+    derived from ``slot_ids`` when not given) where JAX scatter-adds."""
+    n, lead = pos.shape[-2], tuple(pos.shape[:-2])
+    C = fout.shape[1]
     if atom_slot is None:
-        atom_slot = slot_map(slots, n)
+        atom_slot = slot_map(torch.as_tensor(slot_ids, device=pos.device), n)
     f_slots = fout[:, :, :3, :].transpose(-1, -2).reshape(fout.shape[0], C * TILE, 3)
     F = f_slots[:, atom_slot.to(pos.device)]
     W = -fout[:, :, 3:, :].sum((1, 3))

@@ -716,7 +716,8 @@ def test_k6_first_design_matches_plain_and_path(si_big):
     hh, ih = SWB.boxes(h, (B,), torch.float32, pos.device)
     cnt = torch.empty((B, C, SWB.TILE), dtype=torch.int32, device=pos.device)
     lst = torch.empty((B, C, SWB.LIST_CAP, SWB.TILE), dtype=torch.int32, device=pos.device)
-    mom = SWB._launch_moments(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, (cnt, lst))
+    sph = torch.empty((B, C, SWB.TILE // SWB.CHUNK, 4), dtype=torch.float32, device=pos.device)
+    mom = SWB._launch_moments(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, (cnt, lst), sph)
     before = (SWB._moments_first.launches, SWB._forces_first.launches)
     mom_f = SWB._moments_first(ff.sw, tiles, ff.nbr, ff.valid, hh, ih)
     adj = SWB.adjoints(ff.sw, mom)
@@ -727,6 +728,10 @@ def test_k6_first_design_matches_plain_and_path(si_big):
     assert (SWB._moments_first.launches, SWB._forces_first.launches) == (before[0] + 1,
                                                                          before[1] + 1)
     assert int(ov) == 0 and int(cnt.max()) <= SWB.LIST_CAP
+    # the kernel's live list and spheres against their plain models
+    assert SWB.live_list_errors(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, cnt, lst)[0] == 0
+    sph_p = SWB.chunk_spheres_plain(tiles.double(), hh.double(), ih.double())
+    assert float((sph.double() - sph_p).abs().max()) < 1e-3
     m64 = SWB.sw_moments_plain(ff.sw, tiles.double(), ff.nbr, ff.valid, hh.double(), ih.double())
     mp = SWB.sw_moments_plain(ff.sw, tiles, ff.nbr, ff.valid, hh, ih)
     f64 = SWB.sw_forces_plain(ff.sw, tiles.double(), adj.double(), ff.nbr, ff.valid,
@@ -739,22 +744,28 @@ def test_k6_first_design_matches_plain_and_path(si_big):
 
 def test_k6c_overflow_path_matches_plain(si_big):
     """A live-list cap of 2 sends most slots through the forces kernel's
-    stencil sweep: counted in sw_forces_bricks.overflow, and forces, energy
-    and virial within twice the plain float32 version's error against
-    float64 (+1e-6)."""
+    stencil sweep: counted in the overflow count, the list held to the
+    sweep, and the forces channels within twice the plain float32
+    version's error against float64 (+1e-6)."""
     sys, pos, h = si_big
     ff = sys.ff
-    args = (ff.sw, ff.slot_ids, ff.nbr, ff.valid)
-    F, e, W = SWB.sw_forces_bricks(args[0], pos, h, *args[1:], atom_slot=ff.atom_slot, cap=2)
+    B, C = pos.shape[0], ff.n_bricks
+    tiles = SWB.pack_bricks(pos, ff.slot_ids)
+    hh, ih = SWB.boxes(h, (B,), torch.float32, pos.device)
+    cnt = torch.empty((B, C, SWB.TILE), dtype=torch.int32, device=pos.device)
+    lst = torch.empty((B, C, 2, SWB.TILE), dtype=torch.int32, device=pos.device)
+    mom = SWB._launch_moments(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, (cnt, lst))
+    adj = SWB.adjoints(ff.sw, mom)
+    ov = torch.zeros(1, dtype=torch.int32, device=pos.device)
+    fo = SWB._launch_forces(ff.sw, tiles, adj, ff.nbr, ff.valid, hh, ih, cnt, lst, ov)
     torch.cuda.synchronize()
-    assert int(SWB.sw_forces_bricks.overflow) > 0
-    Fp, ep, Wp = SWB.sw_forces_bricks(args[0], pos, h, *args[1:], plain=True, cap=2)
-    F64, e64, W64 = SWB.sw_forces_bricks(args[0], pos.double(), h.double(), *args[1:],
-                                         plain=True)
-    assert torch.isfinite(F).all()
-    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
-    assert _rel(e, e64) <= 2 * _rel(ep, e64) + 1e-6
-    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    assert int(ov) == int((cnt > 2).sum()) > 0
+    assert SWB.live_list_errors(ff.sw, tiles, ff.nbr, ff.valid, hh, ih, cnt, lst)[0] == 0
+    fp = SWB.sw_forces_plain(ff.sw, tiles, adj, ff.nbr, ff.valid, hh, ih)
+    f64 = SWB.sw_forces_plain(ff.sw, tiles.double(), adj.double(), ff.nbr, ff.valid,
+                              hh.double(), ih.double())
+    assert torch.isfinite(fo).all()
+    assert _rel(fo, f64) <= 2 * _rel(fp, f64) + 1e-6
 
 
 def test_k6_kernels_fit_eight_blocks_per_sm():

@@ -24,7 +24,9 @@ against the JAX package, float64, on the CPU.
   list equals a direct sweep (counts, slots in sweep order), the forces
   over it equal ``sw_forces_plain`` to 1e-12 with and without overflowing
   slots (a cap of 2), and through it K6c equals JAX's interpret mode to
-  1e-10; no live pair falls in a pruned chunk pair.  On orthorhombic,
+  1e-10; no live pair falls in a pruned chunk pair; the check that holds
+  the card's list to the sweep (``live_list_errors``) passes the sweep's
+  list and catches a dropped pair, a dead pair and a wrong count.  On orthorhombic,
   tilted and drifted boxes (atoms moved up to 1.5 A after the bricks were
   built).  The moments kernel's plain version stays ``sw_moments_plain``,
   which the tests above hold to JAX.
@@ -296,10 +298,9 @@ def test_forces_over_the_list_equal_the_sweep(cells, tilt, drift, cap):
     got = SWB.sw_forces_list_plain(TSW.SI, tiles, adj, count, lst, nb, va, hh, ih)
     want = SWB.sw_forces_plain(TSW.SI, tiles, adj, nb, va, hh, ih)
     assert rel_err(np64(got), np64(want)) < 1e-12
-    F, _, W = SWB.sw_forces_bricks(TSW.SI, _t(pos), _t(h), *struct, cap=cap)
-    assert int(SWB.sw_forces_bricks.overflow) == over
+    F, _, W = SWB._fev(TSW.SI, got, mom, _t(pos)[None], torch.as_tensor(struct[0]))
     Er, Fr, Wr = _list_reference(pos, h)
-    assert rel_err(np64(F), Fr) < 1e-10 and rel_err(np64(W), Wr) < 1e-9
+    assert rel_err(np64(F[0]), Fr) < 1e-10 and rel_err(np64(W[0]), Wr) < 1e-9
 
 
 @pytest.mark.parametrize("key", ["216", "tilted"])
@@ -308,8 +309,14 @@ def test_k6c_over_an_overflowing_list_matches_interpret(jax_runs, key):
     JAX's interpret-mode kernel (the 216-atom box; the tilted one against
     JAX's list energy, as test_tilted_box_reference_fault)."""
     r = jax_runs[key]
-    F, E, W = SWB.sw_forces_bricks(TSW.SI, _t(r["pos"]), _t(r["h"]), *r["struct"], cap=2)
-    assert int(SWB.sw_forces_bricks.overflow) > 0
+    tiles, nb, va, hh, ih = _plain_inputs(r["pos"], r["h"], r["struct"])
+    mom = SWB.sw_moments_plain(TSW.SI, tiles, nb, va, hh, ih)
+    adj = SWB.adjoints(TSW.SI, mom)
+    count, lst = SWB.live_list_plain(TSW.SI, tiles, nb, va, hh, ih, cap=2)
+    assert int((count > 2).sum()) > 0
+    fout = SWB.sw_forces_list_plain(TSW.SI, tiles, adj, count, lst, nb, va, hh, ih)
+    F, E, W = (x[0] for x in SWB._fev(TSW.SI, fout, mom, _t(r["pos"])[None],
+                                       torch.as_tensor(r["struct"][0])))
     if key == "216":
         jF, jE, jW = r["fev"]
         assert rel_err(np64(F), jF) < 1e-10
@@ -318,6 +325,32 @@ def test_k6c_over_an_overflowing_list_matches_interpret(jax_runs, key):
     else:
         Er, Fr, _ = _list_reference(r["pos"], r["h"])
         assert rel_err(np64(F), Fr) < 1e-10 and abs(float(E) - Er) <= 1e-10 * abs(Er)
+
+
+@pytest.mark.parametrize("cap", [SWB.LIST_CAP, 2])
+@pytest.mark.parametrize("cells,tilt,drift", LIST_BOXES[1:3])
+def test_live_list_check_passes_the_sweep_and_catches_faults(cells, tilt, drift, cap):
+    """live_list_errors, which holds the card's list to the sweep, passes
+    the plain list (whole or cut at a cap of 2) and counts a dropped live
+    pair, a listed dead pair and a wrong count each as a violation."""
+    pos, h, struct = _drifted(cells, tilt, drift, seed=cells)
+    tiles, nb, va, hh, ih = _plain_inputs(pos, h, struct)
+    count, lst = SWB.live_list_plain(TSW.SI, tiles, nb, va, hh, ih, cap=cap)
+    assert SWB.live_list_errors(TSW.SI, tiles, nb, va, hh, ih, count, lst)[0] == 0
+    c, i = (int(v) for v in torch.nonzero(count[0] >= 2)[0])
+    k = min(int(count[0, c, i]), cap) - 1
+    dropped_c, dropped_l = count.clone(), lst.clone()
+    dropped_c[0, c, i] -= 1
+    dropped_l[0, c, k, i] = -1
+    d = SWB._min_image([(tiles[0, :, a] - tiles[0, c, a, i]).reshape(1, -1) for a in range(3)],
+                       hh, ih)
+    far = int(torch.argmax(d[0] ** 2 + d[1] ** 2 + d[2] ** 2))
+    dead_l = lst.clone()
+    dead_l[0, c, k, i] = far  # a slot at the far side of the box
+    wrong_c = count.clone()
+    wrong_c[0, c, i] += 1
+    for cn, ls in ((dropped_c, dropped_l), (count, dead_l), (wrong_c, lst)):
+        assert SWB.live_list_errors(TSW.SI, tiles, nb, va, hh, ih, cn, ls)[0] > 0
 
 
 @pytest.mark.parametrize("tilt,drift", [(0.0, 0.0), (2.0, 0.0), (1.0, 1.5)])
