@@ -26,27 +26,39 @@ failure exits non-zero before the result line:
    flagged qp), with every launch counter zeroed just before and read just
    after; each kernel of the path must have launched, and K1's first design
    not;
-6. K3 (fused all-pairs MD with the charged all-atom additions) against its
-   plain version on the prepared PEAA box (56 C10H22 chains, 1792 charged
-   atoms, SHAKE on C-H, PME k-space split, float32): the force + virial
-   entry at the stiffness probe's 12 boxes against float32 and float64, a
-   128-job 10-step deform chunk with SHAKE and the frozen k-space force, the
-   SHAKE residual after it, a 128-job 20-step sampling run (each job's
+6. K3 (csrc/md_k3.cu: fused all-pairs MD with the charged all-atom
+   additions, redesigned for Hopper) against its plain version on the
+   prepared PEAA box (56 C10H22 chains, 1792 charged atoms, SHAKE on C-H,
+   PME k-space split, float32): the force + virial entry at the stiffness
+   probe's 12 boxes, orthorhombic and tilted, against float32 and float64,
+   a 128-job 10-step deform chunk with SHAKE and the frozen k-space force,
+   the SHAKE residual after it, a 128-job 20-step sampling run (each job's
    pressure sums against float64), and the PME remainder's time for 128
-   jobs;
+   jobs; K3's first design (md_kernel.cuh) on the same force calls and
+   chunk to the same rules, and timed in turns with the redesign (old,
+   new, new, old); each design step built as an instance of its own (the
+   levers, md_k3_levers.cu) checked on 16 jobs and timed on the chunk; the
+   registers, local (spill) bytes and blocks per SM of every instance;
+   both bounds (the tables', and the planes' in brackets);
 7. the charged slice: ``build_md_hmm(HMMConfig(), spec=PEAA,
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per step,
    float32, for 2 macro-steps, its launch counters zeroed just before and
-   read just after; K2 and K3 must have launched;
-8. K4 (the gather-list pair loop, which also stands for the TPU's streamed
-   job-grid form K4s) against its plain version on the prepared PEAA2240
-   box (70 C10H22 chains, 2240 charged atoms, K ~ 1112 list slots, SHAKE,
-   PME split, float32): the force + virial entry on 12 boxes against
+   read just after; K2 and K3 must have launched, no first design;
+8. K4 (csrc/md_k4.cu: the compact-list pair loop, redesigned for Hopper,
+   which also stands for the TPU's streamed job-grid form K4s) against its
+   plain version on the prepared PEAA2240 box (70 C10H22 chains, 2240
+   charged atoms, K ~ 1112 list slots, SHAKE, PME split, float32): the
+   force + virial entry on 12 boxes, orthorhombic and tilted, against
    float32 and float64, a 16-job 10-step deform chunk with SHAKE and the
    frozen k-space force against float32 and float64, the SHAKE residual
    after it, 20-step sampling pressure sums per job against float64, no
-   list row full; the kernel's and the plain version's times on a 128-job
-   10-step chunk, the neighbor build's time for 128 jobs, and K3's
+   list row full; K4's first design (md_kernel.cuh over the seven
+   channels) to the same rules and in turns with the redesign on a 128-job
+   10-step chunk and on the force entry, the list rebuild (compact pack
+   against the seven channels) in turns, the compact list's live-slot
+   statistics, each design step (md_k4_levers.cu) checked on 16 jobs and
+   timed, the instances' registers, spills and blocks per SM, both bounds
+   (4 B per live slot, and the seven channels' in brackets), and K3's
    all-pairs time on the same 2240-atom box (the all-pairs/list
    crossover; measured only, no gate changes);
 9. the MD-throughput path of the JAX package's ``bench_md_charged_bigbox``
@@ -58,7 +70,7 @@ failure exits non-zero before the result line:
 10. the coupled list slice: ``build_md_hmm(HMMConfig(), spec=PEAA2240,
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per
    step, float32, 2 macro-steps, its launch counters zeroed just before
-   and read just after; K2 and K4 must have launched;
+   and read just after; K2 and K4 must have launched, no first design;
 11. K5 (the Stillinger-Weber sweeps) against its plain version on the
    prepared 216-atom diamond-Si box (float32): the force + virial entry at
    the stiffness probe's 12 boxes against float32 and float64, a 576-job
@@ -127,9 +139,9 @@ failure exits non-zero before the result line:
    just after (v0 on K1, never on its first design).
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
-K1's first design (0) and K2 launches counted on the g0 slice, K3's on the
-charged slice, K4's
-on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
+K1's first design (0) and K2 launches counted on the g0 slice, K3's and
+its first design's (0) on the charged slice, K4's and its first design's
+(0) on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
 K1m's on phase 17's pack_jobs=2 steps, P1's on phase 18's lab runs;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
@@ -678,6 +690,71 @@ def phase_slice(dev):
     return launches
 
 
+def k34_ptxas(kernel: str):
+    """{instance: (registers, spill store bytes)} of K3's (LIST false) or
+    K4's (LIST true) kernels from the build's ptxas report, keyed by the
+    kernel's name and template arguments (empty when the library came from
+    the cache)."""
+    flag = "Lb1E" if kernel == "K4" else "Lb0E"
+    out = {}
+    for name, regs, spills in ptxas_entries():
+        m = re.search(r"(k34_\w+?_kernel)I" + flag + r"(\w*)", name)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)[:40]}>"] = (regs, spills)
+    return out
+
+
+def k34_levers(r, args, nbr, ref, ref64, what):
+    """Each design step of K3 or K4 (MF.K34_LEVERS, the charged slices' flag
+    set) on the run ``args`` against float64 by the run rule (the steps
+    that skip the bonded or SHAKE/RATTLE passes are timing instances:
+    finite only), then timed
+    on the same inputs: {step: (ms, registers, local bytes, blocks per SM)}."""
+    import torch
+
+    from scema_tpu_torch.ops import md_fused as MF
+
+    kernel = r.spec.kernel
+    pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
+    vmax = float(ref64[:, 3:].abs().max())
+    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    out = {}
+    for lever in MF.K34_LEVERS[kernel]:
+        o, _, _ = MF.k34_lever_run(r, lever, args[0][:ref.shape[0]],
+                                   *(x[:ref.shape[0]] if torch.is_tensor(x) and x.dim() else x
+                                     for x in args[1:]),
+                                   nbr={k: v[:ref.shape[0]] for k, v in nbr.items()}
+                                   if nbr else None)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            fail(f"{what} design step {lever}: non-finite state")
+        if lever not in MF.K34_TIMING_ONLY:
+            pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
+            vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+            if pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+                fail(f"{what} design step {lever}: error vs float64 {pk:.3e} A (velocities "
+                     f"{vk:.3e}) exceeds 4x plain float32 {pp:.3e} ({vp:.3e}) + 1e-4")
+    for lever in MF.K34_LEVERS[kernel]:
+        ms = cuda_ms(lambda: MF.k34_lever_run(r, lever, *args, nbr=nbr), reps=3)
+        info = MF.k34_kernel_info(kernel, lever, r.spec.n_atoms, int(r.k34_tbl.shape[0]))
+        out[lever] = (ms, info["registers"], info["local_bytes"], info["blocks_per_sm"],
+                      info["threads"])
+    return out
+
+
+def k34_ab(fns, reps: int, names=None) -> dict:
+    """The first design and the redesign in turns (old, new, new, old):
+    {design: [time, time]}, device time of the kernels named in ``names``
+    per design (profiler) or, without, CUDA events per call."""
+    t = {"first": [], "path": []}
+    for d in ("first", "path", "path", "first"):
+        t[d].append(device_ms(fns[d], reps, names[d]) if names else cuda_ms(fns[d], reps=reps))
+    return t
+
+
+K34_NAMES = {"first": ("md_forces_kernel",), "path": ("k34_forces_kernel", "k34_virial_kernel")}
+
+
 def phase_k3(dev):
     import torch
 
@@ -691,60 +768,81 @@ def phase_k3(dev):
     sys_, st = M.build_system(M.PEAA, dtype=torch.float32, device=dev)
     r = sys_.fused
     n = sys_.n_atoms
+    T = int(r.k34_tbl.shape[0])
     st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
     torch.cuda.synchronize()
     print(f"[6 K3] PEAA box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags {r.spec.flags}, "
-          f"{len(r.spec.bonded_pattern)} bonded patterns, SHAKE offsets "
-          f"{r.spec.shake_offsets}, PME mesh {sys_.ff.ewald.mesh}, build + FIRE "
-          f"{time.perf_counter() - t0:.2f}s")
+          f"{len(r.spec.bonded_pattern)} bonded patterns (reach {MF.pattern_reach(r.spec.bonded_pattern)}), "
+          f"SHAKE offsets {r.spec.shake_offsets}, PME mesh {sys_.ff.ewald.mesh}, {T} types, "
+          f"window +-{MF.k3_window(r)}, build + FIRE {time.perf_counter() - t0:.2f}s")
     r64 = r.to(dev, torch.float64)
 
-    # force + virial entry at the stiffness probe's 12 deformed boxes
+    # force + virial entry at the stiffness probe's 12 deformed boxes, and
+    # on the same boxes tilted (the deformed boxes' shear is +-1e-3 only)
     eps = torch.zeros((12, 6), device=dev)
     for d in range(6):
         eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
         eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
     h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
     pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    ht = h12.clone()
+    ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 1.5, -1.0, 0.8
+    post = B.remap_affine(h12, ht, pos12)
+    forces_entry = {"path": MF.md_forces_virial, "first": MF._forces_first}
+    errs = []
+    for tag, (pp_, hh) in (("orthorhombic", (pos12, h12)), ("tilted", (post, ht))):
+        p12 = pp_.transpose(1, 2).contiguous()
+        h6 = MF.h6_of(hh)
+        Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
+        F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
+        fn = F64.norm(dim=1)
+        big = fn > 0.01 * fn.max()
+        fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+        ep = float((Fp.double() - F64).abs().max()) / fmax
+        wp = float((Wp.double() - W64).abs().max()) / wmax
+        pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+        for d, fn_ in forces_entry.items():
+            F, W = fn_(r, p12, h6)
+            torch.cuda.synchronize()
+            pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+            ek = float((F.double() - F64).abs().max()) / fmax
+            wk = float((W.double() - W64).abs().max()) / wmax
+            if (not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6
+                    or pa_k > 2 * pa_p + 1e-5):
+                fail(f"K3 forces ({d}, {tag}): kernel error vs float64 {ek:.3e} (per atom "
+                     f"{pa_k:.3e}, virial {wk:.3e}) exceeds twice the plain float32 error "
+                     f"{ep:.3e} ({pa_p:.3e}, {wp:.3e}) + 1e-6 (per atom 1e-5)")
+            if tag == "orthorhombic" and d == "path":
+                f_err = float((F - Fp).abs().max())
+            errs.append(f"{tag} {d} {ek:.3e} (per atom {pa_k:.3e}, virial {wk:.3e})")
+        errs.append(f"{tag} plain-f32 {ep:.3e} ({pa_p:.3e}, {wp:.3e})")
     p12 = pos12.transpose(1, 2).contiguous()
     h6 = MF.h6_of(h12)
-    F, W = MF.md_forces_virial(r, p12, h6)
-    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
-    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
-    torch.cuda.synchronize()
-    f_err = float((F - Fp).abs().max())
-    # per-atom relative error: |F_i - F64_i| / |F64_i| over atoms with a
-    # force above 1% of the largest
-    fn = F64.norm(dim=1)
-    big = fn > 0.01 * fn.max()
-    pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
-    ek = float((F.double() - F64).abs().max()) / fmax
-    ep = float((Fp.double() - F64).abs().max()) / fmax
-    wk = float((W.double() - W64).abs().max()) / wmax
-    wp = float((Wp.double() - W64).abs().max()) / wmax
-    if (not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6
-            or pa_k > 2 * pa_p + 1e-5):
-        fail(f"K3 forces: kernel error vs float64 {ek:.3e} (per atom {pa_k:.3e}, virial "
-             f"{wk:.3e}) exceeds twice the plain float32 error {ep:.3e} ({pa_p:.3e}, "
-             f"{wp:.3e}) + 1e-6 (per atom 1e-5)")
-    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6), reps=10)
+    fab = k34_ab({d: (lambda fn_=fn_: fn_(r, p12, h6)) for d, fn_ in forces_entry.items()}, 20,
+                 K34_NAMES)
+    ms = min(fab["path"])
     plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=2)
     f_lj, f_q = pair_fractions(pos12[:2], h12[:2], r.spec.cutoff2, r.spec.coul_cutoff2)
+    # the bytes the function needs: K3's table, charges, codes and window,
+    # the pattern rows, each box's positions in and forces + virial out;
+    # the first design's bound reads the three N x N planes in their place
+    tables = 2 * T * T + 3 * n + r.k34_win.numel()
     planes = 3 * n * n
-    fb_ms, fb_by = bound(4.0 * (planes + 16 * n + 12 * (6 * n + 12)),
+    fb_ms, fb_by = bound(4.0 * (tables + r.pat.numel() + 12 * (6 * n + 12)),
                          pair_flops(n, 12, f_lj, f_q, virial=True))
-    print(f"[6 K3 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: "
-          f"kernel {ek:.3e} plain-f32 {ep:.3e}, worst per-atom {pa_k:.3e} / {pa_p:.3e}, "
-          f"virial {wk:.3e} / {wp:.3e} (tol 2x plain + 1e-6, per atom + 1e-5)  kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}; pairs inside "
-          f"LJ {f_lj:.3f}, Coulomb {f_q:.3f})")
+    ob_ms, _ = bound(4.0 * (planes + r.pat.numel() + 12 * (6 * n + 12)),
+                     pair_flops(n, 12, f_lj, f_q, virial=True))
+    print(f"[6 K3 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64 (tol 2x "
+          f"plain + 1e-6, per atom + 1e-5): {'; '.join(errs)}  device ms (old, new, new, old): "
+          f"{turns(fab)}  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}) [the planes' "
+          f"{ob_ms:.4f}]; pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f}")
     forces_row = {"name": "md_charged_forces_virial", "route": "cuda",
-                  "source": "scema_tpu_torch/csrc/md_allpairs.cu",
+                  "source": "scema_tpu_torch/csrc/md_k3.cu",
                   "replaces": "scema_tpu/ops/md_fused.py:1850",
                   "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+    first_forces_row = dict(forces_row, name="md_charged_first_forces_virial",
+                            source=FIRST_SOURCE, ms=min(fab["first"]), bound_ms=ob_ms)
 
     # a 128-job 10-step deform chunk with SHAKE and the frozen k-space force
     J = 128
@@ -767,37 +865,59 @@ def phase_k3(dev):
     fk = Fk.transpose(1, 2).contiguous()
     args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
     out, xo, _ = MF.md_run(r, *args)
+    out1, _, _ = MF._run_first(r, *args)
     ref, _, _ = MF.md_run_plain(r, *args)
     ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(), True,
                                   False, fk.double(), g0, n_tot)
     torch.cuda.synchronize()
     p_err = float((out[:, :3] - ref[:, :3]).abs().max())
-    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
     pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
     vmax = float(ref64[:, 3:].abs().max())
-    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
     vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-        fail(f"K3 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
-             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
-    resid = shake_residual(sys_, out[:, :3].transpose(1, 2))
-    if not resid < 1e-3:
-        fail(f"K3 SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+    res = []
+    for d, o in (("path", out), ("first", out1)):
+        pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
+        vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+        if not torch.isfinite(o).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+            fail(f"K3 run ({d}): kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+                 f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+        resid = shake_residual(sys_, o[:, :3].transpose(1, 2))
+        if not resid < 1e-3:
+            fail(f"K3 ({d}) SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+        res.append(f"{d} {pk:.3e} A, velocities rel {vk:.3e}, SHAKE residual {resid:.3e}")
     pme_ms = a.elapsed_time(b)
-    run_ms = cuda_ms(lambda: MF.md_run(r, *args), reps=3)
+    rab = k34_ab({"path": lambda: MF.md_run(r, *args), "first": lambda: MF._run_first(r, *args)},
+                 3)
+    run_ms = min(rab["path"])
     run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args), reps=1, warmup=0)
     pme_ms = min(pme_ms, cuda_ms(lambda: r.kspace(st.pos.expand(J, -1, -1), hJ), reps=3))
     f_lj, f_q = pair_fractions(st.pos[None], st.h[None], r.spec.cutoff2, r.spec.coul_cutoff2)
-    rb_ms, rb_by = bound(4.0 * (planes + 16 * n + r.pat.numel() + r.shk.numel()
-                                + J * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)),
+    jobs_bytes = J * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
+    rb_ms, rb_by = bound(4.0 * (tables + r.pat.numel() + r.shk.numel() + jobs_bytes),
                          pair_flops(n, J * 10, f_lj, f_q))
-    print(f"[6 K3 run] {J} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions max_abs_err vs "
-          f"plain {p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 {pp:.3e} A, "
-          f"velocities rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4); SHAKE residual "
-          f"max |r^2-d0^2|/d0^2 {resid:.3e} (tol 1e-3)  kernel {run_ms:.3f} ms  plain "
-          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}; pairs inside LJ {f_lj:.3f}, "
-          f"Coulomb {f_q:.3f})")
+    ob_ms, _ = bound(4.0 * (planes + 16 * n + r.pat.numel() + r.shk.numel() + jobs_bytes),
+                     pair_flops(n, J * 10, f_lj, f_q))
+    print(f"[6 K3 run] {J} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions max_abs_err "
+          f"vs plain {p_err:.3e} A; vs float64 (tol 4x plain + 1e-4, SHAKE 1e-3): "
+          f"{'; '.join(res)}; plain-f32 {pp:.3e} A ({vp:.3e})  kernel {run_ms:.3f} ms  plain "
+          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}) [the planes' {ob_ms:.3f}]; "
+          f"pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f}")
+    print(f"[6 K3 A/B] {J} jobs x 10 deform steps, ms (old, new, new, old): first design "
+          f"{rab['first'][0]:.3f} / {rab['first'][1]:.3f}, redesign {rab['path'][0]:.3f} / "
+          f"{rab['path'][1]:.3f}: {min(rab['first']) / run_ms:.3f}x; force entry B=12 device ms "
+          f"{min(fab['first']):.4f} / {ms:.4f}: {min(fab['first']) / ms:.3f}x")
     print(f"[6 K3 PME] k-space remainder (force) for {J} jobs: {pme_ms:.3f} ms")
+    S = 16
+    lev = k34_levers(r, args, None, ref[:S], ref64[:S], "K3")
+    print("[6 K3 levers] " + ", ".join(
+        f"{k} {v[0]:.3f} ms ({v[1]} registers, {v[2]} B local, {v[3]} block(s) per SM of "
+        f"{v[4]} threads)" for k, v in lev.items())
+        + f"  (each checked on {S} jobs; the path: two rows, {run_ms:.3f} ms)")
+    info = {e: MF.k34_kernel_info("K3", e, n, T) for e in ("run", "forces")}
+    print("[6 K3 kernels] " + "; ".join(
+        f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
+        f"blocks per SM of {x['threads']} threads" for e, x in info.items())
+        + f"; ptxas (registers, spill stores) {k34_ptxas('K3')}")
 
     # 20-step sampling: each job's pressure sums against float64
     n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
@@ -818,11 +938,43 @@ def phase_k3(dev):
           f"float64 (worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} "
           f"(tol 4x plain + 1e-4)")
     run_row = {"name": "md_charged_run", "route": "cuda",
-               "source": "scema_tpu_torch/csrc/md_allpairs.cu",
+               "source": "scema_tpu_torch/csrc/md_k3.cu",
                "replaces": "scema_tpu/ops/md_fused.py:1850",
                "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
                "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
-    return run_row, forces_row
+    first_run_row = dict(run_row, name="md_charged_first_run", source=FIRST_SOURCE,
+                         max_abs_err=float((out1[:, :3] - ref[:, :3]).abs().max()),
+                         ms=min(rab["first"]), bound_ms=ob_ms)
+    return [run_row, forces_row], [first_run_row, first_forces_row]
+
+
+def md_counters():
+    """The launch counters of the MD kernels K1, K3 and K4 (each redesign's
+    and its first design's) and of K2, by the names of the kernels line."""
+    from scema_tpu_torch.ops import md_fused as MF
+    from scema_tpu_torch.ops import pairwise_l2 as K2
+
+    return {"md_k1_run": (MF.md_run, "launches"),
+            "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
+            "md_allpairs_run": (MF._run_first, "launches"),
+            "md_allpairs_forces_virial": (MF._forces_first, "launches"),
+            "md_charged_run": (MF.md_run, "launches_k3"),
+            "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
+            "md_charged_first_run": (MF._run_first, "launches_k3"),
+            "md_charged_first_forces_virial": (MF._forces_first, "launches_k3"),
+            "md_list_run": (MF.md_run, "launches_k4"),
+            "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
+            "md_list_first_run": (MF._run_first, "launches_k4"),
+            "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
+            "pairwise_l2": (K2.pairwise_l2, "launches")}
+
+
+def first_designs_idle(launches: dict, what: str) -> None:
+    """Fail unless every first design's counter reads 0."""
+    ran = {k: v for k, v in launches.items()
+           if (k.startswith("md_allpairs") or "_first" in k) and v}
+    if ran:
+        fail(f"{what}: a first design was launched on the path: {ran}")
 
 
 def phase_charged_slice(dev):
@@ -831,16 +983,8 @@ def phase_charged_slice(dev):
     from scema_tpu_torch.config import HMMConfig
     from scema_tpu_torch.hmm.md_coupling import build_md_hmm
     from scema_tpu_torch.md import material as M
-    from scema_tpu_torch.ops import md_fused as MF
-    from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_k1_run": (MF.md_run, "launches"),
-                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
-                "md_allpairs_run": (MF._run_first, "launches"),
-                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
-                "md_charged_run": (MF.md_run, "launches_k3"),
-                "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
-                "pairwise_l2": (K2.pairwise_l2, "launches")}
+    counters = md_counters()
     cfg = HMMConfig()
     cfg = cfg.replace(dtype="float32", md_dtype="float32",
                       resources=dataclasses.replace(cfg.resources, max_md_jobs=128))
@@ -890,6 +1034,7 @@ def phase_charged_slice(dev):
     if launches["md_charged_run"] <= 0 or launches["md_charged_forces_virial"] <= 0 \
             or launches["pairwise_l2"] <= 0:
         fail(f"charged slice: a kernel of the path was not launched: {launches}")
+    first_designs_idle(launches, "charged slice")
     if max(jobs) > 128:
         fail(f"charged slice: {max(jobs)} MD jobs in a step, above the 128 cap")
     micro = state[1][0]
@@ -908,10 +1053,6 @@ def phase_charged_slice(dev):
     return launches
 
 
-def _f64(nbr):
-    return {k: v if k == "idx" else v.double() for k, v in nbr.items()}
-
-
 def phase_k4(dev):
     import torch
 
@@ -927,6 +1068,7 @@ def phase_k4(dev):
     sys_, st = M.build_system(M.PEAA2240, dtype=torch.float32, device=dev)
     r = sys_.fused
     n, K = sys_.n_atoms, r.spec.k
+    T = int(r.k34_tbl.shape[0])
     st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
     torch.cuda.synchronize()
     print(f"[8 K4] PEAA2240 box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags {r.spec.flags}, "
@@ -935,68 +1077,87 @@ def phase_k4(dev):
     r64 = r.to(dev, torch.float64)
     n_ch = len(r.channel_names)
 
-    # force + virial entry at the stiffness probe's 12 deformed boxes, on
-    # one list built at those positions
+    # force + virial entry at the stiffness probe's 12 deformed boxes, and
+    # on the same boxes tilted, each on one list built at those positions
     eps = torch.zeros((12, 6), device=dev)
     for d in range(6):
         eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
         eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
     h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
     pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    ht = h12.clone()
+    ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 1.5, -1.0, 0.8
+    post = B.remap_affine(h12, ht, pos12)
+    forces_entry = {"path": MF.md_forces_virial, "first": MF._forces_first}
+    errs = []
+    for tag, (pp_, hh) in (("orthorhombic", (pos12, h12)), ("tilted", (post, ht))):
+        p12 = pp_.transpose(1, 2).contiguous()
+        h6 = MF.h6_of(hh)
+        nb = {"path": r.channels(pp_, hh), "first": r.channels_first(pp_, hh)}
+        Fp, Wp = MF.md_forces_virial_plain(r, p12, h6, nb["path"])
+        F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double(), nb["path"])
+        fn = F64.norm(dim=1)
+        big = fn > 0.01 * fn.max()
+        fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+        ep = float((Fp.double() - F64).abs().max()) / fmax
+        wp = float((Wp.double() - W64).abs().max()) / wmax
+        pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+        for d, fn_ in forces_entry.items():
+            F, W = fn_(r, p12, h6, nbr=nb[d])
+            torch.cuda.synchronize()
+            pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+            ek = float((F.double() - F64).abs().max()) / fmax
+            wk = float((W.double() - W64).abs().max()) / wmax
+            if (not torch.isfinite(F).all() or ek > 4 * ep + 1e-6 or wk > 4 * wp + 1e-6
+                    or pa_k > 4 * pa_p + 1e-5):
+                fail(f"K4 forces ({d}, {tag}): kernel error vs float64 {ek:.3e} (per atom "
+                     f"{pa_k:.3e}, virial {wk:.3e}) exceeds 4x the plain float32 error "
+                     f"{ep:.3e} ({pa_p:.3e}, {wp:.3e}) + 1e-6 (per atom 1e-5)")
+            if tag == "orthorhombic" and d == "path":
+                f_err = float((F - Fp).abs().max())
+            errs.append(f"{tag} {d} {ek:.3e} (per atom {pa_k:.3e}, virial {wk:.3e})")
+        errs.append(f"{tag} plain-f32 {ep:.3e} ({pa_p:.3e}, {wp:.3e})")
+        if int(nb["path"]["count"].max()) >= K:
+            fail(f"K4: a list row is full ({int(nb['path']['count'].max())} of K={K})")
     p12 = pos12.transpose(1, 2).contiguous()
     h6 = MF.h6_of(h12)
-    nbr12 = r.channels(pos12, h12)
-    F, W = MF.md_forces_virial(r, p12, h6, nbr=nbr12)
-    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6, nbr12)
-    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double(), _f64(nbr12))
-    torch.cuda.synchronize()
-    f_err = float((F - Fp).abs().max())
-    fn = F64.norm(dim=1)
-    big = fn > 0.01 * fn.max()
-    pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
-    ek = float((F.double() - F64).abs().max()) / fmax
-    ep = float((Fp.double() - F64).abs().max()) / fmax
-    wk = float((W.double() - W64).abs().max()) / wmax
-    wp = float((Wp.double() - W64).abs().max()) / wmax
-    if (not torch.isfinite(F).all() or ek > 4 * ep + 1e-6 or wk > 4 * wp + 1e-6
-            or pa_k > 4 * pa_p + 1e-5):
-        fail(f"K4 forces: kernel error vs float64 {ek:.3e} (per atom {pa_k:.3e}, virial "
-             f"{wk:.3e}) exceeds 4x the plain float32 error {ep:.3e} ({pa_p:.3e}, "
-             f"{wp:.3e}) + 1e-6 (per atom 1e-5)")
-    live = nbr12["idx"] != torch.arange(n, dtype=torch.int32, device=dev)
-    fullest = int(live.sum(1).max())
-    if fullest >= K:
-        fail(f"K4: a list row is full ({fullest} live slots of K={K}): pairs may be dropped")
-    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6, nbr=nbr12), reps=10)
-    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6, nbr12), reps=2)
-    lp, lj, lq = list_pair_counts(nbr12, pos12, h12, r.spec.cutoff2, r.spec.coul_cutoff2)
-    # the bytes the list function needs: each job's list (idx and the three
-    # image channels) and, once, the job-independent coefficient planes
-    # (lj1, lj2, qq); the kernel also streams per-slot lj1/lj2/qq gathered
-    # from those planes, 7 channels in all (ch_bytes per job)
-    list_bytes = 4.0 * 4 * K * n
-    ch_bytes = 4.0 * n_ch * K * n
-    planes = 3 * n * n
-    fb_ms, fb_by = bound(12 * (list_bytes + 4.0 * (3 * n + 6 + 3 * n + 6))
-                         + 4.0 * (planes + r.pat.numel() + 2 * n),
+    nbr12 = {"path": r.channels(pos12, h12), "first": r.channels_first(pos12, h12)}
+    fab = k34_ab({d: (lambda fn_=fn_, d=d: fn_(r, p12, h6, nbr=nbr12[d]))
+                  for d, fn_ in forces_entry.items()}, 20, K34_NAMES)
+    ms = min(fab["path"])
+    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6, nbr12["path"]), reps=2)
+    lp, lj, lq = list_pair_counts(nbr12["first"], pos12, h12, r.spec.cutoff2, r.spec.coul_cutoff2)
+    # the bytes the function needs: each box's compact list once (4 B per
+    # listed slot and its count), the type table, charges and codes, the
+    # pattern rows, positions in and forces + virial out; the first design's
+    # bound [in brackets] reads its list's index and image channels (4 x 4 B
+    # per slot of K) and the three N x N planes
+    tables = 2 * T * T + 2 * n
+    live12 = float(nbr12["path"]["count"].double().sum()) / 12
+    fb_ms, fb_by = bound(12 * 4.0 * (live12 + n + 6 * n + 6)
+                         + 4.0 * (tables + r.pat.numel()),
                          list_flops(12, lp, lj, lq, virial=True))
-    print(f"[8 K4 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: kernel "
-          f"{ek:.3e} plain-f32 {ep:.3e}, worst per-atom {pa_k:.3e} / {pa_p:.3e}, virial "
-          f"{wk:.3e} / {wp:.3e} (tol 4x plain + 1e-6, per atom + 1e-5)  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}; per box {lp:.0f} list pairs, "
-          f"{lj:.0f} inside LJ, {lq:.0f} inside Coulomb); fullest row {fullest} of K={K} slots")
+    ob_ms, _ = bound(12 * (16.0 * K * n + 4.0 * (6 * n + 6))
+                     + 4.0 * (3 * n * n + r.pat.numel() + 2 * n),
+                     list_flops(12, lp, lj, lq, virial=True))
+    print(f"[8 K4 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64 (tol 4x "
+          f"plain + 1e-6, per atom + 1e-5): {'; '.join(errs)}  device ms (old, new, new, old): "
+          f"{turns(fab)}  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}) [7 channels: "
+          f"{ob_ms:.4f}]; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, {lq:.0f} inside "
+          f"Coulomb")
     forces_row = {"name": "md_list_forces_virial", "route": "cuda",
-                  "source": "scema_tpu_torch/csrc/md_list.cu",
+                  "source": "scema_tpu_torch/csrc/md_k4.cu",
                   "replaces": "scema_tpu/ops/md_fused.py:1850",
-                  "note": "K4 gather-list branch (pair_tile :1261, gather3 :855); also K4s, "
+                  "note": "K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, "
                           "the streamed job-grid form (md_fused.py:1678): the same kernel",
                   "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+    first_forces_row = dict(forces_row, name="md_list_first_forces_virial",
+                            source="scema_tpu_torch/csrc/md_list.cu", ms=min(fab["first"]),
+                            bound_ms=ob_ms)
 
-    # a 16-job 10-step deform chunk with SHAKE and the frozen k-space force
-    # against float32 and float64
+    # the main path's chunk shape (128 jobs x 10 steps) and a 16-job
+    # subset checked against float32 and float64
     gen = torch.Generator().manual_seed(8)
     J = 128
     vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
@@ -1011,59 +1172,93 @@ def phase_k4(dev):
     g0 = torch.zeros_like(n10)
     n_tot = torch.full_like(n10, 40)
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    nbrJ = r.channels(posJ, hJ, reuse=True)
-    b.record()
-    torch.cuda.synchronize()
-    nb_ms = min(a.elapsed_time(b), cuda_ms(lambda: r.channels(posJ, hJ, reuse=True), reps=2))
+    # the rebuild: the compact pack (the path's, into the chunk loop's
+    # buffers) and the first design's seven channels, in turns
+    nb_t = k34_ab({"path": lambda: r.channels(posJ, hJ, reuse=True),
+                   "first": lambda: r.channels_first(posJ, hJ)}, 2)
     list_ms = cuda_ms(lambda: NB.build(r.nspec, posJ, hJ), reps=2)
+    nbrJ = r.channels(posJ, hJ, reuse=True)
+    chJ = r.channels_first(posJ, hJ)
     Fk, _ = r.kspace(posJ, hJ)
     fk = Fk.transpose(1, 2).contiguous()
     S = 16
-    sub = (state[:S], vxi[:S], n10[:S], fscal[:S], True, False, fk[:S], g0[:S], n_tot[:S])
+    args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
+    sub = tuple(x[:S] if torch.is_tensor(x) and x.dim() else x for x in args)
     nbrS = {k: v[:S] for k, v in nbrJ.items()}
+    chS = {k: v[:S] for k, v in chJ.items()}
     out, xo, _ = MF.md_run(r, *sub, nbr=nbrS)
+    out1, _, _ = MF._run_first(r, *sub, nbr=chS)
     ref, _, _ = MF.md_run_plain(r, *sub, nbr=nbrS)
     ref64, _, _ = MF.md_run_plain(r64, state[:S].double(), vxi[:S].double(), n10[:S],
                                   fscal[:S].double(), True, False, fk[:S].double(), g0[:S],
-                                  n_tot[:S], nbr=_f64(nbrS))
+                                  n_tot[:S], nbr=nbrS)
     torch.cuda.synchronize()
     p_err = float((out[:, :3] - ref[:, :3]).abs().max())
-    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
     pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
     vmax = float(ref64[:, 3:].abs().max())
-    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
     vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-        fail(f"K4 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
-             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
-    resid = shake_residual(sys_, out[:, :3].transpose(1, 2))
-    if not resid < 1e-3:
-        fail(f"K4 SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+    res = []
+    for d, o in (("path", out), ("first", out1)):
+        pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
+        vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+        if not torch.isfinite(o).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+            fail(f"K4 run ({d}): kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+                 f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+        resid = shake_residual(sys_, o[:, :3].transpose(1, 2))
+        if not resid < 1e-3:
+            fail(f"K4 ({d}) SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+        res.append(f"{d} {pk:.3e} A, velocities rel {vk:.3e}, SHAKE residual {resid:.3e}")
     print(f"[8 K4 run16] {S} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions "
-          f"max_abs_err vs plain {p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 "
-          f"{pp:.3e} A, velocities rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4); SHAKE "
-          f"residual max |r^2-d0^2|/d0^2 {resid:.3e} (tol 1e-3)")
+          f"max_abs_err vs plain {p_err:.3e} A; vs float64 (tol 4x plain + 1e-4, SHAKE 1e-3): "
+          f"{'; '.join(res)}; plain-f32 {pp:.3e} A ({vp:.3e})")
 
-    # the main path's chunk shape: 128 jobs x 10 steps, kernel and plain
-    args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
-    run_ms = cuda_ms(lambda: MF.md_run(r, *args, nbr=nbrJ), reps=3)
+    rab = k34_ab({"path": lambda: MF.md_run(r, *args, nbr=nbrJ),
+                  "first": lambda: MF._run_first(r, *args, nbr=chJ)}, 3)
+    run_ms = min(rab["path"])
     run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
-    lp, lj, lq = list_pair_counts({k: v[:2] for k, v in nbrJ.items()}, posJ[:2], hJ[:2],
+    lp, lj, lq = list_pair_counts({k: v[:2] for k, v in chJ.items()}, posJ[:2], hJ[:2],
                                   r.spec.cutoff2, r.spec.coul_cutoff2)
-    rb_ms, rb_by = bound(J * (list_bytes + 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3))
-                         + 4.0 * (planes + r.pat.numel() + r.shk.numel() + 2 * n),
+    cnt = nbrJ["count"].double()
+    listed = (chJ["idx"] != torch.arange(n, dtype=torch.int32, device=dev)).sum(1).double()
+    live_mean = float(cnt.mean())
+    jobs_bytes = 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
+    rb_ms, rb_by = bound(J * (4.0 * (live_mean * n + n) + jobs_bytes)
+                         + 4.0 * (tables + r.pat.numel() + r.shk.numel() + 2 * n),
                          list_flops(J * 10, lp, lj, lq))
-    stream_ms = J * 10 * ch_bytes / HBM_BPS * 1e3
+    ob_ms, _ = bound(J * (16.0 * K * n + jobs_bytes)
+                     + 4.0 * (3 * n * n + r.pat.numel() + r.shk.numel() + 2 * n),
+                     list_flops(J * 10, lp, lj, lq))
+    stream = {"path": J * 10 * 4.0 * live_mean * n, "first": J * 10 * 4.0 * n_ch * K * n}
     print(f"[8 K4 run] {J} jobs x 10 deform steps: kernel {run_ms:.3f} ms  plain "
-          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}; inputs read once: lists "
-          f"{J * list_bytes / 1e9:.3f} GB, planes {4 * planes / 1e6:.1f} MB; per box {lp:.0f} "
-          f"list pairs, {lj:.0f} inside LJ, {lq:.0f} inside Coulomb)  the kernel's {n_ch} "
-          f"channels re-read every step: {J * 10 * ch_bytes / 1e9:.2f} GB = {stream_ms:.3f} ms "
-          f"at 3.35 TB/s")
-    print(f"[8 neighbor] {J} jobs: list build + channel packing {nb_ms:.3f} ms (build alone "
-          f"{list_ms:.3f} ms), {NB.jobs_per_slice(n)} jobs per slice")
+          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}; the compact lists once "
+          f"{J * 4.0 * live_mean * n / 1e9:.3f} GB; per box {lp:.0f} list pairs, {lj:.0f} inside "
+          f"LJ, {lq:.0f} inside Coulomb) [7 channels: {ob_ms:.3f}]  slots re-read every step: "
+          f"{stream['path'] / 1e9:.2f} GB = {stream['path'] / HBM_BPS * 1e3:.3f} ms at 3.35 TB/s "
+          f"(first design's {n_ch} channels {stream['first'] / 1e9:.2f} GB = "
+          f"{stream['first'] / HBM_BPS * 1e3:.3f} ms)")
+    print(f"[8 K4 A/B] {J} jobs x 10 deform steps, ms (old, new, new, old): first design "
+          f"{rab['first'][0]:.3f} / {rab['first'][1]:.3f}, redesign {rab['path'][0]:.3f} / "
+          f"{rab['path'][1]:.3f}: {min(rab['first']) / run_ms:.3f}x; force entry B=12 device ms "
+          f"{min(fab['first']):.4f} / {ms:.4f}: {min(fab['first']) / ms:.3f}x")
+    print(f"[8 K4 list] {J} jobs: live slots per row mean {live_mean:.1f}, min "
+          f"{int(cnt.min())}, max {int(cnt.max())} of K={K}; listed (before dropping the "
+          f"excluded partners) mean {float(listed.mean()):.1f}, max {int(listed.max())}; "
+          f"dropped per row {float((listed - cnt).mean()):.2f}; inside LJ "
+          f"{2 * lj / n:.1f}, inside Coulomb {2 * lq / n:.1f} per row")
+    print(f"[8 neighbor] {J} jobs: list build + pack, ms (old, new, new, old): first design's "
+          f"seven channels {nb_t['first'][0]:.3f} / {nb_t['first'][1]:.3f}, compact "
+          f"{nb_t['path'][0]:.3f} / {nb_t['path'][1]:.3f} (build alone {list_ms:.3f} ms), "
+          f"{NB.jobs_per_slice(n)} jobs per slice")
+    lev = k34_levers(r, args, nbrJ, ref, ref64, "K4")
+    print("[8 K4 levers] " + ", ".join(
+        f"{k} {v[0]:.3f} ms ({v[1]} registers, {v[2]} B local, {v[3]} block(s) per SM of "
+        f"{v[4]} threads)" for k, v in lev.items())
+        + f"  (each checked on {S} jobs; the path {run_ms:.3f} ms)")
+    info = {e: MF.k34_kernel_info("K4", e, n, T) for e in ("run", "forces")}
+    print("[8 K4 kernels] " + "; ".join(
+        f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
+        f"blocks per SM of {x['threads']} threads" for e, x in info.items())
+        + f"; ptxas (registers, spill stores) {k34_ptxas('K4')}")
 
     # K3 all-pairs on the same box, shapes and inputs (the crossover)
     ap = MF.make_runner(sys_.ff, sys_.masses, REAL, dtype=torch.float32, device=dev,
@@ -1074,10 +1269,12 @@ def phase_k4(dev):
     k3_out, _, _ = MF.md_run(ap, *args)
     k4_out, _, _ = MF.md_run(r, *args, nbr=nbrJ)
     torch.cuda.synchronize()
+    nb_ms = min(nb_t["path"])
     print(f"[8 crossover] N={n}, {J} jobs x 10 deform steps: K3 all-pairs {k3_ms:.3f} ms, K4 list "
           f"{run_ms:.3f} ms (+ its list build {nb_ms:.3f} ms per rebuild): K4/K3 "
           f"{(run_ms + nb_ms) / k3_ms:.3f}; max |pos K3 - K4| after the chunk "
           f"{float((k3_out[:, :3] - k4_out[:, :3]).abs().max()):.3e} A")
+    del chJ
 
     # 20-step sampling at 16 jobs: each job's pressure sums against float64
     n20 = torch.full((S,), 20, dtype=torch.int32, device=dev)
@@ -1087,7 +1284,7 @@ def phase_k4(dev):
     _, _, sk = MF.md_run(r, *sargs, nbr=nbrS)
     _, _, sp = MF.md_run_plain(r, *sargs, nbr=nbrS)
     _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True,
-                                fk[:S].double(), g0[:S], one, nbr=_f64(nbrS))
+                                fk[:S].double(), g0[:S], one, nbr=nbrS)
     torch.cuda.synchronize()
     smax = s64.abs().amax(0)
     sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
@@ -1098,13 +1295,17 @@ def phase_k4(dev):
     print(f"[8 K4 sample20] {S} jobs x 20 sampling steps: per-job pressure sums rel to float64 "
           f"(worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} (tol 4x plain + 1e-4)")
     run_row = {"name": "md_list_run", "route": "cuda",
-               "source": "scema_tpu_torch/csrc/md_list.cu",
+               "source": "scema_tpu_torch/csrc/md_k4.cu",
                "replaces": "scema_tpu/ops/md_fused.py:1850",
-               "note": "K4 gather-list branch (pair_tile :1261, gather3 :855); also K4s, the "
+               "note": "K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, the "
                        "streamed job-grid form (md_fused.py:1678): the same kernel",
                "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
                "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
-    return run_row, forces_row
+    first_run_row = dict(run_row, name="md_list_first_run",
+                         source="scema_tpu_torch/csrc/md_list.cu",
+                         max_abs_err=float((out1[:, :3] - ref[:, :3]).abs().max()),
+                         ms=min(rab["first"]), bound_ms=ob_ms)
+    return [run_row, forces_row], [first_run_row, first_forces_row]
 
 
 def phase_bench(dev):
@@ -1129,9 +1330,7 @@ def phase_bench(dev):
     batch = E.run_strain(sys_, batch, eps * 0.0, 20, T, dt)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    counters = {"md_k1_run": (MF.md_run, "launches"),
-                "md_charged_run": (MF.md_run, "launches_k3"),
-                "md_list_run": (MF.md_run, "launches_k4")}
+    counters = md_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     best = float("inf")
@@ -1143,7 +1342,7 @@ def phase_bench(dev):
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     if not torch.isfinite(out.pos).all():
         fail("bench path: non-finite positions")
-    if launches["md_list_run"] <= 0 or launches["md_k1_run"] or launches["md_charged_run"]:
+    if launches["md_list_run"] <= 0 or any(v for k, v in launches.items() if k != "md_list_run"):
         fail(f"bench path: the timed runs did not go through K4 alone: {launches}")
     rate = n_jobs * sys_.n_atoms * n_steps / best
     print(f"[9 bench] md_charged_bigbox path: {n_jobs} jobs x {n_steps} run_strain steps of "
@@ -1159,18 +1358,8 @@ def phase_list_slice(dev):
     from scema_tpu_torch.config import HMMConfig
     from scema_tpu_torch.hmm.md_coupling import build_md_hmm
     from scema_tpu_torch.md import material as M
-    from scema_tpu_torch.ops import md_fused as MF
-    from scema_tpu_torch.ops import pairwise_l2 as K2
 
-    counters = {"md_k1_run": (MF.md_run, "launches"),
-                "md_k1_forces_virial": (MF.md_forces_virial, "launches"),
-                "md_allpairs_run": (MF._run_first, "launches"),
-                "md_allpairs_forces_virial": (MF._forces_first, "launches"),
-                "md_charged_run": (MF.md_run, "launches_k3"),
-                "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
-                "md_list_run": (MF.md_run, "launches_k4"),
-                "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
-                "pairwise_l2": (K2.pairwise_l2, "launches")}
+    counters = md_counters()
     cfg = HMMConfig()
     cfg = cfg.replace(dtype="float32", md_dtype="float32",
                       resources=dataclasses.replace(cfg.resources, max_md_jobs=128))
@@ -1226,6 +1415,7 @@ def phase_list_slice(dev):
     if launches["md_list_run"] <= 0 or launches["md_list_forces_virial"] <= 0 \
             or launches["pairwise_l2"] <= 0:
         fail(f"list slice: a kernel of the path was not launched: {launches}")
+    first_designs_idle(launches, "list slice")
     if max(jobs) > 128:
         fail(f"list slice: {max(jobs)} MD jobs in a step, above the 128 cap")
     micro = state[1][0]
@@ -1883,8 +2073,12 @@ def _k6_counters():
             "md_allpairs_forces_virial": (MF._forces_first, "launches"),
             "md_charged_run": (MF.md_run, "launches_k3"),
             "md_charged_forces_virial": (MF.md_forces_virial, "launches_k3"),
+            "md_charged_first_run": (MF._run_first, "launches_k3"),
+            "md_charged_first_forces_virial": (MF._forces_first, "launches_k3"),
             "md_list_run": (MF.md_run, "launches_k4"),
             "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
+            "md_list_first_run": (MF._run_first, "launches_k4"),
+            "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
             "md_sw_run": (MF.md_run, "launches_k5"),
             "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
             "sw_moments": (SWB.sw_moments, "launches"),
@@ -2528,9 +2722,9 @@ def main() -> int:
     k2 = phase_k2(dev)
     k1_rows, k1_first_design_rows = phase_k1(dev)
     launches = phase_slice(dev)
-    k3_run, k3_forces = phase_k3(dev)
+    k3_rows, k3_first_rows = phase_k3(dev)
     launches_charged = phase_charged_slice(dev)
-    k4_run, k4_forces = phase_k4(dev)
+    k4_rows, k4_first_rows = phase_k4(dev)
     phase_bench(dev)
     launches_list = phase_list_slice(dev)
     k5_run, k5_forces = phase_k5(dev)
@@ -2541,8 +2735,8 @@ def main() -> int:
     k1m = phase_k1m(dev)
     k1m["launches"] = phase_staged_slice(dev)["md_allpairs_run_multi"]
     p1 = phase_p1(dev)
-    rows = [*k1_rows, k2, k3_run, k3_forces, k4_run, k4_forces, k5_run, k5_forces,
-            *k1_first_design_rows]
+    rows = [*k1_rows, k2, *k3_rows, *k4_rows, k5_run, k5_forces, *k1_first_design_rows,
+            *k3_first_rows, *k4_first_rows]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
                 launches_list if row["name"].startswith("md_list") else

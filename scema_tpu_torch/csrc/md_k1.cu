@@ -156,97 +156,6 @@ __device__ __forceinline__ void k1_row(const K1Pair& P, int i, int j0, int j1, f
   }
 }
 
-// The chain terms anchored at atom k (md_kernel.cuh's bonded_terms on
-// float4 positions): role r's force on atom k + r into q[(3 r + a) qs + slot],
-// and with WV the term's virial into w.
-template <bool WV>
-__device__ void k1_bonded(const float* __restrict__ topo, int N, const float4* p4, float* q,
-                          int qs, int k, int slot, float w[6]) {
-  float r0[3] = {0.f, 0.f, 0.f}, r1[3] = {0.f, 0.f, 0.f};
-  float r2[3] = {0.f, 0.f, 0.f}, r3[3] = {0.f, 0.f, 0.f};
-  const bool bm = k + 1 < N && topo[T_BMASK * N + k] > 0.5f;
-  const bool am = k + 2 < N && topo[T_AMASK * N + k] > 0.5f;
-  const bool dm = k + 3 < N && topo[T_DMASK * N + k] > 0.5f;
-  if (bm || am || dm) {
-    const float4 pk = p4[k], pk1 = p4[k + 1];
-    const float b[3] = {pk1.x - pk.x, pk1.y - pk.y, pk1.z - pk.z};
-    const float r2b = b[0] * b[0] + b[1] * b[1] + b[2] * b[2];
-    if (bm) {  // E = K (r - r0)^2
-      const float rb = sqrtf(r2b);
-      const float fb = 2.f * topo[T_BK * N + k] * (rb - topo[T_BR0 * N + k]) / rb;
-      const float f0[3] = {fb * b[0], fb * b[1], fb * b[2]};
-      const float f1[3] = {-f0[0], -f0[1], -f0[2]};
-      for (int a = 0; a < 3; ++a) { r0[a] += f0[a]; r1[a] += f1[a]; }
-      if constexpr (WV) add_outer(w, f1, b);
-    }
-    if (am || dm) {
-      const float4 pk2 = p4[k + 2];
-      const float c2[3] = {pk2.x - pk1.x, pk2.y - pk1.y, pk2.z - pk1.z};
-      if (am) {  // angle (k, k+1, k+2): r1 = -b_k, r2 = b_{k+1}
-        const float d11 = r2b;
-        const float d22 = c2[0] * c2[0] + c2[1] * c2[1] + c2[2] * c2[2];
-        const float d12 = -(b[0] * c2[0] + b[1] * c2[1] + b[2] * c2[2]);
-        const float inv12 = rsqrtf(d11 * d22);
-        const float c = fminf(fmaxf(d12 * inv12, -1.f + 1e-7f), 1.f - 1e-7f);
-        const float sin_th = sqrtf(fmaxf(1.f - c * c, 1e-30f));
-        const float aE = -2.f * topo[T_AK * N + k] * (acosf(c) - topo[T_ATH0 * N + k]) / sin_th;
-        float g1[3], g2[3], fa[3], fc[3], mb[3];
-        for (int a = 0; a < 3; ++a) {
-          g1[a] = c2[a] * inv12 + c * b[a] / d11;
-          g2[a] = -b[a] * inv12 - c * c2[a] / d22;
-          fa[a] = -aE * g1[a];
-          fc[a] = -aE * g2[a];
-          mb[a] = -b[a];
-          r0[a] += fa[a];
-          r1[a] += aE * (g1[a] + g2[a]);
-          r2[a] += fc[a];
-        }
-        if constexpr (WV) {
-          add_outer(w, fa, mb);
-          add_outer(w, fc, c2);
-        }
-      }
-      if (dm) {  // OPLS dihedral (k..k+3)
-        const float4 pk3 = p4[k + 3];
-        const float b3[3] = {pk3.x - pk2.x, pk3.y - pk2.y, pk3.z - pk2.z};
-        float F0[3], F1[3], F2[3], F3[3];
-        dihedral_forces(b, c2, b3, topo[(T_DK1 + 0) * N + k], topo[(T_DK1 + 1) * N + k],
-                        topo[(T_DK1 + 2) * N + k], topo[(T_DK1 + 3) * N + k], F0, F1, F2, F3);
-        for (int a = 0; a < 3; ++a) {
-          r0[a] += F0[a]; r1[a] += F1[a]; r2[a] += F2[a]; r3[a] += F3[a];
-        }
-        if constexpr (WV) {
-          float s12[3], s123[3];
-          for (int a = 0; a < 3; ++a) {
-            s12[a] = b[a] + c2[a];
-            s123[a] = s12[a] + b3[a];
-          }
-          add_outer(w, F1, b);
-          add_outer(w, F2, s12);
-          add_outer(w, F3, s123);
-        }
-      }
-    }
-  }
-  for (int a = 0; a < 3; ++a) {
-    q[(0 * 3 + a) * qs + slot] = r0[a];
-    q[(1 * 3 + a) * qs + slot] = r1[a];
-    q[(2 * 3 + a) * qs + slot] = r2[a];
-    q[(3 * 3 + a) * qs + slot] = r3[a];
-  }
-}
-
-// The bonded role forces that land on atom i (its slot in q), in role order.
-__device__ __forceinline__ void k1_gather(const float* q, int qs, int i, int slot, float g[3]) {
-  for (int a = 0; a < 3; ++a) {
-    float acc = q[(0 * 3 + a) * qs + slot];
-    if (i >= 1) acc += q[(1 * 3 + a) * qs + slot - 1];
-    if (i >= 2) acc += q[(2 * 3 + a) * qs + slot - 2];
-    if (i >= 3) acc += q[(3 * 3 + a) * qs + slot - 3];
-    g[a] = acc;
-  }
-}
-
 // one job's shared memory: 22 N floats, the type table, the reduction
 // scratch and the NHC chain + broadcasts
 struct K1Smem {

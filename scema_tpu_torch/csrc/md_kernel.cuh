@@ -1,18 +1,25 @@
-// K1, K3, K4, K5 and K1m: fused MD — whole NVT + fix-deform or NVT +
-// virial-sampling runs of many boxes, one thread block per job (K1m: J
-// jobs per block).  The device code shared by md_allpairs.cu (K1, K3: the
-// all-pairs pair loop), md_list.cu (K4: the gather-list pair loop),
-// md_sw.cu (K5: the Stillinger-Weber sweeps) and md_multi.cu (K1m); each
-// source instantiates and exports its own side, so nvcc builds them in
-// parallel.
+// K5, K1m and the first designs of K1, K3 and K4: fused MD — whole NVT +
+// fix-deform or NVT + virial-sampling runs of many boxes, one thread block
+// per job (K1m: J jobs per block).  The device code shared by md_allpairs.cu
+// (the all-pairs pair loop: K1's and K3's first designs), md_list.cu (the
+// gather-list pair loop: K4's first design), md_sw.cu (K5: the
+// Stillinger-Weber sweeps) and md_multi.cu (K1m); each source instantiates
+// and exports its own side, so nvcc builds them in parallel.  K1, K3 and K4
+// themselves were redesigned for Hopper (md_k1.cu; md_charged.cuh with
+// md_k3.cu and md_k4.cu), which reuse the device functions here (the
+// bonded, pattern and SHAKE/RATTLE passes through a position accessor, the
+// NHC chain, the deform path, the block sums).  The first designs stay
+// built for the A/B timings and the checks only (ops/md_fused.py's
+// _run_first and _forces_first; K1m copies K1's first design per job); no
+// path of the port launches them.
 //
 // K1 replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk):
 // forces_allpairs, refresh_images, bonded_chain_forces, nhc_half, the
 // deform path _h_at / _remap_coeffs and the sampling accumulation.
 //
-// K3 is the same kernel with the charged all-atom additions of that TPU
-// kernel switched on at compile time (template flags):
+// K3's first design is the same kernel with the charged all-atom additions
+// of that TPU kernel switched on at compile time (template flags):
 //   COUL     Coulomb pair force from a dense qq plane (special-bond weights
 //            folded in): plain cutoff qq/r^3 ...
 //   EWALD    ... or LAMMPS's damped real-space Ewald form
@@ -31,9 +38,10 @@
 //            deforms along the path of the whole run.
 // K1 is the instantiation with every flag off.
 //
-// K4 is the LIST flag: the pair loop walks a fixed-width neighbor list
-// (the gather-list branch of the TPU kernel: forces -> pair_tile,
-// gather3) instead of every j.  Per job, slot-major (B, K, N) channels in
+// K4's first design is the LIST flag: the pair loop walks a fixed-width
+// neighbor list (the gather-list branch of the TPU kernel: forces ->
+// pair_tile, gather3) instead of every j.  Per job, slot-major (B, K, N)
+// channels in
 // global memory give each slot's neighbor index, its lj1/lj2 and qq with
 // the special-bond weights folded in (zero on dead slots, which are
 // self-padded), and the periodic image integers n_ij fixed at the list
@@ -44,9 +52,10 @@
 // sampling) is K3's code.  K4 also stands for K4s, the TPU's HBM-streamed
 // job-grid form (md_fused.py:1603-1722): here the grid is the jobs and the
 // channels always live in device memory; the TPU's double-buffered K-chunk
-// DMA has no counterpart (cp.async/TMA staging is later perf work).  What
-// bounds K4: the channel bytes, read every step (7 x 4 B per slot: 70 MB
-// per job-step at N = 2240, K = 1112), against ~25-60 FLOP per slot.
+// DMA has no counterpart.  What bounds this design: the channel bytes,
+// read every step (7 x 4 B per slot: 70 MB per job-step at N = 2240, K =
+// 1112), against ~25-60 FLOP per slot — the redesign (md_charged.cuh)
+// reads one 4-byte word per live slot.
 //
 // K5 is the SW flag: the Stillinger-Weber branch of the TPU kernel
 // (FusedSpec.sw -> forces_allpairs_sw, md_fused.py:910-1081) for the
@@ -71,7 +80,9 @@
 // live body whenever any of its 32 lanes has a live j).  Walking sweep 1's
 // live j in sweep 2, or a cell list, is the lever for a later PR.
 //
-// What bounds K1/K3 on an H100: the pair loop.  A job does N^2 pair
+// What bounds the first designs of K1/K3 on an H100: the pair loop (their
+// redesigns read type tables and charges in place of the planes below).  A
+// job does N^2 pair
 // evaluations per step, twice the N(N-1)/2 the function needs (no Newton
 // halving, below).  For K1's 512-site box that is 262k (~25 FLOP
 // each, a quarter inside the 10 A cutoff); for K3's 1792-atom charged box
@@ -376,13 +387,128 @@ __device__ void bonded_terms(const Params& P, const Smem& S, int k, float w[6]) 
   }
 }
 
+// The chain terms anchored at atom k (bonded_terms on float4 positions;
+// md_k1.cu and md_charged.cuh): role r's force on atom k + r into
+// q[(3 r + a) qs + slot], and with WV the term's virial into w.
+template <bool WV>
+__device__ void k1_bonded(const float* __restrict__ topo, int N, const float4* p4, float* q,
+                          int qs, int k, int slot, float w[6]) {
+  float r0[3] = {0.f, 0.f, 0.f}, r1[3] = {0.f, 0.f, 0.f};
+  float r2[3] = {0.f, 0.f, 0.f}, r3[3] = {0.f, 0.f, 0.f};
+  const bool bm = k + 1 < N && topo[T_BMASK * N + k] > 0.5f;
+  const bool am = k + 2 < N && topo[T_AMASK * N + k] > 0.5f;
+  const bool dm = k + 3 < N && topo[T_DMASK * N + k] > 0.5f;
+  if (bm || am || dm) {
+    const float4 pk = p4[k], pk1 = p4[k + 1];
+    const float b[3] = {pk1.x - pk.x, pk1.y - pk.y, pk1.z - pk.z};
+    const float r2b = b[0] * b[0] + b[1] * b[1] + b[2] * b[2];
+    if (bm) {  // E = K (r - r0)^2
+      const float rb = sqrtf(r2b);
+      const float fb = 2.f * topo[T_BK * N + k] * (rb - topo[T_BR0 * N + k]) / rb;
+      const float f0[3] = {fb * b[0], fb * b[1], fb * b[2]};
+      const float f1[3] = {-f0[0], -f0[1], -f0[2]};
+      for (int a = 0; a < 3; ++a) { r0[a] += f0[a]; r1[a] += f1[a]; }
+      if constexpr (WV) add_outer(w, f1, b);
+    }
+    if (am || dm) {
+      const float4 pk2 = p4[k + 2];
+      const float c2[3] = {pk2.x - pk1.x, pk2.y - pk1.y, pk2.z - pk1.z};
+      if (am) {  // angle (k, k+1, k+2): r1 = -b_k, r2 = b_{k+1}
+        const float d11 = r2b;
+        const float d22 = c2[0] * c2[0] + c2[1] * c2[1] + c2[2] * c2[2];
+        const float d12 = -(b[0] * c2[0] + b[1] * c2[1] + b[2] * c2[2]);
+        const float inv12 = rsqrtf(d11 * d22);
+        const float c = fminf(fmaxf(d12 * inv12, -1.f + 1e-7f), 1.f - 1e-7f);
+        const float sin_th = sqrtf(fmaxf(1.f - c * c, 1e-30f));
+        const float aE = -2.f * topo[T_AK * N + k] * (acosf(c) - topo[T_ATH0 * N + k]) / sin_th;
+        float g1[3], g2[3], fa[3], fc[3], mb[3];
+        for (int a = 0; a < 3; ++a) {
+          g1[a] = c2[a] * inv12 + c * b[a] / d11;
+          g2[a] = -b[a] * inv12 - c * c2[a] / d22;
+          fa[a] = -aE * g1[a];
+          fc[a] = -aE * g2[a];
+          mb[a] = -b[a];
+          r0[a] += fa[a];
+          r1[a] += aE * (g1[a] + g2[a]);
+          r2[a] += fc[a];
+        }
+        if constexpr (WV) {
+          add_outer(w, fa, mb);
+          add_outer(w, fc, c2);
+        }
+      }
+      if (dm) {  // OPLS dihedral (k..k+3)
+        const float4 pk3 = p4[k + 3];
+        const float b3[3] = {pk3.x - pk2.x, pk3.y - pk2.y, pk3.z - pk2.z};
+        float F0[3], F1[3], F2[3], F3[3];
+        dihedral_forces(b, c2, b3, topo[(T_DK1 + 0) * N + k], topo[(T_DK1 + 1) * N + k],
+                        topo[(T_DK1 + 2) * N + k], topo[(T_DK1 + 3) * N + k], F0, F1, F2, F3);
+        for (int a = 0; a < 3; ++a) {
+          r0[a] += F0[a]; r1[a] += F1[a]; r2[a] += F2[a]; r3[a] += F3[a];
+        }
+        if constexpr (WV) {
+          float s12[3], s123[3];
+          for (int a = 0; a < 3; ++a) {
+            s12[a] = b[a] + c2[a];
+            s123[a] = s12[a] + b3[a];
+          }
+          add_outer(w, F1, b);
+          add_outer(w, F2, s12);
+          add_outer(w, F3, s123);
+        }
+      }
+    }
+  }
+  for (int a = 0; a < 3; ++a) {
+    q[(0 * 3 + a) * qs + slot] = r0[a];
+    q[(1 * 3 + a) * qs + slot] = r1[a];
+    q[(2 * 3 + a) * qs + slot] = r2[a];
+    q[(3 * 3 + a) * qs + slot] = r3[a];
+  }
+}
+
+// The bonded role forces that land on atom i (its slot in q), in role order.
+__device__ __forceinline__ void k1_gather(const float* q, int qs, int i, int slot, float g[3]) {
+  for (int a = 0; a < 3; ++a) {
+    float acc = q[(0 * 3 + a) * qs + slot];
+    if (i >= 1) acc += q[(1 * 3 + a) * qs + slot - 1];
+    if (i >= 2) acc += q[(2 * 3 + a) * qs + slot - 2];
+    if (i >= 3) acc += q[(3 * 3 + a) * qs + slot - 3];
+    g[a] = acc;
+  }
+}
+
+// Positions read and written through an accessor, so that the bonded and
+// constraint sweeps below serve both layouts: separate x, y, z rows (Smem,
+// the first design) and one float4 per atom (md_charged.cuh).
+struct SoAPos {
+  float *px, *py, *pz;
+  __device__ __forceinline__ float& x(int i) const { return px[i]; }
+  __device__ __forceinline__ float& y(int i) const { return py[i]; }
+  __device__ __forceinline__ float& z(int i) const { return pz[i]; }
+  __device__ __forceinline__ float3 at(int i) const { return make_float3(px[i], py[i], pz[i]); }
+};
+
+struct F4Pos {
+  float4* p;
+  __device__ __forceinline__ float& x(int i) const { return p[i].x; }
+  __device__ __forceinline__ float& y(int i) const { return p[i].y; }
+  __device__ __forceinline__ float& z(int i) const { return p[i].z; }
+  __device__ __forceinline__ float3 at(int i) const {
+    const float4 v = p[i];
+    return make_float3(v.x, v.y, v.z);
+  }
+};
+
 // One offset pattern anchored at atom a: role forces into q (roles 0..3 at
-// offsets 0, off[0], off[1], off[2]).  Terms whose parameters are zero or
-// whose partners fall outside the box write zeros.
-__device__ void pattern_term(const Params& P, const Topo3& T, const Smem& S, int p, int a) {
-  const int N = P.N;
+// offsets 0, off[0], off[1], off[2]; role k's component c at q[(3 k + c) qs
+// + slot]).  Terms whose parameters are zero or whose partners fall outside
+// the box write zeros.
+template <class PA>
+__device__ void pattern_term(const float* __restrict__ pat, int N, const Topo3& T, const PA& X,
+                             float* q, int qs, int p, int a, int slot) {
   const int kind = T.kind[p];
-  const float* rows = P.pat + (size_t)T.row[p] * N;
+  const float* rows = pat + (size_t)T.row[p] * N;
   float r[4][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
   const int nrole = kind == PAT_BOND ? 2 : (kind == PAT_ANGLE ? 3 : 4);
   bool inside = true;
@@ -391,11 +517,12 @@ __device__ void pattern_term(const Params& P, const Topo3& T, const Smem& S, int
     inside = inside && j >= 0 && j < N;
   }
   if (inside) {
+    const float3 pa = X.at(a);
     if (kind == PAT_BOND) {
       const float K = rows[a], r0 = rows[N + a];
       if (K > 0.f) {
-        const int j = a + T.off[p][0];
-        const float b[3] = {S.px[j] - S.px[a], S.py[j] - S.py[a], S.pz[j] - S.pz[a]};
+        const float3 pj = X.at(a + T.off[p][0]);
+        const float b[3] = {pj.x - pa.x, pj.y - pa.y, pj.z - pa.z};
         const float rb = sqrtf(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
         const float fb = 2.f * K * (rb - r0) / rb;
         for (int c = 0; c < 3; ++c) { r[0][c] = fb * b[c]; r[1][c] = -fb * b[c]; }
@@ -403,9 +530,9 @@ __device__ void pattern_term(const Params& P, const Topo3& T, const Smem& S, int
     } else if (kind == PAT_ANGLE) {
       const float K = rows[a], th0 = rows[N + a];
       if (K > 0.f) {
-        const int ia = a + T.off[p][0], ib = a + T.off[p][1];
-        const float r1[3] = {S.px[ia] - S.px[a], S.py[ia] - S.py[a], S.pz[ia] - S.pz[a]};
-        const float r2[3] = {S.px[ib] - S.px[a], S.py[ib] - S.py[a], S.pz[ib] - S.pz[a]};
+        const float3 pa1 = X.at(a + T.off[p][0]), pb = X.at(a + T.off[p][1]);
+        const float r1[3] = {pa1.x - pa.x, pa1.y - pa.y, pa1.z - pa.z};
+        const float r2[3] = {pb.x - pa.x, pb.y - pa.y, pb.z - pa.z};
         const float d11 = r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2];
         const float d22 = r2[0] * r2[0] + r2[1] * r2[1] + r2[2] * r2[2];
         const float d12 = r1[0] * r2[0] + r1[1] * r2[1] + r1[2] * r2[2];
@@ -424,16 +551,22 @@ __device__ void pattern_term(const Params& P, const Topo3& T, const Smem& S, int
     } else {
       const float K1 = rows[a], K2 = rows[N + a], K3 = rows[2 * N + a], K4 = rows[3 * N + a];
       if (fabsf(K1) + fabsf(K2) + fabsf(K3) + fabsf(K4) > 0.f) {
-        const int i1 = a + T.off[p][0], i2 = a + T.off[p][1], i3 = a + T.off[p][2];
-        const float b1[3] = {S.px[i1] - S.px[a], S.py[i1] - S.py[a], S.pz[i1] - S.pz[a]};
-        const float b2[3] = {S.px[i2] - S.px[i1], S.py[i2] - S.py[i1], S.pz[i2] - S.pz[i1]};
-        const float b3[3] = {S.px[i3] - S.px[i2], S.py[i3] - S.py[i2], S.pz[i3] - S.pz[i2]};
+        const float3 p1 = X.at(a + T.off[p][0]), p2 = X.at(a + T.off[p][1]);
+        const float3 p3 = X.at(a + T.off[p][2]);
+        const float b1[3] = {p1.x - pa.x, p1.y - pa.y, p1.z - pa.z};
+        const float b2[3] = {p2.x - p1.x, p2.y - p1.y, p2.z - p1.z};
+        const float b3[3] = {p3.x - p2.x, p3.y - p2.y, p3.z - p2.z};
         dihedral_forces(b1, b2, b3, K1, K2, K3, K4, r[0], r[1], r[2], r[3]);
       }
     }
   }
   for (int k = 0; k < nrole; ++k)
-    for (int c = 0; c < 3; ++c) S.q[(k * 3 + c) * N + a] = r[k][c];
+    for (int c = 0; c < 3; ++c) q[(k * 3 + c) * qs + slot] = r[k][c];
+}
+
+__device__ __forceinline__ void pattern_term(const Params& P, const Topo3& T, const Smem& S,
+                                             int p, int a) {
+  pattern_term(P.pat, P.N, T, SoAPos{S.px, S.py, S.pz}, S.q, P.N, p, a, a);
 }
 
 // F/r of one pair at squared distance r2 into fp; false (fp untouched)
@@ -767,13 +900,13 @@ __device__ void nhc_half(const Smem& S, const float* __restrict__ mftm, int N,
   }
 }
 
-// Jacobi SHAKE (shake_rolls): project the drifted positions in S.p onto
-// the constraints, reference directions from the pre-drift positions in
+// Jacobi SHAKE (shake_rolls): project the drifted positions X onto the
+// constraints, reference directions from the pre-drift positions in
 // S.q[0..3N); fold the correction into the velocities.  S.f holds the
 // drifted positions meanwhile.  Entry and exit are block-synced.
-__device__ void shake(const Params& P, const Topo3& T, const Smem& S,
-                      const float* __restrict__ invm, float inv_dt) {
-  const int N = P.N;
+template <class PA>
+__device__ void shake(const float* __restrict__ shk, int N, const Topo3& T, const PA& X,
+                      const Smem& S, const float* __restrict__ invm, float inv_dt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const float *ox = S.q, *oy = S.q + N, *oz = S.q + 2 * N;
   float* G = S.q + 3 * N;  // n_shk x N Lagrange factors
@@ -781,10 +914,11 @@ __device__ void shake(const Params& P, const Topo3& T, const Smem& S,
     for (int a = tid; a < N; a += nt) {
       for (int k = 0; k < T.n_shk; ++k) {
         const int j = a + T.shk_off[k];
-        const float d0sq = j < N ? P.shk[(size_t)k * N + a] : 0.f;
+        const float d0sq = j < N ? shk[(size_t)k * N + a] : 0.f;
         float g = 0.f;
         if (d0sq > 0.f) {
-          const float rx = S.px[j] - S.px[a], ry = S.py[j] - S.py[a], rz = S.pz[j] - S.pz[a];
+          const float3 pj = X.at(j), pa = X.at(a);
+          const float rx = pj.x - pa.x, ry = pj.y - pa.y, rz = pj.z - pa.z;
           const float qx = ox[j] - ox[a], qy = oy[j] - oy[a], qz = oz[j] - oz[a];
           const float diff = rx * rx + ry * ry + rz * rz - d0sq;
           const float denom = 2.f * (rx * qx + ry * qy + rz * qz) * (invm[a] + invm[j]) + 1e-30f;
@@ -811,35 +945,42 @@ __device__ void shake(const Params& P, const Topo3& T, const Smem& S,
         }
         for (int e = 0; e < 3; ++e) d[e] += c[e] * im - cb[e] * im;
       }
-      S.px[i] += d[0];
-      S.py[i] += d[1];
-      S.pz[i] += d[2];
+      X.x(i) += d[0];
+      X.y(i) += d[1];
+      X.z(i) += d[2];
     }
     __syncthreads();
   }
   for (int i = tid; i < N; i += nt) {
-    S.vx[i] += (S.px[i] - S.fx[i]) * inv_dt;
-    S.vy[i] += (S.py[i] - S.fy[i]) * inv_dt;
-    S.vz[i] += (S.pz[i] - S.fz[i]) * inv_dt;
+    const float3 p = X.at(i);
+    S.vx[i] += (p.x - S.fx[i]) * inv_dt;
+    S.vy[i] += (p.y - S.fy[i]) * inv_dt;
+    S.vz[i] += (p.z - S.fz[i]) * inv_dt;
   }
   __syncthreads();
 }
 
+__device__ __forceinline__ void shake(const Params& P, const Topo3& T, const Smem& S,
+                                      const float* __restrict__ invm, float inv_dt) {
+  shake(P.shk, P.N, T, SoAPos{S.px, S.py, S.pz}, S, invm, inv_dt);
+}
+
 // Jacobi RATTLE (rattle_rolls): remove the relative velocity along every
 // constrained bond.  Entry and exit are block-synced.
-__device__ void rattle(const Params& P, const Topo3& T, const Smem& S,
-                       const float* __restrict__ invm) {
-  const int N = P.N;
+template <class PA>
+__device__ void rattle(const float* __restrict__ shk, int N, const Topo3& T, const PA& X,
+                       const Smem& S, const float* __restrict__ invm) {
   const int tid = threadIdx.x, nt = blockDim.x;
   float* G = S.q;  // n_shk x N factors
   for (int it = 0; it < T.rattle_iters; ++it) {
     for (int a = tid; a < N; a += nt) {
       for (int k = 0; k < T.n_shk; ++k) {
         const int j = a + T.shk_off[k];
-        const float d0sq = j < N ? P.shk[(size_t)k * N + a] : 0.f;
+        const float d0sq = j < N ? shk[(size_t)k * N + a] : 0.f;
         float g = 0.f;
         if (d0sq > 0.f) {
-          const float rx = S.px[j] - S.px[a], ry = S.py[j] - S.py[a], rz = S.pz[j] - S.pz[a];
+          const float3 pj = X.at(j), pa = X.at(a);
+          const float rx = pj.x - pa.x, ry = pj.y - pa.y, rz = pj.z - pa.z;
           const float r2 = rx * rx + ry * ry + rz * rz;
           const float dvx = S.vx[j] - S.vx[a], dvy = S.vy[j] - S.vy[a], dvz = S.vz[j] - S.vz[a];
           g = T.relax * (dvx * rx + dvy * ry + dvz * rz) / (r2 * (invm[a] + invm[j]) + 1e-30f);
@@ -850,6 +991,7 @@ __device__ void rattle(const Params& P, const Topo3& T, const Smem& S,
     __syncthreads();
     for (int i = tid; i < N; i += nt) {
       const float im = invm[i];
+      const float3 pi = X.at(i);
       float d[3] = {0.f, 0.f, 0.f};
       for (int k = 0; k < T.n_shk; ++k) {
         const int o = T.shk_off[k];
@@ -857,13 +999,13 @@ __device__ void rattle(const Params& P, const Topo3& T, const Smem& S,
         float c[3] = {0.f, 0.f, 0.f}, cb[3] = {0.f, 0.f, 0.f};
         if (j < N) {
           const float g = G[k * N + i];
-          c[0] = g * (S.px[j] - S.px[i]); c[1] = g * (S.py[j] - S.py[i]);
-          c[2] = g * (S.pz[j] - S.pz[i]);
+          const float3 pj = X.at(j);
+          c[0] = g * (pj.x - pi.x); c[1] = g * (pj.y - pi.y); c[2] = g * (pj.z - pi.z);
         }
         if (a >= 0) {
           const float g = G[k * N + a];
-          cb[0] = g * (S.px[i] - S.px[a]); cb[1] = g * (S.py[i] - S.py[a]);
-          cb[2] = g * (S.pz[i] - S.pz[a]);
+          const float3 pa = X.at(a);
+          cb[0] = g * (pi.x - pa.x); cb[1] = g * (pi.y - pa.y); cb[2] = g * (pi.z - pa.z);
         }
         for (int e = 0; e < 3; ++e) d[e] += c[e] * im - cb[e] * im;
       }
@@ -873,6 +1015,11 @@ __device__ void rattle(const Params& P, const Topo3& T, const Smem& S,
     }
     __syncthreads();
   }
+}
+
+__device__ __forceinline__ void rattle(const Params& P, const Topo3& T, const Smem& S,
+                                       const float* __restrict__ invm) {
+  rattle(P.shk, P.N, T, SoAPos{S.px, S.py, S.pz}, S, invm);
 }
 
 template <bool FEXT>

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
 ``md_list.cu``, ``md_sw.cu``, ``md_multi.cu`` and ``md_k1.cu`` share device
-code through ``md_kernel.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and
-``md_slim.cu`` stand alone) —
+code through ``md_kernel.cuh``, ``md_k3.cu``, ``md_k4.cu`` and their
+``*_levers.cu`` through ``md_charged.cuh`` on top of it;
+``pairwise_l2.cu``, ``sw_bricks.cu`` and ``md_slim.cu`` stand alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
@@ -42,8 +43,8 @@ _I = ctypes.c_int
 # are passed as 64-bit values)
 SIGNATURES = {
     "pairwise_l2_f32": [_P, _P, _I, _I, _P],
-    # K1's first design and K3 (all-pairs), K4 (gather list) and K5 (SW): a
-    # pointer to the MDArgs structure (md_fused._MDArgs) and the stream
+    # the first designs of K1, K3 (all-pairs) and K4 (gather list), and K5
+    # (SW): a pointer to the MDArgs structure (md_fused._MDArgs) and the stream
     "md_allpairs_run_f32": [_P, _P],
     "md_allpairs_forces_f32": [_P, _P],
     # K1 (md_k1.cu): a pointer to K1Args (md_fused._K1Args) and the stream,
@@ -56,6 +57,21 @@ SIGNATURES = {
     "md_allpairs_run_multi_f32": [_P, _I, _P],
     "md_list_run_f32": [_P, _P],
     "md_list_forces_f32": [_P, _P],
+    # K3 and K4 (md_k3.cu, md_k4.cu): a pointer to CArgs (md_fused._K34Args)
+    # and the stream, for the run and the force entry; (entry, atoms, types,
+    # int[4]) -> registers, local bytes, blocks per SM, threads; their design
+    # steps (md_k3_levers.cu, md_k4_levers.cu): CArgs, the step's id, the
+    # stream, and (id, atoms, types, int[4])
+    "md_k3_run_f32": [_P, _P],
+    "md_k3_forces_f32": [_P, _P],
+    "md_k3_info": [_I, _I, _I, _P],
+    "md_k4_run_f32": [_P, _P],
+    "md_k4_forces_f32": [_P, _P],
+    "md_k4_info": [_I, _I, _I, _P],
+    "md_k3_lever_run_f32": [_P, _I, _P],
+    "md_k3_lever_info": [_I, _I, _I, _P],
+    "md_k4_lever_run_f32": [_P, _I, _P],
+    "md_k4_lever_info": [_I, _I, _I, _P],
     "md_sw_run_f32": [_P, _P],
     "md_sw_forces_f32": [_P, _P],
     # K6's first design (SW tiles): tiles, [adjoints,] nbr, valid, h, h^-1,

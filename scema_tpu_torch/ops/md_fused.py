@@ -17,26 +17,40 @@ and per box over the planes, is ``csrc/md_kernel.cuh`` with every flag off
 (``md_allpairs.cu``): K1m copies it, and only the checks reach it
 (:func:`_run_first`, :func:`_forces_first`).
 
-K3 is the same kernel with the charged all-atom additions compiled in (the
-reference's OPLS material: ``lj/cut/coul/long`` + ``pppm`` + ``fix shake``):
-a Coulomb pair force from a dense qq plane, plain cutoff or the damped
-real-space Ewald form with the A&S erfc polynomial (``_ewald_fcoul``,
-``erfc_poly``); offset-pattern bonded terms (``bonded_pattern_forces``);
-Jacobi SHAKE/RATTLE over static partner offsets (``shake_rolls``,
-``rattle_rolls``); and a frozen per-atom force ``fext`` — the smooth k-space
-remainder, refreshed by the host every ``kspace_every`` steps — with per-job
-step offsets so a chunk deforms along its whole run's path.  A runner whose
-``spec.k3`` is set launches K3; any other launches K1.
+K3 is the same kernel with the charged all-atom additions (the reference's
+OPLS material: ``lj/cut/coul/long`` + ``pppm`` + ``fix shake``): a Coulomb
+pair force, plain cutoff or the damped real-space Ewald form with the A&S
+erfc polynomial (``_ewald_fcoul``, ``erfc_poly``); offset-pattern bonded
+terms (``bonded_pattern_forces``); Jacobi SHAKE/RATTLE over static partner
+offsets (``shake_rolls``, ``rattle_rolls``); and a frozen per-atom force
+``fext`` — the smooth k-space remainder, refreshed by the host every
+``kspace_every`` steps — with per-job step offsets so a chunk deforms along
+its whole run's path.  A runner whose ``spec.k3`` is set launches K3; any
+other launches K1.
 
 K4 is the gather-list branch of the same TPU kernel (``forces`` ->
 ``pair_tile``, ``gather3``; with ``k_chunk`` its HBM-streamed job-grid
 form ``_build_streamed_grid_call``, K4s): the pair loop walks a
-fixed-width full neighbor list (``md/neighbor.py``) whose slot channels —
-index, lj1/lj2 and qq with the special-bond weights, image integers fixed
-at the build — the host packs at each chunk start (:func:`pack_channels`,
-``FusedRunner.channels``); the pair displacement uses each step's box.  A
-runner whose ``spec.k`` is set (boxes above the all-pairs gate, or
-``force_list_kernel``) launches K4, with K3's or K1's other flags.
+fixed-width full neighbor list (``md/neighbor.py``), packed by the host at
+each chunk start (``FusedRunner.channels``); the pair displacement uses
+each step's box.  A runner whose ``spec.k`` is set (boxes above the
+all-pairs gate, or ``force_list_kernel``) launches K4, with K3's or K1's
+other flags.
+
+K3 and K4 are one kernel body redesigned for Hopper
+(``csrc/md_charged.cuh``; ``md_k3.cu`` all-pairs, ``md_k4.cu`` the list):
+no N x N planes — a type table, per-atom charges and, for K3, a window of
+special-bond offsets (:func:`k3_tables`) — and for K4 one 32-bit word per
+live list slot (neighbor, image integers, special-bond order) with a count
+per row (:func:`pack_slots`), two rows per thread (K3) or eight list words
+in flight per row (K4), and a force entry over (tile of 32 rows, box)
+blocks.  Their plain versions read the planes, and
+K4's decodes its words back to the seven channels the first design read
+(:func:`k4_slots_to_channels`).  The first designs (``csrc/md_kernel.cuh``
+with the flags on: ``md_allpairs.cu``, ``md_list.cu`` over
+:func:`pack_channels`' seven channels) stay built for the A/B timings and
+the checks, reached only through :func:`_run_first` and
+:func:`_forces_first`.
 
 K5 is the Stillinger-Weber branch of the same TPU kernel (``FusedSpec.sw``
 -> ``forces_allpairs_sw``): the p = 4, q = 0 family (Si) over all pairs in
@@ -51,7 +65,7 @@ K1m is K1's run with J jobs per thread block (the TPU kernel's
 (G, J) grouping of the batch — the coupler's ``pack_jobs``.
 
 Three entries, each a wrapper that launches ``csrc/md_k1.cu`` (K1),
-``csrc/md_allpairs.cu`` (K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_list.cu``
+``csrc/md_k3.cu`` (K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_k4.cu``
 (K4) or ``csrc/md_sw.cu`` (K5) on CUDA tensors (counting the launch:
 ``launches`` for K1, ``launches_k3`` for K3,
 ``launches_k4`` for K4, ``launches_k5`` for K5, ``launches_k1m`` for K1m)
@@ -61,8 +75,9 @@ and runs the plain PyTorch version of the same function on CPU tensors:
   jobs; the kernel runs one thread block per job;
 * :func:`md_run_multi` — the same run of a K1 runner, J jobs per block.
 * :func:`md_forces_virial` — one force + virial evaluation of B boxes (FIRE
-  minimisation and the stiffness probe; K4 builds a fresh list per call);
-  the k-space remainder is added by the caller.
+  minimisation and the stiffness probe; K4 builds a fresh list per call;
+  K1, K3 and K4 over (tile, box) blocks); the k-space remainder is added by
+  the caller.
 
 Layouts: a job's state is (6, N) rows ``[x y z vx vy vz]``; ``fscal`` rows
 are ``[dt, T, lx, ly, lz, xy, xz, yz, exx, eyy, ezz, exy, exz, eyz, 0, 0]``.
@@ -138,6 +153,10 @@ class FusedSpec:
     # costheta0, A, B); no planes, no bonded terms
     sw: bool = False
     sw_params: tuple = ()
+    # K3/K4: the 1-2, 1-3, 1-4 special-bond weights of LJ and Coulomb (K4's
+    # slots carry the order and the kernel multiplies by these)
+    special_lj: tuple = (0.0, 0.0, 0.0)
+    special_coul: tuple = (0.0, 0.0, 0.0)
 
     @property
     def k3(self) -> bool:
@@ -165,9 +184,9 @@ class FusedSpec:
 @dataclass(frozen=True)
 class FusedRunner:
     """Position-independent device inputs of K1/K3/K4/K5 for one MD system
-    (K4 gathers its per-slot lj1/lj2/qq from the same dense planes; K5
-    has no planes and no topology; K1 reads its type table and special-bond
-    window, and keeps the planes for its plain version and for K1m)."""
+    (K5 has no planes and no topology; K1, K3 and K4 read their type tables,
+    charges and special-bond windows or orders, and keep the planes for their
+    plain versions and their first designs)."""
 
     spec: FusedSpec
     invm: torch.Tensor  # (N,) ftm2v / m
@@ -183,6 +202,17 @@ class FusedRunner:
     k1_tbl: torch.Tensor | None = None
     k1_code: torch.Tensor | None = None
     k1_win: torch.Tensor | None = None
+    # K3/K4 (:func:`k3_tables`): (T, T, 2) lj1/lj2 of (type i, type j), (N,)
+    # scaled charges sqrt(qqr2e) q_i, (N,) int32 atom codes (K3: with the
+    # window's exclusion bits), (N,) int32 window offsets with other weights
+    # and their (N, 2W + 1, 2) (lj, coul) weights (K3); K4's (N, N) int8
+    # special-bond orders (:func:`k4_orders`), read by the list pack only
+    k34_tbl: torch.Tensor | None = None
+    k34_q: torch.Tensor | None = None
+    k34_code: torch.Tensor | None = None
+    k34_spec: torch.Tensor | None = None
+    k34_win: torch.Tensor | None = None
+    k4_ord: torch.Tensor | None = None
     # smooth k-space remainder: kspace(pos (B, N, 3), h (B, 3, 3),
     # want_virial) -> (F (B, N, 3), W (B, 6) or None), refreshed every
     # kspace_every steps (material.build_kspace_split)
@@ -198,48 +228,64 @@ class FusedRunner:
         def mv(x):
             return None if x is None else x.to(device=device, dtype=dtype).contiguous()
 
-        code = None if self.k1_code is None else self.k1_code.to(device=device)
+        def mv_int(x):
+            return None if x is None else x.to(device=device)
+
         return replace(self, invm=mv(self.invm), mftm=mv(self.mftm), lj1=mv(self.lj1),
                        lj2=mv(self.lj2), topo=mv(self.topo), qq=mv(self.qq),
                        pat=mv(self.pat), shk=mv(self.shk), k1_tbl=mv(self.k1_tbl),
-                       k1_code=code, k1_win=mv(self.k1_win))
+                       k1_code=mv_int(self.k1_code), k1_win=mv(self.k1_win),
+                       k34_tbl=mv(self.k34_tbl), k34_q=mv(self.k34_q),
+                       k34_code=mv_int(self.k34_code), k34_spec=mv_int(self.k34_spec),
+                       k34_win=mv(self.k34_win), k4_ord=mv_int(self.k4_ord))
 
     @property
     def channel_names(self) -> tuple:
-        """K4's (B, K, N) channels: neighbor index (int32), coefficients,
-        image integers (and qq with Coulomb)."""
+        """The first design's (B, K, N) channels of K4 (:func:`pack_channels`):
+        neighbor index (int32), coefficients, image integers (and qq with
+        Coulomb)."""
         return ("idx", "lj1", "lj2", "imx", "imy", "imz") + (("qq",) if self.spec.coul else ())
 
     def channels(self, pos: torch.Tensor, h: torch.Tensor, jobs: torch.Tensor | None = None,
                  reuse: bool = False) -> dict:
-        """K4's channels for positions pos (B, N, 3) in boxes h (B, 3, 3):
-        a fresh list (``neighbor.build``) packed by :func:`pack_channels`,
-        built in slices of jobs.  ``jobs`` limits the rebuild to those
-        jobs (the others keep their last list; a launch that gives them no
-        steps skips them); ``reuse`` writes into one buffer set kept
-        per batch size (the chunk loop's: 70 MB per job at N = 2240, K =
-        1112), which the next reusing call overwrites."""
+        """K4's compact list for positions pos (B, N, 3) in boxes h (B, 3, 3):
+        a fresh list (``neighbor.build``) packed by :func:`pack_slots` into
+        ``{"slot": (B, K, N) int32, "count": (B, N) int32}``, built in slices
+        of jobs.  ``jobs`` limits the rebuild to those jobs (the others keep
+        their last list; a launch that gives them no steps skips them);
+        ``reuse`` writes into one buffer set kept per batch size (the chunk
+        loop's: 10 MB per job at N = 2240, K = 1112), which the next reusing
+        call overwrites."""
         spec = self.spec
         Bn, n = pos.shape[0], spec.n_atoms
-        out = self._buffers.get((Bn, pos.dtype, pos.device)) if reuse else None
+        out = self._buffers.get((Bn, pos.device)) if reuse else None
         if out is None:
-            # every slot starts dead (self-padded, zero coefficients), so a
-            # job that is never rebuilt holds a valid empty list
-            out = {name: torch.zeros((Bn, spec.k, n), device=pos.device,
-                                     dtype=torch.int32 if name == "idx" else pos.dtype)
-                   for name in self.channel_names}
-            out["idx"][:] = torch.arange(n, dtype=torch.int32, device=pos.device)
+            # every slot starts dead (self-padded, count 0), so a job that is
+            # never rebuilt holds a valid empty list
+            out = {"slot": torch.arange(n, dtype=torch.int32, device=pos.device).expand(
+                       Bn, spec.k, n).contiguous(),
+                   "count": torch.zeros((Bn, n), dtype=torch.int32, device=pos.device)}
             if reuse:
                 self._buffers.clear()
-                self._buffers[(Bn, pos.dtype, pos.device)] = out
+                self._buffers[(Bn, pos.device)] = out
         if jobs is None:
             jobs = torch.arange(Bn, device=pos.device)
         step = NB.jobs_per_slice(n)
         for s in range(0, jobs.shape[0], step):
             js = jobs[s:s + step]
             p, hh = pos[js], h[js]
-            pack_channels(self, p, hh, NB.build(self.nspec, p, hh), out, js)
+            pack_slots(self, p, hh, NB.build(self.nspec, p, hh), out, js)
         return out
+
+    def channels_first(self, pos: torch.Tensor, h: torch.Tensor) -> dict:
+        """The first design's seven (B, K, N) channels (:attr:`channel_names`)
+        of a fresh list at pos (B, N, 3) in boxes h (B, 3, 3), packed by
+        :func:`pack_channels` — for the A/B timings and the checks only."""
+        step = NB.jobs_per_slice(self.spec.n_atoms)
+        parts = [pack_channels(self, pos[s:s + step], h[s:s + step],
+                               NB.build(self.nspec, pos[s:s + step], h[s:s + step]))
+                 for s in range(0, pos.shape[0], step)]
+        return {k: torch.cat([p[k] for p in parts]) for k in self.channel_names}
 
 
 def pack_topo(ff, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -453,6 +499,222 @@ def dense_qq(ff, dtype=torch.float64, device=None) -> torch.Tensor:
                            dtype=dtype, device=device)
 
 
+# K3/K4 (csrc/md_charged.cuh): the bit fields of an atom's code (type, and
+# K3's excluded window offsets from bit 6), the largest window, the most
+# types, the rows per block of the force entry, K4's slot word fields
+K34_TYPE, K34_EXCL, K34_MAX_WINDOW, K34_MAX_TYPES = 0x3F, 6, 12, 64
+K34_TILE_ROWS = 32
+K4_MAX_ATOMS, K4_IMAGE = 65535, (-8, 7)
+
+
+def k3_tables(ff, dtype=torch.float64, device=None, window: bool = True) -> dict:
+    """K3's (and K4's) pair parameters without N x N planes, as a dict:
+
+    * ``tbl`` (T, T, 2): [type i, type j] -> (lj1, lj2) of the planes' entry
+      [j, i] (48 eps sig^12 and 24 eps sig^6, built in float64 as
+      :func:`dense_planes` builds them, then cast);
+    * ``q`` (N,): the charges times sqrt(qqr2e), in float64 then cast, so that
+      q_i q_j is :func:`dense_qq`'s entry without the weight;
+    * ``code`` (N,) int32: bits 0-5 the type and, with ``window``, bit 6 + d
+      set where partner j = i + d - W is excluded (its LJ and Coulomb weights
+      both 0; d = W is the atom itself);
+    * ``spec`` (N,) int32: bit d set where that partner's weights are not
+      both 1 (and it is not excluded), ``win`` (N, 2W + 1, 2) their (LJ,
+      Coulomb) weights.
+
+    W is the largest offset |j - i| of a special-bond pair of the topology
+    (0 without ``window``, as K4 takes the weights from its slots' orders).
+    The planes are the table entry (times q_i q_j for qq) times the window's
+    weights, zero where excluded, and the bare entry outside the window
+    (:func:`k3_dense_planes`).  Raises NotImplementedError when W exceeds
+    12 (the code's bits) or for more than 64 atom types."""
+    types = ff.types.cpu().numpy()
+    n = len(types)
+    n_types = int(ff.lj_epsilon.shape[0])
+    if n_types > K34_MAX_TYPES:
+        raise NotImplementedError(
+            f"K3/K4: {n_types} atom types exceed the {K34_MAX_TYPES}-type table")
+    # the planes' entry [j, i] is eps[t_j, t_i]: the table [t_i, t_j] takes the transpose
+    eps = ff.lj_epsilon.cpu().double().numpy().T
+    sig = ff.lj_sigma.cpu().double().numpy().T
+    sig6 = sig ** 6
+    tbl = np.stack([48.0 * eps * sig6 * sig6, 24.0 * eps * sig6], axis=-1)
+    q = ff.charges.cpu().double().numpy() * np.sqrt(QQR2E_REAL)
+    code = types.astype(np.int64).copy()
+    spec = np.zeros(n, dtype=np.int64)
+    W = 0
+    if window:
+        wl, wc = ff.pair_weights(ff.special_lj), ff.pair_weights(ff.special_coul)
+        special = (wl != 1.0) | (wc != 1.0)
+        np.fill_diagonal(special, False)
+        far = np.argwhere(special)
+        W = int(np.abs(far[:, 0] - far[:, 1]).max()) if far.size else 0
+        if W > K34_MAX_WINDOW:
+            j, i = far[np.argmax(np.abs(far[:, 0] - far[:, 1]))]
+            raise NotImplementedError(
+                f"K3: atoms {i} and {j} are special-bond partners {W} apart; K3's window "
+                f"holds partners at most {K34_MAX_WINDOW} apart")
+    win = np.zeros((n, 2 * W + 1, 2))
+    if window:
+        for d in range(2 * W + 1):
+            i = np.arange(max(0, W - d), min(n, n + W - d))
+            a, c = wl[i + d - W, i], wc[i + d - W, i]
+            win[i, d, 0], win[i, d, 1] = a, c
+            excl = (a == 0.0) & (c == 0.0)
+            code[i] |= excl.astype(np.int64) << (K34_EXCL + d)
+            spec[i] |= (~excl & ((a != 1.0) | (c != 1.0))).astype(np.int64) << d
+    return dict(tbl=torch.as_tensor(tbl, dtype=dtype, device=device),
+                q=torch.as_tensor(q, dtype=dtype, device=device),
+                code=torch.as_tensor(code, dtype=torch.int32, device=device),
+                spec=torch.as_tensor(spec, dtype=torch.int32, device=device),
+                win=torch.as_tensor(win, dtype=dtype, device=device))
+
+
+def k3_window(runner: "FusedRunner") -> int:
+    """W of a K3 runner's window (its table holds offsets -W..W)."""
+    return (int(runner.k34_win.shape[1]) - 1) // 2
+
+
+def k3_dense_planes(tbl, q, code, spec, win):
+    """The (N, N) lj1, lj2 and qq planes [j, i] that K3's tables stand for,
+    in their dtype: the table entry of (type i, type j) and q_j q_i, times
+    the window's weights where they are not both 1, zero where excluded —
+    what the kernel's pair loop reads."""
+    n = code.shape[0]
+    W = (win.shape[1] - 1) // 2
+    t = (code & K34_TYPE).long()
+    planes = tbl[t[None, :], t[:, None]]  # [j, i] -> tbl[t_i, t_j]
+    qq = q[:, None] * q[None, :]  # [j, i] = q_j q_i
+    ii = torch.arange(n, device=code.device)
+    for d in range(2 * W + 1):
+        i = ii[max(0, W - d):min(n, n + W - d)]
+        j = i + d - W
+        excl = ((code[i] >> (K34_EXCL + d)) & 1).bool()
+        sp = ((spec[i] >> d) & 1).bool()
+        cur = torch.where(sp[:, None], planes[j, i] * win[i, d, 0, None], planes[j, i])
+        planes[j, i] = torch.where(excl[:, None], torch.zeros_like(cur), cur)
+        cq = torch.where(sp, qq[j, i] * win[i, d, 1], qq[j, i])
+        qq[j, i] = torch.where(excl, torch.zeros_like(cq), cq)
+    return planes[..., 0], planes[..., 1], qq
+
+
+def k4_orders(ff, device=None) -> torch.Tensor:
+    """The (N, N) int8 special-bond order of each pair (1, 2, 3 for 1-2,
+    1-3, 1-4 partners, a later order over an earlier one as in
+    ``pair_weights``; 0 for none and on the diagonal), which K4's pack
+    writes into each slot."""
+    n = int(ff.types.shape[0])
+    ordp = np.zeros((n, n), dtype=np.int8)
+    rows = np.arange(n)[:, None]
+    for order in range(3):
+        partners = ff.excl[:, order, :]
+        hit = partners >= 0
+        ordp[np.broadcast_to(rows, partners.shape)[hit], partners[hit]] = order + 1
+    np.fill_diagonal(ordp, 0)
+    return torch.as_tensor(ordp, device=device)
+
+
+def _k4_dropped(spec: FusedSpec, device) -> torch.Tensor:
+    """(4,) bool by special order: the slots K4's pack drops (both weights
+    0; the Coulomb weight counts only with Coulomb)."""
+    drop = [False] + [a == 0.0 and (c == 0.0 or not spec.coul)
+                      for a, c in zip(spec.special_lj, spec.special_coul)]
+    return torch.tensor(drop, device=device)
+
+
+def pack_slots(runner: "FusedRunner", pos: torch.Tensor, h: torch.Tensor,
+               nbr: NB.NeighborList, out: dict | None = None,
+               jobs: torch.Tensor | None = None) -> dict:
+    """K4's compact list of the lists ``nbr`` (b, N, k) built at pos (b, N, 3)
+    in boxes h (b, 3, 3), written into rows ``jobs`` of ``out`` = {"slot":
+    (B, K, N) int32, "count": (B, N) int32} (new tensors by default) —
+    the replacement of :func:`pack_channels` on the path, the same on the
+    card and the CPU.  One word per slot, slot-major: bits 0-15 the
+    neighbor j, 16-19 / 20-23 / 24-27 the image integers n_ij =
+    -round(inv_h (x_j - x_i)) (4-bit two's complement), fixed here so that
+    x_j + h n_ij - x_i is the minimum image at the build and follows any
+    later affine deform, and 28-29 the pair's special-bond order
+    (:func:`k4_orders`).  The slots whose LJ and Coulomb weights are both 0
+    are dropped; the rest are kept first, in the list's distance order, and
+    ``count`` says how many; the tail is self-padded (j = i, image 0).
+    Raises ValueError when N exceeds 65535, a list is wider than the
+    kernel's K, or an image integer leaves -8..7."""
+    spec = runner.spec
+    b, n, k = nbr.idx.shape
+    if n > K4_MAX_ATOMS:
+        raise ValueError(f"pack_slots: {n} atoms exceed the slot word's {K4_MAX_ATOMS}")
+    if k > spec.k:
+        raise ValueError(f"pack_slots: list width {k} exceeds the kernel's K = {spec.k}")
+    if out is None:
+        out = {"slot": torch.empty((b, spec.k, n), dtype=torch.int32, device=pos.device),
+               "count": torch.empty((b, n), dtype=torch.int32, device=pos.device)}
+        jobs = torch.arange(b, device=pos.device)
+    idx = nbr.idx
+    ii = torch.arange(n, device=pos.device)[:, None]
+    order = runner.k4_ord[ii, idx]
+    keep = nbr.mask & ~_k4_dropped(spec, pos.device)[order.long()]
+    ih = B.inv_h(h)
+    flat = idx.reshape(b, n * k)
+    d = [torch.gather(pos[..., a], 1, flat).reshape(b, n, k) - pos[..., a, None]
+         for a in range(3)]
+    word = idx.to(torch.int32) | (order.to(torch.int32) << 28)
+    lo, hi = K4_IMAGE
+    for a in range(3):
+        im = -torch.round(ih[:, a, 0, None, None] * d[0] + ih[:, a, 1, None, None] * d[1]
+                          + ih[:, a, 2, None, None] * d[2])
+        if bool(((im < lo) | (im > hi)).any()):
+            raise ValueError(f"pack_slots: an image integer leaves {lo}..{hi} (box too small "
+                             "for the list range, or positions far outside the box)")
+        word |= (im.to(torch.int32) & 15) << (16 + 4 * a)
+    # the kept slots first, in their order (column k takes the dropped ones
+    # and is cut off); the tail self-padded
+    dst = torch.where(keep, keep.cumsum(-1) - 1, k)
+    full = ii.to(torch.int32).expand(b, n, k + 1).clone()
+    full.scatter_(-1, dst, word)
+    pad = ii[:, 0].to(torch.int32).expand(b, spec.k - k, n)
+    out["slot"].index_copy_(0, jobs, torch.cat([full[..., :k].transpose(1, 2), pad], 1))
+    out["count"].index_copy_(0, jobs, keep.sum(-1, dtype=torch.int32))
+    return out
+
+
+def k4_slots_to_channels(runner: "FusedRunner", slots: dict) -> dict:
+    """The seven (B, K, N) channels of :func:`pack_channels` that K4's compact
+    list stands for, in the runner's dtype: each live slot's index, its
+    image integers and its coefficients from the type table and the charges
+    times the special weights of its order; every slot past the row's count
+    dead (self index, zero coefficients).  K4's plain version runs on
+    these; the slots' order is the pack's (the dropped slots absent)."""
+    spec = runner.spec
+    w = slots["slot"].long()
+    b, K, n = w.shape
+    live = torch.arange(K, device=w.device)[None, :, None] < slots["count"].long()[:, None, :]
+    j = w & 0xFFFF
+    t = (runner.k34_code & K34_TYPE).long()
+    c = runner.k34_tbl[t[j], t[None, None, :]]  # pack_channels' [i, j] -> tbl[t_j, t_i]
+    o = (w >> 28) & 3
+    dt = runner.k34_tbl.dtype
+    one = torch.ones((1,), dtype=dt, device=w.device)
+    wl = torch.cat([one, torch.tensor(spec.special_lj, dtype=dt, device=w.device)])[o]
+    zero = torch.zeros((), dtype=dt, device=w.device)
+    out = {"idx": j.to(torch.int32)}
+    for a, name in enumerate(("lj1", "lj2")):
+        out[name] = torch.where(live, torch.where(o > 0, c[..., a] * wl, c[..., a]), zero)
+    for a, name in enumerate(("imx", "imy", "imz")):
+        f = (w >> (16 + 4 * a)) & 15
+        out[name] = (f - 16 * (f >= 8).long()).to(dt)
+    if spec.coul:
+        wc = torch.cat([one, torch.tensor(spec.special_coul, dtype=dt, device=w.device)])[o]
+        qq = runner.k34_q[None, None, :] * runner.k34_q[j]
+        out["qq"] = torch.where(live, torch.where(o > 0, qq * wc, qq), zero)
+    return out
+
+
+def _list_channels(runner: "FusedRunner", nbr: dict | None) -> dict | None:
+    """The seven channels the plain list loop reads: decoded from K4's compact
+    list, or the first design's channels as given."""
+    return k4_slots_to_channels(runner, nbr) if nbr is not None and "slot" in nbr else nbr
+
+
 def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                 dtype=torch.float64, device=None, constraints=None, kspace=None,
                 kspace_every: int = 10, nspec=None, rebuild_every: int = 10) -> FusedRunner:
@@ -466,11 +728,12 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
     ``constraints`` add SHAKE/RATTLE; a neighbor spec ``nspec`` selects
     K4's list of width ``nspec.k_max``, rebuilt every ``rebuild_every``
     steps (the all-pairs planes otherwise).  A K1 runner also carries
-    its type table and special-bond window (:func:`k1_tables`).  What no
-    kernel of the port runs yet — impropers, irregular topologies, wide
-    constraint offsets, special-bond partners beyond K1's window, for which
-    the JAX package falls back to its XLA path — raises
-    NotImplementedError."""
+    its type table and special-bond window (:func:`k1_tables`), a K3 or K4
+    runner its table, charges and window (:func:`k3_tables`; K4 the pairs'
+    special-bond orders, :func:`k4_orders`).  What no kernel of the port
+    runs yet — impropers, irregular topologies, wide constraint offsets,
+    special-bond partners beyond K1's or K3's window, for which the JAX
+    package falls back to its XLA path — raises NotImplementedError."""
     n = int(masses.shape[0])
     m = masses.to(torch.float64).cpu()
     if isinstance(ff, LJ):
@@ -510,14 +773,22 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
                      tdamp=tdamp, coul=coul, coul_cutoff2=float(ff.coul_cutoff) ** 2,
                      ewald_alpha=float(ewald.alpha) if ewald is not None else 0.0,
                      fext=ewald is not None, bonded_pattern=patterns,
-                     shake_offsets=shake_offsets, k=int(nspec.k_max) if nspec is not None else 0)
-    k1 = _k1_fields(ff, dtype, device) if spec.kernel == "K1" else {}
+                     shake_offsets=shake_offsets, k=int(nspec.k_max) if nspec is not None else 0,
+                     special_lj=tuple(float(x) for x in ff.special_lj),
+                     special_coul=tuple(float(x) for x in ff.special_coul))
+    if spec.kernel == "K1":
+        tables = _k1_fields(ff, dtype, device)
+    else:
+        t = k3_tables(ff, dtype, device, window=spec.kernel == "K3")
+        tables = {"k34_" + name: x for name, x in t.items()}
+        if spec.kernel == "K4":
+            tables["k4_ord"] = k4_orders(ff, device)
     lj1, lj2 = dense_planes(ff, dtype, device)
     return FusedRunner(
         spec=spec, **_mass_rows(m, units, dtype, device), lj1=lj1, lj2=lj2, topo=topo,
         qq=dense_qq(ff, dtype, device) if coul else None, pat=pat, shk=shk,
         kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every,
-        **k1)
+        **tables)
 
 
 def _k1_fields(ff, dtype, device) -> dict:
@@ -1152,8 +1423,11 @@ def md_run_plain(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                  sample: bool, fext: torch.Tensor | None = None,
                  gstep0: torch.Tensor | None = None, n_tot: torch.Tensor | None = None,
                  nbr: dict | None = None):
-    """Plain version of the run entry; see :func:`md_run`."""
+    """Plain version of the run entry; see :func:`md_run`.  K4's plain
+    version reads the seven channels its compact list stands for
+    (:func:`k4_slots_to_channels`), or the first design's channels as given."""
     spec = runner.spec
+    nbr = _list_channels(runner, nbr)
     n_run = n_run.to(torch.int64)
     steps = int(n_run.max()) if n_run.numel() else 0
     dtype = state.dtype
@@ -1228,6 +1502,7 @@ def md_forces_virial_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Ten
     """Plain version of the force entry; see :func:`md_forces_virial`."""
     if runner.spec.k and nbr is None:
         nbr = runner.channels(pos.transpose(1, 2), h_of_h6(h6))
+    nbr = _list_channels(runner, nbr)
     p = [pos[:, a] for a in range(3)]
     f, w6 = _forces_plain(runner, p, [h6[:, k] for k in range(6)], True, nbr)
     return torch.stack(f, dim=1), torch.stack(w6, dim=1)
@@ -1275,6 +1550,93 @@ def k1_tiles_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
     return force, vir
 
 
+def pattern_reach(patterns) -> tuple:
+    """(anchors before, anchors after) a row whose bonded pattern roles land
+    on it: the largest positive and negative offsets of the patterns."""
+    offs = [o for key in patterns for o in key[1:]]
+    return max([0] + offs), max([0] + [-o for o in offs])
+
+
+def k34_tiles_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                    nbr: dict | None = None, rows: int = K34_TILE_ROWS):
+    """K3's or K4's force + virial entry as its kernel tiles it, in the plain
+    version's arithmetic: the tile of rows [s, s + rows) takes those rows'
+    pair forces (K3 over every j, K4 over their list slots) and a partial
+    virial, the pair halves of its rows; the bonded terms come from the
+    tile's anchors and a halo around them, recomputed per tile — the
+    patterns' anchors within :func:`pattern_reach` of the tile, whose
+    virial on the tile's rows is sum_i f_i (x) r_i, or the chain's anchors s
+    - 3 .. s + rows - 1, the tile owning the terms of its own anchors.  The
+    partials are summed in tile order.  Returns (F (B, 3, N), W (B, 6)),
+    :func:`md_forces_virial_plain`'s."""
+    spec = runner.spec
+    n = spec.n_atoms
+    if spec.k:
+        if nbr is None:
+            nbr = runner.channels(pos.transpose(1, 2), h_of_h6(h6))
+        nbr = _list_channels(runner, nbr)
+    p = [pos[:, a] for a in range(3)]
+    h = [h6[:, k] for k in range(6)]
+    lx, ly, lz, xy, xz, yz = (x[:, None, None] for x in h)
+    force = torch.empty_like(pos)
+    vir = torch.zeros((pos.shape[0], 6), dtype=pos.dtype, device=pos.device)
+    lo, hi = pattern_reach(spec.bonded_pattern) if spec.bonded_pattern else (K1_REACH, 0)
+    for s in range(0, n, rows):
+        e = min(s + rows, n)
+        if spec.k:
+            # the tile's rows of every slot: the list loop on a (b, K, rows) view
+            rows_nbr = {k: v[:, :, s:e] for k, v in nbr.items()}
+            b, K = rows_nbr["idx"].shape[:2]
+            flat = rows_nbr["idx"].reshape(b, -1).long()
+            g = [torch.gather(x, 1, flat).reshape(b, K, e - s) for x in p]
+            nx, ny, nz = rows_nbr["imx"], rows_nbr["imy"], rows_nbr["imz"]
+            d = [g[0] + nx * lx + ny * xy + nz * xz - p[0][:, None, s:e],
+                 g[1] + ny * ly + nz * yz - p[1][:, None, s:e], g[2] + nz * lz - p[2][:, None, s:e]]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            fpair = _fpair_plain(spec, r2, rows_nbr["lj1"], rows_nbr["lj2"], rows_nbr.get("qq"),
+                                 above=r2 > spec.r2min)
+            fp, wp = _apply_plain(fpair, *d, 1, True)
+        else:
+            # d[b, i, j] = r_j - r_i for the tile's rows i
+            d = [p[a][:, None, :] - p[a][:, s:e, None] for a in range(3)]
+            n3 = torch.round(d[2] / lz)
+            d[2] = d[2] - n3 * lz
+            d[1] = d[1] - n3 * yz
+            n2 = torch.round(d[1] / ly)
+            d[1] = d[1] - n2 * ly
+            d[0] = d[0] - n3 * xz - n2 * xy
+            n1 = torch.round(d[0] / lx)
+            d[0] = d[0] - n1 * lx
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            fpair = _fpair_plain(spec, r2, runner.lj1[s:e], runner.lj2[s:e],
+                                 runner.qq[s:e] if spec.coul else None)
+            fp, wp = _apply_plain(fpair, *d, -1, True)
+        a0, a1 = max(s - lo, 0), min(e + hi, n)
+        if spec.bonded_pattern:
+            halo = torch.zeros_like(runner.pat)
+            halo[:, a0:a1] = runner.pat[:, a0:a1]
+            fb, _ = bonded_pattern_forces_plain(p, halo, spec.bonded_pattern)
+            fr = [x[:, s:e] for x in fb]
+            pr = [x[:, s:e] for x in p]
+            wb = [torch.sum(fr[0] * pr[0], -1), torch.sum(fr[1] * pr[1], -1),
+                  torch.sum(fr[2] * pr[2], -1),
+                  0.5 * torch.sum(fr[0] * pr[1] + fr[1] * pr[0], -1),
+                  0.5 * torch.sum(fr[0] * pr[2] + fr[2] * pr[0], -1),
+                  0.5 * torch.sum(fr[1] * pr[2] + fr[2] * pr[1], -1)]
+        else:
+            halo = torch.zeros_like(runner.topo)
+            halo[:, a0:e] = runner.topo[:, a0:e]
+            fb, _ = bonded_chain_forces_plain(p, halo)
+            own = torch.zeros_like(runner.topo)
+            own[:, s:e] = runner.topo[:, s:e]
+            _, Wb = bonded_chain_forces_plain(p, own)
+            wb = _sym6(Wb)
+        for a in range(3):
+            force[:, a, s:e] = fp[a] + fb[a][:, s:e]
+        vir = vir + torch.stack([x + y for x, y in zip(wp, wb)], dim=1)
+    return force, vir
+
+
 # --------------------------------------------------------------------------
 # Wrappers: the CUDA kernel on CUDA tensors, the plain version on the CPU
 
@@ -1298,8 +1660,8 @@ def _smem_rows(spec: FusedSpec) -> int:
 
 def smem_bytes(spec: FusedSpec, jobs: int = 1) -> int:
     """Shared memory one block of this runner's md_kernel.cuh kernel keeps
-    (K3, K4, K5, K1m and K1's first design): ``jobs`` sets of the per-job
-    rows and NHC slots (K1m keeps J), one reduction scratch."""
+    (K5, K1m and the first designs of K1, K3 and K4): ``jobs`` sets of the
+    per-job rows and NHC slots (K1m keeps J), one reduction scratch."""
     return 4 * (jobs * (_smem_rows(spec) * spec.n_atoms + _SMEM_MISC) + _SMEM_RED)
 
 
@@ -1315,19 +1677,35 @@ def k1_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
     return 4 * (_K1_ROWS * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
 
 
+# K3/K4 (csrc/md_charged.cuh) keep 23 rows of N floats (a float4 of
+# position and code, velocities, forces, the role buffer, the charges), the
+# type table, the reduction scratch and the NHC chain + broadcast
+_K34_ROWS = 23
+
+
+def k34_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
+    """Shared memory one block of K3's or K4's run kernel keeps with a table
+    of ``n_types`` atom types (md_charged.cuh c_run_smem)."""
+    _smem_rows(spec)  # SHAKE's rows must fit the role buffer
+    return 4 * (_K34_ROWS * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
+
+
 def max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
-    """The largest box this runner's flag set fits in one block (K1 with a
-    table of ``n_types`` atom types)."""
-    if spec.kernel == "K1":
-        return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // _K1_ROWS
+    """The largest box this runner's flag set fits in one block (K1, K3 and
+    K4 with a table of ``n_types`` atom types)."""
+    if spec.kernel in ("K1", "K3", "K4"):
+        rows = _K1_ROWS if spec.kernel == "K1" else _K34_ROWS
+        return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // rows
     return (_MAX_SMEM // 4 - _SMEM_FIXED) // _smem_rows(spec)
 
 
 def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
     """Raise on the host when a box exceeds its kernel's shared-memory budget
-    (K1's, with a table of ``n_types`` atom types, covers its first design's,
-    which keeps one row less)."""
-    need = k1_smem_bytes(spec, n_types) if spec.kernel == "K1" else smem_bytes(spec)
+    (K1's, K3's and K4's, with a table of ``n_types`` atom types, cover their
+    first designs', which keep fewer rows)."""
+    need = (k1_smem_bytes(spec, n_types) if spec.kernel == "K1"
+            else k34_smem_bytes(spec, n_types) if spec.kernel in ("K3", "K4")
+            else smem_bytes(spec))
     if need > _MAX_SMEM:
         raise ValueError(
             f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
@@ -1338,21 +1716,43 @@ def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
 def _check_cuda(runner: FusedRunner, *tensors):
     name = runner.spec.kernel
     for t in (runner.lj1, runner.lj2, runner.topo, runner.invm, runner.mftm, runner.qq,
-              runner.pat, runner.shk, runner.k1_tbl, runner.k1_code, runner.k1_win) + tensors:
+              runner.pat, runner.shk, runner.k1_tbl, runner.k1_code, runner.k1_win,
+              runner.k34_tbl, runner.k34_q, runner.k34_code, runner.k34_spec,
+              runner.k34_win) + tensors:
         if t is None:
             continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be on the same CUDA device")
         if t.dtype not in (torch.float32, torch.int32):
             raise TypeError(f"{name} takes float32 (int32 counts and indices), got {t.dtype}")
-    check_smem(runner.spec, 1 if runner.k1_tbl is None else int(runner.k1_tbl.shape[0]))
+    tbl = runner.k1_tbl if runner.k1_tbl is not None else runner.k34_tbl
+    check_smem(runner.spec, 1 if tbl is None else int(tbl.shape[0]))
+
+
+def _check_slots(runner: FusedRunner, nbr: dict | None, Bn: int) -> dict:
+    """K4's compact list, contiguous: slot (B, K, N) and count (B, N) int32 —
+    or raise."""
+    spec = runner.spec
+    if nbr is None or "slot" not in nbr:
+        raise ValueError("K4: a list runner needs its compact list (FusedRunner.channels)")
+    out = {}
+    for name, shape in (("slot", (Bn, spec.k, spec.n_atoms)), ("count", (Bn, spec.n_atoms))):
+        t = nbr[name].contiguous()
+        if t.shape != shape:
+            raise ValueError(f"K4: {name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"K4: {name} has dtype {t.dtype}, not int32")
+        out[name] = t
+    _check_cuda(runner, *out.values())
+    return out
 
 
 def _check_channels(runner: FusedRunner, nbr: dict | None, Bn: int) -> dict:
-    """K4's channels, contiguous, each (B, K, N) — or raise."""
+    """The first design's K4 channels, contiguous, each (B, K, N) — or raise."""
     spec = runner.spec
-    if nbr is None:
-        raise ValueError("K4: a list runner needs its neighbor channels (FusedRunner.channels)")
+    if nbr is None or "idx" not in nbr:
+        raise ValueError("K4's first design needs its seven channels "
+                         "(FusedRunner.channels_first)")
     out = {}
     for name in runner.channel_names:
         t = nbr[name].contiguous()
@@ -1423,7 +1823,13 @@ def _md_args(runner: FusedRunner, B_: int, nbr: dict | None = None, **ptrs) -> _
     a.cutoff2, a.r2min, a.coul_cutoff2, a.alpha = (spec.cutoff2, spec.r2min,
                                                    spec.coul_cutoff2, spec.ewald_alpha)
     a.ndof, a.boltz, a.nktv2p, a.tdamp = float(spec.ndof), spec.boltz, spec.nktv2p, spec.tdamp
-    t3 = a.topo3
+    _fill_topo3(a.topo3, spec)
+    return a
+
+
+def _fill_topo3(t3: _Topo3, spec: FusedSpec) -> None:
+    """The kernel's Topo3: pattern kinds, offsets and parameter rows, SHAKE
+    offsets and iteration counts."""
     row = 0
     t3.n_pat = len(spec.bonded_pattern)
     for p, key in enumerate(spec.bonded_pattern):
@@ -1437,7 +1843,6 @@ def _md_args(runner: FusedRunner, B_: int, nbr: dict | None = None, **ptrs) -> _
         t3.shk_off[k] = o
     t3.shake_iters, t3.rattle_iters, t3.relax = (spec.shake_iters, spec.rattle_iters,
                                                  spec.shake_relax)
-    return a
 
 
 def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
@@ -1451,8 +1856,10 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     With ``spec.fext``: fext (B, 3, N) is the frozen k-space force added to
     every step's force.  With ``spec.fext`` or a list (K4), the deform path
     runs from global step ``gstep0`` (B,) of a ``n_tot`` (B,)-step run
-    (defaults 0 and n_run).  K4 reads the (B, K, N) channels ``nbr``
-    (``FusedRunner.channels``; idx int32).
+    (defaults 0 and n_run).  K4 reads its compact list ``nbr``
+    (``FusedRunner.channels``: {"slot": (B, K, N), "count": (B, N)}, int32);
+    on the CPU its plain version also takes the first design's seven
+    channels (``FusedRunner.channels_first``).
     Returns (state', vxi', press_sum (B, 6)): press_sum is the sum over the
     job's steps of the instantaneous Voigt pressure without fext's virial
     (zero unless ``sample``).  Inputs are not modified."""
@@ -1473,24 +1880,34 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
     if spec.kernel == "K1":
         _k1_run(runner, Bn, deform, sample, ptrs)
-        _count(md_run, spec)
-        return st, xi, press
-    if spec.fext or spec.k:
-        g0 = (torch.zeros_like(nr) if gstep0 is None else gstep0.to(torch.int32)).contiguous()
-        ntot = (nr if n_tot is None else n_tot.to(torch.int32)).contiguous()
-        _check_cuda(runner, g0, ntot)
-        ptrs.update(gstep0=g0.data_ptr(), n_tot=ntot.data_ptr())
-    if spec.fext:
+    elif spec.kernel in ("K3", "K4"):
+        keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
+        _k34_run(runner, _K34_ENTRY[spec.kernel] + "_run_f32", Bn, deform, sample, ptrs,
+                 _check_slots(runner, nbr, Bn) if spec.k else None)
+        del keep
+    else:
+        _md_run_entry(runner, "md_sw_run_f32", st.device, Bn, deform, sample, ptrs)
+    _count(md_run, spec)
+    return st, xi, press
+
+
+def _chunk_ptrs(runner: FusedRunner, ptrs: dict, nr, fext, gstep0, n_tot) -> tuple:
+    """Add a K3/K4 run's per-job step offsets (defaults 0 and n_run) and, with
+    the k-space split, its frozen force to the launch pointers; returns the
+    tensors behind them (kept alive until the launch)."""
+    Bn, N = nr.shape[0], runner.spec.n_atoms
+    g0 = (torch.zeros_like(nr) if gstep0 is None else gstep0.to(torch.int32)).contiguous()
+    ntot = (nr if n_tot is None else n_tot.to(torch.int32)).contiguous()
+    _check_cuda(runner, g0, ntot)
+    ptrs.update(gstep0=g0.data_ptr(), n_tot=ntot.data_ptr())
+    fx = None
+    if runner.spec.fext:
         fx = fext.contiguous()
         if fx.shape != (Bn, 3, N):
             raise ValueError(f"md_run: fext shape {tuple(fx.shape)} != ({Bn}, 3, {N})")
         _check_cuda(runner, fx)
         ptrs.update(fext=fx.data_ptr())
-    ch = _check_channels(runner, nbr, Bn) if spec.k else None
-    _md_run_entry(runner, _ENTRY[spec.kernel] + "_run_f32", st.device, Bn, deform, sample, ptrs,
-                  ch)
-    _count(md_run, spec)
-    return st, xi, press
+    return g0, ntot, fx
 
 
 def _run_inputs(runner: FusedRunner, state, vxi, n_run, fscal, name: str):
@@ -1510,16 +1927,19 @@ def _run_inputs(runner: FusedRunner, state, vxi, n_run, fscal, name: str):
 
 def _md_run_entry(runner: FusedRunner, entry: str, device, Bn: int, deform: bool,
                   sample: bool, ptrs: dict, nbr: dict | None = None) -> None:
-    """Launch an md_kernel.cuh run entry (K1's first design, K3, K4, K5)."""
+    """Launch an md_kernel.cuh run entry (K5, the first designs of K1, K3
+    and K4)."""
     args = _md_args(runner, Bn, nbr, **ptrs)
     args.deform, args.sample = int(deform), int(sample)
     rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(device))
     _build.check(rc, f"{entry} (flags {runner.spec.flags})")
 
 
-# exported entry prefix of each md_kernel.cuh kernel (K1 has md_k1.cu's
-# entries) and launch counter of each kernel
-_ENTRY = {"K3": "md_allpairs", "K4": "md_list", "K5": "md_sw"}
+# exported entry prefix of K3's and K4's redesign (md_charged.cuh) and of
+# the first designs of K1, K3 and K4 (md_kernel.cuh), and the launch
+# counter of each kernel on its wrapper
+_K34_ENTRY = {"K3": "md_k3", "K4": "md_k4"}
+_FIRST_ENTRY = {"K1": "md_allpairs", "K3": "md_allpairs", "K4": "md_list"}
 _COUNTER = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4", "K5": "launches_k5"}
 
 
@@ -1604,7 +2024,7 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
     terms, in energy units).  Pair terms are LJ and, with ``spec.coul``,
     the cutoff or real-space Ewald Coulomb term; the k-space remainder is
     the caller's (``engine.forces_virial``).  A list runner (K4) builds a
-    fresh list at these positions unless given its channels ``nbr``."""
+    fresh list at these positions unless given its compact list ``nbr``."""
     if runner.spec.k and nbr is None:
         nbr = runner.channels(pos.transpose(1, 2), h_of_h6(h6))
     if pos.device.type == "cpu":
@@ -1618,9 +2038,11 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
         return force, vir
     if spec.kernel == "K1":
         _k1_forces(runner, pos, h6, force, vir)
+    elif spec.kernel in ("K3", "K4"):
+        _k34_forces(runner, pos, h6, force, vir,
+                    _check_slots(runner, nbr, Bn) if spec.k else None)
     else:
-        _md_forces_entry(runner, _ENTRY[spec.kernel] + "_forces_f32", pos, h6, force, vir,
-                         _check_channels(runner, nbr, Bn) if spec.k else None)
+        _md_forces_entry(runner, "md_sw_forces_f32", pos, h6, force, vir)
     _count(md_forces_virial, spec)
     return force, vir
 
@@ -1641,7 +2063,8 @@ def _forces_inputs(runner: FusedRunner, pos, h6):
 
 def _md_forces_entry(runner: FusedRunner, entry: str, pos, h6, force, vir,
                      nbr: dict | None = None) -> None:
-    """Launch an md_kernel.cuh force entry (K1's first design, K3, K4, K5)."""
+    """Launch an md_kernel.cuh force entry (K5, the first designs of K1, K3
+    and K4)."""
     args = _md_args(runner, pos.shape[0], nbr, pos=pos.data_ptr(), h6=h6.data_ptr(),
                     force=force.data_ptr(), virial=vir.data_ptr())
     rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(pos.device))
@@ -1712,45 +2135,61 @@ def _k1_forces(runner: FusedRunner, pos, h6, force, vir) -> None:
 
 
 def _first_design(runner: FusedRunner, device, name: str) -> None:
-    if runner.spec.kernel != "K1":
-        raise ValueError(f"{name}: K1's first design takes a K1 runner, not {runner.spec.kernel}")
+    if runner.spec.kernel not in _FIRST_ENTRY:
+        raise ValueError(f"{name}: the first designs take K1, K3 or K4 runners, not "
+                         f"{runner.spec.kernel}")
     if device.type != "cuda":
-        raise ValueError(f"{name}: K1's first design runs on the card only, not on {device}")
+        raise ValueError(f"{name}: the first designs run on the card only, not on {device}")
 
 
 def _run_first(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
-               n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool):
-    """:func:`md_run` of a K1 runner on K1's first design (md_kernel.cuh with
-    every flag off, one block per job over the planes), which K1m copies J
-    times per block: for the A/B timings and the bit-for-bit checks of
+               n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+               fext: torch.Tensor | None = None, gstep0: torch.Tensor | None = None,
+               n_tot: torch.Tensor | None = None, nbr: dict | None = None):
+    """:func:`md_run` of a K1, K3 or K4 runner on that kernel's first design
+    (md_kernel.cuh, one block per job over the N x N planes; K4 over the
+    seven channels of ``FusedRunner.channels_first`` in ``nbr``), which K1m
+    copies J times per block: for the A/B timings and the checks of
     chip_smoke.py and the card tests; no path of the port calls it.  Counts
-    its launches in ``launches``."""
+    its launches in ``launches`` (K1), ``launches_k3`` and ``launches_k4``."""
     _first_design(runner, state.device, "_run_first")
+    spec = runner.spec
+    if spec.fext != (fext is not None):
+        raise ValueError("_run_first: fext goes with the k-space split, and only with it")
     st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "_run_first")
     Bn = st.shape[0]
     if Bn == 0:
         return st, xi, press
     ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
-    _md_run_entry(runner, "md_allpairs_run_f32", st.device, Bn, deform, sample, ptrs)
-    _run_first.launches += 1
+    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot) if spec.kernel != "K1" else None
+    _md_run_entry(runner, _FIRST_ENTRY[spec.kernel] + "_run_f32", st.device, Bn, deform,
+                  sample, ptrs, _check_channels(runner, nbr, Bn) if spec.k else None)
+    del keep
+    _count(_run_first, spec)
     return st, xi, press
 
 
-def _forces_first(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor):
-    """:func:`md_forces_virial` of a K1 runner on K1's first design (one block
-    per box), as :func:`_run_first`."""
+def _forces_first(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                  nbr: dict | None = None):
+    """:func:`md_forces_virial` of a K1, K3 or K4 runner on its first design
+    (one block per box; K4 builds the first design's channels at these
+    positions unless given them in ``nbr``), as :func:`_run_first`."""
     _first_design(runner, pos.device, "_forces_first")
+    if runner.spec.k and nbr is None:
+        nbr = runner.channels_first(pos.transpose(1, 2), h_of_h6(h6))
     pos, h6, force, vir = _forces_inputs(runner, pos, h6)
-    if pos.shape[0] == 0:
+    Bn = pos.shape[0]
+    if Bn == 0:
         return force, vir
-    _md_forces_entry(runner, "md_allpairs_forces_f32", pos, h6, force, vir)
-    _forces_first.launches += 1
+    _md_forces_entry(runner, _FIRST_ENTRY[runner.spec.kernel] + "_forces_f32", pos, h6, force,
+                     vir, _check_channels(runner, nbr, Bn) if runner.spec.k else None)
+    _count(_forces_first, runner.spec)
     return force, vir
 
 
-_run_first.launches = 0
-_forces_first.launches = 0
+for _fn in (_run_first, _forces_first):
+    _fn.launches = _fn.launches_k3 = _fn.launches_k4 = 0
 
 
 def k1_kernel_info(entry: str, n_atoms: int, n_types: int = 1) -> dict:
@@ -1761,6 +2200,143 @@ def k1_kernel_info(entry: str, n_atoms: int, n_types: int = 1) -> dict:
     out = (ctypes.c_int * 4)()
     rc = _build.library().md_k1_info({"run": 0, "forces": 1}[entry], n_atoms, n_types, out)
     _build.check(rc, f"md_k1_info ({entry})")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
+
+
+# --------------------------------------------------------------------------
+# K3 and K4 (csrc/md_charged.cuh): the type table, charges and special-bond
+# window or slot orders in place of the planes, K4's compact list, the force
+# entry over (box, tile) blocks
+
+class _K34Args(ctypes.Structure):
+    """Mirror of md_charged.cuh's CArgs, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "tbl", "q", "code", "spec", "win", "topo", "pat", "shk", "invm", "mftm", "state", "vxi",
+        "press", "n_run", "gstep0", "n_tot", "fscal", "fext", "pos", "h6", "force", "virial",
+        "partial", "slot", "count")]
+        + [(name, ctypes.c_int) for name in (
+            "B", "N", "T", "K", "W", "deform", "sample", "tiles", "coul", "ewald", "reach_lo",
+            "reach_hi")]
+        + [(name, ctypes.c_float) for name in (
+            "cutoff2", "r2min", "coul_cutoff2", "alpha", "ndof", "boltz", "nktv2p", "tdamp")]
+        + [("slj", ctypes.c_float * 4), ("sco", ctypes.c_float * 4), ("topo3", _Topo3)])
+
+
+def k34_tiles(n_atoms: int) -> int:
+    """Row tiles of one box in K3's and K4's force entry."""
+    return -(-n_atoms // K34_TILE_ROWS)
+
+
+def _k34_args(runner: FusedRunner, B_: int, slots: dict | None = None, **ptrs) -> _K34Args:
+    spec = runner.spec
+    if runner.k34_tbl is None or runner.k34_code is None:
+        raise ValueError(f"{spec.kernel}: the runner has no type table (make_runner builds it)")
+    a = _K34Args()
+    for name, t in (("tbl", runner.k34_tbl), ("q", runner.k34_q), ("code", runner.k34_code),
+                    ("spec", runner.k34_spec), ("win", runner.k34_win), ("topo", runner.topo),
+                    ("pat", runner.pat), ("shk", runner.shk), ("invm", runner.invm),
+                    ("mftm", runner.mftm)):
+        if t is not None:
+            setattr(a, name, _f(t))
+    if slots is not None:
+        a.slot, a.count = slots["slot"].data_ptr(), slots["count"].data_ptr()
+    for name, v in ptrs.items():
+        setattr(a, name, v)
+    a.B, a.N, a.T, a.K = B_, spec.n_atoms, int(runner.k34_tbl.shape[0]), spec.k
+    a.W = 0 if spec.k else k3_window(runner)
+    a.tiles = k34_tiles(spec.n_atoms)
+    a.coul, a.ewald = int(spec.coul), int(spec.ewald_alpha > 0.0)
+    a.reach_lo, a.reach_hi = pattern_reach(spec.bonded_pattern)
+    a.cutoff2, a.r2min, a.coul_cutoff2, a.alpha = (spec.cutoff2, spec.r2min,
+                                                   spec.coul_cutoff2, spec.ewald_alpha)
+    a.ndof, a.boltz, a.nktv2p, a.tdamp = float(spec.ndof), spec.boltz, spec.nktv2p, spec.tdamp
+    for k in range(3):
+        a.slj[k + 1], a.sco[k + 1] = spec.special_lj[k], spec.special_coul[k]
+    a.slj[0] = a.sco[0] = 1.0
+    _fill_topo3(a.topo3, spec)
+    return a
+
+
+def _k34_run(runner: FusedRunner, entry: str, Bn: int, deform: bool, sample: bool,
+             ptrs: dict, slots: dict | None, lever: int | None = None) -> None:
+    """Launch K3's or K4's run entry (``entry``), or with ``lever`` the design
+    step of that id (``md_k3_lever_run_f32`` / ``md_k4_lever_run_f32``)."""
+    args = _k34_args(runner, Bn, slots, **ptrs)
+    args.deform, args.sample = int(deform), int(sample)
+    lib, stream = _build.library(), _build.stream_handle(runner.invm.device)
+    if lever is None:
+        rc = getattr(lib, entry)(ctypes.byref(args), stream)
+    else:
+        rc = getattr(lib, entry)(ctypes.byref(args), lever, stream)
+    _build.check(rc, f"{entry} (flags {runner.spec.flags})")
+
+
+def _k34_forces(runner: FusedRunner, pos, h6, force, vir, slots: dict | None) -> None:
+    """K3's or K4's force entry: one block per (tile, box), the tiles'
+    partial virials in a (B, tiles, 6) scratch summed in tile order by the
+    entry's second kernel."""
+    partial = torch.empty((pos.shape[0], k34_tiles(runner.spec.n_atoms), 6), dtype=pos.dtype,
+                          device=pos.device)
+    args = _k34_args(runner, pos.shape[0], slots, pos=pos.data_ptr(), h6=h6.data_ptr(),
+                     force=force.data_ptr(), virial=vir.data_ptr(), partial=partial.data_ptr())
+    entry = _K34_ENTRY[runner.spec.kernel] + "_forces_f32"
+    rc = getattr(_build.library(), entry)(ctypes.byref(args), _build.stream_handle(pos.device))
+    _build.check(rc, f"{entry} (flags {runner.spec.flags})")
+
+
+# the design steps of K3 and K4 built as instances of their own
+# (csrc/md_k3_levers.cu, md_k4_levers.cu), by name, in the order of their ids
+# the steps that skip the bonded or the SHAKE/RATTLE passes: timing only
+K34_TIMING_ONLY = ("n", "np", "ns")
+K34_LEVERS = {"K3": ("t", "u", "i", "n", "np", "ns"),
+              "K4": ("a", "b", "c", "c1024", "c576", "cu", "n", "p2", "p4", "p4s", "p8s", "np",
+                     "ns")}
+
+
+def k34_lever_run(runner: FusedRunner, lever: str, state: torch.Tensor, vxi: torch.Tensor,
+                  n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                  fext: torch.Tensor, gstep0: torch.Tensor | None = None,
+                  n_tot: torch.Tensor | None = None, nbr: dict | None = None):
+    """:func:`md_run` of a K3 or K4 runner of the charged slices' flag set
+    (COUL+EWALD+PATTERNS+SHAKE+FEXT) on one design step of its kernel
+    (:data:`K34_LEVERS`; the sources' headers say what each holds), for
+    chip_smoke.py's timings only; no path calls it.  Counts its launches in
+    ``launches``."""
+    spec = runner.spec
+    if spec.kernel not in K34_LEVERS or state.device.type != "cuda":
+        raise ValueError("k34_lever_run: a K3 or K4 runner on the card")
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k34_lever_run")
+    Bn = st.shape[0]
+    ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
+                n_run=nr.data_ptr(), fscal=fs.data_ptr())
+    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
+    _k34_run(runner, _K34_ENTRY[spec.kernel] + "_lever_run_f32", Bn, deform, sample, ptrs,
+             _check_slots(runner, nbr, Bn) if spec.k else None,
+             lever=K34_LEVERS[spec.kernel].index(lever))
+    del keep
+    k34_lever_run.launches += 1
+    return st, xi, press
+
+
+k34_lever_run.launches = 0
+
+
+def k34_kernel_info(kernel: str, entry: str, n_atoms: int, n_types: int = 1) -> dict:
+    """Registers, local (spill) bytes per thread, resident blocks per SM (the
+    card's occupancy calculator) and block width of K3's or K4's (``kernel``)
+    run kernel (``entry="run"``, the charged slices' flag set) or force
+    kernel (``"forces"``), or of a design step (``entry`` a name of
+    :data:`K34_LEVERS`), at ``n_atoms`` atoms of ``n_types`` types."""
+    out = (ctypes.c_int * 4)()
+    prefix = _K34_ENTRY[kernel]
+    if entry in ("run", "forces"):
+        rc = getattr(_build.library(), prefix + "_info")(
+            {"run": 0, "forces": 1}[entry], n_atoms, n_types, out)
+    else:
+        rc = getattr(_build.library(), prefix + "_lever_info")(
+            K34_LEVERS[kernel].index(entry), n_atoms, n_types, out)
+    _build.check(rc, f"{prefix} info ({entry})")
     return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
 
 

@@ -270,8 +270,8 @@ def test_smem_budget_raises_before_launch(fused_pair):
     with pytest.raises(ValueError, match=re.escape(f"K3 (flags {spec.flags})") + ".*"
                        + f"at most {limit} atoms"):
         TMF.check_smem(big)
-    k1 = TMF.FusedSpec(n_atoms=limit + 1, cutoff2=100.0, ndof=1, boltz=1.0, ftm2v=1.0,
-                       nktv2p=1.0)
+    k1 = TMF.FusedSpec(n_atoms=1, cutoff2=100.0, ndof=1, boltz=1.0, ftm2v=1.0, nktv2p=1.0)
+    k1 = TMF.FusedSpec(**{**k1.__dict__, "n_atoms": TMF.max_atoms(k1) + 1})
     with pytest.raises(ValueError, match="K1 \\(flags none\\)"):
         TMF.check_smem(k1)
 

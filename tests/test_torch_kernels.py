@@ -28,18 +28,24 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K1m (K1's first design with J = 2 or 4 jobs per block): equal to that
   design bit for bit, each job's step body being its code at its block
   width; a dead job of a (live, dead) pair comes back bit-identical;
-* K3 (the charged PEAA box: 1792 atoms, real-space Ewald, offset patterns,
-  SHAKE, frozen k-space force) is held to the same relative bounds as K1:
-  forces/virial 2x plain float32 + 1e-6, a 10-step deform chunk 4x plain +
+* K3 (csrc/md_k3.cu; the charged PEAA box: 1792 atoms, real-space Ewald,
+  offset patterns, SHAKE, frozen k-space force) is held to the same
+  relative bounds as K1: forces/virial 2x plain float32 + 1e-6 (per atom
+  1e-5 on the probe's tilted boxes), a 10-step deform chunk 4x plain +
   1e-4 with inactive jobs bit-identical, 20-step pressure sums 4x plain +
   1e-4; the SHAKE residual |r^2 - d0^2| / d0^2 after the chunk stays below
   1e-3;
 * the other K3 flag sets (cutoff Coulomb, SHAKE off) on a small all-atom
   box, to the same bounds;
-* K4 (the gather-list pair loop) on the PEAA2240 box (2240 charged atoms,
-  K ~ 1112 slots, the PME split, SHAKE) and on the other flag sets (g0
-  chains, cutoff Coulomb, SHAKE off) with the same channels on both sides:
-  the bounds of K3, inactive jobs bit-identical;
+* K4 (csrc/md_k4.cu, the compact-list pair loop) on the PEAA2240 box (2240
+  charged atoms, K ~ 1112 slots, the PME split, SHAKE) and on the other
+  flag sets (g0 chains, cutoff Coulomb, SHAKE off) with the same compact
+  list on both sides (the plain version decodes it): the bounds of K3,
+  inactive jobs bit-identical;
+* the first designs of K3 and K4 (md_kernel.cuh, reached through
+  md_fused._run_first / _forces_first; K4 over the seven channels of
+  channels_first) to the same bounds, each design's launches counted on
+  its own wrapper and the other's untouched;
 * K5 (the Stillinger-Weber sweeps) on the slice's 216-atom diamond-Si box
   and on the gate's largest, 640 atoms (two rounds of the block), with
   perturbed positions and tilted boxes: the bounds of K1, inactive jobs
@@ -454,15 +460,12 @@ def test_k4_forces_virial_match_plain(peaa2240):
     torch.cuda.synchronize()
     assert MF.md_forces_virial.launches_k4 == before + 1
     Fp, Wp = MF.md_forces_virial_plain(sys.fused, pos, h6, nbr)
-    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
     F64, W64 = MF.md_forces_virial_plain(sys.fused.to(pos.device, torch.float64), pos.double(),
-                                         h6.double(), nbr64)
+                                         h6.double(), nbr)
     assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
     assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
     # no list row is full: every atom keeps a dead (self-padded) slot
-    n = sys.n_atoms
-    live = nbr["idx"] != torch.arange(n, dtype=torch.int32, device=pos.device)
-    assert int(live.sum(1).max()) < sys.fused.spec.k
+    assert int(nbr["count"].max()) < sys.fused.spec.k
 
 
 def test_k4_run_matches_plain_and_skips_inactive(peaa2240):
@@ -481,10 +484,9 @@ def test_k4_run_matches_plain_and_skips_inactive(peaa2240):
     assert MF.md_run.launches_k4 == before + 1
     assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
     ref, vxi_ref, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbr)
-    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
     ref64, vxi64, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
                                       batch.vxi.double(), n_run, fscal.double(), True, False,
-                                      fk.double(), g0, n_tot, nbr=nbr64)
+                                      fk.double(), g0, n_tot, nbr=nbr)
     assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
     assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
     assert _rel(vxi, vxi64) <= 4 * _rel(vxi_ref, vxi64) + 1e-4
@@ -506,10 +508,9 @@ def test_k4_sampling_pressure_sums_match_plain(peaa2240):
                          nbr=nbr)
     _, _, pp = MF.md_run_plain(sys.fused, st, batch.vxi, n, fscal, False, True, fk, 0 * n, one,
                                nbr=nbr)
-    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
     _, _, p64 = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
                                 batch.vxi.double(), n, fscal.double(), False, True,
-                                fk.double(), 0 * n, one, nbr=nbr64)
+                                fk.double(), 0 * n, one, nbr=nbr)
     for c in range(6):
         assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
 
@@ -535,8 +536,7 @@ def test_k4_flag_sets_match_plain(case):
     vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
                        for _ in range(B)])
     pos, h = st.pos.expand(B, -1, -1).contiguous(), st.h.expand(B, -1, -1).contiguous()
-    nbr = r.channels(pos, h)
-    nbr64 = {k: v if k == "idx" else v.double() for k, v in nbr.items()}
+    nbr = nbr64 = r.channels(pos, h)
     p3, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(h)
     F, W = MF.md_forces_virial(r, p3, h6, nbr=nbr)
     Fp, Wp = MF.md_forces_virial_plain(r, p3, h6, nbr)
@@ -560,6 +560,130 @@ def test_k4_flag_sets_match_plain(case):
     assert torch.equal(out[1], st6[1])
     assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
     assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+def _charged(kernel, peaa, peaa2240):
+    """(system, batch, frozen k-space force, the design's list: None for K3,
+    K4's compact list for the path and its seven channels for the first
+    design) of the PEAA (K3) or PEAA2240 (K4) fixture."""
+    if kernel == "K3":
+        sys, batch, fk = peaa
+        return sys, batch, fk, {"path": None, "first": None}
+    sys, batch, fk, nbr = peaa2240
+    return sys, batch, fk, {"path": nbr, "first": sys.fused.channels_first(batch.pos, batch.h)}
+
+
+_K34_COUNTER = {"K3": "launches_k3", "K4": "launches_k4"}
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("design", ["path", "first"])
+def test_k34_force_entry_designs_match_plain(peaa, peaa2240, kernel, design):
+    """The force entry on the probe's twelve perturbed, tilted boxes: the
+    redesign's tiles over (tile, box) blocks and the first design's one
+    block per box, each within twice the plain float32 error against
+    float64 (per atom 1e-5); each design counts its own launch only."""
+    sys, batch, _, nbrs = _charged(kernel, peaa, peaa2240)
+    dev = batch.pos.device
+    gen = torch.Generator().manual_seed(12)
+    pos = batch.pos[:1].expand(12, -1, -1) + 0.02 * torch.randn(
+        (12, sys.n_atoms, 3), generator=gen).to(dev)
+    h = batch.h[:1].expand(12, 3, 3).clone()
+    h[:, 0, 1], h[6:, 0, 2] = 0.3, -0.2
+    p, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(h)
+    r = sys.fused
+    nbr = r.channels(pos, h) if kernel == "K4" else None
+    if kernel == "K4" and design == "first":
+        nbr = r.channels_first(pos, h)
+    entry, other = ((MF.md_forces_virial, MF._forces_first) if design == "path"
+                    else (MF._forces_first, MF.md_forces_virial))
+    attr = _K34_COUNTER[kernel]
+    before, other_before = getattr(entry, attr), getattr(other, attr)
+    F, W = entry(r, p, h6, nbr=nbr)
+    torch.cuda.synchronize()
+    assert getattr(entry, attr) == before + 1 and getattr(other, attr) == other_before
+    Fp, Wp = MF.md_forces_virial_plain(r, p, h6, nbr)
+    F64, W64 = MF.md_forces_virial_plain(r.to(dev, torch.float64), p.double(), h6.double(), nbr)
+    assert torch.isfinite(F).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    fn = F64.norm(dim=1)
+    big = fn > 0.01 * fn.max()
+    pa = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    pp = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    assert pa <= 2 * pp + 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("design", ["path", "first"])
+def test_k34_run_designs_match_plain(peaa, peaa2240, kernel, design):
+    """A 10-step deform chunk with SHAKE and the frozen k-space force on
+    each design: within four times the plain float32 run's distance from
+    float64, inactive jobs bit-identical, each design counting its own
+    launch only."""
+    sys, batch, fk, nbrs = _charged(kernel, peaa, peaa2240)
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 7, 10], dtype=torch.int32, device=st.device)
+    g0 = torch.tensor([0, 0, 10, 20], dtype=torch.int32, device=st.device)
+    n_tot = torch.full_like(n_run, 30)
+    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
+    run, other = (MF.md_run, MF._run_first) if design == "path" else (MF._run_first, MF.md_run)
+    attr = _K34_COUNTER[kernel]
+    before, other_before = getattr(run, attr), getattr(other, attr)
+    out, vxi, _ = run(sys.fused, st, *args, nbr=nbrs[design])
+    torch.cuda.synchronize()
+    assert getattr(run, attr) == before + 1 and getattr(other, attr) == other_before
+    assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
+    ref, _, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbrs["path"])
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                  batch.vxi.double(), n_run, fscal.double(), True, False,
+                                  fk.double(), g0, n_tot, nbr=nbrs["path"])
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_k34_levers_match_plain(peaa, peaa2240, kernel):
+    """Every design step built as an instance of its own (the levers that
+    chip_smoke.py times) runs the same chunk to the same bound, and skips
+    an inactive job; the steps that skip the bonded or SHAKE/RATTLE passes
+    are timing instances only and are held to finite states."""
+    sys, batch, fk, nbrs = _charged(kernel, peaa, peaa2240)
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, torch.full((B, 6), 5e-4, device=st.device))
+    n_run = torch.tensor([10, 0, 10, 10], dtype=torch.int32, device=st.device)
+    g0, n_tot = 0 * n_run, torch.full_like(n_run, 10)
+    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
+    ref, _, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbrs["path"])
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                  batch.vxi.double(), n_run, fscal.double(), True, False,
+                                  fk.double(), g0, n_tot, nbr=nbrs["path"])
+    for lever in MF.K34_LEVERS[kernel]:
+        out, vxi, _ = MF.k34_lever_run(sys.fused, lever, st, *args, nbr=nbrs["path"])
+        torch.cuda.synchronize()
+        assert torch.equal(out[1], st[1]), lever
+        assert torch.isfinite(out).all(), lever
+        if lever in MF.K34_TIMING_ONLY:
+            continue
+        assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4, lever
+        assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4, lever
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_k34_kernels_occupancy(peaa, peaa2240, kernel):
+    """The run kernel holds one block of a job per SM at its pinned width
+    (K3 896 threads of two rows, K4 768), the force kernel at least two
+    blocks of 512 threads without spills."""
+    sys = (peaa if kernel == "K3" else peaa2240)[0]
+    T = int(sys.fused.k34_tbl.shape[0])
+    run = MF.k34_kernel_info(kernel, "run", sys.n_atoms, T)
+    forces = MF.k34_kernel_info(kernel, "forces", sys.n_atoms, T)
+    assert run["blocks_per_sm"] == 1 and run["threads"] == {"K3": 896, "K4": 768}[kernel], run
+    assert forces["blocks_per_sm"] >= 2 and forces["local_bytes"] == 0, forces
 
 
 SI = M.MaterialSpec(name="si", force_field="sw")  # 3^3 diamond cells, 216 atoms

@@ -140,20 +140,28 @@ def test_chunk_length_follows_rebuild_and_kspace_periods():
 
 
 def test_k4_smem_budget_and_channel_checks():
-    """K4 keeps K3's 21 N floats of shared memory (the 2240-atom box fits,
-    2748 is the limit); a list runner refuses to launch without its
-    channels, and a channel of the wrong shape or type is refused before
-    any launch."""
+    """K4 keeps K3's 23 N floats of shared memory (the 2240-atom box fits,
+    2509 is the limit with one atom type); a list runner refuses to launch
+    without its compact list, and a list of the wrong shape or type is
+    refused before any launch — as are the first design's channels."""
     sys_, st = TM.build_system(TM.MaterialSpec(**COMMON, use_ewald=True), device="cpu")
     spec = sys_.fused.spec
     assert spec.flags == "COUL+EWALD+PATTERNS+SHAKE+FEXT+LIST"
     limit = TMF.max_atoms(spec)
+    assert limit == 2509
     TMF.check_smem(TMF.FusedSpec(**{**spec.__dict__, "n_atoms": 2240}))
     with pytest.raises(ValueError, match=r"K4 \(flags .*LIST\).*at most"):
         TMF.check_smem(TMF.FusedSpec(**{**spec.__dict__, "n_atoms": limit + 1}))
-    with pytest.raises(ValueError, match="neighbor channels"):
+    with pytest.raises(ValueError, match="compact list"):
+        TMF._check_slots(sys_.fused, None, 1)
+    sl = sys_.fused.channels(st.pos[None], st.h[None])
+    with pytest.raises(ValueError, match="slot shape"):
+        TMF._check_slots(sys_.fused, {**sl, "slot": sl["slot"][:, :8]}, 1)
+    with pytest.raises(TypeError, match="count has dtype"):
+        TMF._check_slots(sys_.fused, {**sl, "count": sl["count"].long()}, 1)
+    with pytest.raises(ValueError, match="seven channels"):
         TMF._check_channels(sys_.fused, None, 1)
-    ch = sys_.fused.channels(st.pos[None], st.h[None])
+    ch = sys_.fused.channels_first(st.pos[None], st.h[None])
     with pytest.raises(ValueError, match="channel lj1 shape"):
         TMF._check_channels(sys_.fused, {**ch, "lj1": ch["lj1"][:, :8]}, 1)
     with pytest.raises(TypeError, match="channel idx"):

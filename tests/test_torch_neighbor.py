@@ -25,6 +25,7 @@ from scema_tpu.md import neighbor as JNB
 from scema_tpu_torch import interop
 from scema_tpu_torch.md import material as TM
 from scema_tpu_torch.md import neighbor as TNB
+from scema_tpu_torch.ops import md_fused as TMF
 
 
 COMMON = dict(name="pe", force_field="opls", allatom=True, n_chains=4, chain_length=4,
@@ -142,8 +143,13 @@ def test_common_box_lists_match_jax(common_list):
     assert np.array_equal(conv.idx.numpy(), np.asarray(jl.idx))
 
 
-def _sorted_by_idx(ch):
-    order = torch.sort(ch["idx"][0].long(), dim=0, stable=True).indices
+def _sorted_by_idx(ch, keep=None):
+    """Each atom's slots sorted by neighbor index; with ``keep`` (1, K, N)
+    the kept slots first (the others after them, in slot order)."""
+    key = ch["idx"][0].long()
+    if keep is not None:
+        key = torch.where(keep[0], key, key.shape[1] + torch.arange(key.shape[0])[:, None])
+    order = torch.sort(key, dim=0, stable=True).indices
     return {k: torch.gather(v[0], 0, order).double().numpy() for k, v in ch.items()}
 
 
@@ -152,7 +158,8 @@ def test_channels_match_jax_pack_channels(common_list):
     jr, tr = jsys.fused, tsys.fused
     assert tr.spec.k == jr.spec.k == 56 and tr.spec.flags.endswith("+LIST")
     jch = interop.list_channels(jr.channels(jnp.asarray(pos), jnp.asarray(h)), tsys.n_atoms)
-    tch = tr.channels(torch.as_tensor(pos)[None], torch.as_tensor(h)[None])
+    # the first design's seven channels (pack_channels) slot for slot
+    tch = tr.channels_first(torch.as_tensor(pos)[None], torch.as_tensor(h)[None])
     assert set(tch) == set(jch) == set(tr.channel_names)
     assert tch["idx"].dtype == torch.int32 and tch["idx"].shape == (1, 56, tsys.n_atoms)
     a, b = _sorted_by_idx(tch), _sorted_by_idx(jch)
@@ -164,6 +171,21 @@ def test_channels_match_jax_pack_channels(common_list):
     # some in-range slots
     assert np.abs(a["imx"]).max() >= 1 and (a["lj1"] == 0).sum() > (a["idx"] == np.arange(
         tsys.n_atoms)).sum()
+    # the path's compact list (pack_slots) decodes to JAX's slots less the
+    # ones whose weights are all 0, which it drops
+    slots = tr.channels(torch.as_tensor(pos)[None], torch.as_tensor(h)[None])
+    dec = TMF.k4_slots_to_channels(tr, slots)
+    n = tsys.n_atoms
+    keep = (jch["idx"] != torch.arange(n, dtype=jch["idx"].dtype)) & ~(
+        (jch["lj1"] == 0) & (jch["lj2"] == 0) & (jch["qq"] == 0))
+    assert torch.equal(slots["count"][0], keep[0].sum(0).to(torch.int32))
+    live = torch.arange(56)[:, None] < slots["count"][0][None, :]
+    a, b = _sorted_by_idx(dec, live[None]), _sorted_by_idx(jch, keep)
+    m = live.numpy()  # each atom's kept slots come first in both
+    assert np.array_equal(a["idx"][m], b["idx"][m])
+    for name in ("lj1", "lj2", "qq", "imx", "imy", "imz"):
+        scale = max(np.abs(b[name]).max(), 1.0)
+        assert np.abs(a[name][m] - b[name][m]).max() <= 1e-12 * scale, name
 
 
 def test_reused_buffers_rebuild_only_the_given_jobs(common_list):
@@ -175,7 +197,7 @@ def test_reused_buffers_rebuild_only_the_given_jobs(common_list):
     buf = tr.channels(p, hh, reuse=True)
     assert all(torch.equal(buf[k], full[k]) for k in full)
     again = tr.channels(p.flip(0), hh, jobs=torch.tensor([1]), reuse=True)
-    assert again["lj1"].data_ptr() == buf["lj1"].data_ptr()
+    assert again["slot"].data_ptr() == buf["slot"].data_ptr()
     for k in full:  # job 1 now holds job 0's list, job 0 is untouched
         assert torch.equal(again[k][0], full[k][0]) and torch.equal(again[k][1], full[k][0])
 
