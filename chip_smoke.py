@@ -219,9 +219,10 @@ def bound(bytes_, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def pair_fractions(pos, h, cut2, coul_cut2=0.0):
+def pair_fractions(pos, h, cut2, coul_cut2=0.0, skip=None):
     """Fractions of the pairs i != j of the boxes pos (B, N, 3) inside each
-    cutoff, with the kernel's minimum image."""
+    cutoff, with the kernel's minimum image; the pairs of the (N, N) bool
+    mask ``skip`` (the excluded partners) count as outside."""
     from scema_tpu_torch.md import box as B
 
     fl = fq = 0.0
@@ -229,11 +230,31 @@ def pair_fractions(pos, h, cut2, coul_cut2=0.0):
         d = B.min_image_disp(h[b], pos[b][None, :, :] - pos[b][:, None, :])
         r2 = (d * d).sum(-1)
         r2.fill_diagonal_(float("inf"))
+        if skip is not None:
+            r2[skip] = float("inf")
         pairs = r2.shape[0] * (r2.shape[0] - 1)
         fl += float((r2 < cut2).double().sum()) / pairs
         fq += float((r2 < coul_cut2).double().sum()) / pairs
     n = pos.shape[0]
     return fl / n, fq / n
+
+
+def k3_excluded(r):
+    """(N, N) bool: the pairs that K3's window skips (the excluded partners,
+    both weights 0), from the atom codes of the K3 runner r."""
+    import torch
+
+    from scema_tpu_torch.ops import md_fused as MF
+
+    code = r.k34_code.long()
+    n, W = code.shape[0], MF.k3_window(r)
+    out = torch.zeros((n, n), dtype=torch.bool, device=code.device)
+    ii = torch.arange(n, device=code.device)
+    for d in range(2 * W + 1):
+        if d != W:
+            i = ii[max(0, W - d):min(n, n + W - d)]
+            out[i, i + d - W] = ((code[i] >> (MF.K34_EXCL + d)) & 1).bool()
+    return out
 
 
 def pair_flops(n_atoms, jobs_steps, f_lj, f_q=0.0, virial=False):
@@ -789,7 +810,7 @@ def phase_k3(dev):
     ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 1.5, -1.0, 0.8
     post = B.remap_affine(h12, ht, pos12)
     forces_entry = {"path": MF.md_forces_virial, "first": MF._forces_first}
-    errs = []
+    f_err, errs = {}, []
     for tag, (pp_, hh) in (("orthorhombic", (pos12, h12)), ("tilted", (post, ht))):
         p12 = pp_.transpose(1, 2).contiguous()
         h6 = MF.h6_of(hh)
@@ -812,8 +833,8 @@ def phase_k3(dev):
                 fail(f"K3 forces ({d}, {tag}): kernel error vs float64 {ek:.3e} (per atom "
                      f"{pa_k:.3e}, virial {wk:.3e}) exceeds twice the plain float32 error "
                      f"{ep:.3e} ({pa_p:.3e}, {wp:.3e}) + 1e-6 (per atom 1e-5)")
-            if tag == "orthorhombic" and d == "path":
-                f_err = float((F - Fp).abs().max())
+            if tag == "orthorhombic":
+                f_err[d] = float((F - Fp).abs().max())
             errs.append(f"{tag} {d} {ek:.3e} (per atom {pa_k:.3e}, virial {wk:.3e})")
         errs.append(f"{tag} plain-f32 {ep:.3e} ({pa_p:.3e}, {wp:.3e})")
     p12 = pos12.transpose(1, 2).contiguous()
@@ -822,7 +843,9 @@ def phase_k3(dev):
                  K34_NAMES)
     ms = min(fab["path"])
     plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=2)
-    f_lj, f_q = pair_fractions(pos12[:2], h12[:2], r.spec.cutoff2, r.spec.coul_cutoff2)
+    # the pairs the function needs: the excluded partners carry no force
+    excl = k3_excluded(r)
+    f_lj, f_q = pair_fractions(pos12[:2], h12[:2], r.spec.cutoff2, r.spec.coul_cutoff2, excl)
     # the bytes the function needs: K3's table, charges, codes and window,
     # the pattern rows, each box's positions in and forces + virial out;
     # the first design's bound reads the three N x N planes in their place
@@ -830,19 +853,22 @@ def phase_k3(dev):
     planes = 3 * n * n
     fb_ms, fb_by = bound(4.0 * (tables + r.pat.numel() + 12 * (6 * n + 12)),
                          pair_flops(n, 12, f_lj, f_q, virial=True))
-    ob_ms, _ = bound(4.0 * (planes + r.pat.numel() + 12 * (6 * n + 12)),
-                     pair_flops(n, 12, f_lj, f_q, virial=True))
-    print(f"[6 K3 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64 (tol 2x "
+    ob_ms, ob_by = bound(4.0 * (planes + r.pat.numel() + 12 * (6 * n + 12)),
+                         pair_flops(n, 12, f_lj, f_q, virial=True))
+    print(f"[6 K3 forces] B=12: max_abs_err vs plain {f_err['path']:.3e} (first design "
+          f"{f_err['first']:.3e}); rel error vs float64 (tol 2x "
           f"plain + 1e-6, per atom + 1e-5): {'; '.join(errs)}  device ms (old, new, new, old): "
           f"{turns(fab)}  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}) [the planes' "
-          f"{ob_ms:.4f}]; pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f}")
+          f"{ob_ms:.4f} ({ob_by})]; pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f} (excluded "
+          f"partners left out)")
     forces_row = {"name": "md_charged_forces_virial", "route": "cuda",
                   "source": "scema_tpu_torch/csrc/md_k3.cu",
                   "replaces": "scema_tpu/ops/md_fused.py:1850",
-                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
+                  "max_abs_err": f_err["path"], "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
     first_forces_row = dict(forces_row, name="md_charged_first_forces_virial",
-                            source=FIRST_SOURCE, ms=min(fab["first"]), bound_ms=ob_ms)
+                            source=FIRST_SOURCE, max_abs_err=f_err["first"],
+                            ms=min(fab["first"]), bound_ms=ob_ms, bound_by=ob_by)
 
     # a 128-job 10-step deform chunk with SHAKE and the frozen k-space force
     J = 128
@@ -891,17 +917,19 @@ def phase_k3(dev):
     run_ms = min(rab["path"])
     run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args), reps=1, warmup=0)
     pme_ms = min(pme_ms, cuda_ms(lambda: r.kspace(st.pos.expand(J, -1, -1), hJ), reps=3))
-    f_lj, f_q = pair_fractions(st.pos[None], st.h[None], r.spec.cutoff2, r.spec.coul_cutoff2)
+    f_lj, f_q = pair_fractions(st.pos[None], st.h[None], r.spec.cutoff2, r.spec.coul_cutoff2,
+                               excl)
     jobs_bytes = J * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
     rb_ms, rb_by = bound(4.0 * (tables + r.pat.numel() + r.shk.numel() + jobs_bytes),
                          pair_flops(n, J * 10, f_lj, f_q))
-    ob_ms, _ = bound(4.0 * (planes + 16 * n + r.pat.numel() + r.shk.numel() + jobs_bytes),
-                     pair_flops(n, J * 10, f_lj, f_q))
+    ob_ms, ob_by = bound(4.0 * (planes + 16 * n + r.pat.numel() + r.shk.numel() + jobs_bytes),
+                         pair_flops(n, J * 10, f_lj, f_q))
     print(f"[6 K3 run] {J} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions max_abs_err "
           f"vs plain {p_err:.3e} A; vs float64 (tol 4x plain + 1e-4, SHAKE 1e-3): "
           f"{'; '.join(res)}; plain-f32 {pp:.3e} A ({vp:.3e})  kernel {run_ms:.3f} ms  plain "
-          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}) [the planes' {ob_ms:.3f}]; "
-          f"pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f}")
+          f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}) [the planes' {ob_ms:.3f} "
+          f"({ob_by})]; pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f} (excluded partners left "
+          f"out)")
     print(f"[6 K3 A/B] {J} jobs x 10 deform steps, ms (old, new, new, old): first design "
           f"{rab['first'][0]:.3f} / {rab['first'][1]:.3f}, redesign {rab['path'][0]:.3f} / "
           f"{rab['path'][1]:.3f}: {min(rab['first']) / run_ms:.3f}x; force entry B=12 device ms "
@@ -944,7 +972,7 @@ def phase_k3(dev):
                "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
     first_run_row = dict(run_row, name="md_charged_first_run", source=FIRST_SOURCE,
                          max_abs_err=float((out1[:, :3] - ref[:, :3]).abs().max()),
-                         ms=min(rab["first"]), bound_ms=ob_ms)
+                         ms=min(rab["first"]), bound_ms=ob_ms, bound_by=ob_by)
     return [run_row, forces_row], [first_run_row, first_forces_row]
 
 
@@ -1089,7 +1117,7 @@ def phase_k4(dev):
     ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 1.5, -1.0, 0.8
     post = B.remap_affine(h12, ht, pos12)
     forces_entry = {"path": MF.md_forces_virial, "first": MF._forces_first}
-    errs = []
+    f_err, errs = {}, []
     for tag, (pp_, hh) in (("orthorhombic", (pos12, h12)), ("tilted", (post, ht))):
         p12 = pp_.transpose(1, 2).contiguous()
         h6 = MF.h6_of(hh)
@@ -1113,8 +1141,8 @@ def phase_k4(dev):
                 fail(f"K4 forces ({d}, {tag}): kernel error vs float64 {ek:.3e} (per atom "
                      f"{pa_k:.3e}, virial {wk:.3e}) exceeds 4x the plain float32 error "
                      f"{ep:.3e} ({pa_p:.3e}, {wp:.3e}) + 1e-6 (per atom 1e-5)")
-            if tag == "orthorhombic" and d == "path":
-                f_err = float((F - Fp).abs().max())
+            if tag == "orthorhombic":
+                f_err[d] = float((F - Fp).abs().max())
             errs.append(f"{tag} {d} {ek:.3e} (per atom {pa_k:.3e}, virial {wk:.3e})")
         errs.append(f"{tag} plain-f32 {ep:.3e} ({pa_p:.3e}, {wp:.3e})")
         if int(nb["path"]["count"].max()) >= K:
@@ -1126,7 +1154,10 @@ def phase_k4(dev):
                   for d, fn_ in forces_entry.items()}, 20, K34_NAMES)
     ms = min(fab["path"])
     plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6, nbr12["path"]), reps=2)
-    lp, lj, lq = list_pair_counts(nbr12["first"], pos12, h12, r.spec.cutoff2, r.spec.coul_cutoff2)
+    # the pairs the function needs: the compact list's (the excluded
+    # partners dropped)
+    lp, lj, lq = list_pair_counts(MF.k4_slots_to_channels(r, nbr12["path"]), pos12, h12,
+                                  r.spec.cutoff2, r.spec.coul_cutoff2)
     # the bytes the function needs: each box's compact list once (4 B per
     # listed slot and its count), the type table, charges and codes, the
     # pattern rows, positions in and forces + virial out; the first design's
@@ -1137,24 +1168,26 @@ def phase_k4(dev):
     fb_ms, fb_by = bound(12 * 4.0 * (live12 + n + 6 * n + 6)
                          + 4.0 * (tables + r.pat.numel()),
                          list_flops(12, lp, lj, lq, virial=True))
-    ob_ms, _ = bound(12 * (16.0 * K * n + 4.0 * (6 * n + 6))
-                     + 4.0 * (3 * n * n + r.pat.numel() + 2 * n),
-                     list_flops(12, lp, lj, lq, virial=True))
-    print(f"[8 K4 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64 (tol 4x "
+    ob_ms, ob_by = bound(12 * (16.0 * K * n + 4.0 * (6 * n + 6))
+                         + 4.0 * (3 * n * n + r.pat.numel() + 2 * n),
+                         list_flops(12, lp, lj, lq, virial=True))
+    print(f"[8 K4 forces] B=12: max_abs_err vs plain {f_err['path']:.3e} (first design "
+          f"{f_err['first']:.3e}); rel error vs float64 (tol 4x "
           f"plain + 1e-6, per atom + 1e-5): {'; '.join(errs)}  device ms (old, new, new, old): "
           f"{turns(fab)}  plain {plain_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by}) [7 channels: "
-          f"{ob_ms:.4f}]; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, {lq:.0f} inside "
-          f"Coulomb")
+          f"{ob_ms:.4f} ({ob_by})]; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, {lq:.0f} "
+          f"inside Coulomb (excluded partners dropped)")
     forces_row = {"name": "md_list_forces_virial", "route": "cuda",
                   "source": "scema_tpu_torch/csrc/md_k4.cu",
                   "replaces": "scema_tpu/ops/md_fused.py:1850",
                   "note": "K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, "
                           "the streamed job-grid form (md_fused.py:1678): the same kernel",
-                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
+                  "max_abs_err": f_err["path"], "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
     first_forces_row = dict(forces_row, name="md_list_first_forces_virial",
-                            source="scema_tpu_torch/csrc/md_list.cu", ms=min(fab["first"]),
-                            bound_ms=ob_ms)
+                            source="scema_tpu_torch/csrc/md_list.cu",
+                            max_abs_err=f_err["first"], ms=min(fab["first"]), bound_ms=ob_ms,
+                            bound_by=ob_by)
 
     # the main path's chunk shape (128 jobs x 10 steps) and a 16-job
     # subset checked against float32 and float64
@@ -1216,8 +1249,8 @@ def phase_k4(dev):
                   "first": lambda: MF._run_first(r, *args, nbr=chJ)}, 3)
     run_ms = min(rab["path"])
     run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
-    lp, lj, lq = list_pair_counts({k: v[:2] for k, v in chJ.items()}, posJ[:2], hJ[:2],
-                                  r.spec.cutoff2, r.spec.coul_cutoff2)
+    lp, lj, lq = list_pair_counts(MF.k4_slots_to_channels(r, {k: v[:2] for k, v in nbrJ.items()}),
+                                  posJ[:2], hJ[:2], r.spec.cutoff2, r.spec.coul_cutoff2)
     cnt = nbrJ["count"].double()
     listed = (chJ["idx"] != torch.arange(n, dtype=torch.int32, device=dev)).sum(1).double()
     live_mean = float(cnt.mean())
@@ -1225,14 +1258,15 @@ def phase_k4(dev):
     rb_ms, rb_by = bound(J * (4.0 * (live_mean * n + n) + jobs_bytes)
                          + 4.0 * (tables + r.pat.numel() + r.shk.numel() + 2 * n),
                          list_flops(J * 10, lp, lj, lq))
-    ob_ms, _ = bound(J * (16.0 * K * n + jobs_bytes)
-                     + 4.0 * (3 * n * n + r.pat.numel() + r.shk.numel() + 2 * n),
-                     list_flops(J * 10, lp, lj, lq))
+    ob_ms, ob_by = bound(J * (16.0 * K * n + jobs_bytes)
+                         + 4.0 * (3 * n * n + r.pat.numel() + r.shk.numel() + 2 * n),
+                         list_flops(J * 10, lp, lj, lq))
     stream = {"path": J * 10 * 4.0 * live_mean * n, "first": J * 10 * 4.0 * n_ch * K * n}
     print(f"[8 K4 run] {J} jobs x 10 deform steps: kernel {run_ms:.3f} ms  plain "
           f"{run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms ({rb_by}; the compact lists once "
           f"{J * 4.0 * live_mean * n / 1e9:.3f} GB; per box {lp:.0f} list pairs, {lj:.0f} inside "
-          f"LJ, {lq:.0f} inside Coulomb) [7 channels: {ob_ms:.3f}]  slots re-read every step: "
+          f"LJ, {lq:.0f} inside Coulomb) [7 channels: {ob_ms:.3f} ({ob_by})]  slots re-read "
+          f"every step: "
           f"{stream['path'] / 1e9:.2f} GB = {stream['path'] / HBM_BPS * 1e3:.3f} ms at 3.35 TB/s "
           f"(first design's {n_ch} channels {stream['first'] / 1e9:.2f} GB = "
           f"{stream['first'] / HBM_BPS * 1e3:.3f} ms)")
@@ -1304,7 +1338,7 @@ def phase_k4(dev):
     first_run_row = dict(run_row, name="md_list_first_run",
                          source="scema_tpu_torch/csrc/md_list.cu",
                          max_abs_err=float((out1[:, :3] - ref[:, :3]).abs().max()),
-                         ms=min(rab["first"]), bound_ms=ob_ms)
+                         ms=min(rab["first"]), bound_ms=ob_ms, bound_by=ob_by)
     return [run_row, forces_row], [first_run_row, first_forces_row]
 
 

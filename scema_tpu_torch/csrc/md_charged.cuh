@@ -57,6 +57,10 @@
 //   896 threads at 72 registers and 768 at 80 fill the SM with one job's
 //   block (unpinned, ptxas takes 107 registers and the block 512 threads,
 //   1.5x slower); ptxas spills 0-48 bytes per thread at these widths.
+//   The run kernels' local memory (K3 112 bytes, K4 80) is outside the
+//   pair loops (cuobjdump -sass): the bonded pattern pass's role arrays,
+//   indexed at run time, the per-step virial sums and, in K3, the few
+//   per-step values that the pin at 72 registers spills.
 // * The force entry fills the card: a (tiles, B) grid, 32 rows of one box
 //   per block, 16 warps that each take a slice of the j range (K3) or of the
 //   tile's live slot range (K4); the slices' partial forces are summed in

@@ -15,7 +15,9 @@ Tolerances, each with its reason:
 * the planes rebuilt from the tables (``k3_dense_planes``) equal
   ``dense_planes`` and ``dense_qq`` bit for bit in float64: the table entry
   and q_i q_j are the planes' float64 products before the weight, and every
-  weight on all-atom polyethylene is 0 or 1;
+  weight on all-atom polyethylene is 0 or 1 — or, with the usual OPLS 1-4
+  weight special_lj = special_coul = (0, 0, 0.5), a power of two, which
+  scales the product exactly;
 * the compact list decoded (``k4_slots_to_channels``) equals the first
   design's channels (``pack_channels``) bit for bit in float64, once the
   slots whose LJ and Coulomb weights are both 0 are dropped from them in
@@ -43,6 +45,7 @@ SMALL = dict(name="pe", force_field="opls", allatom=True, n_chains=4, chain_leng
              pe_density=0.33, opls_lj_cutoff=5.0, opls_coul_cutoff=4.5, validate=False,
              use_ewald=True)
 G0_LIST = TM.MaterialSpec(name="g0", force_field="opls", force_list_kernel=True)
+HALF = (0.0, 0.0, 0.5)  # OPLS's usual special_lj / special_coul: 1-4 pairs at half weight
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +71,41 @@ def test_k3_tables_rebuild_the_planes(systems, case):
     # every special weight of all-atom PE is 0: the window only excludes
     assert int(t["spec"].count_nonzero()) == 0
     assert bool(((t["code"] >> (TMF.K34_EXCL + 10)) & 1).all())  # the atom itself
+
+
+def _special_half(sys_):
+    """The float64 runner of ``sys_`` with special_lj = special_coul =
+    (0, 0, 0.5): 1-2 and 1-3 partners excluded, 1-4 partners at half
+    weight."""
+    ff = dataclasses.replace(sys_.ff, special_lj=HALF, special_coul=HALF)
+    r = sys_.fused
+    return TMF.make_runner(ff, sys_.masses, REAL, dtype=torch.float64,
+                           constraints=sys_.constraints, kspace=r.kspace,
+                           kspace_every=r.kspace_every, nspec=r.nspec,
+                           rebuild_every=r.rebuild_every)
+
+
+@pytest.mark.parametrize("case", ["peaa", "peaa2240"])
+def test_k3_tables_rebuild_the_planes_with_special_weights(systems, case):
+    """With the 1-4 pairs at half weight the window holds them as offsets
+    of another weight (0.5 in both columns of ``win``), the 1-2 and 1-3
+    partners as excluded, and the planes rebuilt from the tables equal the
+    dense planes with those weights folded in."""
+    ff = dataclasses.replace(systems[case][0].ff, special_lj=HALF, special_coul=HALF)
+    t = TMF.k3_tables(ff, torch.float64)
+    lj1, lj2 = TMF.dense_planes(ff, torch.float64)
+    qq = TMF.dense_qq(ff, torch.float64)
+    r1, r2, rq = TMF.k3_dense_planes(t["tbl"], t["q"], t["code"], t["spec"], t["win"])
+    assert torch.equal(r1, lj1) and torch.equal(r2, lj2) and torch.equal(rq, qq)
+    W = (t["win"].shape[1] - 1) // 2
+    sp = torch.stack([(t["spec"] >> d) & 1 for d in range(2 * W + 1)], 1).bool()
+    ex = torch.stack([(t["code"] >> (TMF.K34_EXCL + d)) & 1 for d in range(2 * W + 1)], 1).bool()
+    # every 1-4 partner is an offset of weight 0.5, and no offset is both
+    wl = torch.as_tensor(ff.pair_weights(HALF))
+    assert int(sp.sum()) == int((wl == 0.5).sum()) > 0 and not bool((sp & ex).any())
+    assert bool((t["win"][sp] == 0.5).all())
+    # the 1-2 and 1-3 partners excluded, and each atom itself (the diagonal)
+    assert int(ex.sum()) == int((wl == 0.0).sum())
 
 
 def test_runners_carry_their_tables(systems):
@@ -110,20 +148,27 @@ def _compact(ch: dict, keep: torch.Tensor, n: int) -> dict:
     return out
 
 
-def test_compact_slots_decode_to_the_channels(systems):
-    """On a FIRE'd PEAA2240 state in float64: the compact list's count is
-    each row's live slots less its excluded partners, and its words decode
-    to the first design's channels with those slots dropped."""
+@pytest.fixture(scope="module")
+def peaa2240_fired(systems):
+    """The PEAA2240 box after one FIRE step, in float64."""
     sys_, st = systems["peaa2240"]
-    st = TE.minimize_fire(sys_, st, n_steps=1, dt0=0.5)
-    r, n = sys_.fused, sys_.n_atoms
+    return TE.minimize_fire(sys_, st, n_steps=1, dt0=0.5)
+
+
+def _check_decode(r, ff, st) -> torch.Tensor:
+    """K4's compact list of runner r (force field ff) at state st: its
+    count is each row's live slots less the partners whose LJ and Coulomb
+    weights are both 0, and its words decode to the first design's channels
+    with those slots dropped.  Returns the special-bond order of each kept
+    slot (0 on dead slots)."""
+    n = r.spec.n_atoms
     pos, h = st.pos[None], st.h[None]
     slots = r.channels(pos, h)
     ch = r.channels_first(pos, h)
     idx = ch["idx"].long()
     live = idx != torch.arange(n)
-    wl = torch.as_tensor(sys_.ff.pair_weights(sys_.ff.special_lj))
-    wc = torch.as_tensor(sys_.ff.pair_weights(sys_.ff.special_coul))
+    wl = torch.as_tensor(ff.pair_weights(ff.special_lj))
+    wc = torch.as_tensor(ff.pair_weights(ff.special_coul))
     ii = torch.arange(n).expand_as(idx)
     keep = live & ~((wl[ii, idx] == 0) & (wc[ii, idx] == 0))
     assert torch.equal(slots["count"], keep.sum(1).to(torch.int32))
@@ -132,6 +177,29 @@ def test_compact_slots_decode_to_the_channels(systems):
     ref = _compact(ch, keep, n)
     for name in r.channel_names:
         assert torch.equal(dec[name], ref[name]), name
+    slot = slots["slot"].long()
+    on = torch.arange(r.spec.k)[None, :, None] < slots["count"].long()[:, None, :]
+    return torch.where(on, (slot >> 28) & 3, 0)
+
+
+def test_compact_slots_decode_to_the_channels(systems, peaa2240_fired):
+    """On a FIRE'd PEAA2240 state in float64: the compact list's count is
+    each row's live slots less its excluded partners, and its words decode
+    to the first design's channels with those slots dropped."""
+    sys_ = systems["peaa2240"][0]
+    order = _check_decode(sys_.fused, sys_.ff, peaa2240_fired)
+    assert int(order.count_nonzero()) == 0  # every special partner dropped
+
+
+def test_compact_slots_decode_with_special_weights(systems, peaa2240_fired):
+    """With the 1-4 pairs at half weight the pack keeps them (order 3 in
+    their words) and drops only the 1-2 and 1-3 partners; the words decode
+    to the first design's channels, whose planes carry the 0.5."""
+    sys_ = systems["peaa2240"][0]
+    r = _special_half(sys_)
+    ff = dataclasses.replace(sys_.ff, special_lj=HALF, special_coul=HALF)
+    order = _check_decode(r, ff, peaa2240_fired)
+    assert int((order == 3).sum()) > 0 and int(((order == 1) | (order == 2)).sum()) == 0
 
 
 def test_image_outside_the_range_raises(systems):

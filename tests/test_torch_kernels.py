@@ -646,6 +646,66 @@ def test_k34_run_designs_match_plain(peaa, peaa2240, kernel, design):
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_k34_special_weights_match_plain(peaa, peaa2240, kernel):
+    """With OPLS's usual special_lj = special_coul = (0, 0, 0.5) the 1-4
+    pairs are computed at half weight: K3 reads the weight from its window,
+    K4 from the order in the slot word.  The force entry on twelve tilted
+    boxes and a 10-step deform chunk (an inactive job bit-identical) are
+    held to the rules of the zero-weight tests against float64."""
+    sys, batch, fk, _ = _charged(kernel, peaa, peaa2240)
+    dev = batch.pos.device
+    half = (0.0, 0.0, 0.5)
+    ff = dataclasses.replace(sys.ff, special_lj=half, special_coul=half)
+    r0 = sys.fused
+    r = MF.make_runner(ff, sys.masses, sys.units, dtype=torch.float32, device=dev,
+                       constraints=sys.constraints, kspace=r0.kspace,
+                       kspace_every=r0.kspace_every, nspec=r0.nspec,
+                       rebuild_every=r0.rebuild_every)
+    r64 = r.to(dev, torch.float64)
+    assert r.spec.kernel == kernel and r.spec.special_lj == half
+    gen = torch.Generator().manual_seed(14)
+    pos = batch.pos[:1].expand(12, -1, -1) + 0.02 * torch.randn(
+        (12, sys.n_atoms, 3), generator=gen).to(dev)
+    h = batch.h[:1].expand(12, 3, 3).clone()
+    h[:, 0, 1], h[6:, 0, 2] = 0.3, -0.2
+    p, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(h)
+    nbr = r.channels(pos, h) if kernel == "K4" else None
+    if kernel == "K4":  # the 1-4 partners are kept, with order 3
+        assert bool((((nbr["slot"] >> 28) & 3) == 3).any())
+    F, W = MF.md_forces_virial(r, p, h6, nbr=nbr)
+    Fp, Wp = MF.md_forces_virial_plain(r, p, h6, nbr)
+    F64, W64 = MF.md_forces_virial_plain(r64, p.double(), h6.double(), nbr)
+    torch.cuda.synchronize()
+    assert torch.isfinite(F).all()
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    fn = F64.norm(dim=1)
+    big = fn > 0.01 * fn.max()
+    pa = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    pp = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    assert pa <= 2 * pp + 1e-5
+    # the weights matter: the zero-weight runner's forces differ
+    F0, _ = MF.md_forces_virial_plain(r0, p, h6, r0.channels(pos, h) if kernel == "K4" else None)
+    assert _rel(F0, F64) > 100 * _rel(Fp, F64)
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=dev).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 7, 10], dtype=torch.int32, device=dev)
+    g0, n_tot = torch.tensor([0, 0, 10, 20], dtype=torch.int32, device=dev), 30 + 0 * n_run
+    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
+    nbr = r.channels(batch.pos, batch.h) if kernel == "K4" else None
+    out, vxi, _ = MF.md_run(r, st, *args, nbr=nbr)
+    ref, _, _ = MF.md_run_plain(r, st, *args, nbr=nbr)
+    ref64, _, _ = MF.md_run_plain(r64, st.double(), batch.vxi.double(), n_run, fscal.double(),
+                                  True, False, fk.double(), g0, n_tot, nbr=nbr)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
 def test_k34_levers_match_plain(peaa, peaa2240, kernel):
     """Every design step built as an instance of its own (the levers that
     chip_smoke.py times) runs the same chunk to the same bound, and skips
@@ -676,13 +736,17 @@ def test_k34_levers_match_plain(peaa, peaa2240, kernel):
 @pytest.mark.parametrize("kernel", ["K3", "K4"])
 def test_k34_kernels_occupancy(peaa, peaa2240, kernel):
     """The run kernel holds one block of a job per SM at its pinned width
-    (K3 896 threads of two rows, K4 768), the force kernel at least two
-    blocks of 512 threads without spills."""
+    (K3 896 threads of two rows, K4 768) with no more local memory per
+    thread than it was built with (K3 112 B, K4 80 B: the bonded pattern
+    pass's role arrays, the per-step virial sums and K3's spills at its 72
+    pinned registers, none inside the pair loops), the force kernel at
+    least two blocks of 512 threads without spills."""
     sys = (peaa if kernel == "K3" else peaa2240)[0]
     T = int(sys.fused.k34_tbl.shape[0])
     run = MF.k34_kernel_info(kernel, "run", sys.n_atoms, T)
     forces = MF.k34_kernel_info(kernel, "forces", sys.n_atoms, T)
     assert run["blocks_per_sm"] == 1 and run["threads"] == {"K3": 896, "K4": 768}[kernel], run
+    assert run["local_bytes"] <= {"K3": 112, "K4": 80}[kernel], run
     assert forces["blocks_per_sm"] >= 2 and forces["local_bytes"] == 0, forces
 
 
