@@ -36,10 +36,8 @@ failure exits non-zero before the result line:
    pressure sums against float64), and the PME remainder's time for 128
    jobs; K3's first design (md_kernel.cuh) on the same force calls and
    chunk to the same rules, and timed in turns with the redesign (old,
-   new, new, old); each design step built as an instance of its own (the
-   levers, md_k3_levers.cu) checked on 16 jobs and timed on the chunk; the
-   registers, local (spill) bytes and blocks per SM of every instance;
-   both bounds (the tables', and the planes' in brackets);
+   new, new, old); the registers, local (spill) bytes and blocks per SM of
+   every instance; both bounds (the tables', and the planes' in brackets);
 7. the charged slice: ``build_md_hmm(HMMConfig(), spec=PEAA,
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per step,
    float32, for 2 macro-steps, its launch counters zeroed just before and
@@ -55,9 +53,10 @@ failure exits non-zero before the result line:
    list row full; K4's first design (md_kernel.cuh over the seven
    channels) to the same rules and in turns with the redesign on a 128-job
    10-step chunk and on the force entry, the list rebuild (compact pack
-   against the seven channels) in turns, the compact list's live-slot
-   statistics, each design step (md_k4_levers.cu) checked on 16 jobs and
-   timed, the instances' registers, spills and blocks per SM, both bounds
+   against the seven channels) in turns, K4's global form (phase 19) on the
+   same chunk against float64 and in turns with the shared form, the
+   compact list's live-slot
+   statistics, the instances' registers, spills and blocks per SM, both bounds
    (4 B per live slot, and the seven channels' in brackets), and K3's
    all-pairs time on the same 2240-atom box (the all-pairs/list
    crossover; measured only, no gate changes);
@@ -71,19 +70,25 @@ failure exits non-zero before the result line:
    equil_steps=50, minimize_steps=100)`` with at most 128 MD jobs per
    step, float32, 2 macro-steps, its launch counters zeroed just before
    and read just after; K2 and K4 must have launched, no first design;
-11. K5 (the Stillinger-Weber sweeps) against its plain version on the
-   prepared 216-atom diamond-Si box (float32): the force + virial entry at
-   the stiffness probe's 12 boxes against float32 and float64, a 576-job
-   10-step deform run, each job's 20-step sampling pressure sums against
-   float64; K5's and the plain version's times on 576 jobs x 10 steps at
-   N = 216 and at N = 512 (the largest cubic box of the fused gate), with
-   the bound; the stiffness ratios of a prepared box (0.01 K) against SW
-   silicon's;
+11. K5 (csrc/md_k5.cu: the Stillinger-Weber sweeps, sweep 2 over sweep
+   1's live lists, redesigned for Hopper) and its first design (md_sw.cu)
+   against the plain version on the prepared 216-atom diamond-Si box
+   (float32): the force + virial entry at the stiffness probe's 12 boxes,
+   orthorhombic and tilted, against float32 and float64, a 576-job 10-step
+   deform run (the live lists' largest count and overflows), the same on 16
+   jobs at live-list caps that some (8) or every (2) atom exceeds, each
+   job's 20-step sampling pressure sums against float64; both designs in
+   turns (old, new, new, old) on 576 jobs x 10 steps at N = 216 and at N =
+   512 (the largest cubic box of the fused gate) and on the force entry,
+   with the plain version's time, the bound and each kernel's registers,
+   local bytes and blocks per SM; the stiffness ratios of a prepared box
+   (0.01 K) against SW silicon's;
 12. the SW slice: ``scema_tpu_torch.cli run`` on ``{"molecular dynamics
    parameters": {"force field": "sw"}}`` with ``--quick-prep --steps 3``
    (576 qps, a 216-atom SW box at each flagged qp), every launch counter
    zeroed just before and read just after; K5 and K2 must have launched and
-   K1, K3, K4 must not have; md jobs 144, 288, 432 and 0.00048 m;
+   K1, K3, K4 and K5's first design must not have; md jobs 144, 288, 432
+   and 0.00048 m;
 13. K6 (the SW tile kernels) against their plain versions on the prepared
    4096-atom diamond-Si box (8^3 cells, 48 bricks; float32): K6d's
    moments, K6e's energy and K6c's forces + energy + virial on the
@@ -109,12 +114,14 @@ failure exits non-zero before the result line:
    kernel, K6's first design neither; md jobs 128, 128 and 0.00032 m;
 15. the same box on the list route (no bricks) for 1 macro-step: K2 is
    the only kernel launched;
-16. K1m (K1's first design with J = 2 jobs per block, the coupler's
-   pack_jobs) on the prepared g0 box at 576 jobs: a 10-step deform run and
-   a 20-step sampling run against that design (bit for bit, checked) and
-   against float64 at phase 4's tolerances, (live, dead) pairs with the dead
-   job bit-identical; K1m's (J = 2 and 4), the first design's, K1's and the
-   plain version's times, the bound, and the registers and spill stores;
+16. K1m (csrc/md_k1m.cu: K1's run with J = 2 or 4 jobs per block, the
+   coupler's pack_jobs, redesigned for Hopper) on the prepared g0 box at
+   576 jobs: a 10-step deform run against K1 (bit for bit or not, printed)
+   and against float64 at phase 4's rule, a 20-step sampling run, (live,
+   dead) pairs with the dead job bit-identical; its first design
+   (md_multi.cu) against K1's first design, bit for bit (checked); both
+   designs in turns (old, new, new, old) at J = 2 and 4, K1's and the plain
+   version's times, the bound, and the registers, spills and blocks per SM;
 17. the staged slice: ``scema_tpu_torch.cli run cfg.json --steps 3`` on
    an empty config without ``--quick-prep`` (the staged heatup/cooldown
    NPT prep; md jobs 144, 288, 432, 0.00048 m; K1's entries and K2 only)
@@ -122,9 +129,10 @@ failure exits non-zero before the result line:
    g0 prep at ns_init 60 (450-950 kg/m^3, tests/test_opls_hmm.py:69-81);
    2 macro-steps of the same built problem with pack_jobs 1 (K1), 1 again,
    1 on K1's first design and 2 (K1m launched, K1's run entry not;
-   K1's stresses and the packed ones each within 1e-4 relative of the
-   first design's, and the MD layer
-   alone bit for bit with it on identical inputs), and the staged
+   K1's stresses within 1e-4 relative of the first design's and the
+   packed ones within 1e-4 of K1's, and the MD layer alone on identical
+   inputs bit for bit with K1 where phase 16 found K1m so, else within
+   1e-4 in stress), and the staged
    prep of the 216-atom SW box on K5's entry (density in the band of the
    JAX package's prep);
 18. P1 (the kernel lab's slim all-pairs LJ runs, ``ops.md_slim``, variants
@@ -136,13 +144,28 @@ failure exits non-zero before the result line:
    per SM; then the lab itself, ``probe_allpairs.main`` over v0 (K1), v0p
    (K1m) and every slim variant at 576 jobs x 500 steps (best of 3 runs,
    each state finite), its launch counters zeroed just before and read
-   just after (v0 on K1, never on its first design).
+   just after (v0 on K1, never on its first design);
+19. K4's global form (csrc/md_k4_big.cu: the velocities and role/SHAKE
+   buffer in device memory, for list boxes above the shared form's
+   2509-atom cap) on the prepared 4096-atom PE box (``material.PEAA4096``,
+   128 C10H22 chains, K = 1112): the force entry on 12 boxes, orthorhombic
+   and tilted, a 16-job 10-step chunk (a 0-step job bit-identical, the
+   SHAKE residual) and 20-step pressure sums against the plain version and
+   float64 by phase 8's rules, no list row full, a 128-job 10-step chunk
+   timed against its bound;
+20. the coupled step on that box: ``build_md_hmm(HMMConfig(),
+   spec=PEAA4096, equil_steps=50, minimize_steps=100)`` with at most 32 MD
+   jobs per step, float32, 2 macro-steps, its launch counters zeroed just
+   before and read just after; K4's global form, its force entry and K2
+   must have launched, K4's shared form and the first designs not.
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
 its first design's (0) on the charged slice, K4's and its first design's
-(0) on the coupled list slice, K5's on the SW slice, K6's on the brick slice,
-K1m's on phase 17's pack_jobs=2 steps, P1's on phase 18's lab runs;
+(0) on the coupled list slice, K5's and its first design's (0) on the SW
+slice, K6's on the brick slice, K1m's and its first design's (0) on phase
+17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
+on the 4096-atom slice;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -188,6 +211,8 @@ FIRST_SOURCE = "scema_tpu_torch/csrc/md_allpairs.cu"
 K1_REPLACES = "scema_tpu/ops/md_fused.py:1850"
 # the kernels of each K1 design's force entry, by name
 K1_KERNELS = {"first": ("md_forces_kernel",), "path": ("k1_forces_kernel", "k1_virial_kernel")}
+K4_NOTE = ("K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, the streamed "
+           "job-grid form (md_fused.py:1678): the same kernel")
 
 
 def fail(msg: str) -> None:
@@ -395,22 +420,25 @@ def k1_ptxas():
 def device_ms(fn, reps: int, names) -> float:
     """Device time per call of ``fn`` in ms: the durations of the kernels
     whose names hold one of ``names``, from the profiler, over ``reps``
-    calls after one warm-up call."""
+    calls after one warm-up call.  A profiler window that records no such
+    kernel (the card's tracer drops one now and then) is taken again, up
+    to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == cuda and any(k in e.name for k in names))
-    if us <= 0:
-        fail(f"the profiler saw no device time of kernels {names}")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == cuda and any(k in e.name for k in names))
+        if us > 0:
+            return us / reps / 1e3
+    fail(f"the profiler saw no device time of kernels {names} in three windows")
 
 
 def turns(t) -> str:
@@ -725,44 +753,6 @@ def k34_ptxas(kernel: str):
     return out
 
 
-def k34_levers(r, args, nbr, ref, ref64, what):
-    """Each design step of K3 or K4 (MF.K34_LEVERS, the charged slices' flag
-    set) on the run ``args`` against float64 by the run rule (the steps
-    that skip the bonded or SHAKE/RATTLE passes are timing instances:
-    finite only), then timed
-    on the same inputs: {step: (ms, registers, local bytes, blocks per SM)}."""
-    import torch
-
-    from scema_tpu_torch.ops import md_fused as MF
-
-    kernel = r.spec.kernel
-    pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
-    vmax = float(ref64[:, 3:].abs().max())
-    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    out = {}
-    for lever in MF.K34_LEVERS[kernel]:
-        o, _, _ = MF.k34_lever_run(r, lever, args[0][:ref.shape[0]],
-                                   *(x[:ref.shape[0]] if torch.is_tensor(x) and x.dim() else x
-                                     for x in args[1:]),
-                                   nbr={k: v[:ref.shape[0]] for k, v in nbr.items()}
-                                   if nbr else None)
-        torch.cuda.synchronize()
-        if not torch.isfinite(o).all():
-            fail(f"{what} design step {lever}: non-finite state")
-        if lever not in MF.K34_TIMING_ONLY:
-            pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
-            vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-            if pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-                fail(f"{what} design step {lever}: error vs float64 {pk:.3e} A (velocities "
-                     f"{vk:.3e}) exceeds 4x plain float32 {pp:.3e} ({vp:.3e}) + 1e-4")
-    for lever in MF.K34_LEVERS[kernel]:
-        ms = cuda_ms(lambda: MF.k34_lever_run(r, lever, *args, nbr=nbr), reps=3)
-        info = MF.k34_kernel_info(kernel, lever, r.spec.n_atoms, int(r.k34_tbl.shape[0]))
-        out[lever] = (ms, info["registers"], info["local_bytes"], info["blocks_per_sm"],
-                      info["threads"])
-    return out
-
-
 def k34_ab(fns, reps: int, names=None) -> dict:
     """The first design and the redesign in turns (old, new, new, old):
     {design: [time, time]}, device time of the kernels named in ``names``
@@ -935,12 +925,6 @@ def phase_k3(dev):
           f"{rab['path'][1]:.3f}: {min(rab['first']) / run_ms:.3f}x; force entry B=12 device ms "
           f"{min(fab['first']):.4f} / {ms:.4f}: {min(fab['first']) / ms:.3f}x")
     print(f"[6 K3 PME] k-space remainder (force) for {J} jobs: {pme_ms:.3f} ms")
-    S = 16
-    lev = k34_levers(r, args, None, ref[:S], ref64[:S], "K3")
-    print("[6 K3 levers] " + ", ".join(
-        f"{k} {v[0]:.3f} ms ({v[1]} registers, {v[2]} B local, {v[3]} block(s) per SM of "
-        f"{v[4]} threads)" for k, v in lev.items())
-        + f"  (each checked on {S} jobs; the path: two rows, {run_ms:.3f} ms)")
     info = {e: MF.k34_kernel_info("K3", e, n, T) for e in ("run", "forces")}
     print("[6 K3 kernels] " + "; ".join(
         f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
@@ -994,6 +978,7 @@ def md_counters():
             "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
             "md_list_first_run": (MF._run_first, "launches_k4"),
             "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
+            "md_list_big_run": (MF.md_run, "launches_k4big"),
             "pairwise_l2": (K2.pairwise_l2, "launches")}
 
 
@@ -1180,8 +1165,7 @@ def phase_k4(dev):
     forces_row = {"name": "md_list_forces_virial", "route": "cuda",
                   "source": "scema_tpu_torch/csrc/md_k4.cu",
                   "replaces": "scema_tpu/ops/md_fused.py:1850",
-                  "note": "K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, "
-                          "the streamed job-grid form (md_fused.py:1678): the same kernel",
+                  "note": K4_NOTE,
                   "max_abs_err": f_err["path"], "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
     first_forces_row = dict(forces_row, name="md_list_first_forces_virial",
@@ -1274,6 +1258,19 @@ def phase_k4(dev):
           f"{rab['first'][0]:.3f} / {rab['first'][1]:.3f}, redesign {rab['path'][0]:.3f} / "
           f"{rab['path'][1]:.3f}: {min(rab['first']) / run_ms:.3f}x; force entry B=12 device ms "
           f"{min(fab['first']):.4f} / {ms:.4f}: {min(fab['first']) / ms:.3f}x")
+    # K4's global form (the velocities and role/SHAKE buffer in device
+    # memory) on the same box and chunk, against float64 on 16 jobs and in
+    # turns with the shared form (shared, global, global, shared): what the
+    # L2-resident rows cost the pattern and SHAKE/RATTLE passes
+    og, _, _ = MF.k4_global_run(r, *sub, nbr=nbrS)
+    torch.cuda.synchronize()
+    gk, gv = _run_rule(og, ref, ref64, "K4 global form (N=2240)")
+    forms = k34_ab({"first": lambda: MF.md_run(r, *args, nbr=nbrJ),
+                    "path": lambda: MF.k4_global_run(r, *args, nbr=nbrJ)}, 3)
+    print(f"[8 K4 forms] N={n}, {J} jobs x 10 deform steps, ms (shared, global, global, "
+          f"shared): {turns(forms)}: global / shared {min(forms['path']) / min(forms['first']):.3f}; "
+          f"the global form on {S} jobs vs float64 {gk:.3e} A, velocities rel {gv:.3e} (tol 4x "
+          f"plain + 1e-4)")
     print(f"[8 K4 list] {J} jobs: live slots per row mean {live_mean:.1f}, min "
           f"{int(cnt.min())}, max {int(cnt.max())} of K={K}; listed (before dropping the "
           f"excluded partners) mean {float(listed.mean()):.1f}, max {int(listed.max())}; "
@@ -1283,11 +1280,6 @@ def phase_k4(dev):
           f"seven channels {nb_t['first'][0]:.3f} / {nb_t['first'][1]:.3f}, compact "
           f"{nb_t['path'][0]:.3f} / {nb_t['path'][1]:.3f} (build alone {list_ms:.3f} ms), "
           f"{NB.jobs_per_slice(n)} jobs per slice")
-    lev = k34_levers(r, args, nbrJ, ref, ref64, "K4")
-    print("[8 K4 levers] " + ", ".join(
-        f"{k} {v[0]:.3f} ms ({v[1]} registers, {v[2]} B local, {v[3]} block(s) per SM of "
-        f"{v[4]} threads)" for k, v in lev.items())
-        + f"  (each checked on {S} jobs; the path {run_ms:.3f} ms)")
     info = {e: MF.k34_kernel_info("K4", e, n, T) for e in ("run", "forces")}
     print("[8 K4 kernels] " + "; ".join(
         f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
@@ -1331,8 +1323,7 @@ def phase_k4(dev):
     run_row = {"name": "md_list_run", "route": "cuda",
                "source": "scema_tpu_torch/csrc/md_k4.cu",
                "replaces": "scema_tpu/ops/md_fused.py:1850",
-               "note": "K4 gather-list branch (pair_tile :1269, gather3 :855); also K4s, the "
-                       "streamed job-grid form (md_fused.py:1678): the same kernel",
+               "note": K4_NOTE,
                "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
                "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
     first_run_row = dict(run_row, name="md_list_first_run",
@@ -1506,11 +1497,74 @@ def _sw_run_batch(sys_, st, J, seed, dev):
     return state, torch.zeros((J, 3), device=dev), hJ, MF.make_fscal(DT, T_MD, hJ, eps)
 
 
+K5_SOURCE, K5_FIRST_SOURCE = "scema_tpu_torch/csrc/md_k5.cu", "scema_tpu_torch/csrc/md_sw.cu"
+K5_NOTE = "K5: FusedSpec.sw -> forces_allpairs_sw (md_fused.py:910-1081)"
+# K5's first design's run kernel (md_kernel.cuh's SW instance), mangled
+K5_FIRST_KERNEL = "md_run_kernelILb0ELb0ELb0ELb0ELb0ELb0ELb1E"
+# the kernels of each K5 design's force entry, by name (the first design's
+# SW instance of md_forces_kernel)
+K5_NAMES = {"first": ("md_forces_kernel",),
+            "path": ("k5_moments_kernel", "k5_forces_kernel", "k5_virial_kernel")}
+
+
+def _k5_forces_check(r, r64, pos, h, tag):
+    """K5's force entry (the path's and the first design's) on boxes pos (B,
+    N, 3) in h (B, 3, 3) against the plain version and float64 (twice the
+    plain float32 error + 1e-6, per atom + 1e-5): ({design: max |F - plain|},
+    a summary)."""
+    import torch
+
+    from scema_tpu_torch.ops import md_fused as MF
+
+    p12 = pos.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(h)
+    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
+    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
+    fn = F64.norm(dim=1)
+    big = fn > 0.01 * fn.max()
+    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+    ep = float((Fp.double() - F64).abs().max()) / fmax
+    wp = float((Wp.double() - W64).abs().max()) / wmax
+    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
+    errs, out = [], {}
+    for d, fn_ in (("path", MF.md_forces_virial), ("first", MF._forces_first)):
+        F, W = fn_(r, p12, h6)
+        torch.cuda.synchronize()
+        pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
+        ek = float((F.double() - F64).abs().max()) / fmax
+        wk = float((W.double() - W64).abs().max()) / wmax
+        if (not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6
+                or pa_k > 2 * pa_p + 1e-5):
+            fail(f"K5 forces ({d}, {tag}): kernel error vs float64 {ek:.3e} (per atom "
+                 f"{pa_k:.3e}, virial {wk:.3e}) exceeds twice the plain float32 error "
+                 f"{ep:.3e} ({pa_p:.3e}, {wp:.3e}) + 1e-6 (per atom 1e-5)")
+        out[d] = float((F - Fp).abs().max())
+        errs.append(f"{tag} {d} {ek:.3e} (per atom {pa_k:.3e}, virial {wk:.3e})")
+    errs.append(f"{tag} plain-f32 {ep:.3e} ({pa_p:.3e}, {wp:.3e})")
+    return out, errs
+
+
+def _run_rule(o, ref, ref64, what):
+    """Fail unless the run o is within four times the plain float32 run's
+    distance from float64 (+1e-4) in positions and velocities; returns
+    (positions error, velocities relative error)."""
+    import torch
+
+    pk = float((o[:, :3].double() - ref64[:, :3]).abs().max())
+    pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
+    vmax = float(ref64[:, 3:].abs().max())
+    vk = float((o[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
+    if not torch.isfinite(o).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
+        fail(f"{what}: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
+             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+    return pk, vk
+
+
 def phase_k5(dev):
     import torch
 
     from scema_tpu_torch.md import box as B
-    from scema_tpu_torch.md import engine as E
     from scema_tpu_torch.md import material as M
     from scema_tpu_torch.md.homogenization import _LAMMPS_TO_FRAMEWORK, MDParams
     from scema_tpu_torch.ops import md_fused as MF
@@ -1526,76 +1580,82 @@ def phase_k5(dev):
                        torch.Generator().manual_seed(11), minimize_steps=100, equil_steps=100)
     torch.cuda.synchronize()
     print(f"[11 K5] SW box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags {r.spec.flags}, "
-          f"cutoff {r.spec.cutoff2 ** 0.5:.4f} A, prep (FIRE 100 + NVT 100 at {T_MD} K) "
-          f"{time.perf_counter() - t0:.2f}s")
+          f"cutoff {r.spec.cutoff2 ** 0.5:.4f} A, live-list cap {MF.K5_CAP}, prep (FIRE 100 + "
+          f"NVT 100 at {T_MD} K) {time.perf_counter() - t0:.2f}s")
     r64 = r.to(dev, torch.float64)
     rc2 = MF.sw_consts(r.spec)["rc2"]
 
-    # force + virial entry at the stiffness probe's 12 deformed boxes
+    # force + virial entry at the stiffness probe's 12 deformed boxes, and
+    # on the same boxes tilted (xy 0.9, xz -0.6, yz 0.4 A)
     eps = torch.zeros((12, 6), device=dev)
     for d in range(6):
         eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
         eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
     h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
     pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    ht = h12.clone()
+    ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 0.9, -0.6, 0.4
+    post = B.remap_affine(h12, ht, pos12)
+    f_err, errs = _k5_forces_check(r, r64, pos12, h12, "orthorhombic")
+    errs += _k5_forces_check(r, r64, post, ht, "tilted")[1]
     p12 = pos12.transpose(1, 2).contiguous()
     h6 = MF.h6_of(h12)
-    F, W = MF.md_forces_virial(r, p12, h6)
-    Fp, Wp = MF.md_forces_virial_plain(r, p12, h6)
-    F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double())
-    torch.cuda.synchronize()
-    f_err = float((F - Fp).abs().max())
-    fn = F64.norm(dim=1)
-    big = fn > 0.01 * fn.max()
-    pa_k = float(((F.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    pa_p = float(((Fp.double() - F64).norm(dim=1)[big] / fn[big]).max())
-    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
-    ek = float((F.double() - F64).abs().max()) / fmax
-    ep = float((Fp.double() - F64).abs().max()) / fmax
-    wk = float((W.double() - W64).abs().max()) / wmax
-    wp = float((Wp.double() - W64).abs().max()) / wmax
-    if (not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6
-            or pa_k > 2 * pa_p + 1e-5):
-        fail(f"K5 forces: kernel error vs float64 {ek:.3e} (per atom {pa_k:.3e}, virial "
-             f"{wk:.3e}) exceeds twice the plain float32 error {ep:.3e} ({pa_p:.3e}, "
-             f"{wp:.3e}) + 1e-6 (per atom 1e-5)")
-    ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6), reps=20)
+    fab = k34_ab({d: (lambda fn_=fn_: fn_(r, p12, h6))
+                  for d, fn_ in (("path", MF.md_forces_virial), ("first", MF._forces_first))},
+                 20, K5_NAMES)
+    call_ms = cuda_ms(lambda: MF.md_forces_virial(r, p12, h6), reps=20)
     plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p12, h6), reps=5)
     live12 = sw_live_pairs(pos12[:2], h12[:2], rc2)
     fb_ms, fb_by = bound(4.0 * (2 * 12 * (3 * n + 6)), sw_flops(n, 12, live12, virial=True))
-    print(f"[11 K5 forces] B=12: max_abs_err vs plain {f_err:.3e}; rel error vs float64: "
-          f"kernel {ek:.3e} plain-f32 {ep:.3e}, worst per-atom {pa_k:.3e} / {pa_p:.3e}, "
-          f"virial {wk:.3e} / {wp:.3e} (tol 2x plain + 1e-6, per atom + 1e-5)  kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {fb_ms:.5f} ms ({fb_by}; {live12:.1f} "
-          f"live of {n * (n - 1) // 2} pairs per box)")
-    forces_row = {"name": "md_sw_forces", "route": "cuda",
-                  "source": "scema_tpu_torch/csrc/md_sw.cu",
-                  "replaces": "scema_tpu/ops/md_fused.py:1850",
-                  "note": "K5: FusedSpec.sw -> forces_allpairs_sw (md_fused.py:910-1081)",
-                  "max_abs_err": f_err, "ms": ms, "plain_ms": plain_ms,
+    print(f"[11 K5 forces] B=12: max_abs_err vs plain {f_err['path']:.3e} (first design "
+          f"{f_err['first']:.3e}); rel error vs float64 (tol 2x plain + 1e-6, per atom + 1e-5): "
+          f"{'; '.join(errs)}  device ms (old, new, new, old): {turns(fab)}; {call_ms:.4f} ms "
+          f"per call  plain {plain_ms:.4f} ms  bound {fb_ms:.5f} ms ({fb_by}; {live12:.1f} live "
+          f"of {n * (n - 1) // 2} pairs per box)")
+    forces_row = {"name": "md_sw_forces", "route": "cuda", "source": K5_SOURCE,
+                  "replaces": "scema_tpu/ops/md_fused.py:1850", "note": K5_NOTE,
+                  "max_abs_err": f_err["path"], "ms": min(fab["path"]), "plain_ms": plain_ms,
                   "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None}
+    first_forces_row = dict(forces_row, name="md_sw_first_forces", source=K5_FIRST_SOURCE,
+                            max_abs_err=f_err["first"], ms=min(fab["first"]))
 
-    # the main path's run shape: 576 jobs x 10 deform steps
+    # the main path's run shape: 576 jobs x 10 deform steps, both designs,
+    # the path's live lists at its cap
     J = 576
     state, vxi, hJ, fscal = _sw_run_batch(sys_, st, J, 12, dev)
     n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
-    out, xo, _ = MF.md_run(r, state, vxi, n10, fscal, True, False)
+    out, xo, _, stats = MF.k5_run_stats(r, state, vxi, n10, fscal, True, False)
+    out1, _, _ = MF._run_first(r, state, vxi, n10, fscal, True, False)
     ref, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
     ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(), True,
                                   False)
     torch.cuda.synchronize()
     p_err = float((out[:, :3] - ref[:, :3]).abs().max())
-    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    res = []
+    for d, o in (("path", out), ("first", out1)):
+        pk, vk = _run_rule(o, ref, ref64, f"K5 run ({d})")
+        res.append(f"{d} {pk:.3e} A, velocities rel {vk:.3e}")
     pp = float((ref[:, :3].double() - ref64[:, :3]).abs().max())
-    vmax = float(ref64[:, 3:].abs().max())
-    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    vp = float((ref[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-        fail(f"K5 run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
-             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
+    over, most = int(stats[:, 0].sum()), int(stats[:, 1].max())
     print(f"[11 K5 run] {J} jobs x 10 deform steps of {DT} fs: positions max_abs_err vs plain "
-          f"{p_err:.3e} A; vs float64: kernel {pk:.3e} A plain-f32 {pp:.3e} A, velocities rel "
-          f"{vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)")
+          f"{p_err:.3e} A; vs float64 (tol 4x plain + 1e-4): {'; '.join(res)}; plain-f32 "
+          f"{pp:.3e} A; live list: most live js of an atom {most} (cap {MF.K5_CAP}), "
+          f"{over} atom-calls above the cap")
+
+    # live-list caps that some (8) or every (2) atom exceeds: those atoms
+    # walk all N js in sweep 2, to the same rule, on 16 jobs
+    S = 16
+    sub = (state[:S], vxi[:S], n10[:S], fscal[:S], True, False)
+    caps = []
+    for cap in (8, 2):
+        o, _, _, st_c = MF.k5_run_stats(r, *sub, cap=cap)
+        torch.cuda.synchronize()
+        pk, _ = _run_rule(o, ref[:S], ref64[:S], f"K5 run at cap {cap}")
+        if cap == 2 and not bool((st_c[:, 0] > 0).all()):
+            fail(f"K5 at cap 2: a job counted no atom above the cap: {st_c[:, 0].tolist()}")
+        caps.append(f"cap {cap}: {int(st_c[:, 0].sum())} atom-calls above it, vs float64 "
+                    f"{pk:.3e} A")
+    print(f"[11 K5 caps] {S} jobs x 10 deform steps (tol 4x plain + 1e-4): {'; '.join(caps)}")
 
     # 20-step sampling: each job's pressure sums against float64
     n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
@@ -1614,7 +1674,8 @@ def phase_k5(dev):
           f"float64 (worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} "
           f"(tol 4x plain + 1e-4)")
 
-    # times at N = 216 and at the fused gate's largest cubic box, N = 512
+    # times at N = 216 and at the fused gate's largest cubic box, N = 512:
+    # the first design and the redesign in turns (old, new, new, old)
     times = {}
     for cells in (3, 4):
         if cells == 3:
@@ -1630,16 +1691,34 @@ def phase_k5(dev):
         nc = sys_c.n_atoms
         args = _sw_run_batch(sys_c, st_c, J, 14, dev)
         a = (args[0], args[1], n10, args[3], True, False)
-        k_ms = cuda_ms(lambda: MF.md_run(rc_, *a), reps=3)
+        if cells == 4:  # the 512-atom run to the same rule, on 16 jobs
+            sa = tuple(x[:S] if torch.is_tensor(x) and x.dim() else x for x in a)
+            o4, _, _ = MF.md_run(rc_, *sa)
+            _run_rule(o4, MF.md_run_plain(rc_, *sa)[0],
+                      MF.md_run_plain(rc_.to(dev, torch.float64),
+                                      *(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                                        else x for x in sa))[0], "K5 run (N=512)")
+        rab = k34_ab({"path": lambda: MF.md_run(rc_, *a), "first": lambda: MF._run_first(rc_, *a)},
+                     3)
         p_ms = cuda_ms(lambda: MF.md_run_plain(rc_, *a), reps=1, warmup=0)
         live = sw_live_pairs(st_c.pos[None], st_c.h[None], rc2)
         b_ms, b_by = bound(4.0 * (J * (2 * (6 * nc + 3) + 16 + 6) + 2 * nc),
                            sw_flops(nc, J * 10, live))
-        times[nc] = (k_ms, p_ms, b_ms, b_by)
-        print(f"[11 K5 time] N={nc}, {J} jobs x 10 deform steps: kernel {k_ms:.3f} ms  plain "
-              f"{p_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}; {live:.1f} live of "
-              f"{nc * (nc - 1) // 2} pairs per box)  kernel at {100 * b_ms / k_ms:.2f}% of "
-              f"its bound")
+        k_ms = min(rab["path"])
+        times[nc] = (k_ms, p_ms, b_ms, b_by, min(rab["first"]))
+        info = MF.k5_kernel_info("run", nc)
+        print(f"[11 K5 time] N={nc}, {J} jobs x 10 deform steps, ms (old, new, new, old): "
+              f"{turns(rab)}: {min(rab['first']) / k_ms:.3f}x  plain {p_ms:.3f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by}; {live:.1f} live of {nc * (nc - 1) // 2} pairs per box)  "
+              f"kernel at {100 * b_ms / k_ms:.2f}% of its bound; run kernel "
+              f"{info['registers']} registers, {info['local_bytes']} B local, "
+              f"{info['blocks_per_sm']} blocks per SM of {info['threads']} threads")
+    ents = {e: MF.k5_kernel_info(e, n) for e in ("moments", "forces")}
+    print("[11 K5 kernels] " + "; ".join(
+        f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
+        f"blocks per SM of {x['threads']} threads" for e, x in ents.items())
+        + f"; ptxas (registers, spill stores) {kernel_registers('k5_')}, the first design "
+        f"{kernel_registers(K5_FIRST_KERNEL)}")
 
     # the prepared box's elastic constants against SW silicon's ratios (the
     # CPU suite's bounds; C11 151.4, C12 76.4, C44 56.4 GPa)
@@ -1658,16 +1737,18 @@ def phase_k5(dev):
           f"C44/C11 {r44:.4f} ({56.4 / 151.4:.4f}, tol 25%)")
     if not ok:
         fail("K5: the prepared box's density or elastic ratios are off SW silicon's")
-    k216, p216, b216, by216 = times[216]
-    k512, p512, b512, _ = times[512]
-    run_row = {"name": "md_sw_run", "route": "cuda", "source": "scema_tpu_torch/csrc/md_sw.cu",
+    k216, p216, b216, by216, f216 = times[216]
+    k512, p512, b512, _, f512 = times[512]
+    run_row = {"name": "md_sw_run", "route": "cuda", "source": K5_SOURCE,
                "replaces": "scema_tpu/ops/md_fused.py:1850",
-               "note": "K5: FusedSpec.sw -> forces_allpairs_sw (md_fused.py:910-1081); "
-                       "576 jobs x 10 deform steps at N=216, and at N=512 in *_n512",
+               "note": K5_NOTE + "; 576 jobs x 10 deform steps at N=216, and at N=512 in *_n512",
                "max_abs_err": p_err, "ms": k216, "plain_ms": p216, "bound_ms": b216,
                "bound_by": by216, "library_ms": None, "ms_n512": k512,
                "plain_ms_n512": p512, "bound_ms_n512": b512}
-    return run_row, forces_row
+    first_run_row = dict(run_row, name="md_sw_first_run", source=K5_FIRST_SOURCE,
+                         max_abs_err=float((out1[:, :3] - ref[:, :3]).abs().max()), ms=f216,
+                         ms_n512=f512)
+    return [run_row, forces_row], [first_run_row, first_forces_row]
 
 
 def phase_sw_slice(dev):
@@ -1687,6 +1768,8 @@ def phase_sw_slice(dev):
                 "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
                 "md_sw_run": (MF.md_run, "launches_k5"),
                 "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
+                "md_sw_first_run": (MF._run_first, "launches_k5"),
+                "md_sw_first_forces": (MF._forces_first, "launches_k5"),
                 "pairwise_l2": (K2.pairwise_l2, "launches")}
     n_steps = 3
     gc.collect()  # the earlier phases' runners (the list slice's 9 GB of channels)
@@ -1732,6 +1815,7 @@ def phase_sw_slice(dev):
     others = {k: v for k, v in launches.items() if not k.startswith(("md_sw", "pairwise"))}
     if any(others.values()):
         fail(f"SW slice: kernels of other paths were launched: {others}")
+    first_designs_idle(launches, "SW slice")
     step_s = [float(s[5]) for s in steps]
     print(f"[12 sw slice] prep (setup) {float(setup.group(1)):.3f}s  s/macro-step {step_s}  "
           f"md jobs {jobs}  launches {launches}  peak memory {peak / 2**20:.1f} MiB  "
@@ -2113,8 +2197,11 @@ def _k6_counters():
             "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
             "md_list_first_run": (MF._run_first, "launches_k4"),
             "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
+            "md_list_big_run": (MF.md_run, "launches_k4big"),
             "md_sw_run": (MF.md_run, "launches_k5"),
             "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
+            "md_sw_first_run": (MF._run_first, "launches_k5"),
+            "md_sw_first_forces": (MF._forces_first, "launches_k5"),
             "sw_moments": (SWB.sw_moments, "launches"),
             "sw_moments_adj": (SWB.sw_moments_adj, "launches"),
             "sw_moments_bricks": (SWB.sw_moments_bricks, "launches"),
@@ -2221,8 +2308,8 @@ def kernel_registers(name_part: str):
 
 @contextlib.contextmanager
 def k1_first_design():
-    """K1 runners' runs on K1's first design for the duration: the design
-    K1m copies per job, for the checks that hold K1m to it bit for bit."""
+    """K1 runners' runs on K1's first design for the duration: phase 17's
+    unpacked steps on that design, against which K1's stresses are held."""
     from scema_tpu_torch.ops import md_fused as MF
 
     md_run = MF.md_run
@@ -2241,15 +2328,20 @@ def k1_first_design():
 
 # K1m's jobs per block on the coupled path (MDBackend.pack_jobs)
 K1M_JOBS = 2
-# K1 (every flag off; md_allpairs.cu) and K1m's (J = 2, 4; md_multi.cu) mangled kernel names
+# K1 (every flag off; md_allpairs.cu) and K1m's first design's (J = 2, 4;
+# md_multi.cu) mangled kernel names
 K1_KERNEL = "md_run_kernelILb0ELb0ELb0ELb0ELb0ELb0ELb0E"
 K1M_KERNELS = {J: f"md_run_multi_kernelILi{J}E" for J in (2, 4)}
+K1M_SOURCE, K1M_FIRST_SOURCE = ("scema_tpu_torch/csrc/md_k1m.cu",
+                                "scema_tpu_torch/csrc/md_multi.cu")
 
 
 def phase_k1m(dev):
-    """Phase 16: K1m (K1's first design with J = 2 jobs per block) against
-    that design, its plain version and float64 on the prepared g0 box at
-    576 jobs."""
+    """Phase 16: K1m (csrc/md_k1m.cu, J = 2 jobs per block) against K1, its
+    plain version and float64, and its first design (md_multi.cu) against
+    K1's first design, on the prepared g0 box at 576 jobs.  Returns (the
+    redesign's row, the first design's row, whether K1m equals K1 bit for
+    bit)."""
     import torch
 
     from scema_tpu_torch.md import engine as E
@@ -2261,6 +2353,7 @@ def phase_k1m(dev):
                               dtype=torch.float32, device=dev)
     st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
     r, n, J = sys_.fused, sys_.n_atoms, 576
+    T = int(r.k1_tbl.shape[0])
     gen = torch.Generator().manual_seed(16)
     vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
                        for _ in range(J)])
@@ -2271,39 +2364,45 @@ def phase_k1m(dev):
     fscal = MF.make_fscal(DT, T_MD, hJ, epsJ)
     n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
     r64 = r.to(dev, torch.float64)
+    args = (state, vxi, n10, fscal, True, False)
 
-    # 10-step deform run: K1m against K1's first design, which it copies J
-    # times per block (bit for bit expected), and, at phase 4's tolerances,
-    # against float64
-    out, xo, _ = MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS)
-    ref, xr, _ = MF._run_first(r, state, vxi, n10, fscal, True, False)
-    pl, _, _ = MF.md_run_plain(r, state, vxi, n10, fscal, True, False)
+    # 10-step deform run: K1m (J = 2 and 4) against K1, whose arithmetic it
+    # runs per job, and against float64 at phase 4's rule; its first design
+    # against K1's first design, which it copies (bit for bit, checked)
+    ref, xr, _ = MF.md_run(r, *args)
+    pl, _, _ = MF.md_run_plain(r, *args)
     ref64, _, _ = MF.md_run_plain(r64, state.double(), vxi.double(), n10, fscal.double(),
                                   True, False)
+    f1, fx1, _ = MF._run_first(r, *args)
     torch.cuda.synchronize()
-    d_run = float((out - ref).abs().max())
-    p_err = float((out[:, :3] - pl[:, :3]).abs().max())
-    pk = float((out[:, :3].double() - ref64[:, :3]).abs().max())
+    res, same, d_run = [], {}, {}
+    for jobs in (2, 4):
+        out, xo, _ = MF.md_run_multi(r, *args, jobs)
+        of, xf, _ = MF._run_multi_first(r, *args, jobs)
+        torch.cuda.synchronize()
+        if not (torch.equal(of, f1) and torch.equal(xf, fx1)):
+            fail(f"K1m's first design (J={jobs}) differs from K1's first design, which it "
+                 f"copies per job: {float((of - f1).abs().max()):.3e}")
+        pk, vk = _run_rule(out, pl, ref64, f"K1m run (J={jobs})")
+        same[jobs] = torch.equal(out, ref) and torch.equal(xo, xr)
+        d_run[jobs] = float((out - ref).abs().max())
+        res.append(f"J={jobs}: max |K1m - K1| {d_run[jobs]:.3e} (bit for bit {same[jobs]}), "
+                   f"vs float64 {pk:.3e} A, velocities rel {vk:.3e}")
+        if jobs == K1M_JOBS:
+            out2, xo2 = out, xo
     pp = float((pl[:, :3].double() - ref64[:, :3]).abs().max())
-    vmax = float(ref64[:, 3:].abs().max())
-    vk = float((out[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    vp = float((pl[:, 3:].double() - ref64[:, 3:]).abs().max()) / vmax
-    if not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4:
-        fail(f"K1m run: kernel error vs float64 {pk:.3e} A (velocities rel {vk:.3e}) "
-             f"exceeds 4x plain float32 {pp:.3e} A ({vp:.3e}) + 1e-4")
-    print(f"[16 K1m run] {J} jobs x 10 deform steps, J = {K1M_JOBS} per block: max |K1m - K1 "
-          f"(first design)| "
-          f"{d_run:.3e} (state), {float((xo - xr).abs().max()):.3e} (NHC); positions max_abs_err "
-          f"vs plain {p_err:.3e} A; vs float64: K1m {pk:.3e} A plain-f32 {pp:.3e} A, velocities "
-          f"rel {vk:.3e} / {vp:.3e} (tol 4x plain + 1e-4)")
+    p_err = float((out2[:, :3] - pl[:, :3]).abs().max())
+    print(f"[16 K1m run] {J} jobs x 10 deform steps: {'; '.join(res)}; plain-f32 {pp:.3e} A "
+          f"(tol 4x plain + 1e-4); the first design equals K1's first design bit for bit")
 
     # 20-step sampling run: per-job pressure sums
     f_s = MF.make_fscal(DT, T_MD, hJ)
     n20 = torch.full((J,), 20, dtype=torch.int32, device=dev)
-    _, _, sk = MF.md_run_multi(r, out, xo, n20, f_s, False, True, K1M_JOBS)
-    _, _, s1 = MF._run_first(r, out, xo, n20, f_s, False, True)
-    _, _, sp = MF.md_run_plain(r, out, xo, n20, f_s, False, True)
-    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True)
+    _, _, sk = MF.md_run_multi(r, out2, xo2, n20, f_s, False, True, K1M_JOBS)
+    _, _, s1 = MF.md_run(r, out2, xo2, n20, f_s, False, True)
+    _, _, sp = MF.md_run_plain(r, out2, xo2, n20, f_s, False, True)
+    _, _, s64 = MF.md_run_plain(r64, out2.double(), xo2.double(), n20, f_s.double(), False,
+                                True)
     torch.cuda.synchronize()
     smax = s64.abs().amax(0)
     sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
@@ -2312,58 +2411,64 @@ def phase_k1m(dev):
     if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
         fail(f"K1m sampling: pressure sums vs float64 rel {sk_err:.3e} exceed 4x plain "
              f"float32 {sp_err:.3e} + 1e-4")
-    print(f"[16 K1m sample20] {J} jobs x 20 sampling steps: max |K1m - K1 (first design)| "
-          f"{d_s:.3e} atm; "
+    print(f"[16 K1m sample20] {J} jobs x 20 sampling steps: max |K1m - K1| {d_s:.3e} atm; "
           f"rel to float64 (worst component): K1m {sk_err:.3e} plain-f32 {sp_err:.3e} "
           f"(tol 4x plain + 1e-4)")
 
     # (live, dead) pairs: every second job runs 0 steps
     n_pair = torch.tensor([20, 0] * (J // 2), dtype=torch.int32, device=dev)
-    o2, x2, p2 = MF.md_run_multi(r, out, xo, n_pair, f_s, False, True, K1M_JOBS)
-    o1, _, p1 = MF._run_first(r, out, xo, n_pair, f_s, False, True)
+    o2, x2, p2 = MF.md_run_multi(r, out2, xo2, n_pair, f_s, False, True, K1M_JOBS)
+    o1, _, p1 = MF.md_run(r, out2, xo2, n_pair, f_s, False, True)
     torch.cuda.synchronize()
-    dead_ok = (torch.equal(o2[1::2], out[1::2]) and torch.equal(x2[1::2], xo[1::2])
+    dead_ok = (torch.equal(o2[1::2], out2[1::2]) and torch.equal(x2[1::2], xo2[1::2])
                and not bool(p2[1::2].any()))
     d_live = float((o2[0::2] - o1[0::2]).abs().max())
     if not dead_ok or not torch.isfinite(o2).all():
         fail("K1m: a dead job of a (live, dead) pair was modified")
-    if d_run or d_s or d_live or not torch.equal(xo, xr):
-        fail(f"K1m differs from K1's first design, which it copies per job: {d_run:.3e} (deform "
-             f"state), {d_s:.3e} atm (sampling), {d_live:.3e} (live jobs of the pairs)")
     print(f"[16 K1m pairs] {J // 2} (live, dead) pairs x 20 sampling steps: dead jobs "
-          f"bit-identical; live jobs max |K1m - K1 (first design)| {d_live:.3e} (state), "
+          f"bit-identical; live jobs max |K1m - K1| {d_live:.3e} (state), "
           f"{float((p2[0::2] - p1[0::2]).abs().max()):.3e} atm")
 
-    # times: K1m (J = 2 and 4), K1's first design and K1 on the same 576-job
-    # deform run
-    ms = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, K1M_JOBS),
-                 reps=3)
-    ms4 = cuda_ms(lambda: MF.md_run_multi(r, state, vxi, n10, fscal, True, False, 4), reps=3)
-    first_ms = cuda_ms(lambda: MF._run_first(r, state, vxi, n10, fscal, True, False),
-                     reps=3)
-    k1_ms = cuda_ms(lambda: MF.md_run(r, state, vxi, n10, fscal, True, False), reps=3)
-    plain_ms = cuda_ms(lambda: MF.md_run_plain(r, state, vxi, n10, fscal, True, False),
-                       reps=1, warmup=0)
+    # times: the first design and the redesign in turns (old, new, new, old)
+    # at J = 2 and 4, K1 and the plain version on the same 576-job deform run
+    ab = {jobs: k34_ab({"path": lambda jobs=jobs: MF.md_run_multi(r, *args, jobs),
+                        "first": lambda jobs=jobs: MF._run_multi_first(r, *args, jobs)}, 3)
+          for jobs in (2, 4)}
+    k1_ms = cuda_ms(lambda: MF.md_run(r, *args), reps=3)
+    plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args), reps=1, warmup=0)
     f_lj, _ = pair_fractions(st.pos.expand(2, -1, -1), hJ[:2], r.spec.cutoff2)
-    b_ms, b_by = bound(4.0 * (2 * n * n + 16 * n + 2 * J * (6 * n + 3) + J * 16),
-                       pair_flops(n, J * 10, f_lj))
-    regs = {"K1 (first design)": kernel_registers(K1_KERNEL)[:1],
-            **{f"K1m J={J}": kernel_registers(k) for J, k in K1M_KERNELS.items()}}
-    print(f"[16 K1m] {J} jobs x 10 deform steps: K1m J=2 {ms:.3f} ms  J=4 {ms4:.3f} ms  "
-          f"K1's first design {first_ms:.3f} ms  K1 {k1_ms:.3f} ms  plain {plain_ms:.3f} ms  "
-          f"bound {b_ms:.3f} ms ({b_by})  "
-          f"(registers, spill stores) {regs}  phase wall {time.perf_counter() - t0:.2f}s")
-    return {"name": "md_allpairs_run_multi", "route": "cuda",
-            "source": "scema_tpu_torch/csrc/md_multi.cu",
-            "replaces": "scema_tpu/ops/md_fused.py:1850",
-            "max_abs_err": max(d_run, d_s), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the bytes the function needs: K1's table, codes, window and chain rows
+    # (K1m reads K1's), each job's state in and out, its fscal
+    b_ms, b_by = bound(4.0 * (2 * T * T + 8 * n + r.topo.numel() + 2 * J * (6 * n + 3)
+                              + J * 16), pair_flops(n, J * 10, f_lj))
+    info = {jobs: MF.k1m_kernel_info(jobs, n, T) for jobs in (2, 4)}
+    print(f"[16 K1m] {J} jobs x 10 deform steps, ms (old, new, new, old): "
+          + "; ".join(f"J={jobs} {turns(t)}: {min(t['first']) / min(t['path']):.3f}x"
+                      for jobs, t in ab.items())
+          + f"  K1 {k1_ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by}); "
+          + "; ".join(f"J={jobs}: {x['registers']} registers, {x['local_bytes']} B local, "
+                      f"{x['blocks_per_sm']} blocks per SM of {x['threads']} threads"
+                      for jobs, x in info.items())
+          + f"; ptxas (registers, spill stores) K1m {kernel_registers('k1m_run_kernel')}, the "
+          f"first design {[kernel_registers(k) for k in K1M_KERNELS.values()]}  phase wall "
+          f"{time.perf_counter() - t0:.2f}s")
+    row = {"name": "md_k1m_run", "route": "cuda", "source": K1M_SOURCE,
+           "replaces": "scema_tpu/ops/md_fused.py:1850",
+           "note": "K1m: FusedSpec.jobs > 1 (J = 2 jobs per block); J = 4 in *_j4",
+           "max_abs_err": max(p_err, d_s), "ms": min(ab[2]["path"]), "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "ms_j4": min(ab[4]["path"])}
+    first_row = dict(row, name="md_allpairs_run_multi", source=K1M_FIRST_SOURCE,
+                     max_abs_err=float((f1[:, :3] - pl[:, :3]).abs().max()),
+                     ms=min(ab[2]["first"]), ms_j4=min(ab[4]["first"]))
+    return row, first_row, same[K1M_JOBS]
 
 
 def _all_counters():
     from scema_tpu_torch.ops import md_fused as MF
 
-    return {**_k6_counters(), "md_allpairs_run_multi": (MF.md_run_multi, "launches_k1m")}
+    return {**_k6_counters(), "md_k1m_run": (MF.md_run_multi, "launches_k1m"),
+            "md_allpairs_run_multi": (MF._run_multi_first, "launches_k1m")}
 
 
 # Density bands (kg/m^3) after the staged prep at ns_init 100, about 10%
@@ -2380,11 +2485,14 @@ SI_RHO_NS100 = (1360.0, 1730.0)
 PACK_MD_RUNS = 145
 
 
-def phase_staged_slice(dev):
+def phase_staged_slice(dev, k1m_bitwise: bool):
     """Phase 17: the g0 slice as its users launch it — ``cli run cfg.json
     --steps 3`` without ``--quick-prep`` (the staged heatup/cooldown NPT
     prep) — then 2 macro-steps of the built problem with pack_jobs 1 and
-    2 (K1m), and the staged prep of the 216-atom SW box on K5's entry."""
+    2 (K1m), and the staged prep of the 216-atom SW box on K5's entry.
+    ``k1m_bitwise``: phase 16 found K1m equal to K1 bit for bit, so the MD
+    layer's packed runs are held to the unpacked ones bit for bit (else to
+    1e-4 relative in stress, as the macro-steps)."""
     import torch
 
     from scema_tpu_torch import cli
@@ -2497,8 +2605,8 @@ def phase_staged_slice(dev):
             step_s.append(round(time.perf_counter() - t1, 4))
         return state, step_s
 
-    # K1m copies K1's first design per job, so the packed steps are held to
-    # unpacked steps on that design; the path's K1 runs beside them
+    # K1m runs K1's arithmetic per job, so the packed steps are held to the
+    # unpacked steps on K1; K1's first design runs beside them
     s1, t1 = two_steps(hmm)
     s1b, t1b = two_steps(hmm)  # the unpacked run again: its run-to-run spread
     with k1_first_design():
@@ -2508,20 +2616,20 @@ def phase_staged_slice(dev):
     zero()
     s2, t2 = two_steps(packed)
     launches_k1m = read()
-    only(launches_k1m, ("md_allpairs_run_multi", "pairwise_l2"), "pack_jobs=2 steps")
+    only(launches_k1m, ("md_k1m_run", "pairwise_l2"), "pack_jobs=2 steps")
     sig1, sig1b, sig0, sig2 = (c[0].qp.new_stress for c in (s1, s1b, s0, s2))
     smax = max(float(sig0.abs().max()), 1e-30)
     d_rep = float((sig1b - sig1).abs().max())
-    d_sig = float((sig2 - sig0).abs().max())
+    d_sig = float((sig2 - sig1).abs().max())
     d_new = float((sig1 - sig0).abs().max())
     if not torch.isfinite(sig2).all() or d_sig / smax > 1e-4:
-        fail(f"pack_jobs=2 stresses differ from pack_jobs=1 (first design) by {d_sig:.3e} (rel "
+        fail(f"pack_jobs=2 stresses differ from pack_jobs=1 (K1) by {d_sig:.3e} (rel "
              f"{d_sig / smax:.3e}, tol 1e-4)")
     if not torch.isfinite(sig1).all() or d_new / smax > 1e-4:
         fail(f"pack_jobs=1 stresses on K1 differ from its first design by {d_new:.3e} (rel "
              f"{d_new / smax:.3e}, tol 1e-4)")
     # the MD layer alone on identical inputs: 145 (job, replica) runs, an odd
-    # count, so the last pair holds a zero-step pad job; bit for bit expected
+    # count, so the last pair holds a zero-step pad job
     be = hmm.backend
     st0 = be.initial_md_state
     n_md = PACK_MD_RUNS
@@ -2529,22 +2637,22 @@ def phase_staged_slice(dev):
                         for x in (st0.pos, st0.vel, st0.h, st0.vxi)))
     gen = torch.Generator().manual_seed(171)
     dl = ((torch.rand((n_md, be.n_repl, 6), generator=gen) * 2 - 1) * 1e-2).to(st0.pos)
-    with k1_first_design():
-        o1, p1 = be._run_jobs(st_md, dl)
+    o1, p1 = be._run_jobs(st_md, dl)
     o2, p2 = dataclasses.replace(be, pack_jobs=K1M_JOBS)._run_jobs(st_md, dl)
     torch.cuda.synchronize()
     md_equal = torch.equal(p1, p2) and all(torch.equal(getattr(o1, f), getattr(o2, f))
                                            for f in ("pos", "vel", "h", "vxi"))
-    if not md_equal:
+    d_md = float((p2 - p1).abs().max()) / max(float(p1.abs().max()), 1e-30)
+    if (not md_equal if k1m_bitwise else not d_md <= 1e-4):
         fail(f"pack_jobs=2 MD runs differ from pack_jobs=1 on identical inputs: max |stress "
-             f"diff| {float((p2 - p1).abs().max()):.3e} Pa")
+             f"diff| rel {d_md:.3e} (bit for bit expected: {k1m_bitwise})")
     print(f"[17 pack_jobs] 2 macro-steps from the built problem: pack_jobs=1 {t1} and {t1b} "
           f"s on K1, {t0} s on its first design, pack_jobs={K1M_JOBS} {t2} s per step; max "
-          f"|stress diff| packed vs first design {d_sig:.3e} Pa (rel {d_sig / smax:.3e}, tol "
-          f"1e-4), K1 vs first design {d_new:.3e} Pa (rel {d_new / smax:.3e}, tol 1e-4; "
-          f"float32 trajectories of two designs), K1 run-to-run {d_rep:.3e} Pa (rel "
+          f"|stress diff| packed vs K1 {d_sig:.3e} Pa (rel {d_sig / smax:.3e}, tol 1e-4), K1 "
+          f"vs first design {d_new:.3e} Pa (rel {d_new / smax:.3e}, tol 1e-4; float32 "
+          f"trajectories of two designs), K1 run-to-run {d_rep:.3e} Pa (rel "
           f"{d_rep / smax:.3e}); the MD layer alone ({n_md} runs, one pad job) bit-identical "
-          f"to the first design {md_equal}  launches {launches_k1m}")
+          f"to K1 {md_equal} (max |stress diff| rel {d_md:.3e})  launches {launches_k1m}")
 
     # the SW config's staged prep: 216-atom diamond-Si box on K5's entry
     sys_, st = M.build_system(M.MaterialSpec(name="si"), dtype=torch.float32, device=dev)
@@ -2729,6 +2837,242 @@ def phase_p1(dev, n_steps: int = 500):
     return list(rows.values())
 
 
+K4_BIG_SOURCE = "scema_tpu_torch/csrc/md_k4_big.cu"
+# the 4096-atom coupled slice: at most this many MD jobs per macro-step, so
+# that its dense torch list builds (N^2 = 16M candidates, ~64 MB a job per
+# slice) and two steps stay well inside the run's time
+BIG_JOBS = 32
+
+
+def phase_k4_big(dev):
+    """Phase 19: K4's global form (csrc/md_k4_big.cu) on the prepared
+    4096-atom PE box (``material.PEAA4096``, above the shared form's cap):
+    the force entry on 12 boxes, a 16-job 10-step chunk (one job at 0
+    steps) and 20-step sampling against the plain version and float64 by
+    phase 8's rules, a 128-job 10-step chunk timed against its bound."""
+    import torch
+
+    from scema_tpu_torch.md import box as B
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.md.homogenization import _LAMMPS_TO_FRAMEWORK
+    from scema_tpu_torch.ops import md_fused as MF
+
+    t0 = time.perf_counter()
+    gc.collect()
+    sys_, st = M.build_system(M.PEAA4096, dtype=torch.float32, device=dev)
+    r = sys_.fused
+    n, K = sys_.n_atoms, r.spec.k
+    T = int(r.k34_tbl.shape[0])
+    if not MF.k4_big(r.spec, T):
+        fail(f"the {n}-atom box does not take K4's global form")
+    st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
+    torch.cuda.synchronize()
+    print(f"[19 K4 big] PEAA4096 box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags "
+          f"{r.spec.flags}, list width K={K}; K4's shared form fits {MF.max_atoms(r.spec, T)} "
+          f"atoms, the global form {MF.k4_big_max_atoms(r.spec, T)} ({T} types); build + FIRE "
+          f"{time.perf_counter() - t0:.2f}s")
+    r64 = r.to(dev, torch.float64)
+
+    # the force entry (one form for every box size) on the probe's 12 boxes,
+    # orthorhombic and tilted, each on one list built at those positions
+    eps = torch.zeros((12, 6), device=dev)
+    for d in range(6):
+        eps[2 * d, _LAMMPS_TO_FRAMEWORK[d]] = 1e-3
+        eps[2 * d + 1, _LAMMPS_TO_FRAMEWORK[d]] = -1e-3
+    h12 = B.deform_path(st.h.expand(12, 3, 3), eps, 1.0)
+    pos12 = B.remap_affine(st.h.expand(12, 3, 3), h12, st.pos.expand(12, -1, -1))
+    ht = h12.clone()
+    ht[:, 0, 1], ht[:, 0, 2], ht[:, 1, 2] = 1.5, -1.0, 0.8
+    errs = []
+    for tag, (pp_, hh) in (("orthorhombic", (pos12, h12)), ("tilted", (B.remap_affine(
+            h12, ht, pos12), ht))):
+        p12, h6 = pp_.transpose(1, 2).contiguous(), MF.h6_of(hh)
+        nb = r.channels(pp_, hh)
+        F, W = MF.md_forces_virial(r, p12, h6, nbr=nb)
+        Fp, Wp = MF.md_forces_virial_plain(r, p12, h6, nb)
+        F64, W64 = MF.md_forces_virial_plain(r64, p12.double(), h6.double(), nb)
+        torch.cuda.synchronize()
+        fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+        ek = float((F.double() - F64).abs().max()) / fmax
+        ep = float((Fp.double() - F64).abs().max()) / fmax
+        wk = float((W.double() - W64).abs().max()) / wmax
+        wp = float((Wp.double() - W64).abs().max()) / wmax
+        if not torch.isfinite(F).all() or ek > 4 * ep + 1e-6 or wk > 4 * wp + 1e-6:
+            fail(f"K4 forces at {n} atoms ({tag}): kernel error vs float64 {ek:.3e} (virial "
+                 f"{wk:.3e}) exceeds 4x the plain float32 error {ep:.3e} ({wp:.3e}) + 1e-6")
+        if int(nb["count"].max()) >= K:
+            fail(f"K4 at {n} atoms: a list row is full ({int(nb['count'].max())} of K={K})")
+        errs.append(f"{tag} {ek:.3e} (virial {wk:.3e}; plain-f32 {ep:.3e}, {wp:.3e})")
+    p12, h6 = pos12.transpose(1, 2).contiguous(), MF.h6_of(h12)
+    nb12 = r.channels(pos12, h12)
+    f_ms = device_ms(lambda: MF.md_forces_virial(r, p12, h6, nbr=nb12), 10, K34_NAMES["path"])
+    print(f"[19 K4 big forces] B=12: rel error vs float64 (tol 4x plain + 1e-6): "
+          f"{'; '.join(errs)}  device {f_ms:.4f} ms; force kernel "
+          f"{MF.k34_kernel_info('K4', 'forces', n, T)}")
+    del nb, nb12
+
+    # a 128-job 10-step deform chunk with SHAKE and the frozen k-space force
+    gen = torch.Generator().manual_seed(19)
+    J, S = 128, 16
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    posJ = st.pos.expand(J, -1, -1).contiguous()
+    state = MF.pack_state(posJ, vel)
+    vxi = torch.zeros((J, 3), device=dev)
+    fscal = MF.make_fscal(DT, T_MD, hJ, (torch.rand((J, 6), generator=gen) * 2e-3
+                                         - 1e-3).to(dev))
+    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
+    g0, n_tot = torch.zeros_like(n10), torch.full_like(n10, 40)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nbrJ = r.channels(posJ, hJ, reuse=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    Fk, _ = r.kspace(posJ, hJ)
+    fk = Fk.transpose(1, 2).contiguous()
+    args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
+    sub = tuple(x[:S] if torch.is_tensor(x) and x.dim() else x for x in args)
+    nr = sub[2].clone()
+    nr[1] = 0  # a job with no steps comes back bit-identical
+    sub = (sub[0], sub[1], nr) + sub[3:]
+    nbrS = {k: v[:S] for k, v in nbrJ.items()}
+    before = MF.md_run.launches_k4big
+    out, xo, _ = MF.md_run(r, *sub, nbr=nbrS)
+    torch.cuda.synchronize()
+    if MF.md_run.launches_k4big != before + 1:
+        fail("K4's global form did not count its launch")
+    if not (torch.equal(out[1], state[1]) and torch.equal(xo[1], vxi[1])):
+        fail("K4's global form changed a job with n_run = 0")
+    ref, _, _ = MF.md_run_plain(r, *sub, nbr=nbrS)
+    ref64, _, _ = MF.md_run_plain(r64, *(x.double() if torch.is_tensor(x)
+                                         and x.is_floating_point() else x for x in sub),
+                                  nbr=nbrS)
+    torch.cuda.synchronize()
+    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    pk, vk = _run_rule(out, ref, ref64, "K4 big run")
+    # the jobs that ran: the 0-step job keeps FIRE's positions, which FIRE
+    # does not hold to the SHAKE bond lengths
+    resid = shake_residual(sys_, out[nr > 0, :3].transpose(1, 2))
+    if not resid < 1e-3:
+        fail(f"K4 big SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+    run_ms = cuda_ms(lambda: MF.md_run(r, *args, nbr=nbrJ), reps=3)
+    run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
+    lp, lj, lq = list_pair_counts(MF.k4_slots_to_channels(r, {k: v[:2] for k, v in nbrJ.items()}),
+                                  posJ[:2], hJ[:2], r.spec.cutoff2, r.spec.coul_cutoff2)
+    cnt = nbrJ["count"].double()
+    live_mean = float(cnt.mean())
+    tables = 2 * T * T + 2 * n
+    jobs_bytes = 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
+    rb_ms, rb_by = bound(J * (4.0 * (live_mean * n + n) + jobs_bytes)
+                         + 4.0 * (tables + r.pat.numel() + r.shk.numel() + 2 * n),
+                         list_flops(J * 10, lp, lj, lq))
+    info = MF.k34_kernel_info("K4", "big_run", n, T)
+    print(f"[19 K4 big run] {S} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions "
+          f"max_abs_err vs plain {p_err:.3e} A; vs float64 {pk:.3e} A, velocities rel {vk:.3e} "
+          f"(tol 4x plain + 1e-4), SHAKE residual {resid:.3e}, the 0-step job bit-identical; "
+          f"{J} jobs: kernel {run_ms:.3f} ms  plain {run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms "
+          f"({rb_by}; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, {lq:.0f} inside "
+          f"Coulomb); live slots per row mean {live_mean:.1f}, max {int(cnt.max())} of K={K}; "
+          f"list build + pack {build_s:.3f} s; run kernel {info['registers']} registers, "
+          f"{info['local_bytes']} B local, {info['blocks_per_sm']} block(s) per SM of "
+          f"{info['threads']} threads; ptxas (registers, spill stores) "
+          f"{kernel_registers('Li321ELi768E')}")
+
+    # 20-step sampling at 16 jobs: each job's pressure sums against float64
+    n20 = torch.full((S,), 20, dtype=torch.int32, device=dev)
+    f_s = MF.make_fscal(DT, T_MD, hJ[:S])
+    one = torch.ones_like(n20)
+    sargs = (out, xo, n20, f_s, False, True, fk[:S], g0[:S], one)
+    _, _, sk = MF.md_run(r, *sargs, nbr=nbrS)
+    _, _, sp = MF.md_run_plain(r, *sargs, nbr=nbrS)
+    _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True,
+                                fk[:S].double(), g0[:S], one, nbr=nbrS)
+    torch.cuda.synchronize()
+    smax = s64.abs().amax(0)
+    sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
+    sp_err = float(((sp.double() - s64).abs().amax(0) / smax).max())
+    if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
+        fail(f"K4 big sampling: kernel pressure sums vs float64 rel {sk_err:.3e} exceed "
+             f"4x plain float32 {sp_err:.3e} + 1e-4")
+    print(f"[19 K4 big sample20] {S} jobs x 20 sampling steps: per-job pressure sums rel to "
+          f"float64 (worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} (tol 4x "
+          f"plain + 1e-4)  phase wall {time.perf_counter() - t0:.2f}s")
+    return {"name": "md_list_big_run", "route": "cuda", "source": K4_BIG_SOURCE,
+            "replaces": "scema_tpu/ops/md_fused.py:1850",
+            "note": K4_NOTE + "; the global form (velocities and role buffer in device "
+                    "memory) for boxes above the shared form's cap: 128 jobs x 10 deform "
+                    "steps at N=4096",
+            "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms, "bound_ms": rb_ms,
+            "bound_by": rb_by, "library_ms": None}
+
+
+def phase_big_slice(dev):
+    """Phase 20: the coupled step on the 4096-atom PE box (K4's global form)
+    — ``build_md_hmm(HMMConfig(), spec=PEAA4096, equil_steps=50,
+    minimize_steps=100)`` with at most BIG_JOBS MD jobs per step, float32,
+    2 macro-steps, the launch counters zeroed just before the build and read
+    just after the steps; K4's global form, its force entry and K2 must
+    have launched, K4's shared form and the first designs not."""
+    import torch
+
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import material as M
+
+    counters = md_counters()
+    cfg = HMMConfig()
+    cfg = cfg.replace(dtype="float32", md_dtype="float32",
+                      resources=dataclasses.replace(cfg.resources, max_md_jobs=BIG_JOBS))
+    n_steps = 2
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    hmm = build_md_hmm(cfg, spec=M.PEAA4096, equil_steps=50, minimize_steps=100, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state = hmm.init_state()
+    step_s, jobs = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, out = hmm.step(state)
+        torch.cuda.synchronize()
+        step_s.append(round(time.perf_counter() - t1, 4))
+        jobs.append(int(out.n_jobs))
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)) or jobs[-1] <= 0:
+            fail("4096-atom slice: a macro-step produced no MD jobs or non-finite residuals")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    if abs(umax - expect) > 1e-5 * expect:
+        fail(f"4096-atom slice: max displacement {umax} != {expect}")
+    for k in ("md_list_big_run", "md_list_forces_virial", "pairwise_l2"):
+        if launches[k] <= 0:
+            fail(f"4096-atom slice: kernel {k} was not launched: {launches}")
+    if launches["md_list_run"]:
+        fail(f"4096-atom slice: K4's shared form was launched on a box above its cap")
+    first_designs_idle(launches, "4096-atom slice")
+    if max(jobs) > BIG_JOBS:
+        fail(f"4096-atom slice: {max(jobs)} MD jobs in a step, above the {BIG_JOBS} cap")
+    micro = state[1][0]
+    ran = micro.pos[micro.has_run]
+    resid = shake_residual(hmm.backend.sys, ran)
+    if ran.shape[0] == 0 or not resid < 1e-3:
+        fail(f"4096-atom slice: SHAKE residual {resid:.3e} on {ran.shape[0]} MD states")
+    print(f"[20 big slice] {hmm.backend.sys.n_atoms}-atom PEAA4096 boxes on K4's global form "
+          f"(K={hmm.backend.sys.fused.spec.k}), qps {hmm.geom.n_qp_total}, at most {BIG_JOBS} "
+          f"MD jobs per step: setup {setup_s:.3f}s  s/macro-step {step_s}  md jobs {jobs}  "
+          f"launches {launches}  peak memory {peak / 2**20:.1f} MiB  max displacement "
+          f"{umax:.6g} m (expect {expect:.6g})  SHAKE residual {resid:.3e} over the "
+          f"{ran.shape[0]} qps' MD states (tol 1e-3)")
+    return launches
+
+
 def p1_kernel(v) -> str:
     """The mangled name of a P1 variant's instance in md_slim.cu (template
     flags CACHE TRIM UNISIG FORM NEWTON J)."""
@@ -2761,16 +3105,20 @@ def main() -> int:
     k4_rows, k4_first_rows = phase_k4(dev)
     phase_bench(dev)
     launches_list = phase_list_slice(dev)
-    k5_run, k5_forces = phase_k5(dev)
+    k5_rows, k5_first_rows = phase_k5(dev)
     launches_sw = phase_sw_slice(dev)
     k6 = phase_k6(dev)
     launches_bricks = phase_sw_big_slice(dev, bricks=True, n_steps=2)
     phase_sw_big_slice(dev, bricks=False, n_steps=1)
-    k1m = phase_k1m(dev)
-    k1m["launches"] = phase_staged_slice(dev)["md_allpairs_run_multi"]
+    k1m, k1m_first, k1m_bitwise = phase_k1m(dev)
+    launches_k1m = phase_staged_slice(dev, k1m_bitwise)
+    k1m["launches"] = launches_k1m["md_k1m_run"]
+    k1m_first["launches"] = launches_k1m["md_allpairs_run_multi"]
     p1 = phase_p1(dev)
-    rows = [*k1_rows, k2, *k3_rows, *k4_rows, k5_run, k5_forces, *k1_first_design_rows,
-            *k3_first_rows, *k4_first_rows]
+    k4_big = phase_k4_big(dev)
+    k4_big["launches"] = phase_big_slice(dev)["md_list_big_run"]
+    rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows,
+            *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
                 launches_list if row["name"].startswith("md_list") else
@@ -2779,8 +3127,9 @@ def main() -> int:
     for row in k6.values():  # K6's launches on the brick slice (phase 14)
         row["launches"] = launches_bricks[row["name"]]
         rows.append(row)
-    rows.append(k1m)  # K1m's launches on the pack_jobs=2 steps (phase 17)
+    rows += [k1m, k1m_first]  # K1m's launches on the pack_jobs=2 steps (phase 17)
     rows.extend(p1)  # P1's launches on the lab's path (phase 18)
+    rows.append(k4_big)  # K4's global form's launches on the 4096-atom slice (phase 20)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

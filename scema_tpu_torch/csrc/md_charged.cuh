@@ -3,10 +3,10 @@
 // offset-pattern bonded terms, SHAKE/RATTLE), one thread block per job, and
 // the force + virial entry over (tile of rows, box) blocks.  One body,
 // templated on LIST: the all-pairs pair loop (K3, md_k3.cu) or the compact
-// neighbor-list pair loop (K4, md_k4.cu); md_k3_levers.cu and
-// md_k4_levers.cu instantiate the design's steps on their own for timing.
-// ops/md_fused.py (md_run and md_forces_virial) sends every runner whose
-// kernel is "K3" or "K4" here.
+// neighbor-list pair loop (K4, md_k4.cu), and K4's form for boxes above
+// one block's shared memory (md_k4_big.cu, below).  ops/md_fused.py
+// (md_run and md_forces_virial) sends every runner whose kernel is "K3" or
+// "K4" here.
 //
 // Replaces the charged branches of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk, :1850):
@@ -29,8 +29,8 @@
 // them inside the 9 A Coulomb cutoff with the erfc form) and reading three
 // N x N coefficient planes through L2 for every live pair.
 //
-// Design (each step is an instance of its own in the levers' files; PERF.md
-// keeps their times):
+// Design (each step was timed as an instance of its own on the card;
+// PERF.md keeps those times):
 // * One 32-bit word per K4 list slot, slot-major (B, K, N) so that a warp's
 //   reads coalesce over i: bits 0-15 the neighbor j, 16-27 the three image
 //   integers (4 bits each, -8..7), 28-29 the special-bond order (0 none, 1-3
@@ -55,7 +55,7 @@
 //   the loop waits on device memory's latency, not its bandwidth).
 // * Block widths pinned with __launch_bounds__ (K3_THREADS, K4_THREADS):
 //   896 threads at 72 registers and 768 at 80 fill the SM with one job's
-//   block (unpinned, ptxas takes 107 registers and the block 512 threads,
+//   block (unpinned, ptxas took 107 registers and the block 512 threads,
 //   1.5x slower); ptxas spills 0-48 bytes per thread at these widths.
 //   The run kernels' local memory (K3 112 bytes, K4 80) is outside the
 //   pair loops (cuobjdump -sass): the bonded pattern pass's role arrays,
@@ -68,6 +68,20 @@
 //   anchors whose roles reach them (recomputed per tile, never read from
 //   another block), and each block writes a partial virial to a (B, tiles,
 //   6) scratch that a second small kernel sums in tile order.
+//
+// K4's form for boxes above one block's shared memory (V_GLOBAL; the JAX
+// list path streams its channels from HBM and has no ceiling,
+// scema_tpu/md/material.py:442-470).  The shared form keeps 23 N floats per
+// job (2509 atoms at most).  The global form keeps in shared memory only
+// what the pair loop reads for every pair — the float4 of position and
+// code, the charges and the type table — and the forces (8 N floats: up to
+// ~7200 atoms), and moves the rows touched O(N) times per step, the
+// velocities and the 12 N role/SHAKE buffer, to a (B, 15, N) per-job
+// scratch in device memory (31 MB at 128 jobs x 4096 atoms: L2-resident on
+// the card's 50 MB).  The arithmetic and its order are the shared form's;
+// the bonded pattern and SHAKE/RATTLE passes read and write that scratch
+// between their barriers (a block's global writes are visible to it after
+// __syncthreads).  The force entry keeps 5 N floats and serves both forms.
 #pragma once
 #include "md_kernel.cuh"
 
@@ -80,21 +94,21 @@ constexpr int C_TYPE = 0x3f, C_EXCL = 6, C_MAXW = 12;
 constexpr int C_ROWS = 32, C_SLICES = 16;
 // the chain terms' reach: anchors k - 3 .. k own the roles on atom k
 constexpr int C_CHAIN = 3;
-// the design's steps (the levers' instances): stop at the row's count
-// (K4), two rows per thread, no bonded passes, no SHAKE/RATTLE passes
-// (these two for timing only), the IEEE inverse square root in place of
-// rsqrtf
-constexpr int V_COUNT = 1, V_TWO = 2, V_NOPAT = 4, V_IEEE = 8, V_NOSHK = 128;
-constexpr int V_NOBOND = V_NOPAT | V_NOSHK;
-// K4: each row's next 2, 4 or 8 slot words loaded ahead of their pairs, so
-// that a warp keeps that many list loads in flight
-constexpr int V_AHEAD2 = 16, V_AHEAD4 = 32, V_AHEAD8 = 64;
+// the design's steps: stop at the row's count (K4), two rows per thread;
+// K4: each row's next 8 slot words loaded ahead of their pairs, so that a
+// warp keeps 8 list loads in flight; K4's global form (velocities and the
+// role/SHAKE buffer in device memory)
+constexpr int V_COUNT = 1, V_TWO = 2, V_AHEAD8 = 64, V_GLOBAL = 256;
 // block widths of the path's run kernels: K3's 1792 atoms as 896 threads
 // of two rows, K4's 2240 as 768 threads of two rows, then one
 constexpr int K3_THREADS = 896, K4_THREADS = 768;
 // the path's steps: K3 two rows per thread; K4 one row per thread that
 // stops at its count, its next 8 slot words loaded ahead
-constexpr int K3_PATH = V_TWO, K4_PATH = V_COUNT | V_AHEAD8;
+constexpr int K3_PATH = V_TWO, K4_PATH = V_COUNT | V_AHEAD8, K4_BIG_PATH = K4_PATH | V_GLOBAL;
+// the shared-memory budget of one Hopper block (opt-in), bytes
+constexpr size_t C_MAX_SMEM = 232448;
+// rows of N floats per job in the global form's scratch: vx, vy, vz, 12 N
+constexpr int C_SCRATCH_ROWS = 15;
 
 // Every operand of a K3/K4 launch; mirrored field for field by
 // ops/md_fused.py's ctypes structure _K34Args.
@@ -114,6 +128,7 @@ struct CArgs {
   float *force, *virial, *partial;  // partial: (B, tiles, 6) virial scratch
   const unsigned* slot;             // (B, K, N) K4 list words
   const int* count;                 // (B, N) K4 live slots per row
+  float* scratch;                   // (B, 15, N) K4's global form: vx, vy, vz, role buffer
   int B, N, T, K, W, deform, sample, tiles, coul, ewald, reach_lo, reach_hi;
   float cutoff2, r2min, coul_cutoff2, alpha, ndof, boltz, nktv2p, tdamp;
   float slj[4], sco[4];  // special weights by order (index 0 unused)
@@ -153,9 +168,9 @@ __device__ __forceinline__ CPair c_pair(const CArgs& A, const float4* p4, const 
 
 // F/r of one pair at r2 (inside the larger cutoff) from its coefficients:
 // md_kernel.cuh's pair_force arithmetic (1 / max(r2, r2min) without
-// Coulomb; with it rsqrtf, or 1 / sqrtf with IEEE, shared with the erfc
-// form), the divides as __frcp_rn (the IEEE divide's rounding)
-template <bool COUL, bool EWALD, bool IEEE>
+// Coulomb; with it rsqrtf, shared with the erfc form), the divides as
+// __frcp_rn (the IEEE divide's rounding)
+template <bool COUL, bool EWALD>
 __device__ __forceinline__ float c_fp(const CPair& P, float r2, float a1, float a2, float qq) {
   if constexpr (!COUL) {
     const float inv = __frcp_rn(fmaxf(r2, P.r2min));
@@ -164,7 +179,7 @@ __device__ __forceinline__ float c_fp(const CPair& P, float r2, float a1, float 
     return (a1 * u3 - a2) * u2 * u2;
   } else {
     const float r2c = fmaxf(r2, P.r2min);
-    const float inv_r = IEEE ? __frcp_rn(sqrtf(r2c)) : rsqrtf(r2c);
+    const float inv_r = rsqrtf(r2c);
     const float inv2 = inv_r * inv_r;
     float fp = 0.f;
     if (r2 < P.cutoff2) {
@@ -209,7 +224,7 @@ __device__ __forceinline__ void c_apply(float fp, float dx, float dy, float dz, 
 // K3: pair forces on rows ii[r] (where ok[r]) from every j in [j0, j1) into
 // f[r], and with WV half of each pair's virial into w.  Every j is read once
 // for the NR rows.
-template <bool COUL, bool EWALD, bool IEEE, bool WV, int NR>
+template <bool COUL, bool EWALD, bool WV, int NR>
 __device__ __forceinline__ void k3_rows(const CPair& P, const int (&ii)[NR], const bool (&ok)[NR],
                                         int j0, int j1, float (&f)[NR][3], float w[6]) {
   float xi[NR], yi[NR], zi[NR], qi[NR];
@@ -250,7 +265,7 @@ __device__ __forceinline__ void k3_rows(const CPair& P, const int (&ii)[NR], con
         a2 *= wt.x;
         qq *= wt.y;
       }
-      c_apply<WV>(c_fp<COUL, EWALD, IEEE>(P, r2, a1, a2, qq), dx, dy, dz, f[r], w);
+      c_apply<WV>(c_fp<COUL, EWALD>(P, r2, a1, a2, qq), dx, dy, dz, f[r], w);
     }
   }
 }
@@ -260,7 +275,7 @@ __device__ __forceinline__ void k3_rows(const CPair& P, const int (&ii)[NR], con
 // virial into w (the list is full: every pair sits in both rows).  With U >
 // 1 each row's next U words are loaded before their pairs are taken; a slot
 // past the row's count reads as the row's own self-padded word (r2 = 0).
-template <bool COUL, bool EWALD, bool IEEE, bool WV, int NR, int U = 1>
+template <bool COUL, bool EWALD, bool WV, int NR, int U = 1>
 __device__ __forceinline__ void k4_rows(const CPair& P, const unsigned* __restrict__ slot, int N,
                                         const int (&ii)[NR], const int (&cnt)[NR], int s0,
                                         float (&f)[NR][3], float w[6]) {
@@ -311,34 +326,46 @@ __device__ __forceinline__ void k4_rows(const CPair& P, const unsigned* __restri
         a2 *= wl;
         qq *= wc;
       }
-      c_apply<WV>(c_fp<COUL, EWALD, IEEE>(P, r2, a1, a2, qq), dx, dy, dz, f[r], w);
+      c_apply<WV>(c_fp<COUL, EWALD>(P, r2, a1, a2, qq), dx, dy, dz, f[r], w);
     }
   }
 }
 
-// one job's shared memory: positions + codes, the type table, velocities,
-// forces, the 12 N role/SHAKE buffer, the charges, the reduction scratch
-// and the NHC chain + broadcast
+// one job's rows: positions + codes, the type table, velocities, forces,
+// the 12 N role/SHAKE buffer, the charges, the reduction scratch and the
+// NHC chain + broadcast — all in shared memory, or (the global form) the
+// velocities and the role/SHAKE buffer in the job's device-memory scratch
 struct CSmem {
   float4* p4;
   float2* tbl;
   float *vx, *vy, *vz, *fx, *fy, *fz, *q, *qs, *red, *misc;
 };
 
-__host__ __device__ __forceinline__ size_t c_run_smem(int N, int T) {
+__host__ __device__ __forceinline__ size_t c_run_smem(int N, int T, bool global) {
   return sizeof(float4) * (size_t)N + sizeof(float2) * (size_t)T * T +
-         sizeof(float) * ((size_t)19 * N + MAXW * NRED + NHC + 1);
+         sizeof(float) * ((size_t)(global ? 4 : 19) * N + MAXW * NRED + NHC + 1);
 }
 
-__device__ __forceinline__ CSmem c_carve(float4* sm, int N, int T) {
+template <bool GLOBAL>
+__device__ __forceinline__ CSmem c_carve(float4* sm, int N, int T, float* scratch) {
   CSmem s;
   s.p4 = sm;
   s.tbl = reinterpret_cast<float2*>(sm + N);
-  s.vx = reinterpret_cast<float*>(s.tbl + T * T);
-  s.vy = s.vx + N; s.vz = s.vy + N;
-  s.fx = s.vz + N; s.fy = s.fx + N; s.fz = s.fy + N;
-  s.q = s.fz + N;
-  s.qs = s.q + 12 * N;
+  float* f = reinterpret_cast<float*>(s.tbl + T * T);
+  if constexpr (GLOBAL) {
+    s.vx = scratch; s.vy = s.vx + N; s.vz = s.vy + N;
+    s.q = s.vz + N;
+  } else {
+    s.vx = f; s.vy = s.vx + N; s.vz = s.vy + N;
+    f = s.vz + N;
+  }
+  s.fx = f; s.fy = s.fx + N; s.fz = s.fy + N;
+  if constexpr (GLOBAL) {
+    s.qs = s.fz + N;
+  } else {
+    s.q = s.fz + N;
+    s.qs = s.q + 12 * N;
+  }
   s.red = s.qs + N;
   s.misc = s.red + MAXW * NRED;
   return s;
@@ -351,8 +378,8 @@ __device__ __forceinline__ CSmem c_carve(float4* sm, int N, int T) {
 // exit are block-synced.
 template <bool LIST, bool COUL, bool EWALD, bool PAT, int V, bool WV>
 __device__ void c_forces(const CArgs& A, const CSmem& S, const Box& h, float w[6]) {
-  constexpr bool TWO = (V & V_TWO) != 0, IEEE = (V & V_IEEE) != 0;
-  constexpr int AHEAD = (V & V_AHEAD8) ? 8 : ((V & V_AHEAD4) ? 4 : ((V & V_AHEAD2) ? 2 : 1));
+  constexpr bool TWO = (V & V_TWO) != 0;
+  constexpr int AHEAD = (V & V_AHEAD8) ? 8 : 1;
   const int N = A.N, tid = threadIdx.x, nt = blockDim.x;
   const CPair P = c_pair(A, S.p4, S.tbl, S.qs, h);
   const unsigned* slot = LIST ? A.slot + (size_t)blockIdx.x * A.K * N : nullptr;
@@ -366,10 +393,10 @@ __device__ void c_forces(const CArgs& A, const CSmem& S, const Box& h, float w[6
         const int c0 = (V & V_COUNT) ? __ldg(count + i) : A.K;
         const int c1 = ok2 ? ((V & V_COUNT) ? __ldg(count + i + nt) : A.K) : 0;
         const int cnt[2] = {c0, c1};
-        k4_rows<COUL, EWALD, IEEE, WV, 2, AHEAD>(P, slot, N, ii, cnt, 0, f, w);
+        k4_rows<COUL, EWALD, WV, 2, AHEAD>(P, slot, N, ii, cnt, 0, f, w);
       } else {
         const bool ok[2] = {true, ok2};
-        k3_rows<COUL, EWALD, IEEE, WV, 2>(P, ii, ok, 0, N, f, w);
+        k3_rows<COUL, EWALD, WV, 2>(P, ii, ok, 0, N, f, w);
       }
       S.fx[i] = f[0][0]; S.fy[i] = f[0][1]; S.fz[i] = f[0][2];
       if (ok2) {
@@ -382,17 +409,13 @@ __device__ void c_forces(const CArgs& A, const CSmem& S, const Box& h, float w[6
       float f[1][3] = {{0.f, 0.f, 0.f}};
       if constexpr (LIST) {
         const int cnt[1] = {(V & V_COUNT) ? __ldg(count + i) : A.K};
-        k4_rows<COUL, EWALD, IEEE, WV, 1, AHEAD>(P, slot, N, ii, cnt, 0, f, w);
+        k4_rows<COUL, EWALD, WV, 1, AHEAD>(P, slot, N, ii, cnt, 0, f, w);
       } else {
         const bool ok[1] = {true};
-        k3_rows<COUL, EWALD, IEEE, WV, 1>(P, ii, ok, 0, N, f, w);
+        k3_rows<COUL, EWALD, WV, 1>(P, ii, ok, 0, N, f, w);
       }
       S.fx[i] = f[0][0]; S.fy[i] = f[0][1]; S.fz[i] = f[0][2];
     }
-  }
-  if constexpr ((V & V_NOPAT) != 0) {
-    __syncthreads();
-    return;
   }
   const Topo3& T = A.topo3;
   if constexpr (PAT) {
@@ -449,7 +472,8 @@ __device__ __forceinline__ void c_run(const CArgs& A) {
   }
   const float* __restrict__ invm = A.invm;
   const float* __restrict__ mftm = A.mftm;
-  const CSmem S = c_carve(c_sm, N, A.T);
+  const CSmem S = c_carve<(V & V_GLOBAL) != 0>(
+      c_sm, N, A.T, (V & V_GLOBAL) ? A.scratch + (size_t)job * C_SCRATCH_ROWS * N : nullptr);
   Smem M;  // md_kernel.cuh's view for nhc_half, shake and rattle
   M.px = M.py = M.pz = nullptr;
   M.vx = S.vx; M.vy = S.vy; M.vz = S.vz;
@@ -505,7 +529,7 @@ __device__ __forceinline__ void c_run(const CArgs& A) {
       }
     }
     __syncthreads();
-    if constexpr (SHAKE && (V & V_NOSHK) == 0) {
+    if constexpr (SHAKE) {
       if (dt > 0.f) shake(A.shk, N, A.topo3, X, M, invm, 1.f / dt);
     }
     for (int k = 0; k < 6; ++k) w[k] = 0.f;
@@ -520,7 +544,7 @@ __device__ __forceinline__ void c_run(const CArgs& A) {
       S.vy[i] += half * S.fy[i] * im;
       S.vz[i] += half * S.fz[i] * im;
     }
-    if constexpr (SHAKE && (V & V_NOSHK) == 0) {
+    if constexpr (SHAKE) {
       __syncthreads();
       if (dt > 0.f) rattle(A.shk, N, A.topo3, X, M, invm);
     }
@@ -576,14 +600,9 @@ __device__ __forceinline__ void c_run(const CArgs& A) {
 }
 
 // the run kernel pinned to LB threads per block (one block per SM: the
-// shared memory of one job), and unpinned (ptxas's own register count)
+// shared memory of one job)
 template <bool LIST, bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, int V, int LB>
 __global__ void __launch_bounds__(LB, 1) k34_run_kernel(CArgs A) {
-  c_run<LIST, COUL, EWALD, PAT, SHAKE, FEXT, V>(A);
-}
-
-template <bool LIST, bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, int V>
-__global__ void k34_run_free_kernel(CArgs A) {
   c_run<LIST, COUL, EWALD, PAT, SHAKE, FEXT, V>(A);
 }
 
@@ -648,13 +667,13 @@ __global__ void __launch_bounds__(512, 2) k34_forces_kernel(CArgs A) {
     const int s0 = slice * len;
     const int s1 = s0 + len < c ? s0 + len : c;
     const int cnt[1] = {s1};
-    k4_rows<COUL, EWALD, false, true, 1>(P, A.slot + (size_t)box * A.K * N, N, ii, cnt, s0, f, w);
+    k4_rows<COUL, EWALD, true, 1>(P, A.slot + (size_t)box * A.K * N, N, ii, cnt, s0, f, w);
   } else {
     const int jlen = (N + ns - 1) / ns;
     const int j0 = slice * jlen;
     const int j1 = j0 + jlen < N ? j0 + jlen : N;
     const bool ok[1] = {true};
-    if (i < end) k3_rows<COUL, EWALD, false, true, 1>(P, ii, ok, j0, j1, f, w);
+    if (i < end) k3_rows<COUL, EWALD, true, 1>(P, ii, ok, j0, j1, f, w);
   }
   for (int a = 0; a < 3; ++a) part[(slice * C_ROWS + lane) * 3 + a] = f[0][a];
   float g[3] = {0.f, 0.f, 0.f};
@@ -724,7 +743,6 @@ cudaError_t c_opt_in(K kernel, size_t bytes) {
 
 bool c_args_ok(const CArgs& A, bool list) {
   if (A.N <= 0 || A.B < 0 || A.T < 1 || A.T > C_TYPE + 1 || !A.tbl || !A.code) return false;
-  if (c_run_smem(A.N, A.T) > 232448) return false;
   if (A.coul && !A.q) return false;
   if (A.topo3.n_pat > MAXPAT || A.topo3.n_shk > MAXSHK) return false;
   if (A.topo3.n_pat > 0 ? !A.pat : !A.topo) return false;
@@ -747,27 +765,21 @@ cudaError_t c_threads(K kernel, int N, bool two, size_t bytes, int* threads) {
   return c_opt_in(kernel, bytes);
 }
 
-template <class K>
-cudaError_t c_launch_run_kernel(K kernel, const CArgs& A, bool two, cudaStream_t s) {
-  const size_t bytes = c_run_smem(A.N, A.T);
+template <bool LIST, bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, int V, int LB>
+cudaError_t c_launch_run(const CArgs& A, cudaStream_t s) {
+  auto kernel = k34_run_kernel<LIST, COUL, EWALD, PAT, SHAKE, FEXT, V, LB>;
+  const size_t bytes = c_run_smem(A.N, A.T, (V & V_GLOBAL) != 0);
   int threads = 0;
-  cudaError_t err = c_threads(kernel, A.N, two, bytes, &threads);
+  cudaError_t err = c_threads(kernel, A.N, (V & V_TWO) != 0, bytes, &threads);
   if (err != cudaSuccess || A.B == 0) return err;
   kernel<<<A.B, threads, bytes, s>>>(A);
   return cudaGetLastError();
 }
 
-template <bool LIST, bool COUL, bool EWALD, bool PAT, bool SHAKE, bool FEXT, int V, int LB>
-cudaError_t c_launch_run(const CArgs& A, cudaStream_t s) {
-  if constexpr (LB > 0)
-    return c_launch_run_kernel(k34_run_kernel<LIST, COUL, EWALD, PAT, SHAKE, FEXT, V, LB>, A,
-                               (V & V_TWO) != 0, s);
-  else
-    return c_launch_run_kernel(k34_run_free_kernel<LIST, COUL, EWALD, PAT, SHAKE, FEXT, V>, A,
-                               (V & V_TWO) != 0, s);
-}
-
-bool c_run_args_ok(const CArgs& A, bool list) {
+// a run's operands, and its form's shared memory within one block's (the
+// global form needs its scratch)
+bool c_run_args_ok(const CArgs& A, bool list, bool global) {
+  if (c_run_smem(A.N, A.T, global) > C_MAX_SMEM || (global && !A.scratch)) return false;
   return c_args_ok(A, list) && A.invm && A.mftm && A.state && A.vxi && A.press && A.n_run &&
          A.fscal && A.gstep0 && A.n_tot;
 }
@@ -779,7 +791,7 @@ bool c_run_args_ok(const CArgs& A, bool list) {
 //   COUL+EWALD+PATTERNS(+SHAKE)+FEXT  all-atom PE with the k-space split
 template <bool LIST, int V, int LB>
 cudaError_t c_dispatch_run(const CArgs& A, cudaStream_t s) {
-  if (!c_run_args_ok(A, LIST)) return cudaErrorInvalidValue;
+  if (!c_run_args_ok(A, LIST, (V & V_GLOBAL) != 0)) return cudaErrorInvalidValue;
   const bool pat = A.topo3.n_pat > 0, shk = A.topo3.n_shk > 0, fext = A.fext != nullptr;
   if (!A.coul && !A.ewald && !pat && !shk && !fext) {
     if constexpr (LIST) return c_launch_run<true, false, false, false, false, false, V, LB>(A, s);
@@ -793,28 +805,6 @@ cudaError_t c_dispatch_run(const CArgs& A, cudaStream_t s) {
              : c_launch_run<LIST, true, false, true, false, false, V, LB>(A, s);
 }
 
-// The design's steps as instances of their own, for timing: the charged
-// slices' flag set only (COUL+EWALD+PATTERNS+SHAKE+FEXT), each a run kernel
-// and whether it takes two rows per thread
-using RunKernel = void (*)(CArgs);
-struct Lever {
-  RunKernel kernel;
-  bool two;
-};
-
-template <bool LIST, int V, int LB>
-Lever lever() {
-  if constexpr (LB > 0)
-    return {k34_run_kernel<LIST, true, true, true, true, true, V, LB>, (V & V_TWO) != 0};
-  else
-    return {k34_run_free_kernel<LIST, true, true, true, true, true, V>, (V & V_TWO) != 0};
-}
-
-bool c_lever_ok(const CArgs& A, bool list) {
-  return c_run_args_ok(A, list) && A.coul && A.ewald && A.fext && A.topo3.n_pat > 0 &&
-         A.topo3.n_shk > 0;
-}
-
 template <bool LIST, bool COUL, bool EWALD, bool PAT>
 cudaError_t c_launch_forces(const CArgs& A, cudaStream_t s) {
   const int tiles = (A.N + C_ROWS - 1) / C_ROWS;
@@ -824,6 +814,7 @@ cudaError_t c_launch_forces(const CArgs& A, cudaStream_t s) {
   const int ns = c_slices(LIST, A.N);
   const size_t bytes =
       c_forces_smem(A.N, A.T, ns, c_anchors(PAT, A.reach_lo, A.reach_hi));
+  if (bytes > C_MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = c_opt_in(kernel, bytes);
   if (err != cudaSuccess || A.B == 0) return err;
   kernel<<<dim3(tiles, A.B), 32 * ns, bytes, s>>>(A);
@@ -865,8 +856,8 @@ cudaError_t c_kernel_info(K kernel, int threads, size_t bytes, int* out) {
 
 // out[4] of a run kernel (its charged slices' flag set) at N atoms of T types
 template <class K>
-cudaError_t c_run_info(K kernel, int N, int T, bool two, int* out) {
-  const size_t bytes = c_run_smem(N, T);
+cudaError_t c_run_info(K kernel, int N, int T, bool two, bool global, int* out) {
+  const size_t bytes = c_run_smem(N, T, global);
   int threads = 0;
   cudaError_t err = c_threads(kernel, N, two, bytes, &threads);
   if (err != cudaSuccess) return err;

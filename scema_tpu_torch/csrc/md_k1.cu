@@ -10,7 +10,9 @@
 // (:1101), bonded_chain_forces (:349), nhc_half (:1413), the deform path
 // _h_at (:814) / _remap_coeffs (:827) and the sampling accumulation.  Per
 // job it keeps the semantics of the earlier design (md_kernel.cuh with every
-// flag off, still built in md_allpairs.cu for K1m's bit-for-bit checks):
+// flag off, still built in md_allpairs.cu for the A/B and for K1m's first
+// design's bit-for-bit checks; K1m's redesign, md_k1m.cu, runs this pair
+// arithmetic from md_k1.cuh):
 // whole runs in one launch, a job with n_run = 0 left bit-identical, the
 // per-pair sequential triclinic minimum image, deterministic sums, no
 // atomics.
@@ -53,108 +55,9 @@
 //   anchors before it (recomputed, never read from another block), and each
 //   block writes its partial virial to a (B, tiles, 6) scratch that a second
 //   small kernel sums in tile order.
-#include "md_kernel.cuh"
+#include "md_k1.cuh"
 
 namespace {
-
-// an atom's code (the w of its float4): bits 0-7 its type, 8-14 the
-// excluded offsets d = j - i + 3 of its window (d = 3 is the atom itself),
-// 16-22 the offsets whose weight is neither 0 nor 1 (read from win)
-constexpr int K1_TYPE = 0xff, K1_EXCL = 8, K1_SPEC = 16, K1_WIN = 7, K1_REACH = 3;
-// the force entry's tile: rows per block, and at most this many warps,
-// each a slice of the j range
-constexpr int K1_ROWS = 32, K1_SLICES = 16;
-constexpr int K1_Q = K1_ROWS + K1_REACH;  // the tile's anchors, halo included
-
-// Every operand of a K1 launch; mirrored field for field by
-// ops/md_fused.py's ctypes structure _K1Args.
-struct K1Args {
-  const float* tbl;   // (T, T, 2) lj1, lj2 of (type i, type j)
-  const int* code;    // (N,) atom codes
-  const float* win;   // (N, 7) window weights (read for special offsets)
-  const float* topo;  // (16, N) chain rows
-  const float *invm, *mftm;
-  float *state, *vxi, *press;
-  const int* n_run;
-  const float *fscal, *pos, *h6;
-  float *force, *virial, *partial;  // partial: (B, tiles, 6) virial scratch
-  int B, N, T, deform, sample, tiles;
-  float cutoff2, r2min, ndof, boltz, nktv2p, tdamp;
-};
-
-// what the pair loop reads
-struct K1Pair {
-  const float4* p4;   // shared: positions + codes
-  const float2* tbl;  // shared: (T, T) type table
-  const float* win;
-  int N, T;
-  float cutoff2, r2min;
-  Box h;
-  float ilx, ily, ilz;
-};
-
-__device__ __forceinline__ K1Pair k1_pair(const K1Args& A, const float4* p4, const float2* tbl,
-                                          const Box& h) {
-  return K1Pair{p4, tbl, A.win, A.N, A.T, A.cutoff2, A.r2min, h,
-                1.f / h.lx, 1.f / h.ly, 1.f / h.lz};
-}
-
-// 1 / r2c: rsqrtf squared (RSQRT, the run) or __frcp_rn (the force entry)
-template <bool RSQRT>
-__device__ __forceinline__ float inv_r2(float r2c) {
-  if constexpr (RSQRT) {
-    const float r = rsqrtf(r2c);
-    return r * r;
-  } else {
-    return __frcp_rn(r2c);
-  }
-}
-
-// Pair forces on atom i from every j in [j0, j1) into f, and with WV half
-// of each pair's virial d (x) d into w.
-template <bool RSQRT, bool WV>
-__device__ __forceinline__ void k1_row(const K1Pair& P, int i, int j0, int j1, float f[3],
-                                       float w[6]) {
-  const float4 pi = P.p4[i];
-  const int ci = __float_as_int(pi.w);
-  const int row = (ci & K1_TYPE) * P.T;
-  const unsigned excl = (ci >> K1_EXCL) & 0x7fu, spec = (ci >> K1_SPEC) & 0x7fu;
-  for (int j = j0; j < j1; ++j) {
-    const float4 pj = P.p4[j];
-    float dx = pj.x - pi.x, dy = pj.y - pi.y, dz = pj.z - pi.z;
-    const float r2 = min_image_r2(P.h, P.ilx, P.ily, P.ilz, dx, dy, dz);
-    if (!(r2 < P.cutoff2)) continue;
-    const unsigned d = (unsigned)(j - i + K1_REACH);
-    bool sp = false;
-    if (d < (unsigned)K1_WIN) {
-      if ((excl >> d) & 1u) continue;  // weight 0: skipped, never subtracted
-      sp = (spec >> d) & 1u;
-    }
-    const float2 c = P.tbl[row + (__float_as_int(pj.w) & K1_TYPE)];
-    float a1 = c.x, a2 = c.y;
-    if (sp) {
-      const float wt = __ldg(P.win + (size_t)i * K1_WIN + d);
-      a1 *= wt;
-      a2 *= wt;
-    }
-    const float inv = inv_r2<RSQRT>(fmaxf(r2, P.r2min));
-    const float u2 = inv * inv;
-    const float u3 = u2 * inv;
-    const float fp = (a1 * u3 - a2) * u2 * u2;
-    f[0] -= fp * dx;
-    f[1] -= fp * dy;
-    f[2] -= fp * dz;
-    if constexpr (WV) {
-      const float hp = 0.5f * fp;
-      w[0] += hp * dx * dx;
-      w[1] += hp * dy * dy;
-      w[2] += hp * dz * dz;
-      w[3] += hp * dx * dy;
-      w[4] += hp * dx * dz;
-      w[5] += hp * dy * dz;
-    }
-  }
-}
 
 // one job's shared memory: 22 N floats, the type table, the reduction
 // scratch and the NHC chain + broadcasts
@@ -401,12 +304,6 @@ __global__ void k1_virial_kernel(const float* __restrict__ partial, int tiles, i
   virial[t] = s;
 }
 
-template <class K>
-cudaError_t opt_in(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 bool k1_args_ok(const K1Args* a) {
   if (a == nullptr || a->N <= 0 || a->B < 0 || a->T < 1 || a->T > K1_TYPE + 1 || !a->topo)
     return false;
@@ -443,20 +340,6 @@ cudaError_t k1_launch_forces(const K1Args& A, cudaStream_t s) {
   const int n = 6 * A.B;
   k1_virial_kernel<<<(n + 127) / 128, 128, 0, s>>>(A.partial, tiles, n, A.virial);
   return cudaGetLastError();
-}
-
-// registers, local (spill) bytes per thread, resident blocks per SM and
-// block width of one kernel at N atoms of T types
-template <class K>
-cudaError_t kernel_info(K kernel, int threads, size_t bytes, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess) err = opt_in(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[3] = threads;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, bytes);
 }
 
 }  // namespace

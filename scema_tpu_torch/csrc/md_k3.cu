@@ -23,5 +23,5 @@ extern "C" int md_k3_info(int entry, int N, int T, int* out) {
     return (int)cudaErrorInvalidValue;
   if (entry == 1) return (int)c_forces_info<false>(N, T, out);
   return (int)c_run_info(k34_run_kernel<false, true, true, true, true, true, K3_PATH, K3_THREADS>,
-                         N, T, true, out);
+                         N, T, true, false, out);
 }

@@ -22,5 +22,5 @@ extern "C" int md_k4_info(int entry, int N, int T, int* out) {
     return (int)cudaErrorInvalidValue;
   if (entry == 1) return (int)c_forces_info<true>(N, T, out);
   return (int)c_run_info(k34_run_kernel<true, true, true, true, true, true, K4_PATH, K4_THREADS>,
-                         N, T, true, out);
+                         N, T, true, false, out);
 }

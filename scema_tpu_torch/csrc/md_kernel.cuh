@@ -1,17 +1,18 @@
-// K5, K1m and the first designs of K1, K3 and K4: fused MD — whole NVT +
+// The first designs of K1, K3, K4, K5 and K1m: fused MD — whole NVT +
 // fix-deform or NVT + virial-sampling runs of many boxes, one thread block
 // per job (K1m: J jobs per block).  The device code shared by md_allpairs.cu
 // (the all-pairs pair loop: K1's and K3's first designs), md_list.cu (the
-// gather-list pair loop: K4's first design), md_sw.cu (K5: the
-// Stillinger-Weber sweeps) and md_multi.cu (K1m); each source instantiates
-// and exports its own side, so nvcc builds them in parallel.  K1, K3 and K4
-// themselves were redesigned for Hopper (md_k1.cu; md_charged.cuh with
-// md_k3.cu and md_k4.cu), which reuse the device functions here (the
-// bonded, pattern and SHAKE/RATTLE passes through a position accessor, the
-// NHC chain, the deform path, the block sums).  The first designs stay
+// gather-list pair loop: K4's first design), md_sw.cu (K5's first design:
+// the Stillinger-Weber sweeps) and md_multi.cu (K1m's first design); each
+// source instantiates and exports its own side, so nvcc builds them in
+// parallel.  Every one of them was redesigned for Hopper (md_k1.cu and
+// md_k1m.cu over md_k1.cuh; md_charged.cuh with md_k3.cu, md_k4.cu and
+// md_k4_big.cu; md_k5.cu), reusing the device functions here (the bonded,
+// pattern and SHAKE/RATTLE passes through a position accessor, the NHC
+// chain, the deform path, the block sums, SW's w).  The first designs stay
 // built for the A/B timings and the checks only (ops/md_fused.py's
-// _run_first and _forces_first; K1m copies K1's first design per job); no
-// path of the port launches them.
+// _run_first, _forces_first and _run_multi_first; K1m's first design
+// copies K1's per job); no path of the port launches them.
 //
 // K1 replaces the all-pairs LJ/OPLS chain branch of the TPU kernel
 // scema_tpu/ops/md_fused.py::_make_kernel (launched by fused_chunk):
@@ -77,8 +78,8 @@
 // inf * 0.  What bounds K5: the geometry of 2 N^2 ordered pairs per force
 // call (N = 216: ~4 of 215 neighbours are live in the diamond lattice, so
 // the SW arithmetic is a few percent of the pairs; a warp still executes a
-// live body whenever any of its 32 lanes has a live j).  Walking sweep 1's
-// live j in sweep 2, or a cell list, is the lever for a later PR.
+// live body whenever any of its 32 lanes has a live j).  The redesign
+// (md_k5.cu) walks sweep 1's live js in sweep 2.
 //
 // What bounds the first designs of K1/K3 on an H100: the pair loop (their
 // redesigns read type tables and charges in place of the planes below).  A
@@ -859,6 +860,30 @@ __device__ __forceinline__ void compute_forces(const Params& P, const Topo3& T, 
     pair_forces<COUL, EWALD, PAT, LIST>(P, T, S, h, want_w, w);
 }
 
+// One half-step of the NHC-3 chain vxi[0..2] (MTK), the scalar twin of
+// nhc_half, at twice the kinetic energy ke2; returns the velocity scale.
+__device__ __forceinline__ float nhc_chain(float* vxi, float ke2, float dt, float kt,
+                                           float ndof, float tdamp) {
+  const float q0 = ndof * kt * tdamp * tdamp;
+  const float q1 = kt * tdamp * tdamp;
+  const float dt2 = dt / 2.f, dt4 = dt / 4.f, dt8 = dt / 8.f;
+  // tail -> head
+  vxi[2] = vxi[2] + dt4 * ((q1 * vxi[1] * vxi[1] - kt) / q1);
+  float s = expf(-dt8 * vxi[2]);
+  vxi[1] = s * (s * vxi[1] + dt4 * ((q0 * vxi[0] * vxi[0] - kt) / q1));
+  s = expf(-dt8 * vxi[1]);
+  vxi[0] = s * (s * vxi[0] + dt4 * ((ke2 - ndof * kt) / q0));
+  const float scale = expf(-dt2 * vxi[0]);
+  ke2 = ke2 * scale * scale;
+  // head -> tail
+  s = expf(-dt8 * vxi[1]);
+  vxi[0] = s * (s * vxi[0] + dt4 * ((ke2 - ndof * kt) / q0));
+  s = expf(-dt8 * vxi[2]);
+  vxi[1] = s * (s * vxi[1] + dt4 * ((q0 * vxi[0] * vxi[0] - kt) / q1));
+  vxi[2] = vxi[2] + dt4 * ((q1 * vxi[1] * vxi[1] - kt) / q1);
+  return scale;
+}
+
 // Half-step Nose-Hoover chain (MTK), the scalar twin of nhc_half: the
 // block reduces 2 KE, thread 0 advances the chain in S.misc[0..2] and
 // broadcasts the velocity scale; every thread rescales its atoms.
@@ -869,28 +894,7 @@ __device__ void nhc_half(const Smem& S, const float* __restrict__ mftm, int N,
   for (int i = tid; i < N; i += nt)
     ke[0] += mftm[i] * (S.vx[i] * S.vx[i] + S.vy[i] * S.vy[i] + S.vz[i] * S.vz[i]);
   block_sum<1>(ke, S.red);
-  if (tid == 0) {
-    float* vxi = S.misc;
-    const float q0 = ndof * kt * tdamp * tdamp;
-    const float q1 = kt * tdamp * tdamp;
-    const float dt2 = dt / 2.f, dt4 = dt / 4.f, dt8 = dt / 8.f;
-    float ke2 = ke[0];
-    // tail -> head
-    vxi[2] = vxi[2] + dt4 * ((q1 * vxi[1] * vxi[1] - kt) / q1);
-    float s = expf(-dt8 * vxi[2]);
-    vxi[1] = s * (s * vxi[1] + dt4 * ((q0 * vxi[0] * vxi[0] - kt) / q1));
-    s = expf(-dt8 * vxi[1]);
-    vxi[0] = s * (s * vxi[0] + dt4 * ((ke2 - ndof * kt) / q0));
-    const float scale = expf(-dt2 * vxi[0]);
-    ke2 = ke2 * scale * scale;
-    // head -> tail
-    s = expf(-dt8 * vxi[1]);
-    vxi[0] = s * (s * vxi[0] + dt4 * ((ke2 - ndof * kt) / q0));
-    s = expf(-dt8 * vxi[2]);
-    vxi[1] = s * (s * vxi[1] + dt4 * ((q0 * vxi[0] * vxi[0] - kt) / q1));
-    vxi[2] = vxi[2] + dt4 * ((q1 * vxi[1] * vxi[1] - kt) / q1);
-    S.misc[NHC] = scale;
-  }
+  if (tid == 0) S.misc[NHC] = nhc_chain(S.misc, ke[0], dt, kt, ndof, tdamp);
   __syncthreads();
   const float scale = S.misc[NHC];
   for (int i = tid; i < N; i += nt) {
@@ -1234,9 +1238,9 @@ md_forces_kernel(Params P, Topo3 T, const float* __restrict__ pos,
 // loaded and is left bit-identical.  What bounds it: K1's pair loop, J
 // times per block; the design changes how many blocks fill the card (at
 // 576 jobs and 132 SMs: K1 4.36 waves of one job per block, K1m J = 2
-// 2.18 waves of two) and shares nothing else yet — sharing each step's
-// barriers between the jobs, or interleaving their pair loops for ILP, is
-// the lever for a later PR.
+// 2.18 waves of two) and shares nothing else — the redesign (md_k1m.cu)
+// shares each step's barriers between the jobs and interleaves their pair
+// loops.
 constexpr int MISC = 16;  // per-job NHC chain + broadcasts (floats)
 
 size_t smem_bytes(int N) {

@@ -1,7 +1,8 @@
-// K1m: K1's run with J jobs per thread block (md_run_multi_kernel in
-// md_kernel.cuh, design notes there), exported for ops/md_fused.py.  A
-// source of its own, so that nvcc builds it beside md_allpairs.cu and not
-// after it.  Replaces the TPU kernel's FusedSpec.jobs > 1 program,
+// K1m's first design: K1's first design with J jobs per thread block in
+// turn (md_run_multi_kernel in md_kernel.cuh, design notes there),
+// exported for ops/md_fused.py's A/B and checks (_run_multi_first); the
+// path runs the redesign, md_k1m.cu.  A source of its own, so that nvcc
+// builds it beside md_allpairs.cu and not after it.  Replaces the TPU kernel's FusedSpec.jobs > 1 program,
 // scema_tpu/ops/md_fused.py:1850 (entries :2415, :2450).
 #include "md_kernel.cuh"
 

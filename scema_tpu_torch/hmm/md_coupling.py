@@ -292,7 +292,7 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
         # the config's effective force field ("sw" for a sisw scripts
         # directory), as the JAX package's md_spec_kwargs gives it
         if cfg.md.force_field == "reax":
-            raise NotImplementedError("the ReaxFF force field is not ported (ROADMAP item 12)")
+            raise NotImplementedError("the ReaxFF force field is not ported (ROADMAP item 9)")
         specs = [M.MaterialSpec(name=name, **md_spec_kwargs(cfg)) for name in materials]
     params = MDParams(temperature=cfg.md.temperature, dt=cfg.md.timestep_length,
                       strain_rate=cfg.md.strain_rate, nsteps_sample=cfg.md.nsteps_sample)

@@ -121,6 +121,17 @@ PEAA2240 = MaterialSpec(name="peaa2240", force_field="opls", allatom=True, n_cha
                         chain_length=10, pe_density=0.68, opls_lj_cutoff=12.0,
                         opls_coul_cutoff=9.0, use_ewald=True, kspace_every=10, kspace="pme")
 
+# The same material in a box above K4's shared-memory cap (2509 atoms):
+# 128 C10H22 chains, 4096 atoms in a ~35.4 A box, on K4's global form
+# (csrc/md_k4_big.cu).  128 chains, not 125: data_io.build_pe_melt_allatom
+# lays chains on an nx x ny x nz grid with nx dividing the chain count, and
+# 125 chains give one chain per x row and a 1.4 A z pitch (overlapping
+# chains, ~1356 neighbors per atom within 13 A against ~850 uniformly); 128
+# give 2 x 8 x 8, as uniform as the 2240-atom box
+PEAA4096 = MaterialSpec(name="peaa4096", force_field="opls", allatom=True, n_chains=128,
+                        chain_length=10, pe_density=0.68, opls_lj_cutoff=12.0,
+                        opls_coul_cutoff=9.0, use_ewald=True, kspace_every=10, kspace="pme")
+
 # The TPU kernel's all-pairs admission budget (material.py:391-393): the
 # dense parameter and image planes must fit 81 MiB
 ALLPAIRS_PLANE_BYTES = 81 * 1024 * 1024
@@ -177,7 +188,7 @@ def allpairs_admitted(n_atoms: int, charged: bool, force_list_kernel: bool = Fal
     kernel is not forced.  g0 (512 sites) and PEAA (1792 atoms) pass;
     PEAA2240 does not.  The port keeps it so that every box takes the
     reference's path; re-deriving it from the H100's K3/K4 crossover is
-    ROADMAP item 10."""
+    ROADMAP item 2."""
     npad = -(-n_atoms // 128) * 128
     plane_bytes = (2 + int(charged) + 3) * npad * npad * 4
     return plane_bytes <= ALLPAIRS_PLANE_BYTES and not force_list_kernel
@@ -367,7 +378,7 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     if spec.spatial_shards:
         raise NotImplementedError(
             f"material {spec.name!r}: the spatially sharded SW force path "
-            "(spatial_shards) is not ported (ROADMAP item 14)")
+            "(spatial_shards) is not ported (ROADMAP item 11)")
     family = abs(float(ff.p) - 4.0) < 1e-12 and abs(float(ff.q)) < 1e-12
     if spec.use_pallas_bricks and not family:
         raise NotImplementedError(

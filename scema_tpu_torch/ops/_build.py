@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc`` process per source, all started together (``md_allpairs.cu``,
-``md_list.cu``, ``md_sw.cu``, ``md_multi.cu`` and ``md_k1.cu`` share device
-code through ``md_kernel.cuh``, ``md_k3.cu``, ``md_k4.cu`` and their
-``*_levers.cu`` through ``md_charged.cuh`` on top of it;
-``pairwise_l2.cu``, ``sw_bricks.cu`` and ``md_slim.cu`` stand alone) —
+``md_list.cu``, ``md_sw.cu``, ``md_multi.cu`` and ``md_k5.cu`` share device
+code through ``md_kernel.cuh``, ``md_k1.cu`` and ``md_k1m.cu`` through
+``md_k1.cuh`` on top of it, ``md_k3.cu``, ``md_k4.cu`` and ``md_k4_big.cu``
+through ``md_charged.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and
+``md_slim.cu`` stand alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
@@ -53,25 +54,32 @@ SIGNATURES = {
     "md_k1_run_f32": [_P, _P],
     "md_k1_forces_f32": [_P, _P],
     "md_k1_info": [_I, _I, _I, _P],
-    # K1m: the MDArgs pointer, jobs per block, the stream
+    # K1m (md_k1m.cu): the K1Args pointer, jobs per block, the stream; and
+    # (jobs, sample, atoms, types, int[4]) as md_k1_info's; K1m's first
+    # design (md_multi.cu): the MDArgs pointer, jobs per block, the stream
+    "md_k1m_run_f32": [_P, _I, _P],
+    "md_k1m_info": [_I, _I, _I, _I, _P],
     "md_allpairs_run_multi_f32": [_P, _I, _P],
     "md_list_run_f32": [_P, _P],
     "md_list_forces_f32": [_P, _P],
     # K3 and K4 (md_k3.cu, md_k4.cu): a pointer to CArgs (md_fused._K34Args)
     # and the stream, for the run and the force entry; (entry, atoms, types,
-    # int[4]) -> registers, local bytes, blocks per SM, threads; their design
-    # steps (md_k3_levers.cu, md_k4_levers.cu): CArgs, the step's id, the
-    # stream, and (id, atoms, types, int[4])
+    # int[4]) -> registers, local bytes, blocks per SM, threads; K4's global
+    # form (md_k4_big.cu): CArgs and the stream, and (atoms, types, int[4])
     "md_k3_run_f32": [_P, _P],
     "md_k3_forces_f32": [_P, _P],
     "md_k3_info": [_I, _I, _I, _P],
     "md_k4_run_f32": [_P, _P],
     "md_k4_forces_f32": [_P, _P],
     "md_k4_info": [_I, _I, _I, _P],
-    "md_k3_lever_run_f32": [_P, _I, _P],
-    "md_k3_lever_info": [_I, _I, _I, _P],
-    "md_k4_lever_run_f32": [_P, _I, _P],
-    "md_k4_lever_info": [_I, _I, _I, _P],
+    "md_k4_big_run_f32": [_P, _P],
+    "md_k4_big_info": [_I, _I, _P],
+    # K5 (md_k5.cu): a pointer to K5Args (md_fused._K5Args) and the stream,
+    # for the run and the force entry; (entry: 0 run, 1 moments, 2 forces;
+    # atoms, list cap, int[4]); its first design (md_sw.cu): MDArgs, stream
+    "md_k5_run_f32": [_P, _P],
+    "md_k5_forces_f32": [_P, _P],
+    "md_k5_info": [_I, _I, _I, _P],
     "md_sw_run_f32": [_P, _P],
     "md_sw_forces_f32": [_P, _P],
     # K6's first design (SW tiles): tiles, [adjoints,] nbr, valid, h, h^-1,

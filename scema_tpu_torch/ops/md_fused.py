@@ -57,19 +57,32 @@ K5 is the Stillinger-Weber branch of the same TPU kernel (``FusedSpec.sw``
 two sweeps per force call — the per-atom three-body moments (s, m, Q),
 then the ordered-pair w = dT/dd from per-atom adjoints in both roles — with
 no parameter planes and no bonded terms.  A runner from
-:func:`make_runner_sw` launches K5.
+:func:`make_runner_sw` launches K5, redesigned for Hopper
+(``csrc/md_k5.cu``): sweep 1 writes each atom's live js to a list of
+:data:`K5_CAP` slots, sweep 2 walks the list (:func:`k5_forces_list_plain`
+models it), and the force entry runs over (tile of 32 rows, box) blocks;
+its first design is ``csrc/md_sw.cu`` (:func:`_run_first`).
+
+K4's boxes above one block's shared memory (:func:`max_atoms`, 2509 atoms
+with one type) run its global form (``csrc/md_k4_big.cu``: the velocities
+and the role/SHAKE buffer in a per-job scratch in device memory), up to
+:func:`k4_big_max_atoms`; :func:`k4_big` says which a box takes.
 
 K1m is K1's run with J jobs per thread block (the TPU kernel's
 ``FusedSpec.jobs``): :func:`md_run_multi`, behind
 :func:`run_strain_fused_multi` and :func:`sample_stress_fused_multi` over a
-(G, J) grouping of the batch — the coupler's ``pack_jobs``.
+(G, J) grouping of the batch — the coupler's ``pack_jobs``.  Its redesign
+(``csrc/md_k1m.cu``) runs K1's arithmetic per job with the jobs' pair loops
+interleaved; its first design (``csrc/md_multi.cu``, J copies of K1's
+first design) is :func:`_run_multi_first`.
 
 Three entries, each a wrapper that launches ``csrc/md_k1.cu`` (K1),
-``csrc/md_k3.cu`` (K3), ``csrc/md_multi.cu`` (K1m), ``csrc/md_k4.cu``
-(K4) or ``csrc/md_sw.cu`` (K5) on CUDA tensors (counting the launch:
-``launches`` for K1, ``launches_k3`` for K3,
-``launches_k4`` for K4, ``launches_k5`` for K5, ``launches_k1m`` for K1m)
-and runs the plain PyTorch version of the same function on CPU tensors:
+``csrc/md_k3.cu`` (K3), ``csrc/md_k1m.cu`` (K1m), ``csrc/md_k4.cu`` or
+``csrc/md_k4_big.cu`` (K4) or ``csrc/md_k5.cu`` (K5) on CUDA tensors
+(counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
+``launches_k4`` for K4, ``launches_k4big`` for K4's global form,
+``launches_k5`` for K5, ``launches_k1m`` for K1m) and runs the plain
+PyTorch version of the same function on CPU tensors:
 
 * :func:`md_run` — one whole run (``deform`` and/or ``sample`` mode) of B
   jobs; the kernel runs one thread block per job;
@@ -1261,11 +1274,13 @@ def _sw_w(c, ux, uy, uz, inv_r, g, dg, radial0, adj):
             radial * uz + tang * (amz + 2.0 * qu_z - t2 * uz))
 
 
-def _sw_block_plain(spec, p, h6, want_virial):
+def _sw_block_plain(spec, p, h6, want_virial, walk=None):
     """K5's two sweeps on (b, N) rows over the (b, N, N) ordered pairs
     (``forces_allpairs_sw``, md_fused.py:910-1081), centre i on axis 1,
     neighbour j on axis 2, d = r_j - r_i by the sequential triclinic
-    minimum image (``block_geom``).
+    minimum image (``block_geom``, :func:`_sw_disp`).  ``walk`` (b, N, N)
+    bool: the ordered pairs sweep 2 takes (K5's lists,
+    :func:`k5_forces_list_plain`; default every live pair).
 
     Sweep 1: per-atom moments s = sum g, m = sum g u, Q = sum g u (x) u with
     g = exp(gam sig / (r - rc)) on live pairs (r2 < (rc - 1e-6)^2, r2 >
@@ -1275,20 +1290,8 @@ def _sw_block_plain(spec, p, h6, want_virial):
     (direction -u); f_i = sum_j (w_A - w_B); the virial W -= sym(w_A (x) d)
     over role A's ordered pairs."""
     c = sw_consts(spec)
-    lx, ly, lz, xy, xz, yz = (h[:, None, None] for h in h6)
     n = p[0].shape[-1]
-    dx = p[0][:, None, :] - p[0][:, :, None]
-    dy = p[1][:, None, :] - p[1][:, :, None]
-    dz = p[2][:, None, :] - p[2][:, :, None]
-    n3 = torch.round(dz * (1.0 / lz))
-    dz = dz - n3 * lz
-    dy = dy - n3 * yz
-    n2 = torch.round(dy * (1.0 / ly))
-    dy = dy - n2 * ly
-    dx = dx - n3 * xz - n2 * xy
-    n1 = torch.round(dx * (1.0 / lx))
-    dx = dx - n1 * lx
-    r2 = dx * dx + dy * dy + dz * dz
+    (dx, dy, dz), r2 = _sw_disp(torch.stack(p, 1), torch.stack(h6, 1))
     eye = torch.eye(n, dtype=torch.bool, device=r2.device)
     mask = (r2 < c["rc2"]) & (r2 > 1e-8) & ~eye
     one = torch.ones((), dtype=r2.dtype, device=r2.device)
@@ -1317,8 +1320,9 @@ def _sw_block_plain(spec, p, h6, want_virial):
     radial0 = 0.5 * dphi2
     wa = _sw_w(c, ux, uy, uz, inv_r, g, dg, radial0, [a[:, :, None] for a in adj])
     wb = _sw_w(c, -ux, -uy, -uz, inv_r, g, dg, radial0, [a[:, None, :] for a in adj])
-    wa = [torch.where(mask, x, zero) for x in wa]
-    wb = [torch.where(mask, x, zero) for x in wb]
+    sel = mask if walk is None else walk & mask
+    wa = [torch.where(sel, x, zero) for x in wa]
+    wb = [torch.where(sel, x, zero) for x in wb]
     f = [(wa[k] - wb[k]).sum(-1) for k in range(3)]
     w6 = None
     if want_virial:
@@ -1679,38 +1683,77 @@ def k1_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
 
 # K3/K4 (csrc/md_charged.cuh) keep 23 rows of N floats (a float4 of
 # position and code, velocities, forces, the role buffer, the charges), the
-# type table, the reduction scratch and the NHC chain + broadcast
-_K34_ROWS = 23
+# type table, the reduction scratch and the NHC chain + broadcast; K4's
+# global form (md_k4_big.cu) keeps 8 of them (the float4, forces, charges)
+# and the other 15 in a (B, 15, N) scratch in device memory
+_K34_ROWS, _K4_BIG_ROWS, K4_SCRATCH_ROWS = 23, 8, 15
+
+
+def _k34_rows_fit(rows: int, n_types: int) -> int:
+    return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // rows
+
+
+def k4_big(spec: FusedSpec, n_types: int = 1) -> bool:
+    """Whether a K4 run of this box takes K4's global form: its box is above
+    the shared form's cap (:func:`max_atoms`)."""
+    return spec.kernel == "K4" and spec.n_atoms > _k34_rows_fit(_K34_ROWS, n_types)
+
+
+def k4_big_max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
+    """The largest box K4's global form fits in one block with a table of
+    ``n_types`` atom types (8 rows of N floats in shared memory; the force
+    entry, 5 rows, fits wider boxes)."""
+    return _k34_rows_fit(_K4_BIG_ROWS, n_types)
 
 
 def k34_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
     """Shared memory one block of K3's or K4's run kernel keeps with a table
-    of ``n_types`` atom types (md_charged.cuh c_run_smem)."""
+    of ``n_types`` atom types (md_charged.cuh c_run_smem), in the form the
+    box takes (K4's global form above the shared form's cap)."""
     _smem_rows(spec)  # SHAKE's rows must fit the role buffer
-    return 4 * (_K34_ROWS * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
+    rows = _K4_BIG_ROWS if k4_big(spec, n_types) else _K34_ROWS
+    return 4 * (rows * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
+
+
+# K5 (csrc/md_k5.cu) keeps a float4 of position and 16 rows of N floats
+# (velocities, forces, ten adjoints), the reduction scratch and 8 misc
+# floats, and cap + 1 rows of N 16-bit list slots and live counts
+_K5_ROW_BYTES, _K5_MISC = 4 * (4 + 16), 8
+
+
+def k5_smem_bytes(spec: FusedSpec) -> int:
+    """Shared memory one block of K5's run kernel keeps with its live list
+    of :data:`K5_CAP` slots per atom (md_k5.cu k5_run_smem)."""
+    return ((_K5_ROW_BYTES + 2 * (K5_CAP + 1)) * spec.n_atoms
+            + 4 * (_SMEM_RED + _K5_MISC))
 
 
 def max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
-    """The largest box this runner's flag set fits in one block (K1, K3 and
-    K4 with a table of ``n_types`` atom types)."""
+    """The largest box this runner's kernel fits in one block (K1, K3 and
+    K4 with a table of ``n_types`` atom types; for K4 its shared form's, above
+    which a run takes the global form up to :func:`k4_big_max_atoms`)."""
     if spec.kernel in ("K1", "K3", "K4"):
-        rows = _K1_ROWS if spec.kernel == "K1" else _K34_ROWS
-        return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // rows
-    return (_MAX_SMEM // 4 - _SMEM_FIXED) // _smem_rows(spec)
+        return _k34_rows_fit(_K1_ROWS if spec.kernel == "K1" else _K34_ROWS, n_types)
+    return ((_MAX_SMEM - 4 * (_SMEM_RED + _K5_MISC))
+            // (_K5_ROW_BYTES + 2 * (K5_CAP + 1)))
 
 
 def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
     """Raise on the host when a box exceeds its kernel's shared-memory budget
     (K1's, K3's and K4's, with a table of ``n_types`` atom types, cover their
-    first designs', which keep fewer rows)."""
+    first designs', which keep fewer rows; K4 above its shared form's cap is
+    held to its global form's; K5's run, with its live list, keeps more than
+    its first design and the force entry)."""
     need = (k1_smem_bytes(spec, n_types) if spec.kernel == "K1"
             else k34_smem_bytes(spec, n_types) if spec.kernel in ("K3", "K4")
-            else smem_bytes(spec))
+            else k5_smem_bytes(spec))
     if need > _MAX_SMEM:
+        cap, form = ((k4_big_max_atoms(spec, n_types), " in K4's global form")
+                     if spec.kernel == "K4" else (max_atoms(spec, n_types), ""))
         raise ValueError(
             f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
-            f"memory per block, above the {_MAX_SMEM} B a Hopper block can use; this "
-            f"flag set fits at most {max_atoms(spec, n_types)} atoms")
+            f"memory per block{form}, above the {_MAX_SMEM} B a Hopper block can use; this "
+            f"flag set fits at most {cap} atoms")
 
 
 def _check_cuda(runner: FusedRunner, *tensors):
@@ -1881,13 +1924,50 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     if spec.kernel == "K1":
         _k1_run(runner, Bn, deform, sample, ptrs)
     elif spec.kernel in ("K3", "K4"):
-        keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
-        _k34_run(runner, _K34_ENTRY[spec.kernel] + "_run_f32", Bn, deform, sample, ptrs,
-                 _check_slots(runner, nbr, Bn) if spec.k else None)
-        del keep
+        big = k4_big(spec, int(runner.k34_tbl.shape[0]))
+        _k34_chunk(runner, big, ptrs, nr, fext, gstep0, n_tot, nbr, deform, sample)
+        if big:
+            md_run.launches_k4big += 1
+            return st, xi, press
     else:
-        _md_run_entry(runner, "md_sw_run_f32", st.device, Bn, deform, sample, ptrs)
+        _k5_run(runner, Bn, deform, sample, ptrs, K5_CAP)
     _count(md_run, spec)
+    return st, xi, press
+
+
+def _k34_chunk(runner: FusedRunner, big: bool, ptrs: dict, nr, fext, gstep0, n_tot, nbr,
+               deform: bool, sample: bool) -> None:
+    """Launch a K3 or K4 run (with ``big`` K4's global form, its velocities
+    and role buffer in a (B, 15, N) scratch) on the pointers of
+    :func:`_run_inputs`' operands."""
+    spec = runner.spec
+    Bn = nr.shape[0]
+    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
+    if big:
+        keep += (torch.empty((Bn, K4_SCRATCH_ROWS, spec.n_atoms), dtype=runner.invm.dtype,
+                             device=nr.device),)
+        ptrs.update(scratch=keep[-1].data_ptr())
+    _k34_run(runner, "md_k4_big_run_f32" if big else _K34_ENTRY[spec.kernel] + "_run_f32", Bn,
+             deform, sample, ptrs, _check_slots(runner, nbr, Bn) if spec.k else None)
+    del keep
+
+
+def k4_global_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+                  n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                  fext: torch.Tensor | None = None, gstep0: torch.Tensor | None = None,
+                  n_tot: torch.Tensor | None = None, nbr: dict | None = None):
+    """:func:`md_run` of a K4 runner on K4's global form whatever its box
+    size (a box within the shared form's cap too), for chip_smoke.py's
+    timing of the two forms on one box; the path picks the form by
+    :func:`k4_big`.  Counts nothing."""
+    if runner.spec.kernel != "K4" or state.device.type != "cuda":
+        raise ValueError("k4_global_run: a K4 runner on the card")
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k4_global_run")
+    if st.shape[0]:
+        _k34_chunk(runner, True, dict(state=st.data_ptr(), vxi=xi.data_ptr(),
+                                      press=press.data_ptr(), n_run=nr.data_ptr(),
+                                      fscal=fs.data_ptr()),
+                   nr, fext, gstep0, n_tot, nbr, deform, sample)
     return st, xi, press
 
 
@@ -1939,7 +2019,7 @@ def _md_run_entry(runner: FusedRunner, entry: str, device, Bn: int, deform: bool
 # the first designs of K1, K3 and K4 (md_kernel.cuh), and the launch
 # counter of each kernel on its wrapper
 _K34_ENTRY = {"K3": "md_k3", "K4": "md_k4"}
-_FIRST_ENTRY = {"K1": "md_allpairs", "K3": "md_allpairs", "K4": "md_list"}
+_FIRST_ENTRY = {"K1": "md_allpairs", "K3": "md_allpairs", "K4": "md_list", "K5": "md_sw"}
 _COUNTER = {"K1": "launches", "K3": "launches_k3", "K4": "launches_k4", "K5": "launches_k5"}
 
 
@@ -1952,9 +2032,11 @@ def _count(fn, spec: FusedSpec) -> None:
 md_run.launches = 0
 md_run.launches_k3 = 0
 md_run.launches_k4 = 0
+md_run.launches_k4big = 0  # K4's global form (boxes above the shared form's cap)
 md_run.launches_k5 = 0
 
-# jobs per block K1m is built for (csrc/md_kernel.cuh run_multi_entry)
+# jobs per block K1m is built for (csrc/md_k1m.cu; its first design in
+# md_multi.cu)
 MULTI_JOBS = (2, 4)
 
 
@@ -1969,6 +2051,24 @@ def check_multi(runner: FusedRunner, jobs: int) -> None:
         raise ValueError(f"pack_jobs={jobs}: K1m is built for {MULTI_JOBS} jobs per block")
 
 
+def k1m_smem_bytes(spec: FusedSpec, jobs: int, n_types: int = 1) -> int:
+    """Shared memory one block of K1m's run kernel keeps: ``jobs`` sets of
+    K1's 22 rows of N floats, one type table of ``n_types`` types, a J-wide
+    reduction scratch and J NHC slots (md_k1m.cu k1m_smem)."""
+    return 4 * (jobs * (_K1_ROWS * spec.n_atoms + _SMEM_RED + 4) + 2 * n_types ** 2)
+
+
+def _multi_inputs(runner: FusedRunner, state, vxi, n_run, fscal, jobs: int, name: str):
+    """A K1m run's CUDA operands as :func:`_run_inputs` gives them, after
+    the (G, J) grouping's checks."""
+    Bn = state.shape[0]
+    if Bn % jobs:
+        raise ValueError(f"{name}: {Bn} jobs are not a multiple of {jobs} per block")
+    if state.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {state.device}")
+    return _run_inputs(runner, state, vxi, n_run, fscal, name)
+
+
 def md_run_multi(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                  n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
                  jobs: int):
@@ -1976,31 +2076,54 @@ def md_run_multi(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     block — the TPU kernel's ``FusedSpec.jobs`` packing.  The batch is
     grouped (G, J) in order: jobs g J .. g J + J - 1 share block g; B must
     be a multiple of J (the caller pads with zero-step jobs).  Every job
-    keeps K1's per-job semantics, so the result equals :func:`md_run`'s,
+    keeps K1's per-job semantics (csrc/md_k1m.cu: K1's arithmetic per job,
+    the jobs' pair loops interleaved), so the result is :func:`md_run`'s,
     and on the CPU the plain version is :func:`md_run_plain` over the
     grouped batch.  Counts its launches in ``launches_k1m``."""
     check_multi(runner, jobs)
-    Bn = state.shape[0]
-    if Bn % jobs:
-        raise ValueError(f"md_run_multi: {Bn} jobs are not a multiple of {jobs} per block")
     if state.device.type == "cpu":
+        if state.shape[0] % jobs:
+            raise ValueError(f"md_run_multi: {state.shape[0]} jobs are not a multiple of "
+                             f"{jobs} per block")
         return md_run_plain(runner, state, vxi, n_run, fscal, deform, sample)
-    if state.device.type != "cuda":
-        raise ValueError(f"md_run_multi: unsupported device {state.device}")
-    spec = runner.spec
-    if state.shape[1:] != (6, spec.n_atoms):
-        raise ValueError(f"md_run_multi: state shape {tuple(state.shape)} != "
-                         f"(B, 6, {spec.n_atoms})")
-    need = smem_bytes(spec, jobs)
+    st, xi, nr, fs, press = _multi_inputs(runner, state, vxi, n_run, fscal, jobs,
+                                          "md_run_multi")
+    need = k1m_smem_bytes(runner.spec, jobs, int(runner.k1_tbl.shape[0]))
     if need > _MAX_SMEM:
-        raise ValueError(f"K1m: {jobs} jobs of {spec.n_atoms} atoms need {need} B of shared "
-                         f"memory per block, above the {_MAX_SMEM} B a Hopper block can use")
-    st = state.contiguous().clone()
-    xi = vxi.contiguous().clone()
-    nr = n_run.to(torch.int32).contiguous()
-    fs = fscal.contiguous()
-    _check_cuda(runner, st, xi, nr, fs)
-    press = torch.zeros((Bn, 6), dtype=st.dtype, device=st.device)
+        raise ValueError(f"K1m: {jobs} jobs of {runner.spec.n_atoms} atoms need {need} B of "
+                         f"shared memory per block, above the {_MAX_SMEM} B a Hopper block "
+                         f"can use")
+    Bn = st.shape[0]
+    if Bn == 0:
+        return st, xi, press
+    args = _k1_args(runner, Bn, state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
+                    n_run=nr.data_ptr(), fscal=fs.data_ptr())
+    args.deform, args.sample = int(deform), int(sample)
+    rc = _build.library().md_k1m_run_f32(ctypes.byref(args), jobs,
+                                         _build.stream_handle(st.device))
+    _build.check(rc, f"md_k1m_run_f32 (jobs {jobs})")
+    md_run_multi.launches_k1m += 1
+    return st, xi, press
+
+
+md_run_multi.launches_k1m = 0
+
+
+def _run_multi_first(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+                     n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                     jobs: int):
+    """:func:`md_run_multi` on K1m's first design (csrc/md_multi.cu: J
+    copies of K1's first design in turn per block), for the A/B timings and
+    the checks only; no path calls it.  Counts its launches in
+    ``launches_k1m``."""
+    check_multi(runner, jobs)
+    st, xi, nr, fs, press = _multi_inputs(runner, state, vxi, n_run, fscal, jobs,
+                                          "_run_multi_first")
+    need = smem_bytes(runner.spec, jobs)
+    if need > _MAX_SMEM:
+        raise ValueError(f"K1m's first design: {jobs} jobs of {runner.spec.n_atoms} atoms need "
+                         f"{need} B of shared memory per block, above {_MAX_SMEM} B")
+    Bn = st.shape[0]
     if Bn == 0:
         return st, xi, press
     args = _md_args(runner, Bn, None, state=st.data_ptr(), vxi=xi.data_ptr(),
@@ -2009,11 +2132,21 @@ def md_run_multi(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
     rc = _build.library().md_allpairs_run_multi_f32(ctypes.byref(args), jobs,
                                                     _build.stream_handle(st.device))
     _build.check(rc, f"md_allpairs_run_multi_f32 (jobs {jobs})")
-    md_run_multi.launches_k1m += 1
+    _run_multi_first.launches_k1m += 1
     return st, xi, press
 
 
-md_run_multi.launches_k1m = 0
+_run_multi_first.launches_k1m = 0
+
+
+def k1m_kernel_info(jobs: int, n_atoms: int, n_types: int = 1, sample: bool = False) -> dict:
+    """Registers, local (spill) bytes per thread, resident blocks per SM and
+    block width of K1m's deform-run kernel (or, with ``sample``, its
+    sampling kernel) at ``jobs`` jobs per block."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().md_k1m_info(jobs, int(sample), n_atoms, n_types, out),
+                 f"md_k1m_info (jobs {jobs})")
+    return _info(out)
 
 
 def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
@@ -2042,7 +2175,7 @@ def md_forces_virial(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
         _k34_forces(runner, pos, h6, force, vir,
                     _check_slots(runner, nbr, Bn) if spec.k else None)
     else:
-        _md_forces_entry(runner, "md_sw_forces_f32", pos, h6, force, vir)
+        _k5_forces(runner, pos, h6, force, vir)
     _count(md_forces_virial, spec)
     return force, vir
 
@@ -2136,7 +2269,7 @@ def _k1_forces(runner: FusedRunner, pos, h6, force, vir) -> None:
 
 def _first_design(runner: FusedRunner, device, name: str) -> None:
     if runner.spec.kernel not in _FIRST_ENTRY:
-        raise ValueError(f"{name}: the first designs take K1, K3 or K4 runners, not "
+        raise ValueError(f"{name}: the first designs take K1, K3, K4 or K5 runners, not "
                          f"{runner.spec.kernel}")
     if device.type != "cuda":
         raise ValueError(f"{name}: the first designs run on the card only, not on {device}")
@@ -2146,12 +2279,13 @@ def _run_first(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
                fext: torch.Tensor | None = None, gstep0: torch.Tensor | None = None,
                n_tot: torch.Tensor | None = None, nbr: dict | None = None):
-    """:func:`md_run` of a K1, K3 or K4 runner on that kernel's first design
-    (md_kernel.cuh, one block per job over the N x N planes; K4 over the
-    seven channels of ``FusedRunner.channels_first`` in ``nbr``), which K1m
-    copies J times per block: for the A/B timings and the checks of
-    chip_smoke.py and the card tests; no path of the port calls it.  Counts
-    its launches in ``launches`` (K1), ``launches_k3`` and ``launches_k4``."""
+    """:func:`md_run` of a K1, K3, K4 or K5 runner on that kernel's first
+    design (md_kernel.cuh, one block per job over the N x N planes; K4 over
+    the seven channels of ``FusedRunner.channels_first`` in ``nbr``; K5's
+    two full sweeps), which K1m's first design copies J times per block: for
+    the A/B timings and the checks of chip_smoke.py and the card tests; no
+    path of the port calls it.  Counts its launches in ``launches`` (K1),
+    ``launches_k3``, ``launches_k4`` and ``launches_k5``."""
     _first_design(runner, state.device, "_run_first")
     spec = runner.spec
     if spec.fext != (fext is not None):
@@ -2162,7 +2296,8 @@ def _run_first(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
         return st, xi, press
     ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
-    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot) if spec.kernel != "K1" else None
+    keep = (_chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot) if spec.kernel in ("K3", "K4")
+            else None)
     _md_run_entry(runner, _FIRST_ENTRY[spec.kernel] + "_run_f32", st.device, Bn, deform,
                   sample, ptrs, _check_channels(runner, nbr, Bn) if spec.k else None)
     del keep
@@ -2189,7 +2324,7 @@ def _forces_first(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
 
 
 for _fn in (_run_first, _forces_first):
-    _fn.launches = _fn.launches_k3 = _fn.launches_k4 = 0
+    _fn.launches = _fn.launches_k3 = _fn.launches_k4 = _fn.launches_k5 = 0
 
 
 def k1_kernel_info(entry: str, n_atoms: int, n_types: int = 1) -> dict:
@@ -2214,7 +2349,7 @@ class _K34Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "tbl", "q", "code", "spec", "win", "topo", "pat", "shk", "invm", "mftm", "state", "vxi",
         "press", "n_run", "gstep0", "n_tot", "fscal", "fext", "pos", "h6", "force", "virial",
-        "partial", "slot", "count")]
+        "partial", "slot", "count", "scratch")]
         + [(name, ctypes.c_int) for name in (
             "B", "N", "T", "K", "W", "deform", "sample", "tiles", "coul", "ewald", "reach_lo",
             "reach_hi")]
@@ -2259,16 +2394,12 @@ def _k34_args(runner: FusedRunner, B_: int, slots: dict | None = None, **ptrs) -
 
 
 def _k34_run(runner: FusedRunner, entry: str, Bn: int, deform: bool, sample: bool,
-             ptrs: dict, slots: dict | None, lever: int | None = None) -> None:
-    """Launch K3's or K4's run entry (``entry``), or with ``lever`` the design
-    step of that id (``md_k3_lever_run_f32`` / ``md_k4_lever_run_f32``)."""
+             ptrs: dict, slots: dict | None) -> None:
+    """Launch K3's or K4's run entry (``entry``)."""
     args = _k34_args(runner, Bn, slots, **ptrs)
     args.deform, args.sample = int(deform), int(sample)
-    lib, stream = _build.library(), _build.stream_handle(runner.invm.device)
-    if lever is None:
-        rc = getattr(lib, entry)(ctypes.byref(args), stream)
-    else:
-        rc = getattr(lib, entry)(ctypes.byref(args), lever, stream)
+    rc = getattr(_build.library(), entry)(ctypes.byref(args),
+                                          _build.stream_handle(runner.invm.device))
     _build.check(rc, f"{entry} (flags {runner.spec.flags})")
 
 
@@ -2285,59 +2416,175 @@ def _k34_forces(runner: FusedRunner, pos, h6, force, vir, slots: dict | None) ->
     _build.check(rc, f"{entry} (flags {runner.spec.flags})")
 
 
-# the design steps of K3 and K4 built as instances of their own
-# (csrc/md_k3_levers.cu, md_k4_levers.cu), by name, in the order of their ids
-# the steps that skip the bonded or the SHAKE/RATTLE passes: timing only
-K34_TIMING_ONLY = ("n", "np", "ns")
-K34_LEVERS = {"K3": ("t", "u", "i", "n", "np", "ns"),
-              "K4": ("a", "b", "c", "c1024", "c576", "cu", "n", "p2", "p4", "p4s", "p8s", "np",
-                     "ns")}
-
-
-def k34_lever_run(runner: FusedRunner, lever: str, state: torch.Tensor, vxi: torch.Tensor,
-                  n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
-                  fext: torch.Tensor, gstep0: torch.Tensor | None = None,
-                  n_tot: torch.Tensor | None = None, nbr: dict | None = None):
-    """:func:`md_run` of a K3 or K4 runner of the charged slices' flag set
-    (COUL+EWALD+PATTERNS+SHAKE+FEXT) on one design step of its kernel
-    (:data:`K34_LEVERS`; the sources' headers say what each holds), for
-    chip_smoke.py's timings only; no path calls it.  Counts its launches in
-    ``launches``."""
-    spec = runner.spec
-    if spec.kernel not in K34_LEVERS or state.device.type != "cuda":
-        raise ValueError("k34_lever_run: a K3 or K4 runner on the card")
-    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k34_lever_run")
-    Bn = st.shape[0]
-    ptrs = dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
-                n_run=nr.data_ptr(), fscal=fs.data_ptr())
-    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
-    _k34_run(runner, _K34_ENTRY[spec.kernel] + "_lever_run_f32", Bn, deform, sample, ptrs,
-             _check_slots(runner, nbr, Bn) if spec.k else None,
-             lever=K34_LEVERS[spec.kernel].index(lever))
-    del keep
-    k34_lever_run.launches += 1
-    return st, xi, press
-
-
-k34_lever_run.launches = 0
-
-
 def k34_kernel_info(kernel: str, entry: str, n_atoms: int, n_types: int = 1) -> dict:
     """Registers, local (spill) bytes per thread, resident blocks per SM (the
     card's occupancy calculator) and block width of K3's or K4's (``kernel``)
-    run kernel (``entry="run"``, the charged slices' flag set) or force
-    kernel (``"forces"``), or of a design step (``entry`` a name of
-    :data:`K34_LEVERS`), at ``n_atoms`` atoms of ``n_types`` types."""
+    run kernel (``entry="run"``, the charged slices' flag set; ``"big_run"``
+    K4's global form) or force kernel (``"forces"``) at ``n_atoms`` atoms of
+    ``n_types`` types."""
     out = (ctypes.c_int * 4)()
-    prefix = _K34_ENTRY[kernel]
-    if entry in ("run", "forces"):
-        rc = getattr(_build.library(), prefix + "_info")(
-            {"run": 0, "forces": 1}[entry], n_atoms, n_types, out)
+    lib = _build.library()
+    if entry == "big_run":
+        rc = lib.md_k4_big_info(n_atoms, n_types, out)
     else:
-        rc = getattr(_build.library(), prefix + "_lever_info")(
-            K34_LEVERS[kernel].index(entry), n_atoms, n_types, out)
-    _build.check(rc, f"{prefix} info ({entry})")
+        rc = getattr(lib, _K34_ENTRY[kernel] + "_info")({"run": 0, "forces": 1}[entry], n_atoms,
+                                                         n_types, out)
+    _build.check(rc, f"{kernel} info ({entry})")
+    return _info(out)
+
+
+def _info(out) -> dict:
     return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
+
+
+# --------------------------------------------------------------------------
+# K5 (csrc/md_k5.cu): sweep 1 writes each atom's live js, sweep 2 walks
+# them; the force entry over (tile, box) blocks
+
+# live-list slots per atom of K5's run (an atom with more live js walks all
+# N in sweep 2): the diamond box has 4, its melt rarely above 10
+K5_CAP = 16
+K5_TILE_ROWS = 32
+
+
+class _K5Args(ctypes.Structure):
+    """Mirror of md_k5.cu's K5Args, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "invm", "mftm", "state", "vxi", "press", "n_run", "fscal", "pos", "h6", "force",
+        "virial", "partial", "adj", "stats")]
+        + [(name, ctypes.c_int) for name in ("B", "N", "cap", "deform", "sample", "tiles")]
+        + [(name, ctypes.c_float) for name in ("ndof", "boltz", "nktv2p", "tdamp")]
+        + [("sw", _SWC)])
+
+
+def k5_tiles(n_atoms: int) -> int:
+    """Row tiles of one box in K5's force entry."""
+    return -(-n_atoms // K5_TILE_ROWS)
+
+
+def _k5_args(runner: FusedRunner, B_: int, **ptrs) -> _K5Args:
+    spec = runner.spec
+    a = _K5Args()
+    a.invm, a.mftm = _f(runner.invm), _f(runner.mftm)
+    for name, v in ptrs.items():
+        setattr(a, name, v)
+    a.B, a.N, a.tiles = B_, spec.n_atoms, k5_tiles(spec.n_atoms)
+    a.ndof, a.boltz, a.nktv2p, a.tdamp = float(spec.ndof), spec.boltz, spec.nktv2p, spec.tdamp
+    for name, v in sw_consts(spec).items():
+        setattr(a.sw, name, v)
+    return a
+
+
+def _k5_run(runner: FusedRunner, Bn: int, deform: bool, sample: bool, ptrs: dict,
+            cap: int) -> torch.Tensor:
+    """Launch K5's run with a live list of ``cap`` slots per atom; returns
+    its (B, 2) int32 stats: each job's atom-calls above the cap (sweep 2
+    walked all N js) and the most live js of one atom."""
+    stats = torch.empty((Bn, 2), dtype=torch.int32, device=runner.invm.device)
+    args = _k5_args(runner, Bn, stats=stats.data_ptr(), **ptrs)
+    args.deform, args.sample, args.cap = int(deform), int(sample), int(cap)
+    rc = _build.library().md_k5_run_f32(ctypes.byref(args),
+                                        _build.stream_handle(runner.invm.device))
+    _build.check(rc, f"md_k5_run_f32 (cap {cap})")
+    return stats
+
+
+def k5_run_stats(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+                 n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                 cap: int = K5_CAP):
+    """:func:`md_run` of a K5 runner on the card with a live list of ``cap``
+    slots per atom; returns (state', vxi', press_sum, stats (B, 2) int32:
+    atom-calls above the cap, most live js of one atom).  Counts its
+    launches in ``md_run.launches_k5``."""
+    if runner.spec.kernel != "K5" or state.device.type != "cuda":
+        raise ValueError("k5_run_stats: a K5 runner on the card")
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k5_run_stats")
+    stats = _k5_run(runner, st.shape[0], deform, sample,
+                    dict(state=st.data_ptr(), vxi=xi.data_ptr(), press=press.data_ptr(),
+                         n_run=nr.data_ptr(), fscal=fs.data_ptr()), cap)
+    md_run.launches_k5 += 1
+    return st, xi, press, stats
+
+
+def _k5_forces(runner: FusedRunner, pos, h6, force, vir) -> None:
+    """K5's force entry: a moments kernel and a forces kernel over (tile,
+    box) blocks, the adjoints in a (B, 10, N) scratch, the tiles' partial
+    virials in a (B, tiles, 6) scratch summed in tile order."""
+    Bn, N = pos.shape[0], runner.spec.n_atoms
+    adj = torch.empty((Bn, 10, N), dtype=pos.dtype, device=pos.device)
+    partial = torch.empty((Bn, k5_tiles(N), 6), dtype=pos.dtype, device=pos.device)
+    args = _k5_args(runner, Bn, pos=pos.data_ptr(), h6=h6.data_ptr(), force=force.data_ptr(),
+                    virial=vir.data_ptr(), partial=partial.data_ptr(), adj=adj.data_ptr())
+    args.cap = K5_CAP
+    rc = _build.library().md_k5_forces_f32(ctypes.byref(args), _build.stream_handle(pos.device))
+    _build.check(rc, "md_k5_forces_f32")
+
+
+def k5_kernel_info(entry: str, n_atoms: int, cap: int = K5_CAP) -> dict:
+    """Registers, local (spill) bytes per thread, resident blocks per SM and
+    block width of K5's run kernel (``entry="run"``, a list of ``cap``
+    slots) or of its force entry's ``"moments"`` or ``"forces"`` kernel."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().md_k5_info({"run": 0, "moments": 1, "forces": 2}[entry], n_atoms, cap,
+                                     out)
+    _build.check(rc, f"md_k5_info ({entry})")
+    return _info(out)
+
+
+def k5_live_lists(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                  cap: int = K5_CAP):
+    """Sweep 1's live lists as K5's run kernel writes them, in the plain
+    version's arithmetic: for boxes pos (B, 3, N), h6 (B, 6), each atom's
+    first ``cap`` live js in j order ((B, cap, N) int64, a dead slot the
+    atom itself) and its count of live js ((B, N), above ``cap`` for an atom
+    whose sweep 2 walks all N)."""
+    c = sw_consts(runner.spec)
+    d, r2 = _sw_disp(pos, h6)
+    n = pos.shape[-1]
+    live = (r2 < c["rc2"]) & (r2 > 1e-8) & ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    cnt = live.sum(-1)
+    rank = torch.cumsum(live.long(), -1) - 1
+    slot = torch.where(live & (rank < cap), rank, torch.full_like(rank, cap))
+    lst = torch.arange(n, device=pos.device).view(1, 1, n).expand(pos.shape[0], cap + 1, n).clone()
+    j = torch.arange(n, device=pos.device).view(1, 1, n).expand_as(slot)
+    lst.scatter_(1, slot.transpose(1, 2), j.transpose(1, 2))
+    return lst[:, :cap], cnt
+
+
+def _sw_disp(pos, h6):
+    """d[b, i, j] = r_j - r_i by the sequential triclinic minimum image, and
+    r2, for boxes pos (B, 3, N), h6 (B, 6) (``_sw_block_plain``'s)."""
+    lx, ly, lz, xy, xz, yz = (h6[:, k, None, None] for k in range(6))
+    p = [pos[:, a] for a in range(3)]
+    dx, dy, dz = (p[a][:, None, :] - p[a][:, :, None] for a in range(3))
+    n3 = torch.round(dz * (1.0 / lz))
+    dz = dz - n3 * lz
+    dy = dy - n3 * yz
+    n2 = torch.round(dy * (1.0 / ly))
+    dy = dy - n2 * ly
+    dx = dx - n3 * xz - n2 * xy
+    n1 = torch.round(dx * (1.0 / lx))
+    dx = dx - n1 * lx
+    return (dx, dy, dz), dx * dx + dy * dy + dz * dz
+
+
+def k5_forces_list_plain(runner: FusedRunner, pos: torch.Tensor, h6: torch.Tensor,
+                         cap: int = K5_CAP):
+    """K5's run-kernel force call as it walks its lists, in the plain
+    version's arithmetic: sweep 1 over all pairs (the moments, the
+    adjoints and :func:`k5_live_lists`), sweep 2 over each atom's listed js
+    — or, for an atom above ``cap``, over all N.  Returns (F (B, 3, N), W
+    (B, 6)), :func:`md_forces_virial_plain`'s."""
+    lst, cnt = k5_live_lists(runner, pos, h6, cap)
+    take = torch.arange(cap, device=pos.device).view(1, cap, 1) < cnt[:, None, :]
+    walk = torch.zeros((pos.shape[0], pos.shape[-1], pos.shape[-1]), dtype=torch.bool,
+                       device=pos.device)
+    walk.scatter_(2, lst.transpose(1, 2), take.transpose(1, 2))
+    walk |= (cnt > cap)[:, :, None]
+    f, w6 = _sw_block_plain(runner.spec, [pos[:, a] for a in range(3)],
+                            [h6[:, k] for k in range(6)], True, walk)
+    return torch.stack(f, 1), torch.stack(w6, 1)
 
 
 # --------------------------------------------------------------------------

@@ -183,7 +183,9 @@ def main(argv=None) -> int:
         key = (md if any(k in name for k in ("md_run_kernel", "md_forces_kernel", "k1_run_kernel",
                                               "k1_forces_kernel", "k1_virial_kernel",
                                               "k34_run_kernel", "k34_forces_kernel",
-                                              "k34_virial_kernel",
+                                              "k34_virial_kernel", "k1m_run_kernel",
+                                              "k5_run_kernel", "k5_moments_kernel",
+                                              "k5_forces_kernel", "k5_virial_kernel",
                                               "sw_moments_warp_kernel", "sw_spheres_kernel",
                                               "sw_forces_list_kernel"))
                else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")

@@ -25,9 +25,11 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
 * K1 (csrc/md_k1.cu) at one and at twelve boxes in its force entry, to
   the same bounds; its first design (md_kernel.cuh with every flag off,
   reached through md_fused._run_first / _forces_first) to the same bounds;
-* K1m (K1's first design with J = 2 or 4 jobs per block): equal to that
-  design bit for bit, each job's step body being its code at its block
-  width; a dead job of a (live, dead) pair comes back bit-identical;
+* K1m (csrc/md_k1m.cu, J = 2 or 4 jobs per block, each job's arithmetic
+  K1's at K1's block width, the two bodies compiled differently: the last
+  float32 bits differ): held to K1's run rule against float64; its first
+  design (md_multi.cu) equals K1's first design bit for bit; a dead job of
+  a (live, dead) pair comes back bit-identical;
 * K3 (csrc/md_k3.cu; the charged PEAA box: 1792 atoms, real-space Ewald,
   offset patterns, SHAKE, frozen k-space force) is held to the same
   relative bounds as K1: forces/virial 2x plain float32 + 1e-6 (per atom
@@ -46,10 +48,14 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
   md_fused._run_first / _forces_first; K4 over the seven channels of
   channels_first) to the same bounds, each design's launches counted on
   its own wrapper and the other's untouched;
-* K5 (the Stillinger-Weber sweeps) on the slice's 216-atom diamond-Si box
-  and on the gate's largest, 640 atoms (two rounds of the block), with
+* K4's global form (csrc/md_k4_big.cu) on the 4096-atom PEAA4096 box, above
+  the shared form's cap: the bounds of K4, inactive jobs bit-identical;
+* K5 (csrc/md_k5.cu: sweep 2 over sweep 1's live lists) on the slice's
+  216-atom diamond-Si box and on the gate's largest, 640 atoms, with
   perturbed positions and tilted boxes: the bounds of K1, inactive jobs
-  bit-identical;
+  bit-identical, and so with live-list caps (8, 2) that some or every atom
+  exceeds (sweep 2 then walks all N); its first design (md_sw.cu) to the
+  same bounds;
 * K6d/K6e (SW brick moments, energy) and K6c (adjoint forces, energy,
   virial) on 512- and 4096-atom boxes with perturbed positions and tilted
   boxes, K6a/K6b on a 512-atom box: the K1 force bounds; K6's first design
@@ -260,45 +266,88 @@ def test_k1_sampled_stress_matches_plain_statistically(g0):
     assert bool((diff <= 4.0 * se + 1.0).all()), (diff, se)
 
 
-@pytest.mark.parametrize("jobs", [2, 4])
-def test_k1m_equals_k1(g0, jobs):
-    """K1m (J jobs per block) runs each job's step body in the order of
-    K1's first design at its block width: deform and sampling runs equal
-    that design's bit for bit, jobs of different lengths included."""
+def _k1m_case(g0):
     sys, batch = g0
     B = batch.pos.shape[0]
     st = MF.pack_state(batch.pos, batch.vel)
     eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
     fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
     n_run = torch.tensor([10, 7, 10, 3, 10, 10, 4, 10], dtype=torch.int32, device=st.device)
+    return sys, batch, st, fscal, n_run
+
+
+@pytest.mark.parametrize("jobs", [2, 4])
+def test_k1m_equals_k1(g0, jobs):
+    """K1m's redesign (J jobs per block, each job's arithmetic K1's at K1's
+    block width) differs from K1 (md_k1.cu) in the last float32 bits — the
+    two bodies compile differently (~4e-6 A after 10 deform steps) — so
+    deform runs of different lengths and 20-step pressure sums are held to
+    K1's rule against float64: four times the plain float32 run's distance
+    (+1e-4); one launch counted."""
+    sys, batch, st, fscal, n_run = _k1m_case(g0)
+    B = st.shape[0]
+    r, r64 = sys.fused, sys.fused.to(st.device, torch.float64)
     before = MF.md_run_multi.launches_k1m
-    out, vxi, _ = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, True, False, jobs)
+    out, vxi, _ = MF.md_run_multi(r, st, batch.vxi, n_run, fscal, True, False, jobs)
     torch.cuda.synchronize()
     assert MF.md_run_multi.launches_k1m == before + 1
-    ref, vxi_ref, _ = MF._run_first(sys.fused, st, batch.vxi, n_run, fscal, True, False)
-    assert torch.equal(out, ref) and torch.equal(vxi, vxi_ref)
+    ref, _, _ = MF.md_run_plain(r, st, batch.vxi, n_run, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(r64, st.double(), batch.vxi.double(), n_run, fscal.double(),
+                                  True, False)
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
     f_s = MF.make_fscal(DT, T_MD, batch.h)
     n20 = torch.full((B,), 20, dtype=torch.int32, device=st.device)
-    _, _, pk = MF.md_run_multi(sys.fused, out, vxi, n20, f_s, False, True, jobs)
-    _, _, pr = MF._run_first(sys.fused, out, vxi, n20, f_s, False, True)
-    assert torch.equal(pk, pr)
+    _, _, pk = MF.md_run_multi(r, out, vxi, n20, f_s, False, True, jobs)
+    _, _, pp = MF.md_run_plain(r, out, vxi, n20, f_s, False, True)
+    _, _, p64 = MF.md_run_plain(r64, out.double(), vxi.double(), n20, f_s.double(), False, True)
+    for c in range(6):
+        assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
+
+
+@pytest.mark.parametrize("jobs", [2, 4])
+def test_k1m_first_design_equals_k1_first_design(g0, jobs):
+    """K1m's first design (md_multi.cu) runs each job's step body in the
+    order of K1's first design at its block width: bit for bit, counted on
+    its own wrapper only."""
+    sys, batch, st, fscal, n_run = _k1m_case(g0)
+    before, path = MF._run_multi_first.launches_k1m, MF.md_run_multi.launches_k1m
+    out, vxi, _ = MF._run_multi_first(sys.fused, st, batch.vxi, n_run, fscal, True, False, jobs)
+    torch.cuda.synchronize()
+    assert MF._run_multi_first.launches_k1m == before + 1
+    assert MF.md_run_multi.launches_k1m == path
+    ref, vxi_ref, _ = MF._run_first(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    assert torch.equal(out, ref) and torch.equal(vxi, vxi_ref)
 
 
 def test_k1m_dead_job_is_bit_identical(g0):
     """A (live, dead) pair: the dead job comes back untouched with zero
-    pressure, the live one as K1's first design runs it alone."""
+    pressure, the live one (sampling) to K1's run rule against float64."""
     sys, batch = g0
     B = batch.pos.shape[0]
     st = MF.pack_state(batch.pos, batch.vel)
     fscal = MF.make_fscal(DT, T_MD, batch.h)
     n_run = torch.tensor([20, 0] * (B // 2), dtype=torch.int32, device=st.device)
     out, vxi, p = MF.md_run_multi(sys.fused, st, batch.vxi, n_run, fscal, False, True, 2)
-    ref, _, pr = MF._run_first(sys.fused, st[0::2], batch.vxi[0::2], n_run[0::2],
-                               fscal[0::2], False, True)
     torch.cuda.synchronize()
     assert torch.equal(out[1::2], st[1::2]) and torch.equal(vxi[1::2], batch.vxi[1::2])
     assert torch.equal(p[1::2], torch.zeros_like(p[1::2]))
-    assert torch.equal(out[0::2], ref) and torch.equal(p[0::2], pr)
+    live = (st[0::2], batch.vxi[0::2], n_run[0::2], fscal[0::2], False, True)
+    ref, _, _ = MF.md_run_plain(sys.fused, *live)
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64),
+                                  *(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                                    else x for x in live))
+    assert _err(out[0::2, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+
+
+def test_k1m_kernels_occupancy(g0):
+    """K1m's J = 2 block holds K1's 64 registers and two blocks per SM; J =
+    4 one block of 512 threads."""
+    sys, _ = g0
+    T = int(sys.fused.k1_tbl.shape[0])
+    two, four = (MF.k1m_kernel_info(J, sys.n_atoms, T) for J in (2, 4))
+    assert two["registers"] <= 64 and two["blocks_per_sm"] == 2, two
+    assert four["threads"] == 512 and four["blocks_per_sm"] == 1, four
 
 
 @pytest.fixture(scope="module")
@@ -562,6 +611,87 @@ def test_k4_flag_sets_match_plain(case):
     assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
 
 
+@pytest.fixture(scope="module")
+def peaa4096():
+    """The 4096-atom charged PE box on K4's global form (above the shared
+    form's 2509-atom cap), 4 jobs after FIRE 100."""
+    dev = _device()
+    sys, st = M.build_system(M.PEAA4096, dtype=torch.float32, device=dev)
+    r = sys.fused
+    assert r.spec.kernel == "K4" and MF.k4_big(r.spec, int(r.k34_tbl.shape[0]))
+    st = E.minimize_fire(sys, st, n_steps=100, dt0=0.5)
+    gen = torch.Generator().manual_seed(40)
+    B = 4
+    vel = torch.stack([E.maxwell_velocities(sys, T_MD, gen, torch.float32, dev)
+                       for _ in range(B)])
+    batch = E.MDState(pos=st.pos.expand(B, -1, -1).contiguous(), vel=vel,
+                      h=st.h.expand(B, -1, -1).contiguous(),
+                      vxi=torch.zeros((B, 3), device=dev))
+    fk, _ = r.kspace(batch.pos, batch.h)
+    return sys, batch, fk.transpose(1, 2).contiguous(), r.channels(batch.pos, batch.h)
+
+
+def test_k4_big_run_matches_plain_and_skips_inactive(peaa4096):
+    """K4's global form on a 10-step deform chunk with SHAKE and the frozen
+    k-space force: the K3/K4 run bounds, a job with n_run = 0 bit-identical,
+    the SHAKE residual below 1e-3, counted in launches_k4big only."""
+    sys, batch, fk, nbr = peaa4096
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 7, 10], dtype=torch.int32, device=st.device)
+    g0 = torch.tensor([0, 0, 10, 20], dtype=torch.int32, device=st.device)
+    n_tot = torch.full_like(n_run, 30)
+    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
+    before, shared = MF.md_run.launches_k4big, MF.md_run.launches_k4
+    out, vxi, _ = MF.md_run(sys.fused, st, *args, nbr=nbr)
+    torch.cuda.synchronize()
+    assert MF.md_run.launches_k4big == before + 1 and MF.md_run.launches_k4 == shared
+    assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
+    ref, _, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbr)
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                  batch.vxi.double(), n_run, fscal.double(), True, False,
+                                  fk.double(), g0, n_tot, nbr=nbr)
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+    cons = sys.constraints
+    i, j = (torch.as_tensor(cons.idx[:, k], device=st.device) for k in (0, 1))
+    d0sq = torch.as_tensor(cons.d0, device=st.device, dtype=torch.float64) ** 2
+    ran = out[n_run > 0]
+    rr = ran[:, :3, j].double() - ran[:, :3, i].double()
+    assert float(((rr * rr).sum(1) - d0sq).abs().div(d0sq).max()) < 1e-3
+    assert int(nbr["count"].max()) < sys.fused.spec.k
+
+
+def test_k4_big_sampling_and_forces_match_plain(peaa4096):
+    """On the 4096-atom box: 20-step pressure sums of K4's global form and
+    the force entry (one form for both box sizes), to the K4 bounds."""
+    sys, batch, fk, nbr = peaa4096
+    st = MF.pack_state(batch.pos, batch.vel)
+    n = torch.full((st.shape[0],), 20, dtype=torch.int32, device=st.device)
+    fscal = MF.make_fscal(DT, T_MD, batch.h)
+    one = torch.ones_like(n)
+    r64 = sys.fused.to(st.device, torch.float64)
+    _, _, pk = MF.md_run(sys.fused, st, batch.vxi, n, fscal, False, True, fk, 0 * n, one,
+                         nbr=nbr)
+    _, _, pp = MF.md_run_plain(sys.fused, st, batch.vxi, n, fscal, False, True, fk, 0 * n, one,
+                               nbr=nbr)
+    _, _, p64 = MF.md_run_plain(r64, st.double(), batch.vxi.double(), n, fscal.double(), False,
+                                True, fk.double(), 0 * n, one, nbr=nbr)
+    for c in range(6):
+        assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
+    pos = batch.pos.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(batch.h)
+    F, W = MF.md_forces_virial(sys.fused, pos, h6, nbr=nbr)
+    Fp, Wp = MF.md_forces_virial_plain(sys.fused, pos, h6, nbr)
+    F64, W64 = MF.md_forces_virial_plain(r64, pos.double(), h6.double(), nbr)
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    info = MF.k34_kernel_info("K4", "big_run", sys.n_atoms, int(sys.fused.k34_tbl.shape[0]))
+    assert info["threads"] == 768 and info["blocks_per_sm"] == 1, info
+
+
 def _charged(kernel, peaa, peaa2240):
     """(system, batch, frozen k-space force, the design's list: None for K3,
     K4's compact list for the path and its seven channels for the first
@@ -706,34 +836,6 @@ def test_k34_special_weights_match_plain(peaa, peaa2240, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4"])
-def test_k34_levers_match_plain(peaa, peaa2240, kernel):
-    """Every design step built as an instance of its own (the levers that
-    chip_smoke.py times) runs the same chunk to the same bound, and skips
-    an inactive job; the steps that skip the bonded or SHAKE/RATTLE passes
-    are timing instances only and are held to finite states."""
-    sys, batch, fk, nbrs = _charged(kernel, peaa, peaa2240)
-    B = batch.pos.shape[0]
-    st = MF.pack_state(batch.pos, batch.vel)
-    fscal = MF.make_fscal(DT, T_MD, batch.h, torch.full((B, 6), 5e-4, device=st.device))
-    n_run = torch.tensor([10, 0, 10, 10], dtype=torch.int32, device=st.device)
-    g0, n_tot = 0 * n_run, torch.full_like(n_run, 10)
-    args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
-    ref, _, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbrs["path"])
-    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
-                                  batch.vxi.double(), n_run, fscal.double(), True, False,
-                                  fk.double(), g0, n_tot, nbr=nbrs["path"])
-    for lever in MF.K34_LEVERS[kernel]:
-        out, vxi, _ = MF.k34_lever_run(sys.fused, lever, st, *args, nbr=nbrs["path"])
-        torch.cuda.synchronize()
-        assert torch.equal(out[1], st[1]), lever
-        assert torch.isfinite(out).all(), lever
-        if lever in MF.K34_TIMING_ONLY:
-            continue
-        assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4, lever
-        assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4, lever
-
-
-@pytest.mark.parametrize("kernel", ["K3", "K4"])
 def test_k34_kernels_occupancy(peaa, peaa2240, kernel):
     """The run kernel holds one block of a job per SM at its pinned width
     (K3 896 threads of two rows, K4 768) with no more local memory per
@@ -831,6 +933,79 @@ def test_k5_sampling_pressure_sums_match_plain(si):
                                 batch.vxi.double(), n, fscal.double(), False, True)
     for c in range(6):
         assert _rel(pk[:, c], p64[:, c]) <= 4 * _rel(pp[:, c], p64[:, c]) + 1e-4, c
+
+
+@pytest.mark.parametrize("cap", [2, 8])
+def test_k5_list_overflow_matches_plain(si, cap):
+    """K5 with a live-list cap below some (8) or every (2) atom's live js:
+    those atoms walk all N js in sweep 2, counted in the run's stats, and the
+    run keeps the K1 bounds; at the path's cap no atom of these boxes
+    overflows and the stats hold the most live js of an atom."""
+    sys, batch = si
+    B = batch.pos.shape[0]
+    st = MF.pack_state(batch.pos, batch.vel)
+    eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
+    n_run = torch.tensor([10, 0, 10, 7, 0, 3], dtype=torch.int32, device=st.device)
+    out, vxi, _, stats = MF.k5_run_stats(sys.fused, st, batch.vxi, n_run, fscal, True, False,
+                                         cap=cap)
+    _, _, _, s16 = MF.k5_run_stats(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    torch.cuda.synchronize()
+    live = n_run > 0
+    _, cnt = MF.k5_live_lists(sys.fused, batch.pos.transpose(1, 2).contiguous(),
+                              MF.h6_of(batch.h), MF.K5_CAP)
+    assert bool((stats[live, 0] > 0).all()) and bool((stats[~live] == 0).all())
+    assert bool((s16[live, 0] == 0).all()) and bool((s16[:, 1] <= MF.K5_CAP).all())
+    assert bool((s16[live, 1] >= cnt[live].amax(1).to(s16.dtype)).all())
+    for j in (1, 4):
+        assert torch.equal(out[j], st[j]) and torch.equal(vxi[j], batch.vxi[j])
+    ref, _, _ = MF.md_run_plain(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+                                  batch.vxi.double(), n_run, fscal.double(), True, False)
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+    assert _rel(out[:, 3:], ref64[:, 3:]) <= 4 * _rel(ref[:, 3:], ref64[:, 3:]) + 1e-4
+
+
+def test_k5_first_design_matches_plain(si):
+    """K5's first design (md_sw.cu: both sweeps over all N js, one block per
+    box in the force entry) to the K1 bounds, counted on its own wrappers."""
+    sys, batch = si
+    B = batch.pos.shape[0]
+    pos = batch.pos.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(batch.h)
+    before, path = MF._forces_first.launches_k5, MF.md_forces_virial.launches_k5
+    F, W = MF._forces_first(sys.fused, pos, h6)
+    torch.cuda.synchronize()
+    assert MF._forces_first.launches_k5 == before + 1
+    assert MF.md_forces_virial.launches_k5 == path
+    Fp, Wp = MF.md_forces_virial_plain(sys.fused, pos, h6)
+    r64 = sys.fused.to(pos.device, torch.float64)
+    F64, W64 = MF.md_forces_virial_plain(r64, pos.double(), h6.double())
+    assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
+    assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
+    st = MF.pack_state(batch.pos, batch.vel)
+    fscal = MF.make_fscal(DT, T_MD, batch.h, torch.full((B, 6), 5e-4, device=st.device))
+    n_run = torch.tensor([10, 0, 10, 7, 0, 3], dtype=torch.int32, device=st.device)
+    out, _, _ = MF._run_first(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref, _, _ = MF.md_run_plain(sys.fused, st, batch.vxi, n_run, fscal, True, False)
+    ref64, _, _ = MF.md_run_plain(r64, st.double(), batch.vxi.double(), n_run, fscal.double(),
+                                  True, False)
+    assert torch.equal(out[1], st[1])
+    assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
+
+
+def test_k5_kernels_occupancy(si):
+    """K5's run block is one thread per atom rounded to a warp (up to 512)
+    at <= 64 registers: four blocks per SM at 216 atoms, two at 640; the
+    force entry's kernels one warp per j slice."""
+    sys, _ = si
+    n = sys.n_atoms
+    run = MF.k5_kernel_info("run", n)
+    assert run["registers"] <= 64 and run["threads"] == min(-(-n // 32) * 32, 512), run
+    assert run["blocks_per_sm"] >= (4 if n <= 256 else 2), run
+    for entry in ("moments", "forces"):
+        info = MF.k5_kernel_info(entry, n)
+        assert info["threads"] == 32 * min(-(-n // 32), 16) and info["blocks_per_sm"] >= 1
 
 
 @pytest.fixture(scope="module", params=[4, 8], ids=["512", "4096"])

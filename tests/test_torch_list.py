@@ -140,18 +140,25 @@ def test_chunk_length_follows_rebuild_and_kspace_periods():
 
 
 def test_k4_smem_budget_and_channel_checks():
-    """K4 keeps K3's 23 N floats of shared memory (the 2240-atom box fits,
-    2509 is the limit with one atom type); a list runner refuses to launch
-    without its compact list, and a list of the wrong shape or type is
-    refused before any launch — as are the first design's channels."""
+    """K4's shared form keeps K3's 23 N floats of shared memory (the
+    2240-atom box fits, 2509 is its limit with one atom type); 2510 atoms
+    take K4's global form, which raises only one atom above its own cap; a
+    list runner refuses to launch without its compact list, and a list of
+    the wrong shape or type is refused before any launch — as are the first
+    design's channels."""
     sys_, st = TM.build_system(TM.MaterialSpec(**COMMON, use_ewald=True), device="cpu")
     spec = sys_.fused.spec
     assert spec.flags == "COUL+EWALD+PATTERNS+SHAKE+FEXT+LIST"
     limit = TMF.max_atoms(spec)
     assert limit == 2509
     TMF.check_smem(TMF.FusedSpec(**{**spec.__dict__, "n_atoms": 2240}))
-    with pytest.raises(ValueError, match=r"K4 \(flags .*LIST\).*at most"):
-        TMF.check_smem(TMF.FusedSpec(**{**spec.__dict__, "n_atoms": limit + 1}))
+    above = TMF.FusedSpec(**{**spec.__dict__, "n_atoms": limit + 1})
+    assert TMF.k4_big(above) and not TMF.k4_big(TMF.FusedSpec(**{**spec.__dict__,
+                                                                   "n_atoms": limit}))
+    TMF.check_smem(above)
+    big = TMF.k4_big_max_atoms(spec)
+    with pytest.raises(ValueError, match=rf"K4 \(flags .*LIST\).*at most {big} "):
+        TMF.check_smem(TMF.FusedSpec(**{**spec.__dict__, "n_atoms": big + 1}))
     with pytest.raises(ValueError, match="compact list"):
         TMF._check_slots(sys_.fused, None, 1)
     sl = sys_.fused.channels(st.pos[None], st.h[None])
