@@ -112,13 +112,17 @@ _LAMMPS_TO_FRAMEWORK = (0, 1, 2, 5, 4, 3)
 
 
 def stiffness_probe(sys: E.MDSystem, state: E.MDState, params: MDParams,
-                    up: float = 1.0e-3, relax_steps: int = 60) -> torch.Tensor:
+                    up: float = 1.0e-3, thermal: bool = False,
+                    relax_steps: int = 60) -> torch.Tensor:
     """6x6 stiffness (Pa) from +/- finite box deformations
-    (ELASTIC/in.modulus.lammps, cold variant of homogenization.py:141-193):
-    the twelve deformed boxes relax with FIRE at fixed box as one batch,
-    then one force + virial evaluation (the kernel's entry plus the k-space
-    remainder's virial for Ewald/PME systems) gives each pressure tensor;
-    ``C[:, d] = -(P(+up) - P(-up)) / (2 up) * atm_to_pa``, symmetrized."""
+    (ELASTIC/in.modulus.lammps; homogenization.py:141-193): the twelve
+    deformed boxes as one batch.  ``thermal=False`` relaxes them with FIRE
+    at fixed box, then one force + virial evaluation (the kernel's entry
+    plus the k-space remainder's virial for Ewald/PME systems) gives each
+    pressure tensor; ``thermal=True`` samples them by NVT, as the reference
+    does, in one :func:`engine.sample_stress` call (the fused kernel's
+    sampling run).  ``C[:, d] = -(P(+up) - P(-up)) / (2 up) * atm_to_pa``,
+    symmetrized."""
     dtype, dev = state.pos.dtype, state.pos.device
     eps = torch.zeros((12, 6), dtype=dtype, device=dev)
     for d in range(6):
@@ -128,12 +132,18 @@ def stiffness_probe(sys: E.MDSystem, state: E.MDState, params: MDParams,
     h0 = state.h.expand(12, 3, 3)
     h1 = B.deform_path(h0, eps, 1.0)
     pos1 = B.remap_affine(h0, h1, state.pos.expand(12, -1, -1))
-    st = E.MDState(pos=pos1, vel=torch.zeros_like(pos1), h=h1,
-                   vxi=state.vxi.expand(12, -1).clone())
-    if relax_steps > 0:
-        st = E.minimize_fire(sys, st, n_steps=relax_steps, dt0=0.2)
-    _, W = E.forces_virial(sys, st.pos, st.h)
-    P = E.pressure_tensor(sys, st.replace(vel=torch.zeros_like(st.vel)), W)
+    if thermal:
+        st = E.MDState(pos=pos1, vel=state.vel.expand(12, -1, -1).clone(), h=h1,
+                       vxi=state.vxi.expand(12, -1).clone())
+        _, P = E.sample_stress(sys, st, params.nsteps_sample, params.temperature,
+                               params.dt)
+    else:
+        st = E.MDState(pos=pos1, vel=torch.zeros_like(pos1), h=h1,
+                       vxi=state.vxi.expand(12, -1).clone())
+        if relax_steps > 0:
+            st = E.minimize_fire(sys, st, n_steps=relax_steps, dt0=0.2)
+        _, W = E.forces_virial(sys, st.pos, st.h)
+        P = E.pressure_tensor(sys, st.replace(vel=torch.zeros_like(st.vel)), W)
     C = torch.zeros((6, 6), dtype=dtype, device=dev)
     for d in range(6):
         C[:, _LAMMPS_TO_FRAMEWORK[d]] = -(P[2 * d] - P[2 * d + 1]) / (2.0 * up) * ATM_TO_PA

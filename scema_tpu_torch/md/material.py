@@ -443,15 +443,36 @@ def equilibrate_staged(sys: E.MDSystem, state: E.MDState, params: MDParams,
     return state
 
 
-def measure(sys: E.MDSystem, state: E.MDState, params: MDParams) -> InitData:
+def measure(sys: E.MDSystem, state: E.MDState, params: MDParams,
+            thermal_stiffness: bool = False) -> InitData:
     """Equilibrium box lengths, residual stress, stiffness, density
-    (init_material_problem.h:192-295)."""
+    (init_material_problem.h:192-295; material.py:894-933).  With
+    ``thermal_stiffness`` the probe's twelve boxes are sampled by NVT as
+    the reference does, else relaxed cold (:func:`stiffness_probe`)."""
     L, _ = B.lengths_tilts(state.h)
     st2, press = E.sample_stress(sys, state, params.nsteps_sample,
                                  params.temperature, params.dt)
-    C = stiffness_probe(sys, st2, params)
+    C = stiffness_probe(sys, st2, params, thermal=thermal_stiffness)
     vol = float(B.volume(state.h))
     density = float(torch.sum(sys.masses)) * DENSITY_CONV / vol
     return InitData(length=L.double().cpu().numpy(),
                     stress=(-press * ATM_TO_PA).double().cpu().numpy(),
                     stiff=C.double().cpu().numpy(), density=density)
+
+
+def write_init_files(outdir: str, name: str, replica: int, data: InitData) -> None:
+    """Reference-format init.<mat>_<n>.{length,stress,stiff} text files
+    (read_write.h formats; material.py:935-947).  The density file is
+    written per material by the caller (stmd_sync.h:477-487)."""
+    import os
+
+    from ..utils import io_tensors as io
+    from ..utils import tensors as T
+
+    os.makedirs(outdir, exist_ok=True)
+    base = f"{outdir}/init.{name}_{replica}"
+    io.write_vector(base + ".length", data.length)
+    io.write_sym2(base + ".stress", T.voigt_to_sym(
+        torch.as_tensor(np.asarray(data.stress, dtype=np.float64))).numpy())
+    io.write_sym4(base + ".stiff", T.c66_to_rank4(
+        torch.as_tensor(np.asarray(data.stiff, dtype=np.float64))).numpy())

@@ -18,7 +18,9 @@ without ``nvcc``.
 
 Each exported C function launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.
+non-zero code.  A failed build and a failed launch raise :class:`KernelError`,
+which no caller retries: a build error repeats, and a launch error leaves
+the CUDA context unusable.
 """
 from __future__ import annotations
 
@@ -43,7 +45,10 @@ _I = ctypes.c_int
 # exported symbol -> argtypes (pointers and the stream as c_void_p so they
 # are passed as 64-bit values)
 SIGNATURES = {
-    "pairwise_l2_f32": [_P, _P, _I, _I, _P],
+    # K2: x, out, n, d, the tile edge (0: the kernel's rule), the stream;
+    # its first design: x, out, n, d, the stream
+    "pairwise_l2_f32": [_P, _P, _I, _I, _I, _P],
+    "pairwise_l2_first_f32": [_P, _P, _I, _I, _P],
     # the first designs of K1, K3 (all-pairs) and K4 (gather list), and K5
     # (SW): a pointer to the MDArgs structure (md_fused._MDArgs) and the stream
     "md_allpairs_run_f32": [_P, _P],
@@ -100,6 +105,10 @@ SIGNATURES = {
     "md_slim_occupancy": [_I, _I, _P],
 }
 
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch."""
+
+
 _lib = None
 build_seconds = None  # wall time of the last nvcc build (None: cache hit)
 build_log = ""  # nvcc's output of the last build
@@ -121,7 +130,7 @@ def _nvcc() -> str:
     for c in cands:
         if os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
                        "to build the CUDA kernels")
 
 
@@ -157,7 +166,7 @@ def build() -> Path:
     build_log = "".join(logs)
     failed = [src.name for src, p in zip(sources(), procs) if p.returncode != 0]
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        raise KernelError(f"nvcc failed on {failed}:\n{build_log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)
@@ -165,7 +174,7 @@ def build() -> Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
+        raise KernelError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     build_seconds = time.perf_counter() - t0
     os.replace(tmp, out)
     return out
@@ -192,4 +201,4 @@ def stream_handle(device) -> int:
 
 def check(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+        raise KernelError(f"{name}: kernel launch failed with cudaError_t {rc}")

@@ -8,7 +8,11 @@ no JAX, with the repository's conftest left out:
 
 Tolerances, each with its reason (float32 on both sides, same inputs):
 * K2: 1e-5 relative — the kernel accumulates 60 squares with FMAs in
-  another association than torch's reduction;
+  another association than torch's reduction; its redesign (upper-triangle
+  tile pairs, each tile written with its mirror), with either tile edge (64
+  or 32 rows), equals its first design bit for bit and is exactly
+  symmetric, at every n around the tile edges and d within and beyond one
+  staged 32-column chunk;
 * K1 forces/virial: the kernel's error against a float64 evaluation is at
   most twice the plain float32 version's (+1e-6 of the largest component)
   — pair terms ~100x the net force cancel, so a fixed float32 tolerance
@@ -132,6 +136,23 @@ def test_k2_matches_plain(n):
     assert K2.pairwise_l2.launches == before + 1
     assert _rel(d, K2.pairwise_l2_plain(x)) < 1e-5
     assert torch.equal(d, d.T)
+
+
+@pytest.mark.parametrize("d", [6, 60, 130])
+@pytest.mark.parametrize("n", [1, 33, 63, 64, 65, 576, 4608])
+def test_k2_redesign_equals_first_design(n, d):
+    dev = _device()
+    x = torch.as_tensor(np.random.default_rng(7 * n + d).standard_normal((n, d)),
+                        dtype=torch.float32, device=dev)
+    before = (K2.pairwise_l2.launches, K2._first.launches)
+    new, old = K2.pairwise_l2(x), K2._first(x)
+    torch.cuda.synchronize()
+    assert (K2.pairwise_l2.launches, K2._first.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(new, old)
+    assert torch.equal(new, new.T)
+    assert _rel(new, K2.pairwise_l2_plain(x)) < 1e-5
+    for tile in (32, 64):  # both tile edges, whichever the kernel picks here
+        assert torch.equal(K2._launch(x, "pairwise_l2_f32", K2.pairwise_l2, tile), old)
 
 
 def test_k1_forces_virial_match_plain(g0):
