@@ -173,7 +173,29 @@ failure exits non-zero before the result line:
    field within RESTART_TOL); the similarity dump equals K2's plain
    version on the final splines (1e-5); ``strain-md --save-state --dump``
    then ``analyse-md`` on both formats agree within 1e-3; no step rolled
-   back.
+   back;
+22. the charged staged slice: ``build_md_hmm(HMMConfig(), spec=PEAA,
+   staged=True, ns_init=100)`` with at most 128 MD jobs per step, float32
+   (FIRE and 900 MTK NPT steps on K3's force + virial entry with the
+   PME remainder and SHAKE/RATTLE on the host, the NVT stage on K3's run),
+   then 2 macro-steps, the launch counters zeroed before the setup, read
+   after it, zeroed and read around the steps; K3's force entry must have
+   launched at least 900 times in the setup, K3's run and K2 in the steps,
+   no first design; the SHAKE residual of the prepared replica and the MD
+   states, the prepared density against a band from the JAX package's own
+   staged prep of PEAA (tests/torch_staged_density.py), the displacement
+   milestone; K3's force entry on the prepared box (the NPT loop's one
+   box) against its plain version and float64, timed (device, per call,
+   plain) against its bound; 20 NPT steps timed; then ``use_fused=False``
+   on PEAA (the unfused engine: autograd of ``OPLS.energy`` with the PME
+   sum, host SHAKE/RATTLE): its step-0 forces and virial on the prepared
+   box against K3's force entry plus the remainder, in float64 (1e-5
+   relative: the erfc polynomial against the exact erfc) and in float32
+   (forces 1e-5; its virial within 5e-4 of its float64 one), 4 jobs x 20
+   sampling steps with no kernel launched, the SHAKE residual after them;
+   and the card's
+   ``constraints.shake_positions`` against the same call on the CPU in
+   float64 (1e-5 A).
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
@@ -3297,6 +3319,216 @@ def p1_kernel(v) -> str:
             f"Li{newton}ELi{v.jobs}E")
 
 
+# Density band (kg/m^3) of PEAA after the staged prep at ns_init 100 (phase
+# 22): about 10% around what the JAX package's own prep gives on this box
+# (tests/torch_staged_density.py --materials peaa --dtype float32, CPU, keys
+# 1-2: JAX 462.4-464.1, the port on the same draws 454.8-460.0).  The melt
+# leaves its start density of 680: it expands while it is held at 500 K
+PEAA_RHO_NS100 = (415.0, 510.0)
+
+
+def phase_charged_staged_slice(dev):
+    """Phase 22 (see the module docstring): the charged all-atom box with
+    the staged NPT prep on K3's force entry, then the unfused engine on
+    the same box."""
+    import torch
+
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import constraints as CN
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+
+    counters = md_counters()
+
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    t_phase = time.perf_counter()
+    cfg = HMMConfig()
+    cfg = cfg.replace(dtype="float32", md_dtype="float32",
+                      resources=dataclasses.replace(cfg.resources, max_md_jobs=128))
+    n_steps = 2
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    t0 = time.perf_counter()
+    hmm = build_md_hmm(cfg, spec=M.PEAA, staged=True, ns_init=100, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup = read()
+    sys_ = hmm.backend.sys
+    r = sys_.fused
+    if r is None or r.spec.kernel != "K3":
+        fail(f"charged staged slice: PEAA is not on K3 ({r and r.spec.kernel})")
+    if setup["md_charged_forces_virial"] < 900 or setup["md_charged_run"] <= 0:
+        fail(f"charged staged slice: K3's force entry launched "
+             f"{setup['md_charged_forces_virial']} times in the setup (>= 900 expected), its "
+             f"run {setup['md_charged_run']}")
+    first_designs_idle(setup, "charged staged slice setup")
+    st0 = hmm.backend.initial_md_state
+    resid0 = shake_residual(sys_, st0.pos)
+    rho = float(hmm.backend.ensemble.rho.mean())
+    if not torch.isfinite(st0.pos).all() or not resid0 < 1e-3:
+        fail(f"charged staged slice: prepared state non-finite or SHAKE residual {resid0:.3e}")
+    if not PEAA_RHO_NS100[0] < rho < PEAA_RHO_NS100[1]:
+        fail(f"charged staged slice: prepared density {rho} kg/m^3 outside {PEAA_RHO_NS100}")
+
+    zero()
+    state = hmm.init_state()
+    step_s, jobs = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, out = hmm.step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        jobs.append(int(out.n_jobs))
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)) or jobs[-1] <= 0:
+            fail("charged staged slice: a macro-step produced no MD jobs or non-finite residuals")
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["md_charged_run"] <= 0 or launches["pairwise_l2"] <= 0:
+        fail(f"charged staged slice: K3's run or K2 was not launched in the steps: {launches}")
+    first_designs_idle(launches, "charged staged slice")
+    if max(jobs) > 128:
+        fail(f"charged staged slice: {max(jobs)} MD jobs in a step, above the 128 cap")
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    if abs(umax - expect) > 1e-5 * expect:
+        fail(f"charged staged slice: max displacement {umax} != {expect}")
+    micro = state[1][0]
+    ran = micro.pos[micro.has_run]
+    resid = shake_residual(sys_, ran)
+    if ran.shape[0] == 0 or not resid < 1e-3:
+        fail(f"charged staged slice: SHAKE residual {resid:.3e} on {ran.shape[0]} MD states")
+    print(f"[22 charged staged slice] {sys_.n_atoms}-atom PEAA, staged prep ns_init 100 "
+          f"(FIRE 100, NVT 100, 900 MTK NPT steps): setup {setup_s:.3f}s  prepared density "
+          f"{rho:.2f} kg/m^3 (band {PEAA_RHO_NS100})  SHAKE residual max |r^2-d0^2|/d0^2 "
+          f"prepared {resid0:.3e}, MD states {resid:.3e} over {ran.shape[0]} qps (tol 1e-3)  "
+          f"s/macro-step {[round(x, 4) for x in step_s]}  md jobs {jobs}  launches in the setup "
+          f"{ {k: v for k, v in setup.items() if v} }, in the steps "
+          f"{ {k: v for k, v in launches.items() if v} }  peak memory {peak / 2**20:.1f} MiB  "
+          f"max displacement {umax:.6g} m (expect {expect:.6g})")
+
+    # K3's force entry on the prepared box: the staged NPT loop's one box
+    pos1, h1 = st0.pos[:1], st0.h[:1]
+    p1 = pos1.transpose(1, 2).contiguous()
+    h6 = MF.h6_of(h1)
+    r64 = r.to(dev, torch.float64)
+    F, W = MF.md_forces_virial(r, p1, h6)
+    Fp, Wp = MF.md_forces_virial_plain(r, p1, h6)
+    F64, W64 = MF.md_forces_virial_plain(r64, p1.double(), h6.double())
+    torch.cuda.synchronize()
+    fmax, wmax = float(F64.abs().max()), float(W64.abs().max())
+    ek = float((F.double() - F64).abs().max()) / fmax
+    ep = float((Fp.double() - F64).abs().max()) / fmax
+    wk = float((W.double() - W64).abs().max()) / wmax
+    wp = float((Wp.double() - W64).abs().max()) / wmax
+    if not torch.isfinite(F).all() or ek > 2 * ep + 1e-6 or wk > 2 * wp + 1e-6:
+        fail(f"K3 forces B=1: kernel error vs float64 {ek:.3e} (virial {wk:.3e}) exceeds twice "
+             f"the plain float32 error {ep:.3e} ({wp:.3e}) + 1e-6")
+    f_err = float((F - Fp).abs().max())
+    dev_ms = device_ms(lambda: MF.md_forces_virial(r, p1, h6), 50, K34_NAMES["path"])
+    call_ms = cuda_ms(lambda: MF.md_forces_virial(r, p1, h6), reps=50, warmup=3)
+    plain_ms = cuda_ms(lambda: MF.md_forces_virial_plain(r, p1, h6), reps=5)
+    n, T = sys_.n_atoms, int(r.k34_tbl.shape[0])
+    f_lj, f_q = pair_fractions(pos1, h1, r.spec.cutoff2, r.spec.coul_cutoff2, k3_excluded(r))
+    tables = 2 * T * T + 3 * n + r.k34_win.numel()
+    b_ms, b_by = bound(4.0 * (tables + r.pat.numel() + (6 * n + 12)),
+                       pair_flops(n, 1, f_lj, f_q, virial=True))
+    st1 = E.MDState(*(getattr(st0, f)[0] for f in ("pos", "vel", "h", "vxi")))
+    E.run_npt(sys_, st1, 10, T_MD, T_MD, DT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    E.run_npt(sys_, st1, 20, T_MD, T_MD, DT)
+    torch.cuda.synchronize()
+    npt_ms = (time.perf_counter() - t1) / 20 * 1e3
+    print(f"[22 K3 forces B=1] the prepared box: max_abs_err vs plain {f_err:.3e}; rel error vs "
+          f"float64 {ek:.3e} (virial {wk:.3e}), plain-f32 {ep:.3e} ({wp:.3e}) (tol 2x plain + "
+          f"1e-6)  device {dev_ms:.4f} ms, per call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}; pairs inside LJ {f_lj:.3f}, Coulomb {f_q:.3f})  "
+          f"launches in the staged setup {setup['md_charged_forces_virial']}  NPT loop "
+          f"{npt_ms:.3f} ms per MTK step (20 steps, host clock)")
+
+    # the unfused engine on the same box: use_fused=False.  Its step-0
+    # forces and virial against K3's entry plus the remainder, in float64
+    # (both systems built in float64 and run as plain arithmetic: only the
+    # erfc polynomial against the exact erfc differs, 1e-5) and in float32
+    # (the forces to 1e-5; each route's float32 virial against its float64
+    # one: K3's is held above, the unfused route's autograd through the
+    # energy to 5e-4, since the virial of an equilibrated box cancels to a
+    # small part of its pair terms, so rounding its float32 parameters
+    # alone moves it by ~1e-5)
+    spec_u = dataclasses.replace(M.PEAA, use_fused=False)
+    usys, _ = M.build_system(spec_u, dtype=torch.float32, device=dev)
+    usys64, _ = M.build_system(spec_u, dtype=torch.float64, device=dev)
+    k64 = M.build_system(M.PEAA, dtype=torch.float64, device=dev)[0].fused
+    if usys.fused is not None or usys.constraints is None:
+        fail("charged staged slice: use_fused=False built a fused or unconstrained system")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    Fk, Wk = E.forces_virial(sys_, pos1, h1)
+    Fk64, Wk64 = MF.md_forces_virial_plain(k64, p1.double(), h6.double())
+    Fr, Wr = k64.kspace(pos1.double(), h1.double(), want_virial=True)
+    Fk64, Wk64 = Fk64.transpose(1, 2) + Fr, Wk64 + Wr
+    Fu64, Wu64 = E.forces_virial(usys64, pos1.double(), h1.double())
+    J = 4
+    gen = torch.Generator().manual_seed(22)
+    vel = torch.stack([E.maxwell_velocities(usys, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    st4 = E.MDState(pos=pos1.expand(J, -1, -1).contiguous(), vel=vel,
+                    h=h1.expand(J, 3, 3).contiguous(), vxi=torch.zeros((J, 3), device=dev))
+    zero()
+    t1 = time.perf_counter()
+    Fu, Wu = E.forces_virial(usys, pos1, h1)
+    out4, press = E.sample_stress(usys, st4, 20, T_MD, DT)
+    torch.cuda.synchronize()
+    u_s = time.perf_counter() - t1
+    ulaunch = read()
+    e64 = (rel(Fu64, Fk64), rel(Wu64, Wk64))
+    ef32, ew32 = rel(Fu, Fk), rel(Wu, Wk)
+    eu = (rel(Fu, Fu64), rel(Wu, Wu64))
+    uresid = shake_residual(usys, out4.pos)
+    if any(ulaunch.values()):
+        fail(f"unfused PEAA: a kernel was launched: {ulaunch}")
+    if not (e64[0] < 1e-5 and e64[1] < 1e-5 and ef32 < 1e-5 and eu[0] < 1e-5
+            and eu[1] < 5e-4):
+        fail(f"unfused PEAA: step-0 forces / virial relative to K3's entry plus the remainder "
+             f"float64 {e64[0]:.3e} / {e64[1]:.3e} (tol 1e-5), float32 forces {ef32:.3e} (tol "
+             f"1e-5); the float32 unfused route vs its float64 {eu[0]:.3e} / {eu[1]:.3e} (tol "
+             "1e-5 / 5e-4)")
+    if not torch.isfinite(press).all() or not uresid < 1e-3:
+        fail(f"unfused PEAA: pressure finite {bool(torch.isfinite(press).all())}, SHAKE "
+             f"residual {uresid:.3e} (tol 1e-3)")
+    print(f"[22 unfused PEAA] use_fused=False: step-0 forces / virial relative to K3's entry + "
+          f"the PME remainder: float64 {e64[0]:.3e} / {e64[1]:.3e} (the erfc polynomial; tol "
+          f"1e-5), float32 {ef32:.3e} / {ew32:.3e} (forces tol 1e-5); the float32 unfused route "
+          f"vs its float64 {eu[0]:.3e} / {eu[1]:.3e} (tol 1e-5 / 5e-4); {J} jobs x 20 sampling "
+          f"steps of {DT} fs: launches {ulaunch}, SHAKE residual {uresid:.3e} (tol 1e-3); "
+          f"{u_s:.3f}s with the force call")
+
+    # the host SHAKE on the card against the CPU in float64
+    noise = torch.randn(pos1.shape, generator=gen).to(dev) * 0.02
+    new = pos1 + noise
+    invm = 1.0 / sys_.masses
+    got = CN.shake_positions(sys_.shake_set, pos1, new, h1, invm)
+    ref = CN.shake_positions(sys_.constraints, pos1.double().cpu(), new.double().cpu(),
+                             h1.double().cpu(), invm.double().cpu())
+    s_err = float((got.double().cpu() - ref).abs().max())
+    if not s_err < 1e-5:
+        fail(f"shake_positions on the card vs the CPU in float64: {s_err:.3e} A (tol 1e-5)")
+    print(f"[22 shake] shake_positions on the card (float32) vs the CPU (float64): "
+          f"{s_err:.3e} A (tol 1e-5)  phase wall {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -3333,6 +3565,7 @@ def main() -> int:
     k4_big = phase_k4_big(dev)
     k4_big["launches"] = phase_big_slice(dev)["md_list_big_run"]
     phase_run_surface(dev)
+    phase_charged_staged_slice(dev)
     rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows, k2_first,
             *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:

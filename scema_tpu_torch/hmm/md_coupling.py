@@ -272,7 +272,9 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     force field (``"force field": "sw"``, or a ``sisw`` scripts directory,
     gives the 216-atom diamond-Si SW box on K5); ``spec`` replaces the
     config's material (the charged all-atom PE melt is selected this way,
-    as the JAX package does).  ``device``
+    as the JAX package does; with ``staged`` its FIRE and NPT steps take
+    K3's force + virial entry with SHAKE/RATTLE on the host, its NVT stage
+    K3's run).  ``device``
     None means the current CUDA device (an error without one);
     ``device="cpu"`` runs the kernels' plain versions.
 

@@ -17,8 +17,15 @@ stmd_problem.h:83-383), with two paths, as in the JAX package:
   a static structure of its own, the SW brick kernels K6c/K6d, needs none),
   forces re-evaluated at each chunk start after the deform remap, and
   forces from the force field's own entry or autograd of its energy.  SW
-  boxes above K5's gate run here (``material.build_system``).  Constraints
-  are refused on this path (the segment-sum SHAKE is not ported).
+  boxes above K5's gate run here (``material.build_system``), and any OPLS
+  box built with ``use_fused=False``.
+
+Constraints (SHAKE after the drift, RATTLE after the second kick,
+``constraints.py``) run inside K3 on the fused runs and on the host in
+every loop of this module: the unfused engine's, the NPT loops and
+Berendsen, whichever engine gives the forces (engine.py:259-265, :274-275,
+:522-536).  Like the JAX package's XLA engine, the sampled virial carries
+no constraint term.
 
 States carry any leading batch shape: pos/vel (..., N, 3), h (..., 3, 3),
 vxi (..., 3).  Both paths flatten the batch into one job axis: the fused
@@ -29,12 +36,14 @@ count; a job with 0 steps comes back bit-identical.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from ..ops import md_fused as MF
 from . import box as B
+from . import constraints as CN
 from . import neighbor as NB
 from .units import REAL, UnitSystem
 
@@ -77,7 +86,7 @@ class MDSystem:
     masses: torch.Tensor  # (N,)
     fused: MF.FusedRunner | None = None  # None: the unfused engine
     units: UnitSystem = REAL
-    constraints: object = None  # constraints.Constraints (SHAKE/RATTLE in K3)
+    constraints: object = None  # constraints.Constraints (SHAKE/RATTLE)
     nspec: NB.NeighborSpec | None = None  # the unfused engine's neighbor list
     # neighbor-list reuse (neigh_modify analog): the unfused loops' chunk
     # length, and FIRE's velocity-restart period on both paths
@@ -86,6 +95,14 @@ class MDSystem:
     @property
     def n_atoms(self) -> int:
         return int(self.masses.shape[0])
+
+    @functools.cached_property
+    def shake_set(self):
+        """The constraint set as tensors on the masses' device, made once
+        for the host loops (None without constraints)."""
+        if self.constraints is None:
+            return None
+        return CN.on_device(self.constraints, self.masses.device, self.masses.dtype)
 
     @property
     def ndof(self) -> int:
@@ -212,13 +229,6 @@ def _steps(n_steps, batch: int, device) -> torch.Tensor:
     return n.expand(batch).contiguous() if n.dim() == 0 else n.reshape(batch)
 
 
-def _unfused_only(sys: MDSystem) -> None:
-    if sys.constraints is not None:
-        raise NotImplementedError(
-            "the unfused engine has no SHAKE/RATTLE (the segment-sum constraints are not "
-            "ported, ROADMAP queue 1); constrained systems run the fused kernel K3/K4")
-
-
 def _nhc_half(sys: MDSystem, vel: torch.Tensor, vxi: torch.Tensor, T: float, dt: float):
     """Half-step Nose-Hoover chain update (MTK) of each job's velocities
     (B, N, 3) and chain (B, 3) (engine.py:194-235); returns (vel, vxi)."""
@@ -252,16 +262,25 @@ def _nhc_half(sys: MDSystem, vel: torch.Tensor, vxi: torch.Tensor, T: float, dt:
 
 def _verlet_step(sys: MDSystem, st: MDState, F: torch.Tensor, T: float, dt: float,
                  force_fn):
-    """One NVT velocity-Verlet step of the running jobs (engine.py:238-281,
-    no constraints).  ``force_fn(pos, h) -> (F, extra)`` evaluates the new
-    forces (the sampling loop takes the virial from the same evaluation);
-    returns (state, F_new, extra)."""
+    """One NVT velocity-Verlet step of the running jobs (engine.py:238-281).
+    With constraints, SHAKE corrects the drifted positions against the old
+    ones and the velocities take the constraint impulse (pos_c - pos) /
+    dt; RATTLE follows the second kick.  ``force_fn(pos, h) -> (F,
+    extra)`` evaluates the new forces (the sampling loop takes the virial
+    from the same evaluation); returns (state, F_new, extra)."""
     minv = (sys.units.ftm2v / sys.masses)[:, None]
+    cons = sys.shake_set
     vel, vxi = _nhc_half(sys, st.vel, st.vxi, T, dt)
     vel = vel + 0.5 * dt * F * minv
     pos = st.pos + dt * vel
+    if cons is not None:
+        pos_c = CN.shake_positions(cons, st.pos, pos, st.h, 1.0 / sys.masses)
+        vel = vel + (pos_c - pos) / dt
+        pos = pos_c
     F_new, extra = force_fn(pos, st.h)
     vel = vel + 0.5 * dt * F_new * minv
+    if cons is not None:
+        vel = CN.rattle_velocities(cons, pos, vel, st.h, 1.0 / sys.masses)
     vel, vxi = _nhc_half(sys, vel, vxi, T, dt)
     return st.replace(pos=pos, vel=vel, vxi=vxi), F_new, extra
 
@@ -357,7 +376,6 @@ def run_strain(sys: MDSystem, state: MDState, eps_eff: torch.Tensor, n_steps,
     eps = eps_eff.to(flat.pos).expand(bs + (6,)).reshape(Bn, 6)
     steps = _steps(n_steps, Bn, flat.pos.device)
     if sys.fused is None:
-        _unfused_only(sys)
         out = _run_strain_unfused(sys, flat, eps, steps, T, dt)
     else:
         out = MF.run_strain_fused(sys.fused, flat, eps, steps, T, dt)
@@ -380,7 +398,6 @@ def sample_stress(sys: MDSystem, state: MDState, n_steps, T: float,
     Bn = flat.pos.shape[0]
     steps = _steps(n_steps, Bn, flat.pos.device)
     if sys.fused is None:
-        _unfused_only(sys)
         out, press = _sample_stress_unfused(sys, flat, steps, T, dt)
     else:
         out, press = MF.sample_stress_fused(sys.fused, flat, steps, T, dt)
@@ -421,9 +438,9 @@ def run_npt(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_end: 
     step (``compressibility`` applies to it only).  The loop runs
     max(1, n // R) chunks of R = rebuild_every steps, the temperature
     ramping with frac = step / total, total = max(1, n // R) R.  Forces
-    and virial come from one evaluation per step (:func:`_npt_forces`).
-    Constraints raise."""
-    _unfused_only(sys)
+    and virial come from one evaluation per step (:func:`_npt_forces`);
+    constraints, SHAKE and RATTLE around it on the host, as in the NVT
+    step."""
     if barostat == "mtk":
         return _run_npt_mtk(sys, state, n_steps, T_start, T_end, dt, p_target, pdamp)
     if barostat != "berendsen":
@@ -487,7 +504,9 @@ def _run_npt_mtk(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_
     omega_dot) -> forces and virial -> kick -> MTK scale -> omega_dot ->
     chains.  f_omega = (3 V (P - P0) / nktv2p + 2 KE / N) / W_b with W_b =
     3 (N + 1) kT pdamp^2 reads the half-scaled velocities and the virial
-    of the previous force call.  Each job carries omega_dot (B,) and its
+    of the previous force call.  With constraints, SHAKE follows the drift
+    against the old positions scaled into the new box (x_old e1^2), and
+    RATTLE the second kick.  Each job carries omega_dot (B,) and its
     barostat chain (B, 3), both from zero; the barostat scalars stay on
     the device."""
     u = sys.units
@@ -498,6 +517,7 @@ def _run_npt_mtk(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_
     total = n_chunks * R
     N = float(sys.n_atoms)
     minv = (u.ftm2v / sys.masses)[:, None]
+    cons = sys.shake_set
     dt2 = dt / 2.0
     fv, nb = _npt_forces(sys)
 
@@ -524,8 +544,14 @@ def _run_npt_mtk(sys: MDSystem, state: MDState, n_steps: int, T_start: float, T_
             e1 = torch.exp(dt2 * omega_dot)[:, None, None]
             pos = (st.pos * e1 + dt * vel) * e1
             h = st.h * (e1 * e1)
+            if cons is not None:
+                pos_c = CN.shake_positions(cons, st.pos * e1 * e1, pos, h, 1.0 / sys.masses)
+                vel = vel + (pos_c - pos) / dt
+                pos = pos_c
             F, W = fv(pos, h, nbr)
             vel = vel + dt2 * F * minv
+            if cons is not None:
+                vel = CN.rattle_velocities(cons, pos, vel, h, 1.0 / sys.masses)
             vel = vel * mtk_scale
             omega_dot = omega_dot + dt2 * f_omega(vel, h, _p_iso(sys, vel, h, W), kt_t)
             vxi_b, omega_dot = _baro_nhc_half(vxi_b, omega_dot, w_b, kt_t, pdamp, dt)

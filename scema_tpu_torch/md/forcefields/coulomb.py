@@ -1,15 +1,16 @@
-"""Ewald electrostatics: the splitting parameter, the k-vector set and the
-dense reciprocal sum.
+"""Coulomb electrostatics: cutoff, and Ewald (real space + reciprocal +
+self + the excluded pairs' correction).
 
-Torch twin of the parts of ``scema_tpu/md/forcefields/coulomb.py`` that the
-fused charged path reads (reference physics: ``pair_style lj/cut/coul/long
-12.0 9.0`` + ``kspace_style pppm 0.0001``, in.set.lammps).  The real-space
-sum runs inside kernel K3 (``ops/md_fused.py``); here live the k-space
-energy, batched over a leading job axis with each job's own box, and the
-self energy, and the plain cutoff Coulomb energy over a neighbor list
-(:func:`coulomb_cut_energy`, the unfused engine's route).
-``data_io.to_opls`` picks this dense sum below 2048 atoms and
-PME (``pme.py``) above, as the JAX package does.
+Torch twin of ``scema_tpu/md/forcefields/coulomb.py`` (reference physics:
+``pair_style lj/cut/coul/long 12.0 9.0`` + ``kspace_style pppm 0.0001``,
+in.set.lammps), batched over leading job axes with each job's own box.
+The fused path takes the weighted real-space sum from kernels K3/K4
+(``ops/md_fused.py``, with the A&S erfc polynomial) and only the k-space
+remainder from here; the unfused engine (``OPLS.energy``) takes every term
+from here, with the exact ``torch.erfc`` / ``torch.erf`` as the JAX
+package's XLA engine does.  ``data_io.to_opls`` picks the dense
+reciprocal sum below 2048 atoms and PME (``pme.py``) above, as the JAX
+package does.
 
 Real units: qqr2e = 332.06371 converts q_i q_j / r (e^2/A) to kcal/mol.
 """
@@ -70,6 +71,22 @@ class Ewald:
                      cutoff=cutoff, alpha=alpha,
                      kvecs=torch.as_tensor(kvecs, dtype=dtype, device=device))
 
+    def real_space_energy(self, pos: torch.Tensor, h: torch.Tensor, nbr,
+                          weights=None) -> torch.Tensor:
+        """Short-range damped part, qq erfc(alpha r)/r over the full list
+        ``nbr`` inside the cutoff, halved (coulomb.py:72-82): pos (..., N,
+        3), h (..., 3, 3) -> (...); ``weights`` (..., N, K) scale the
+        entries (the special-bond weights)."""
+        dr = NB.neighbor_disp(pos, h, nbr)
+        r2 = torch.sum(dr * dr, -1)
+        mask = nbr.mask & (r2 < self.cutoff ** 2)
+        r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+        q = self.charges.to(pos.dtype)
+        e = self.qqr2e * q[:, None] * q[nbr.idx] * torch.erfc(self.alpha * r) / r
+        if weights is not None:
+            e = e * weights
+        return 0.5 * torch.sum(torch.where(mask, e, torch.zeros_like(e)), (-1, -2))
+
     def reciprocal_energy(self, pos: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Structure-factor sum over the static k-set: pos (..., N, 3) and
         h (..., 3, 3) -> energy (...)."""
@@ -88,6 +105,25 @@ class Ewald:
 
     def self_energy(self) -> torch.Tensor:
         return -self.qqr2e * self.alpha / math.sqrt(math.pi) * torch.sum(self.charges ** 2)
+
+    def excluded_correction(self, pos: torch.Tensor, h: torch.Tensor, excl_idx: torch.Tensor,
+                            excl_mask: torch.Tensor, weights=None) -> torch.Tensor:
+        """Remove the reciprocal sum's share of the excluded pairs: -qq
+        erf(alpha r)/r per pair (i, excl_idx[i, m]) where ``excl_mask``,
+        halved over the symmetric lists (coulomb.py:103-117); excl_idx and
+        excl_mask (N, M), pos (..., N, 3), h (..., 3, 3) -> (...).
+        ``weights`` (N, M) scale the pairs (1 - the special-bond weight of
+        each pair's order, ``OPLS.energy``)."""
+        if excl_idx.shape[-1] == 0:
+            return torch.zeros(pos.shape[:-2], dtype=pos.dtype, device=pos.device)
+        dr = B.min_image_disp(h[..., None, :, :], pos[..., excl_idx, :] - pos[..., :, None, :])
+        r2 = torch.sum(dr * dr, -1)
+        r = torch.sqrt(torch.where(excl_mask, r2, torch.ones_like(r2)))
+        q = self.charges.to(pos.dtype)
+        e = -self.qqr2e * q[:, None] * q[excl_idx] * torch.erf(self.alpha * r) / r
+        if weights is not None:
+            e = e * weights
+        return 0.5 * torch.sum(torch.where(excl_mask, e, torch.zeros_like(e)), (-1, -2))
 
 
 def coulomb_cut_energy(charges, pos, h, nbr, cutoff: float, weights=None,

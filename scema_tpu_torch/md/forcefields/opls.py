@@ -1,15 +1,16 @@
-"""OPLS-style force-field parameters and topology for the fused MD path.
+"""Composite OPLS-style force field: LJ + Coulomb (cutoff or Ewald/PME) +
+bonded terms with special-bonds exclusions.
 
-Torch twin of the parameter side of ``scema_tpu/md/forcefields/opls.py``:
-LJ tables (geometric mixing), the bonded topology and coefficients, and the
-special-bonds exclusion lists (reference: lammps_scripts_opls/in.set.lammps,
+Torch twin of ``scema_tpu/md/forcefields/opls.py``: LJ tables (geometric
+mixing), the bonded topology and coefficients, and the special-bonds
+exclusion lists (reference: lammps_scripts_opls/in.set.lammps,
 ``special_bonds`` at the LAMMPS default lj/coul 0 0 0: 1-2, 1-3 and 1-4
 pairs fully excluded) and, for charged systems with ``kspace``, the Ewald
 or PME object.  The fused path takes forces and virials from kernels K1,
 K3 and K4 (``ops/md_fused.py``) and the smooth k-space remainder from
 ``material.build_kspace_split``; :meth:`OPLS.energy` (opls.py:77-147) is
 the unfused engine's route (``MaterialSpec.use_fused=False``), autograd
-over a neighbor list, with plain cutoff Coulomb only.
+over a neighbor list, with cutoff Coulomb or the full Ewald/PME sum.
 """
 from __future__ import annotations
 
@@ -120,12 +121,11 @@ class OPLS:
     def energy(self, pos: torch.Tensor, h: torch.Tensor, nbr: NB.NeighborList) -> torch.Tensor:
         """Energies (...) of positions pos (..., N, 3) in boxes h (..., 3, 3)
         over the full list ``nbr``: LJ with the special-bond weights (r^2
-        clamped at 0.25), cutoff Coulomb and the bonded terms.  The Ewald
-        branch raises NotImplementedError (ROADMAP item 5)."""
-        if self.ewald is not None:
-            raise NotImplementedError(
-                "OPLS.energy: the Ewald/PME Coulomb branch is not ported (ROADMAP item 5); "
-                "charged Ewald systems run the fused kernels K3/K4")
+        clamped at 0.25), Coulomb and the bonded terms.  Coulomb is the
+        cutoff form, or with ``ewald`` the weighted real-space sum plus the
+        reciprocal and self energies, less each excluded pair's share of
+        the reciprocal sum weighted by 1 - its order's special_coul
+        (opls.py:107-140)."""
         dr = NB.neighbor_disp(pos, h, nbr)
         r2 = torch.sum(dr * dr, -1)
         lj_mask = nbr.mask & (r2 < self.lj_cutoff ** 2)
@@ -139,5 +139,17 @@ class OPLS:
         e = wlj * 4.0 * self.lj_epsilon[ti, tj] * (s6 * s6 - s6)
         e_lj = 0.5 * torch.sum(torch.where(lj_mask, e, torch.zeros_like(e)), (-1, -2))
         wq = self._pair_weights(nbr, self.special_coul)
-        e_q = coulomb_cut_energy(self.charges, pos, h, nbr, self.coul_cutoff, weights=wq)
+        if self.ewald is None:
+            e_q = coulomb_cut_energy(self.charges, pos, h, nbr, self.coul_cutoff, weights=wq)
+        else:
+            ew = self.ewald
+            n, m = self.excl.shape[0], self.excl.shape[2]
+            excl = torch.as_tensor(self.excl.reshape(n, 3 * m), dtype=torch.int64,
+                                   device=pos.device)
+            wcorr = torch.as_tensor(np.repeat(1.0 - np.asarray(self.special_coul, float), m),
+                                    dtype=pos.dtype, device=pos.device)
+            e_q = (ew.real_space_energy(pos, h, nbr, weights=wq)
+                   + ew.reciprocal_energy(pos, h) + ew.self_energy()
+                   + ew.excluded_correction(pos, h, torch.clamp(excl, min=0), excl >= 0,
+                                            weights=wcorr))
         return e_lj + e_q + BD.bonded_energy(pos, h, self)

@@ -8,6 +8,10 @@ job, a real-to-complex 3-D FFT over the mesh axes (half spectrum, the JAX
 package's default), a diagonal influence-function multiply, and the force
 interpolation from autograd (the spread's adjoint is the force gather).
 
+The real-space, self and exclusion terms are the dense Ewald's
+(``coulomb.Ewald``, the same splitting parameter), as in the JAX package,
+so ``OPLS`` takes either object.
+
 The JAX version builds the spread from per-axis (N, K) matrices and one
 matrix product (a TPU has no fast scatter); here the (N, order^3) weights
 go onto the mesh with one ``index_add`` — the same sum in another order.
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import box as B
-from .coulomb import QQR2E_REAL, ewald_alpha
+from .coulomb import QQR2E_REAL, Ewald, ewald_alpha
 
 SPLINE_ORDER = 5  # LAMMPS pppm default interpolation order
 
@@ -108,8 +112,21 @@ class PME:
                    b2y=t(_euler_b2(mesh[1], SPLINE_ORDER)),
                    b2z=t(_euler_b2(mesh[2], SPLINE_ORDER)))
 
+    # --- real-space / self / exclusion terms: the dense Ewald's (pme.py:153-161)
+    def _ewald(self) -> Ewald:
+        """The Ewald twin of the same split, with no k-vectors (the mesh
+        replaces them)."""
+        return Ewald(charges=self.charges, cutoff=self.cutoff, alpha=self.alpha,
+                     kvecs=self.charges.new_zeros((0, 3)), qqr2e=self.qqr2e)
+
+    def real_space_energy(self, pos, h, nbr, weights=None) -> torch.Tensor:
+        return self._ewald().real_space_energy(pos, h, nbr, weights=weights)
+
     def self_energy(self) -> torch.Tensor:
-        return -self.qqr2e * self.alpha / math.sqrt(math.pi) * torch.sum(self.charges ** 2)
+        return self._ewald().self_energy()
+
+    def excluded_correction(self, pos, h, excl_idx, excl_mask, weights=None) -> torch.Tensor:
+        return self._ewald().excluded_correction(pos, h, excl_idx, excl_mask, weights=weights)
 
     def _spread(self, pos: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """B-spline charge assignment of pos (B, N, 3) in boxes h (B, 3, 3)
@@ -138,9 +155,12 @@ class PME:
 
     def reciprocal_energy(self, pos: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """(2 pi / V) sum_{k != 0} e^{-k^2/4a^2}/k^2 B(m) |F(rho)(m)|^2 per
-        job: pos (B, N, 3), h (B, 3, 3) -> (B,).  Half spectrum: the K3
-        axis of a real mesh's transform is conjugate-symmetric, so the
-        interior columns count twice."""
+        job: pos (B, N, 3), h (B, 3, 3) -> (B,), or one box pos (N, 3), h
+        (3, 3) -> ().  Half spectrum: the K3 axis of a real mesh's
+        transform is conjugate-symmetric, so the interior columns count
+        twice."""
+        if pos.dim() == 2:
+            return self.reciprocal_energy(pos[None], h[None])[0]
         K = self.mesh
         dt, dev = pos.dtype, pos.device
         rho = self._spread(pos, h)

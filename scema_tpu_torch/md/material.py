@@ -18,10 +18,14 @@ boxes off K5's gate run the unfused engine: on the brick kernels K6c/K6d
 list (the route that replaces the JAX package's one-hot structure).  The
 single-type LJ fcc crystal runs K1 with no bonded terms.  With
 ``use_fused=False`` an OPLS or LJ box runs the unfused engine on autograd
-of ``OPLS.energy`` or ``LJ.energy``, as the JAX package's XLA engine does.
-Every system carries a dense-built neighbor spec (``MDSystem.nspec``).
-``equilibrate_staged`` is the reference's heatup/cooldown prep
-(in.init.lammps): FIRE, NVT, then MTK NPT stages (``engine.run_npt``).
+of ``OPLS.energy`` (with the full Ewald/PME sum on a charged box) or
+``LJ.energy``, and SHAKE/RATTLE on the host, as the JAX package's XLA
+engine does.  Every system carries a dense-built neighbor spec
+(``MDSystem.nspec``).  ``equilibrate_staged`` is the reference's
+heatup/cooldown prep (in.init.lammps): FIRE, NVT, then MTK NPT stages
+(``engine.run_npt``), on every box: a fused box's NPT steps take its
+kernel's force + virial entry (plus the k-space remainder), with SHAKE and
+RATTLE on the host for the constrained all-atom boxes.
 Spatially sharded SW boxes, the ReaxFF force field and systems read from
 data files are not ported yet.
 """
@@ -429,7 +433,10 @@ def equilibrate_staged(sys: E.MDSystem, state: E.MDState, params: MDParams,
     material.py:867-891): FIRE, Maxwell-Boltzmann velocities at 200 K, NVT
     at 300 K, then isotropic 1 atm MTK NPT 300 -> 500 K, at 500 K (5x),
     500 K -> T and at T (2x), each stage ``ns_init`` steps times its
-    factor.  ``velocities`` replaces the Maxwell draw."""
+    factor.  ``velocities`` replaces the Maxwell draw.  On a fused box
+    FIRE and the NPT steps take the kernel's force + virial entry and the
+    NVT stage its run; a constrained box (the charged all-atom PE) gets
+    SHAKE/RATTLE inside K3's run and on the host in the NPT loop."""
     T, dt = params.temperature, params.dt
     state = E.minimize_fire(sys, state, n_steps=minimize_steps, dt0=0.5)
     if velocities is None:

@@ -779,7 +779,9 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
             shake_offsets, shk = pack_shake(constraints.idx, constraints.d0, n, dtype, device)
         except ValueError as e:
             raise NotImplementedError(
-                f"{e}: the segment-sum SHAKE path is not ported (ROADMAP queue 1)") from e
+                f"{e}: K3/K4 take constraint offsets below {MAX_SHAKE_OFFSET}; the unfused "
+                "engine (use_fused=False) runs any set, the automatic route is ROADMAP "
+                "item 5b") from e
         n_cons = int(torch.count_nonzero(shk))
     spec = FusedSpec(n_atoms=n, cutoff2=float(ff.lj_cutoff) ** 2, ndof=3 * n - 3 - n_cons,
                      boltz=units.boltz, ftm2v=units.ftm2v, nktv2p=units.nktv2p,

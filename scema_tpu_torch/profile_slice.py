@@ -2,6 +2,7 @@
 
     python -m scema_tpu_torch.profile_slice [--steps 8] [--repeats 10] [--trace out.json]
     python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
+    python -m scema_tpu_torch.profile_slice --charged --staged [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --bigbox [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --sw [--steps 8] [--repeats 10]
     python -m scema_tpu_torch.profile_slice --sw-bricks [--steps 8] [--repeats 10]
@@ -18,7 +19,11 @@ diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) or,
 with ``--sw-bricks`` / ``--sw-list``, the SW box above K5's gate (8^3
 cells, 4096 atoms, at most 128 MD jobs per step) on the unfused engine with
 the brick kernels K6c/K6d or on the list route (autograd of ``SW.energy``)
-— times
+— times the setup (with ``--staged`` the reference's heatup/cooldown NPT
+prep, ``equilibrate_staged`` at ns_init 100, in place of the quick prep;
+then 20 MTK NPT steps from the prepared replica run once more under
+``torch.profiler`` and the script prints their time per step, launches and
+idle share), then
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
@@ -58,6 +63,39 @@ def _self_device_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
+def _profile_npt(hmm, dev, n_steps: int = 20) -> dict:
+    """The staged prep's NPT loop, profiled: ``n_steps`` MTK steps at the
+    MD temperature from the first prepared replica, once untimed, then
+    under ``torch.profiler``; prints and returns the time per step, the
+    device launches per step and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .md import engine as E
+
+    be = hmm.backend
+    st = E.MDState(*(getattr(be.initial_md_state, f)[0] for f in ("pos", "vel", "h", "vxi")))
+    T, dt = be.params.temperature, be.params.dt
+    E.run_npt(be.sys, st, n_steps, T, T, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        E.run_npt(be.sys, st, n_steps, T, T, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    busy = _device_busy_us(events)
+    out = {"steps": n_steps, "s_per_step": wall / n_steps,
+           "launches_per_step": len(events) / n_steps,
+           "device_ms_per_step": busy / 1e3 / n_steps, "idle_share": 1.0 - busy / (wall * 1e6)}
+    print(f"NPT loop ({n_steps} MTK steps at {T} K from the prepared replica, profiled): "
+          f"{out['s_per_step'] * 1e3:.3f} ms per step, {out['launches_per_step']:.1f} device "
+          f"launches per step, device busy {out['device_ms_per_step']:.3f} ms per step, "
+          f"idle share {out['idle_share']:.4f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="scema_tpu_torch.profile_slice")
     ap.add_argument("--steps", type=int, default=8, help="macro-steps before the repeats")
@@ -73,6 +111,9 @@ def main(argv=None) -> int:
                     help="the 4096-atom SW slice on the brick kernels (K6c/K6d)")
     ap.add_argument("--sw-list", action="store_true",
                     help="the 4096-atom SW slice on the list route (autograd SW.energy)")
+    ap.add_argument("--staged", action="store_true",
+                    help="the staged heatup/cooldown NPT prep (ns_init 100) in place of "
+                         "the quick prep, and a profile of its NPT loop")
     args = ap.parse_args(argv)
 
     import torch
@@ -101,17 +142,19 @@ def main(argv=None) -> int:
         if args.sw_bricks or args.sw_list:
             hmm = build_md_hmm(cfg, spec=MaterialSpec(name="si", n_cells=8,
                                                       use_pallas_bricks=args.sw_bricks),
-                               device=dev)
+                               staged=args.staged, device=dev)
         else:
             hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
-                               minimize_steps=100, device=dev)
+                               minimize_steps=100, staged=args.staged, device=dev)
     else:
         if args.sw:
             cfg = cfg.replace(md=dataclasses.replace(cfg.md, force_field="sw"))
-        hmm = build_md_hmm(cfg, staged=False, device=dev)
+        hmm = build_md_hmm(cfg, staged=args.staged, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    print(f"setup {setup_s:.3f}s (mesh + quick prep, kernel build included if not cached)")
+    prep = "staged NPT prep" if args.staged else "quick prep"
+    print(f"setup {setup_s:.3f}s (mesh + {prep}, kernel build included if not cached)")
+    npt = _profile_npt(hmm, dev) if args.staged else None
     # CUDA events around the k-space remainder and the list rebuilds (the
     # fused runner's, or the unfused engine's build_neighbors)
     sys_ = hmm.backend.sys
@@ -213,7 +256,7 @@ def main(argv=None) -> int:
                       "repeat_s": rep, "repeat_md_jobs": rep_jobs, "profiled_step_s": w,
                       "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
                       "span_ms": span_ms, "span_device_ms": span_dev, "idle_share": idle,
-                      "peak_mem_mib": peak}))
+                      "peak_mem_mib": peak, "staged": args.staged, "npt_loop": npt}))
     return 0
 
 

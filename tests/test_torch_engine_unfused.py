@@ -15,7 +15,8 @@ dense-built 20-slot list; JAX on its neighbor lists).
   vmapped program (the unbatched JAX probe compiles twelve programs: ~30 s
   on one core);
 * the brick route's plain version (K6c/K6d on the unfused engine) against
-  the same JAX list run.
+  the same JAX list run;
+* SHAKE/RATTLE on a constrained, charged box (its own fixture).
 
 Tolerances: positions 1e-9 A, stress and stiffness 1e-8 relative (only
 the summation order differs; measured ~1e-15 and ~1e-13).
@@ -150,11 +151,29 @@ def test_stiffness_probe_matches_xla_engine(runs, port):
     assert np.isfinite(runs["jC"]).all() and runs["jC"][0, 0] > 0
 
 
-def test_constraints_are_refused_on_the_unfused_path(port):
-    import dataclasses
-
-    sys_ = dataclasses.replace(port[0], constraints=object())
-    st = TE.init_state(torch.zeros((216, 3), dtype=torch.float64),
-                       torch.eye(3, dtype=torch.float64) * 16.0)
-    with pytest.raises(NotImplementedError, match="SHAKE"):
-        TE.run_nvt(sys_, st, 10, T, DT)
+def test_constrained_nvt_matches_xla_engine():
+    """SHAKE/RATTLE on the unfused engine: the charged all-atom PE fixture of
+    tests/test_allatom_fused.py with coul/cut (4 C4H10 chains, 56 atoms,
+    the C-H bonds rigid), tilted to xy = 0.3 A and relaxed by JAX's FIRE (40
+    steps), 20 NVT steps of 1 fs from JAX's 300 K draw, ``use_fused=False`` on both sides: positions 1e-9 A
+    and velocities 1e-9 relative, as above; the SHAKE residual max |r^2 -
+    d0^2| below 1e-10 A^2."""
+    spec = dict(name="pe", force_field="opls", allatom=True, n_chains=4, chain_length=4,
+                pe_density=0.33, opls_lj_cutoff=5.0, opls_coul_cutoff=4.5, validate=False,
+                use_fused=False)
+    jsys, jst = JM.build_system(JM.MaterialSpec(**spec))
+    tsys, _ = TM.build_system(TM.MaterialSpec(**spec), device="cpu")
+    assert tsys.fused is None and tsys.constraints is not None
+    h = np.array(jst.h)
+    h[0, 1] = 0.3
+    jst = jax.jit(lambda s: JE.minimize_fire(jsys, s, n_steps=40, dt0=0.5))(
+        jst._replace(h=jnp.asarray(h)))
+    jst = jst._replace(vel=JE.maxwell_velocities(jsys, jax.random.PRNGKey(5), T))
+    jout = jax.jit(lambda s: JE.run_nvt(jsys, s, 20, T, 1.0))(jst)
+    tout = TE.run_nvt(tsys, interop.md_state(jst), 20, T, 1.0)
+    assert np.abs(np64(tout.pos) - np.asarray(jout.pos)).max() < 1e-9
+    assert rel_err(np64(tout.vel), np.asarray(jout.vel)) < 1e-9
+    assert np.abs(np.asarray(jout.pos) - np.asarray(jst.pos)).max() > 1e-2
+    c = tsys.constraints
+    rr = np64(tout.pos)[c.idx[:, 1]] - np64(tout.pos)[c.idx[:, 0]]
+    assert np.abs((rr * rr).sum(-1) - c.d0 ** 2).max() < 1e-10

@@ -1,20 +1,23 @@
 """Densities after the staged material prep (``equilibrate_staged``) of
-the g0 melt and the 216-atom SW silicon box, from the JAX package and from
-the port on the same Maxwell draws, on the CPU.
+the g0 melt, the 216-atom SW silicon box and the charged all-atom PE box
+``material.PEAA``, from the JAX package and from the port on the same
+Maxwell draws, on the CPU.
 
     JAX_PLATFORMS=cpu python tests/torch_staged_density.py [--ns-init 100]
-        [--keys 1 2] [--dtype float64]
+        [--keys 1 2] [--dtype float64] [--materials g0 si peaa]
 
 The JAX package runs its XLA engine (autograd energies over a neighbor
-list); the port runs its default route (the plain versions of K1's and
-K5's force + virial entries) with JAX's 200 K draw injected.  Both
+list; on PEAA the exact Ewald/PME sum every step and SHAKE/RATTLE); the
+port runs its default route (the plain versions of K1's, K5's or K3's
+force + virial entries, K3's run for PEAA's NVT stage) with JAX's 200 K
+draw injected.  Both
 trajectories are chaotic over ~1100 steps, so the densities agree as
 ensembles, not digit for digit.  The reference's prep is what sets them:
 the g0 octane melt expands while it is held at 500 K, and the SW silicon
 box melts because the reference reads the metal-units Si.sw energies (eV)
 as kcal/mol under ``units real`` (scema_tpu/md/units.py), a potential ~23x
-softer than silicon's.  chip_smoke.py phase 17 takes its density bands from
-this script's output.
+softer than silicon's.  chip_smoke.py phases 17 and 22 take their density
+bands from this script's output.
 """
 from __future__ import annotations
 
@@ -41,7 +44,11 @@ from scema_tpu_torch.md import material as TM  # noqa: E402
 from scema_tpu_torch.md.homogenization import MDParams  # noqa: E402
 
 PARAMS = dict(temperature=300.0, dt=2.0, strain_rate=1e-4, nsteps_sample=100)
-SPECS = {"g0": dict(name="g0", force_field="opls"), "si": dict(name="si", force_field="sw")}
+# PEAA: the port's material.PEAA (the JAX package's bench.py _allatom_spec)
+SPECS = {"g0": dict(name="g0", force_field="opls"), "si": dict(name="si", force_field="sw"),
+         "peaa": {k: v for k, v in TM.PEAA.__dict__.items() if k in (
+             "name", "force_field", "allatom", "n_chains", "chain_length", "pe_density",
+             "opls_lj_cutoff", "opls_coul_cutoff", "use_ewald", "kspace_every", "kspace")}}
 
 
 def main(argv=None) -> int:
@@ -49,7 +56,7 @@ def main(argv=None) -> int:
     p.add_argument("--ns-init", type=int, default=100)
     p.add_argument("--keys", type=int, nargs="+", default=[1, 2])
     p.add_argument("--dtype", default="float64", choices=("float32", "float64"))
-    p.add_argument("--materials", nargs="+", default=list(SPECS), choices=list(SPECS))
+    p.add_argument("--materials", nargs="+", default=["g0", "si"], choices=list(SPECS))
     args = p.parse_args(argv)
     minimize = 80 if args.ns_init == 60 else 100  # test_opls_hmm.py:76-77 at ns_init 60
     for name in args.materials:
