@@ -195,7 +195,35 @@ failure exits non-zero before the result line:
    sampling steps with no kernel launched, the SHAKE residual after them;
    and the card's
    ``constraints.shake_positions`` against the same call on the CPU in
-   float64 (1e-5 A).
+   float64 (1e-5 A);
+23. data files and the build-time route: the g0 melt written as a LAMMPS
+   data file (tests/torch_file_util.py) and read back through
+   ``MaterialSpec(data_file=...)`` takes route K1, its state and K1's
+   force + virial on 12 perturbed boxes bit for bit the built-in g0's;
+   the same file with one harmonic improper per interior bead triple takes
+   ``unfused: impropers``; the ``HMMConfig()`` dogbone (quick prep, at
+   most 64 MD jobs) with it for 2 macro-steps, its launch counters zeroed
+   before the build and read after the steps: ``build_md_hmm`` prints the
+   route, the displacement milestone, finite stresses, no fused kernel
+   launched (K2 only);
+24. the other problems and the FE solvers: the drop-weight plate (0.08 x
+   0.08 x 0.02 m, 6 x 6 x 2 cells, 576 qps; a 0.04 m weight at 1e8 m/s^2
+   for 3 steps) for 3 macro-steps and a compact-tension specimen (a
+   generated 72-hex GMSH mesh, calculi_B 0.01 m, a pin displacement of
+   0.002 W per step, at most 128 MD jobs) for 2, g0 on K1 with the quick
+   prep, float32, counters zeroed before each build and read after its
+   steps: flagged qps and MD jobs, finite stresses below 1e10 Pa, a
+   finite nonzero reaction, K1's run and K2 launched, no first design;
+   then CG, GMRES, BiCGStab and the direct solve on the dogbone's
+   consistent mass matrix in float64 on the card (each within 1e-7 of
+   x_true; matvecs and time printed);
+25. the restart seed: a 2 x 3 x 4-cell diamond-Si LAMMPS binary restart
+   (192 atoms, the box origin off zero) as ``init.g0_1.bin`` in a
+   temporary nanoscale input; the ``{"force field": "sw"}`` dogbone built
+   from it (576 qps; the lattice sized from the restart) is 192 atoms on
+   K5 with replica 1 the restart's pos - boxlo / vel / h (1e-6 relative,
+   float32, the thermostat at rest), then 2 macro-steps with the
+   displacement milestone, K5 and K2 launched and nothing else.
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
@@ -203,7 +231,8 @@ its first design's (0) on the charged slice, K4's and its first design's
 (0) on the coupled list slice, K5's and its first design's (0) on the SW
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
 17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
-on the 4096-atom slice; K2's first design's (0) on the g0 slice;
+on the 4096-atom slice; K2's first design's (0) on the g0 slice; the
+K1, K2 and K5 rows add the launches of phases 23-25's paths;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -3529,6 +3558,312 @@ def phase_charged_staged_slice(dev):
           f"{s_err:.3e} A (tol 1e-5)  phase wall {time.perf_counter() - t_phase:.1f}s")
 
 
+def _file_util():
+    """tests/torch_file_util.py: the writers of LAMMPS data and restart files
+    and of the compact-tension GMSH mesh (test inputs; not in the package)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_file_util
+
+    return torch_file_util
+
+
+def path_counters():
+    """md_counters() and K5's (redesign and first design), by the kernels
+    line's names."""
+    from scema_tpu_torch.ops import md_fused as MF
+
+    return {**md_counters(), "md_sw_run": (MF.md_run, "launches_k5"),
+            "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
+            "md_sw_first_run": (MF._run_first, "launches_k5"),
+            "md_sw_first_forces": (MF._forces_first, "launches_k5")}
+
+
+def _drive(hmm, n_steps: int, what: str):
+    """``n_steps`` macro-steps of ``hmm`` on the card: per-step host times,
+    job and flagged counts, the reaction forces and the last carry; fails on
+    a non-finite residual."""
+    import torch
+
+    state = hmm.init_state()
+    step_s, jobs, flagged, rf = [], [], [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, out = hmm.step(state)
+        torch.cuda.synchronize()
+        step_s.append(round(time.perf_counter() - t1, 4))
+        jobs.append(int(out.n_jobs))
+        flagged.append(int(out.n_flagged))
+        rf.append(float(out.reaction_force))
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
+            fail(f"{what}: a macro-step gave non-finite residuals")
+    return state, step_s, jobs, flagged, rf
+
+
+def phase_data_file(dev):
+    """Phase 23 (see the module docstring): MaterialSpec.data_file and the
+    build-time route."""
+    import torch
+
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import data_io
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+
+    fu = _file_util()
+    counters = path_counters()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        data = data_io.build_alkane_melt(64, 8)
+        plain, imp = os.path.join(tmp, "g0.data"), os.path.join(tmp, "g0_impropers.data")
+        fu.write_data(plain, data)
+        fu.write_data(imp, fu.with_impropers(data, 8))  # one per interior bead triple
+        bsys, bst = M.build_system(M.MaterialSpec(name="g0", force_field="opls"),
+                                   dtype=torch.float32, device=dev)
+        fsys, fst = M.build_system(M.MaterialSpec(name="g0", force_field="opls",
+                                                  data_file=plain),
+                                   dtype=torch.float32, device=dev)
+        isys, _ = M.build_system(M.MaterialSpec(name="g0", force_field="opls", data_file=imp),
+                                 dtype=torch.float32, device=dev)
+        gen = torch.Generator().manual_seed(23)
+        pos = (bst.pos[None].cpu() + 0.05 * torch.randn((12,) + tuple(bst.pos.shape),
+                                                        generator=gen)).to(dev)
+        p, h6 = pos.transpose(1, 2).contiguous(), MF.h6_of(bst.h.expand(12, 3, 3))
+        Fb, Wb = MF.md_forces_virial(bsys.fused, p, h6)
+        Ff, Wf = MF.md_forces_virial(fsys.fused, p, h6)
+        torch.cuda.synchronize()
+        same = torch.equal(bst.pos, fst.pos) and torch.equal(Fb, Ff) and torch.equal(Wb, Wf)
+        if fsys.route != "K1" or not same:
+            fail(f"data file: the g0 file takes route {fsys.route!r} (K1 expected); state and "
+                 f"K1 forces/virial bit for bit equal to the built-in g0: {same}")
+        if isys.route != "unfused: impropers" or isys.fused is not None:
+            fail(f"data file: the file with impropers takes route {isys.route!r}")
+        print(f"[23 data file] g0 written and read back ({fsys.n_atoms} sites): route "
+              f"{fsys.route}, K1 forces + virial on 12 perturbed boxes equal the built-in g0's "
+              f"bit for bit; with {len(isys.ff.impropers)} impropers: route {isys.route}")
+
+        cfg = HMMConfig()
+        cfg = cfg.replace(dtype="float32", md_dtype="float32",
+                          resources=dataclasses.replace(cfg.resources, max_md_jobs=64))
+        spec = M.MaterialSpec(name="g0", force_field="opls", data_file=imp)
+        n_steps = 2
+        gc.collect()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hmm = build_md_hmm(cfg, spec=spec, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        state, step_s, jobs, flagged, rf = _drive(hmm, n_steps, "data file")
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    printed = buf.getvalue().strip()
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    sig = state[0].qp.new_stress
+    if "route unfused: impropers" not in printed:
+        fail(f"data file: build_md_hmm did not print the route: {printed!r}")
+    if abs(umax - expect) > 1e-5 * expect or not torch.isfinite(sig).all() or min(jobs) <= 0:
+        fail(f"data file: max displacement {umax} (expect {expect}), stresses finite "
+             f"{bool(torch.isfinite(sig).all())}, md jobs {jobs}")
+    fused = {k: v for k, v in launches.items() if k != "pairwise_l2" and v}
+    if fused or launches["pairwise_l2"] <= 0:
+        fail(f"data file: the unfused route launched fused kernels {fused} (or K2 did not run)")
+    print(f"[23 data file steps] {printed}; HMMConfig() dogbone, <= 64 MD jobs on the unfused "
+          f"engine: setup {setup_s:.3f}s  s/macro-step {step_s}  md jobs {jobs}  flagged "
+          f"{flagged}  max displacement {umax:.6g} m (expect {expect:.6g})  launches "
+          f"{ {k: v for k, v in launches.items() if v} }  phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+# phase 24's drop-weight plate: 6 x 6 x 2 cells (576 qps, the dogbone's
+# count), a 0.04 m weight accelerated at 1e8 m/s^2 for 3 steps (about
+# 0.25%, 0.5% and 0.75% strain under the weight in steps 1-3 at the default
+# dt); and its compact-tension specimen: W = 2 calculi_B = 0.02 m, a pin
+# displacement of 0.002 W per step (the dogbone's strain scale)
+DROPWEIGHT = {"problem type": {"class": "dropweight", "diameter": 0.04, "acceleration": 1.0e8,
+                               "steps to accelerate": 3},
+              "continuum mesh": {"input": {"style": "cuboid", "x length": 0.08,
+                                           "y length": 0.08, "z length": 0.02, "x cells": 6,
+                                           "y cells": 6, "z cells": 2}}}
+CT_B = 0.01
+
+
+def _problem_run(dev, d: dict, n_steps: int, what: str, tag: str):
+    """``build_md_hmm`` of config ``d`` (g0 on K1, quick prep, float32) and
+    ``n_steps`` macro-steps, counters zeroed before the build and read after
+    the steps; the checks of phase 24."""
+    import torch
+
+    from scema_tpu_torch.config import config_from_dict
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+
+    counters = path_counters()
+    cfg = config_from_dict(d, dtype="float32")
+    gc.collect()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        hmm = build_md_hmm(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state, step_s, jobs, flagged, rf = _drive(hmm, n_steps, what)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    sig = state[0].qp.new_stress
+    smax = float(sig.abs().max())
+    if hmm.backend.sys.route != "K1" or min(flagged) <= 0 or min(jobs) <= 0:
+        fail(f"{what}: route {hmm.backend.sys.route}, flagged qps {flagged}, md jobs {jobs}")
+    if not (torch.isfinite(sig).all() and smax < 1e10 and all(abs(r) < float("inf") for r in rf)
+            and rf[-1] != 0.0):
+        fail(f"{what}: stresses finite {bool(torch.isfinite(sig).all())}, max |sigma| {smax:.3e} "
+             f"Pa (< 1e10), reaction forces {rf} (finite, nonzero)")
+    if launches["md_k1_run"] <= 0 or launches["pairwise_l2"] <= 0:
+        fail(f"{what}: K1's run or K2 was not launched: {launches}")
+    first_designs_idle(launches, what)
+    print(f"[{tag}] {hmm.geom.n_qp_total} qps, g0 on {hmm.backend.sys.route}, quick prep: setup "
+          f"{setup_s:.3f}s  s/macro-step {step_s}  flagged {flagged}  md jobs {jobs}  max "
+          f"|sigma| {smax:.4e} Pa  reaction {[f'{r:.4e}' for r in rf]}  max |u| "
+          f"{float(state[0].u.abs().max()):.4e} m  launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_problems(dev):
+    """Phase 24 (see the module docstring): the drop-weight and
+    compact-tension problems on K1, and the FE solvers on the card."""
+    import numpy as np
+    import torch
+
+    from scema_tpu_torch.fem import assembly, mesh, shapes, solver
+
+    t_phase = time.perf_counter()
+    drop = _problem_run(dev, DROPWEIGHT, 3, "drop-weight", "24 dropweight")
+    fu = _file_util()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        msh = os.path.join(tmp, "ct.msh")
+        n_cells = fu.write_ct_msh(msh, CT_B)
+        ct = _problem_run(dev, {"problem type": {"class": "compact tension",
+                                                 "velocity": 0.002 * 2.0 * CT_B},
+                                "continuum mesh": {"input": {"style": "file3D", "filename": msh,
+                                                             "calculi_B": CT_B}},
+                                "computational resources": {"maximum md jobs": 128}},
+                          2, "compact tension", f"24 compact tension ({n_cells} hexes)")
+
+    # the consistent mass of the dogbone's mesh, float64 on the card
+    m = mesh.build_cuboid(0.03, 0.03, 0.08, 3, 3, 8)
+    g = shapes.precompute_geometry(m.nodes, m.cells, 2, dtype=torch.float64, device=dev)
+    rho = torch.full((g.n_qp_total,), 1000.0, dtype=torch.float64, device=dev)
+    cm = solver.consistent_cell_mass(g, rho)
+    diag = assembly.lumped_mass_diag(g, rho)
+    n = g.n_nodes * 3
+    rng = np.random.default_rng(24)
+    con = torch.as_tensor(rng.random(n) < 0.1, device=dev)
+    x_true = torch.where(con, 0.0, torch.as_tensor(rng.standard_normal(n), device=dev))
+    calls = [0]
+
+    def mv(v):
+        calls[0] += 1
+        return solver.consistent_mass_matvec(g, cm, v)
+
+    b = torch.where(con, 0.0, mv(x_true))
+    rows = []
+    for name, solve in (("cg", lambda: solver.cg_solve(mv, b, diag, con, tol=1e-12, maxiter=500)),
+                        ("gmres", lambda: solver.gmres_solve(mv, b, diag, con, tol=1e-12,
+                                                             maxiter=500)),
+                        ("bicgstab", lambda: solver.bicgstab_solve(mv, b, diag, con, tol=1e-12,
+                                                                   maxiter=500)),
+                        ("direct", lambda: solver.direct_solve(mv, n, b, con))):
+        solve()  # warm
+        calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = solve()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float(torch.linalg.vector_norm(x - x_true) / torch.linalg.vector_norm(x_true))
+        if not err < 1e-7 or x.device.type != "cuda":
+            fail(f"solver {name}: relative error {err:.3e} against x_true (tol 1e-7)")
+        rows.append(f"{name} {err:.2e} ({calls[0]} matvecs, {ms:.2f} ms)")
+    print(f"[24 solvers] consistent mass of the 3x3x8 dogbone ({n} dofs, float64, "
+          f"{int(con.sum())} constrained) on the card: {'; '.join(rows)} (tol 1e-7)  phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return {k: drop[k] + ct[k] for k in drop}
+
+
+def phase_restart_seed(dev):
+    """Phase 25 (see the module docstring): an SW dogbone seeded from a
+    LAMMPS binary restart, on K5."""
+    import numpy as np
+    import torch
+
+    from scema_tpu_torch.config import config_from_dict
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import lattice
+
+    fu = _file_util()
+    counters = path_counters()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(25)
+    pos, h = lattice.diamond(5.431, 2, 3, 4)  # 192 atoms (streched_polyhedron's shape)
+    L = np.diag(h)
+    boxlo = np.array([-2.0, 1.0, 0.5])
+    pos = pos + boxlo + rng.normal(scale=0.03, size=pos.shape)
+    image = np.floor((pos - boxlo) / L).astype(np.int64)
+    image[::5] += 1
+    vel = rng.normal(scale=0.003, size=pos.shape)
+    n_steps = 2
+    with tempfile.TemporaryDirectory(dir=HERE) as nano:
+        fu.write_restart(os.path.join(nano, "init.g0_1.bin"), pos - image * L, vel, boxlo,
+                         boxlo + L, image=image, timestep=50000, order=rng.permutation(len(pos)))
+        cfg = config_from_dict({"molecular dynamics parameters": {"force field": "sw"},
+                                "directory structure": {"nanoscale input": nano}},
+                               dtype="float32")
+        gc.collect()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hmm = build_md_hmm(cfg, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    sys_ = hmm.backend.sys
+    st0 = hmm.backend.initial_md_state
+    ref = {"pos": pos - boxlo, "vel": vel, "h": h}
+    errs = {f: float((getattr(st0, f)[0].double().cpu() - torch.as_tensor(r)).abs().max()
+                     / max(float(np.abs(r).max()), 1e-30)) for f, r in ref.items()}
+    if sys_.n_atoms != 192 or sys_.route != "K5":
+        fail(f"restart seed: {sys_.n_atoms} atoms on {sys_.route} (192 on K5 expected)")
+    if max(errs.values()) > 1e-6 or st0.vxi.any():
+        fail(f"restart seed: replica 1 is not the restart's state: relative errors {errs} "
+             "(tol 1e-6), thermostat at rest {not bool(st0.vxi.any())}")
+    state, step_s, jobs, flagged, rf = _drive(hmm, n_steps, "restart seed")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    umax = float(state[0].u.abs().max())
+    expect = n_steps * 0.002 * 0.08
+    if abs(umax - expect) > 1e-5 * expect or min(jobs) <= 0:
+        fail(f"restart seed: max displacement {umax} (expect {expect}), md jobs {jobs}")
+    for k in ("md_sw_run", "md_sw_forces", "pairwise_l2"):
+        if launches[k] <= 0:
+            fail(f"restart seed: kernel {k} was not launched")
+    others = {k: v for k, v in launches.items() if not k.startswith(("md_sw", "pairwise")) and v}
+    if others:
+        fail(f"restart seed: kernels of other paths were launched: {others}")
+    first_designs_idle(launches, "restart seed")
+    print(f"[25 restart seed] {buf.getvalue().strip()}; a 2x3x4-cell diamond restart (192 atoms, "
+          f"box origin {boxlo.tolist()}): replica 1 = the restart's pos - boxlo / vel / h, "
+          f"relative {errs['pos']:.2e} / {errs['vel']:.2e} / {errs['h']:.2e} (float32, tol "
+          f"1e-6), not prepared; setup (measure only) {setup_s:.3f}s  s/macro-step {step_s}  "
+          f"md jobs {jobs}  max displacement {umax:.6g} m (expect {expect:.6g})  launches "
+          f"{ {k: v for k, v in launches.items() if v} }  phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -3566,13 +3901,17 @@ def main() -> int:
     k4_big["launches"] = phase_big_slice(dev)["md_list_big_run"]
     phase_run_surface(dev)
     phase_charged_staged_slice(dev)
+    # the paths of phases 23-25: the data-file material on the unfused engine
+    # (K2 only), the drop-weight and compact-tension runs on K1 and K2, the
+    # restart-seeded SW dogbone on K5 and K2
+    later = [phase_data_file(dev), phase_problems(dev), phase_restart_seed(dev)]
     rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows, k2_first,
             *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:
         path = (launches_charged if row["name"].startswith("md_charged") else
                 launches_list if row["name"].startswith("md_list") else
                 launches_sw if row["name"].startswith("md_sw") else launches)
-        row["launches"] = path[row["name"]]
+        row["launches"] = path[row["name"]] + sum(p.get(row["name"], 0) for p in later)
     for row in k6.values():  # K6's launches on the brick slice (phase 14)
         row["launches"] = launches_bricks[row["name"]]
         rows.append(row)

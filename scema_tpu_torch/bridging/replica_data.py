@@ -5,15 +5,18 @@ Torch-side twin of ``scema_tpu/bridging/replica_data.py``
 and load_replica_equilibration_data, :361-489).  Each piece is optional per
 replica: a missing ``<mat>_<n>.json`` falls back to the identity
 orientation, and missing ``init.<mat>_<n>.*`` files fall back to measuring
-the prepared box on the device.  Seeding microstates from LAMMPS binary
-restarts (``init.<mat>_<n>.bin``) is not ported yet: where such a file
-exists the JAX package starts the replica from it (and sizes an SW lattice
-to match), so the port raises rather than equilibrate another microstate.
+the prepared box on the device.  A LAMMPS binary restart
+(``init.<mat>_<n>.bin``) is read by ``md/lammps_restart.py`` into
+``ReplicaMeta.micro``; ``hmm.md_coupling.build_md_hmm`` then starts that
+replica from it, as the reference's ``read_restart`` does
+(stmd_problem.h:185-207), instead of preparing it on the device.  A file
+that does not parse is skipped with a warning.
 """
 from __future__ import annotations
 
 import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -34,6 +37,7 @@ class ReplicaMeta:
     length: Optional[np.ndarray] = None  # (3,)
     stress: Optional[np.ndarray] = None  # (6,) Voigt, Pa
     stiff: Optional[np.ndarray] = None  # (6, 6) Pa
+    micro: object = None  # lammps_restart.LammpsRestart (init.*.bin)
 
 
 def _rotation_from_json(pt: dict, cg_vector) -> np.ndarray:
@@ -51,10 +55,9 @@ def _rotation_from_json(pt: dict, cg_vector) -> np.ndarray:
 
 def load_replica_metadata(nano_dir: str, materials, n_repl: int,
                           cg_vector=(1.0, 0.0, 0.0)) -> list[list[ReplicaMeta]]:
-    """[(material)][(replica)] metadata; silent identity fallbacks.  Raises
-    NotImplementedError where an ``init.<mat>_<n>.bin`` LAMMPS restart
-    exists (replica_data.py:93-102 reads it; ``md/lammps_restart.py`` is
-    not ported, ROADMAP queue 1)."""
+    """[(material)][(replica)] metadata; silent identity fallbacks, and a
+    warning for an ``init.<mat>_<n>.bin`` that does not parse
+    (replica_data.py:93-101)."""
     out = []
     for mat in materials:
         rows = []
@@ -78,10 +81,12 @@ def load_replica_metadata(nano_dir: str, materials, n_repl: int,
                 c4 = io.read_sym4(base + ".stiff")
                 meta.stiff = T.rank4_to_c66(torch.as_tensor(c4)).numpy()
             if os.path.exists(base + ".bin"):
-                raise NotImplementedError(
-                    f"{base}.bin: seeding a replica from a LAMMPS binary restart "
-                    "(md/lammps_restart.py) is not ported (ROADMAP queue 1); remove the "
-                    "file to equilibrate the replica on the device instead")
+                from ..md import lammps_restart as LRS
+
+                try:
+                    meta.micro = LRS.read_restart(base + ".bin")
+                except ValueError as e:
+                    warnings.warn(f"skipping unreadable LAMMPS restart {base}.bin: {e}")
             rows.append(meta)
         out.append(rows)
     return out

@@ -1,9 +1,11 @@
-"""Problem geometry and boundary conditions: the dogbone.
+"""Problem geometries and boundary conditions: dogbone / dropweight / compact.
 
-Torch twin of the dogbone branch of ``scema_tpu/fem/problem_types.py``
-(reference: FE_problem_type.h:28-111, dogbone.h).  DOF numbering is
-``node * 3 + component``.  The drop-weight and compact-tension problems are
-not part of this port yet.
+Torch twin of ``scema_tpu/fem/problem_types.py`` (reference:
+FE_problem_type.h:28-111, dogbone.h, drop_weight.h, compact_tension.h).
+DOF numbering is ``node * 3 + component``.  Each problem holds its fixed
+and loaded masks and two functions of the timestep, evaluated afresh at
+every call: ``bc_inc_velocity(t)``, the incremental velocity imposed at the
+start of step t, and ``constrained_mask(t)``, the dofs the solve pins.
 """
 from __future__ import annotations
 
@@ -38,6 +40,21 @@ class Problem:
         return self.mesh.n_nodes * 3
 
 
+def _masks(n_dofs: int, fixed_dofs, loaded_dofs, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(fixed, loaded) (n_dofs,) bool masks of two dof lists."""
+    fixed = np.zeros(n_dofs, dtype=bool)
+    loaded = np.zeros(n_dofs, dtype=bool)
+    fixed[np.asarray(fixed_dofs, dtype=int)] = True
+    loaded[np.asarray(loaded_dofs, dtype=int)] = True
+    return torch.as_tensor(fixed, device=device), torch.as_tensor(loaded, device=device)
+
+
+def _on_loaded(loaded_mask: torch.Tensor, value: float, dtype) -> torch.Tensor:
+    """``value`` on the loaded dofs, 0 elsewhere."""
+    return torch.where(loaded_mask, torch.tensor(value, dtype=dtype, device=loaded_mask.device),
+                       torch.zeros((), dtype=dtype, device=loaded_mask.device))
+
+
 def make_dogbone(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
     """Uniaxial-stretch dogbone (dogbone.h): base (z=0) fully fixed; top
     fixed in x,y and pulled in z with ``strain_rate * Lz / dt`` imposed as
@@ -61,19 +78,77 @@ def make_dogbone(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
     top_nodes = np.where(np.abs(z - zmax) < delta)[0]
 
     n_dofs = mesh.n_nodes * 3
-    fixed = np.zeros(n_dofs, dtype=bool)
-    loaded = np.zeros(n_dofs, dtype=bool)
-    for n in base_nodes:
-        fixed[3 * n:3 * n + 3] = True
-    for n in top_nodes:
-        fixed[3 * n:3 * n + 2] = True
-        loaded[3 * n + 2] = True
-    fixed_mask = torch.as_tensor(fixed, device=device)
-    loaded_mask = torch.as_tensor(loaded, device=device)
-    load_value = cfg.problem.strain_rate * zmax / cfg.time.timestep_length
+    fixed_mask, loaded_mask = _masks(
+        n_dofs, [3 * n + c for n in base_nodes for c in range(3)]
+        + [3 * n + c for n in top_nodes for c in (0, 1)], [3 * n + 2 for n in top_nodes], device)
     both = fixed_mask | loaded_mask
-    pulled = torch.where(loaded_mask, torch.tensor(load_value, dtype=dtype, device=device),
-                         torch.zeros((), dtype=dtype, device=device))
+    pulled = _on_loaded(loaded_mask, cfg.problem.strain_rate * zmax / cfg.time.timestep_length,
+                        dtype)
+    still = torch.zeros(n_dofs, dtype=dtype, device=device)
+
+    def bc_inc_velocity(timestep: int) -> torch.Tensor:
+        return pulled if timestep == 1 else still
+
+    def constrained_mask(timestep: int) -> torch.Tensor:
+        return both
+
+    return Problem(mesh, fixed_mask, loaded_mask, bc_inc_velocity, constrained_mask)
+
+
+def make_dropweight(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
+    """Drop-weight impact (drop_weight.h; problem_types.py:104-143): a
+    cuboid centred on (0, 0) with its top face at z = 0; the nodes within
+    the weight's diameter are driven down by ``-acceleration * dt`` for the
+    first ``steps to accelerate`` steps, and pinned only in those steps;
+    the four side faces are fully fixed."""
+    m = cfg.mesh
+    mesh = build_cuboid(m.x_length, m.y_length, m.z_length, m.x_cells, m.y_cells,
+                        m.z_cells).shifted((-m.x_length / 2.0, -m.y_length / 2.0, -m.z_length))
+    delta = _min_edge(mesh) / 10.0
+    x, y = mesh.nodes[:, 0], mesh.nodes[:, 1]
+    loaded_nodes = np.where(np.sqrt(x * x + y * y) < cfg.problem.diameter / 2.0)[0]
+    edge_nodes = np.where((np.abs(x - m.x_length / 2) < delta) | (np.abs(x + m.x_length / 2) < delta)
+                          | (np.abs(y - m.y_length / 2) < delta)
+                          | (np.abs(y + m.y_length / 2) < delta))[0]
+    n_dofs = mesh.n_nodes * 3
+    fixed_mask, loaded_mask = _masks(n_dofs, [3 * n + c for n in edge_nodes for c in range(3)],
+                                     [3 * n + 2 for n in loaded_nodes], device)
+    n_acc = cfg.problem.steps_to_accelerate
+    driven = _on_loaded(loaded_mask, -cfg.problem.acceleration * cfg.time.timestep_length, dtype)
+    still = torch.zeros(n_dofs, dtype=dtype, device=device)
+    both = fixed_mask | loaded_mask
+
+    def bc_inc_velocity(timestep: int) -> torch.Tensor:
+        return driven if timestep <= n_acc else still
+
+    def constrained_mask(timestep: int) -> torch.Tensor:
+        return both if timestep <= n_acc else fixed_mask
+
+    return Problem(mesh, fixed_mask, loaded_mask, bc_inc_velocity, constrained_mask)
+
+
+def make_compact_tension(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
+    """Compact-tension specimen (compact_tension.h; problem_types.py:
+    145-179) on a GMSH hex mesh: the y = 0 plane fixed in y, the z = 0
+    plane fixed in z, the upper half of the pin-hole ring (radius dd / 2
+    about (W, s / 2), W = 2 calculi_B) pulled in y at ``velocity`` / dt,
+    imposed at timestep 1."""
+    m = cfg.mesh
+    mesh = read_msh(m.mesh_file)
+    delta = _min_edge(mesh) / 10.0
+    x, y, z = mesh.nodes[:, 0], mesh.nodes[:, 1], mesh.nodes[:, 2]
+    ww = 2.0 * m.calculi_B
+    ss, dd = 0.55 * ww, 0.25 * ww
+    cx, cy = ww, ss / 2.0
+    dist = np.sqrt((x - cx) ** 2 + (y - cy) ** 2)
+    loaded_nodes = np.where((np.abs(dist - dd / 2.0) < delta) & (y > cy))[0]
+    n_dofs = mesh.n_nodes * 3
+    fixed_mask, loaded_mask = _masks(
+        n_dofs, [3 * n + 1 for n in np.where(np.abs(y) < delta)[0]]
+        + [3 * n + 2 for n in np.where(np.abs(z) < delta)[0]],
+        [3 * n + 1 for n in loaded_nodes], device)
+    both = fixed_mask | loaded_mask
+    pulled = _on_loaded(loaded_mask, cfg.problem.velocity / cfg.time.timestep_length, dtype)
     still = torch.zeros(n_dofs, dtype=dtype, device=device)
 
     def bc_inc_velocity(timestep: int) -> torch.Tensor:
@@ -87,8 +162,11 @@ def make_dogbone(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
 
 def make_problem(cfg: HMMConfig, dtype=torch.float64, device=None) -> Problem:
     """Dispatch on 'problem type.class' (FE_problem.h:120-166)."""
-    if cfg.problem.cls == "dogbone":
+    cls = cfg.problem.cls
+    if cls == "dogbone":
         return make_dogbone(cfg, dtype, device)
-    raise NotImplementedError(
-        f"problem type {cfg.problem.cls!r}: only the dogbone is ported so far "
-        "(ROADMAP queue 1)")
+    if cls in ("dropweight", "drop weight"):
+        return make_dropweight(cfg, dtype, device)
+    if cls in ("compact", "compact tension"):
+        return make_compact_tension(cfg, dtype, device)
+    raise ValueError(f"unknown problem type class: {cls!r}")

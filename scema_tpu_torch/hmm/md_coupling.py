@@ -26,6 +26,7 @@ Differences from the JAX version, all of form rather than result:
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -281,7 +282,17 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     ``prepared`` skips that prep: one ``(states, init_data)`` pair per
     material, ``states`` an MDState stacked over replicas and
     ``init_data`` a list of InitData per replica.  ``material`` overrides
-    the per-qp material draw."""
+    the per-qp material draw.
+
+    A replica with a LAMMPS binary restart ``init.<mat>_<n>.bin`` in the
+    nanoscale input directory whose atom count is the system's starts
+    from the restart's microstate (positions relative to its box origin,
+    its cell and velocities; md_coupling.py:518-526), neither prepared nor
+    taken from ``prepared``; without ``spec``, an SW material first takes
+    its lattice cell counts and constant from replica 1's restart box
+    (:476-491).  The route each material's system takes
+    (``MDSystem.route``: its kernel, or the unfused engine and why) is
+    printed once per material."""
     device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     md_dtype = getattr(torch, cfg.md_dtype)
@@ -308,16 +319,26 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
 
     meta = load_replica_metadata(cfg.dirs.nanoscale_input, materials, n_repl,
                                  cg_vector=cfg.material.common_ground_vector)
+    if spec is None:
+        specs = [_cells_from_restart(ms, meta[mi][0].micro) for mi, ms in enumerate(specs)]
     backends, stiff_rows, rho_rows = [], [], []
+    fields = ("pos", "vel", "h", "vxi")
     for mi, mspec in enumerate(specs):
         sys, st_init = M.build_system(mspec, dtype=md_dtype, device=device)
+        print(f"material {mspec.name}: {sys.n_atoms} atoms, route {sys.route}")
+        seeds = [_restart_state(meta[mi][r].micro, sys, md_dtype, device)
+                 for r in range(n_repl)]
         if prepared is not None:
-            st0, rep_data = prepared[mi]
+            st_p, rep_data = prepared[mi]
+            rep_states = [E.MDState(*(getattr(st_p, f)[r] for f in fields))
+                          if seeds[r] is None else seeds[r] for r in range(n_repl)]
         else:
             rep_states, rep_data = [], []
             for r in range(n_repl):
                 gen = torch.Generator().manual_seed(cfg.seed + 101 * mi + r)
-                if staged:
+                if seeds[r] is not None:
+                    st_r = seeds[r]
+                elif staged:
                     st_r = M.equilibrate_staged(sys, st_init, params, gen, ns_init=ns_init,
                                                 minimize_steps=minimize_steps)
                 else:
@@ -336,10 +357,8 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                         measured = M.InitData(length=measured.length, stress=measured.stress,
                                               stiff=measured.stiff, density=mr.rho)
                     rep_data.append(measured)
-            st0 = E.MDState(*(torch.stack([getattr(s, f) for s in rep_states])
-                              for f in ("pos", "vel", "h", "vxi")))
-        st0 = E.MDState(*(getattr(st0, f).to(device=device, dtype=md_dtype)
-                          for f in ("pos", "vel", "h", "vxi")))
+        st0 = E.MDState(*(torch.stack([getattr(s, f).to(device=device, dtype=md_dtype)
+                                       for s in rep_states]) for f in fields))
 
         def rows(key):
             return torch.as_tensor(np.stack([np.asarray(getattr(d, key), dtype=np.float64)
@@ -371,3 +390,31 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                       ensemble=backends[0].ensemble, md_update_fn=None, dtype=dtype,
                       material=material)
     return MDHMMProblem(base=base, backends=tuple(backends))
+
+
+def _cells_from_restart(spec: M.MaterialSpec, micro) -> M.MaterialSpec:
+    """An SW spec sized to a LAMMPS restart's box (md_coupling.py:476-491):
+    the cell counts round(L / a0) per axis and the constant mean(L / cells)
+    where they hold the restart's atom count as a diamond lattice; the spec
+    as it is otherwise, or for another force field or no restart."""
+    if micro is None or spec.force_field != "sw":
+        return spec
+    L = micro.boxhi - micro.boxlo
+    cells = tuple(int(round(x / spec.a0)) for x in L)
+    if min(cells) < 1 or 8 * cells[0] * cells[1] * cells[2] != micro.natoms:
+        return spec
+    return dataclasses.replace(spec, n_cells_xyz=cells,
+                               a0=float(np.mean(L / np.asarray(cells))))
+
+
+def _restart_state(micro, sys: E.MDSystem, dtype, device) -> E.MDState | None:
+    """A replica's microstate from its LAMMPS restart (read_restart,
+    stmd_problem.h:185-207; md_coupling.py:518-526): the positions relative
+    to the restart's box origin, its cell and velocities, the thermostat at
+    rest; None without a restart or where its atom count is not the
+    system's."""
+    if micro is None or micro.natoms != sys.n_atoms:
+        return None
+    return E.init_state(torch.as_tensor(micro.pos - micro.boxlo, dtype=dtype, device=device),
+                        torch.as_tensor(micro.h, dtype=dtype, device=device),
+                        vel=torch.as_tensor(micro.vel, dtype=dtype, device=device))

@@ -91,6 +91,9 @@ class MDSystem:
     # neighbor-list reuse (neigh_modify analog): the unfused loops' chunk
     # length, and FIRE's velocity-restart period on both paths
     rebuild_every: int = 10
+    # the route material.build_system chose: the kernel ("K1", "K3", "K4",
+    # "K5") or "unfused: <reason>"
+    route: str = ""
 
     @property
     def n_atoms(self) -> int:

@@ -26,8 +26,10 @@ heatup/cooldown prep (in.init.lammps): FIRE, NVT, then MTK NPT stages
 (``engine.run_npt``), on every box: a fused box's NPT steps take its
 kernel's force + virial entry (plus the k-space remainder), with SHAKE and
 RATTLE on the host for the constrained all-atom boxes.
-Spatially sharded SW boxes, the ReaxFF force field and systems read from
-data files are not ported yet.
+An OPLS system may also come from a LAMMPS data file (``data_file``); one
+that no kernel runs (``md_fused.fused_refusal``) takes the unfused engine,
+as the JAX package's takes its XLA engine.  Spatially sharded SW boxes and
+the ReaxFF force field are not ported yet.
 """
 from __future__ import annotations
 
@@ -74,6 +76,8 @@ class MaterialSpec:
     # density-derived, at least MIN_LIST_WIDTH); an explicit value is
     # honoured as given
     neighbor_k: int | None = None
+    # opls: a LAMMPS data file (read_data format), else the built-in melt
+    data_file: str = ""
     # 64 chains x 8 beads => L ~ 25.8 A at 0.7 g/cm^3
     n_chains: int = 64
     chain_length: int = 8
@@ -99,10 +103,11 @@ class MaterialSpec:
     # the sharded force path of one big box is not ported
     use_pallas_bricks: bool = False
     spatial_shards: int = 0
-    # None = the fused kernel (K1/K3/K4, or K5 for sw wherever its gate
-    # admits the box: <= 640 atoms, p = 4, q = 0, no bricks); False = the
-    # unfused engine (the JAX field, material.py:97, whose None means fused
-    # on the TPU)
+    # None = the fused kernel (K1/K3/K4 wherever md_fused.fused_refusal
+    # finds none refusing the system, or K5 for sw wherever its gate admits
+    # the box: <= 640 atoms, p = 4, q = 0, no bricks), else the unfused
+    # engine; False = the unfused engine (the JAX field, material.py:97,
+    # whose None means fused on the TPU)
     use_fused: bool | None = None
     # setup-time checks (min image, list width, cell capacity); disable
     # only for test fixtures
@@ -271,8 +276,14 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     path) or, with ``allatom``, the charged all-atom PE melt with SHAKE on
     the bonds to hydrogen and, with ``use_ewald``, the Ewald/PME k-space
     split (K3); an OPLS box the all-pairs gate refuses, or
-    ``force_list_kernel``, runs K4 (material.py:650-713).  With
-    ``use_fused=False`` an LJ or OPLS box runs the unfused engine.
+    ``force_list_kernel``, runs K4 (material.py:650-713).  ``data_file``
+    reads the OPLS system from a LAMMPS data file instead (material.py:
+    661-662).  An LJ or OPLS system that no kernel runs
+    (``md_fused.fused_refusal``: impropers, irregular topologies, wide
+    constraint offsets, where the JAX package's ``_build_fused_runner``
+    returns None, and what the Hopper redesigns' tables and windows
+    cannot hold), or any with ``use_fused=False``, runs the unfused
+    engine; ``MDSystem.route`` says which route the system took.
     ``device`` None means the current CUDA device (an error without one);
     ``device="cpu"`` runs the kernels' plain versions."""
     from . import constraints as CN
@@ -287,7 +298,9 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
         raise NotImplementedError(
             f"material {spec.name!r}: force field {spec.force_field!r} is not ported "
             "(sw, lj and opls are; reax is ROADMAP queue 1 item 9)")
-    if spec.allatom:
+    if spec.data_file:
+        data = data_io.read_data(spec.data_file)
+    elif spec.allatom:
         data = data_io.build_pe_melt_allatom(spec.n_chains, spec.chain_length,
                                              density=spec.pe_density)
     else:
@@ -317,15 +330,27 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     masses = torch.as_tensor(data.masses[data.types], dtype=dtype, device=device)
     st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
                       torch.as_tensor(data.box, dtype=dtype, device=device))
-    fused = None
-    if spec.use_fused is not False:
+    fused, route = None, _refusal(spec) or MF.fused_refusal(ff, masses, cons, use_list)
+    if route is None:
         kspace = build_kspace_split(ff, n) if ff.ewald is not None else None
         fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device, constraints=cons,
                                kspace=kspace, kspace_every=spec.kspace_every,
                                nspec=nspec if use_list else None,
                                rebuild_every=spec.rebuild_every)
     return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons,
-                      nspec=_dense(nspec, n), rebuild_every=spec.rebuild_every), st
+                      nspec=_dense(nspec, n), rebuild_every=spec.rebuild_every,
+                      route=_route(fused, route)), st
+
+
+def _refusal(spec: MaterialSpec) -> str | None:
+    """The reason the spec itself gives for the unfused engine."""
+    return "use_fused=False" if spec.use_fused is False else None
+
+
+def _route(fused, refusal: str | None) -> str:
+    """``MDSystem.route``: the kernel of the runner, or the unfused engine
+    and why."""
+    return fused.spec.kernel if fused is not None else f"unfused: {refusal}"
 
 
 def _dense(nspec: NB.NeighborSpec, n: int) -> NB.NeighborSpec:
@@ -349,13 +374,13 @@ def _build_lj(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     if spec.validate:
         _validate_setup(spec, pos, h, nspec)
     masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
-    fused = None
-    if spec.use_fused is not False:
+    fused, route = None, _refusal(spec) or MF.fused_refusal(ff, masses)
+    if route is None:
         fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device)
     st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
                       torch.as_tensor(h, dtype=dtype, device=device))
     return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, nspec=_dense(nspec, n),
-                      rebuild_every=spec.rebuild_every), st
+                      rebuild_every=spec.rebuild_every, route=_route(fused, route)), st
 
 
 def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
@@ -391,6 +416,10 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
             "silently — run this force field without use_pallas_bricks")
     fused = (spec.use_fused is not False and n <= SW_ALLPAIRS_MAX_ATOMS
              and not spec.use_pallas_bricks and family)
+    why = (_refusal(spec) or ("brick kernels K6c/K6d" if spec.use_pallas_bricks else
+                              f"{n} atoms above K5's {SW_ALLPAIRS_MAX_ATOMS}"
+                              if n > SW_ALLPAIRS_MAX_ATOMS else
+                              f"p = {ff.p}, q = {ff.q} outside K5's family"))
     # the SW cutoff spans the first two diamond shells; 20 slots cover
     # moderate compression (material.py:632-634)
     k_max = spec.neighbor_k if spec.neighbor_k is not None else 20
@@ -406,7 +435,7 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     elif spec.use_pallas_bricks:
         ff = SWB.SWBricksFF(ff, pos, h, device=device)
     return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL, nspec=_dense(nspec, n),
-                      rebuild_every=spec.rebuild_every), st
+                      rebuild_every=spec.rebuild_every, route=_route(runner, why)), st
 
 
 def equilibrate(sys: E.MDSystem, state: E.MDState, params: MDParams,

@@ -306,14 +306,10 @@ def pack_topo(ff, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tenso
     package's ``pack_topo``, md_fused.py:2087).  Every bond must be
     (i, i+1), every angle (i, i+1, i+2), every dihedral (i..i+3), and there
     may be no impropers; anything else raises ValueError."""
+    why = _topo_refusal(ff)
+    if why:
+        raise ValueError(why)
     rows = np.zeros((TOPO, n_atoms), dtype=np.float64)
-    for arr, name, width in ((ff.bonds, "bond", 2), (ff.angles, "angle", 3),
-                             (ff.dihedrals, "dihedral", 4)):
-        arr = np.asarray(arr)
-        if arr.shape[0] and not (arr == arr[:, :1] + np.arange(width)[None, :]).all():
-            raise ValueError(f"pack_topo: non-chain {name} topology")
-    if np.asarray(ff.impropers).shape[0]:
-        raise ValueError("pack_topo: impropers not supported in chain mode")
     bk, br0 = ff.bond_k.cpu().double().numpy(), ff.bond_r0.cpu().double().numpy()
     for (i, _), t in zip(np.asarray(ff.bonds), np.asarray(ff.bond_type)):
         if t >= 0:
@@ -330,23 +326,30 @@ def pack_topo(ff, n_atoms: int, dtype=torch.float64, device=None) -> torch.Tenso
     return torch.as_tensor(rows, dtype=dtype, device=device)
 
 
-def pack_patterns(ff, n_atoms: int, dtype=torch.float64, device=None):
-    """Topology -> (static pattern tuple, (R, N) parameter rows) — the JAX
-    package's ``pack_patterns`` (md_fused.py:609) without the lane padding.
-
-    Every term is binned by its atom-index offsets from an anchor: bond
-    (a, a+o) -> ("bond", o), rows [K, r0]; angle centred at a with partners
-    a+oa, a+ob -> ("angle", oa, ob), rows [K, th0]; dihedral (a, a+ob, a+oc,
-    a+od) -> ("dihedral", ob, oc, od), rows [K1..K4].  Raises ValueError for
-    impropers, more than 64 patterns or an offset of 32 or more."""
+def _topo_refusal(ff) -> str | None:
+    """Why :func:`pack_topo` refuses a topology, or None."""
+    for arr, name, width in ((ff.bonds, "bond", 2), (ff.angles, "angle", 3),
+                             (ff.dihedrals, "dihedral", 4)):
+        arr = np.asarray(arr)
+        if arr.shape[0] and not (arr == arr[:, :1] + np.arange(width)[None, :]).all():
+            return f"pack_topo: non-chain {name} topology"
     if np.asarray(ff.impropers).shape[0]:
-        raise ValueError("pack_patterns: impropers not supported")
+        return "pack_topo: impropers not supported in chain mode"
+    return None
+
+
+def _pattern_groups(ff) -> tuple[dict, str | None]:
+    """The offset patterns of a topology, {key: {anchor: params}}, and why
+    :func:`pack_patterns` refuses it (None where it packs)."""
+    if np.asarray(ff.impropers).shape[0]:
+        return {}, "pack_patterns: impropers not supported"
     groups: dict[tuple, dict[int, tuple]] = {}
+    dup = []
 
     def add(key, anchor, params):
         g = groups.setdefault(key, {})
         if anchor in g:
-            raise ValueError(f"pack_patterns: duplicate {key} at {anchor}")
+            dup.append(f"pack_patterns: duplicate {key} at {anchor}")
         g[anchor] = params
 
     bk, br0 = ff.bond_k.cpu().double().numpy(), ff.bond_r0.cpu().double().numpy()
@@ -364,12 +367,29 @@ def pack_patterns(ff, n_atoms: int, dtype=torch.float64, device=None):
         if t >= 0:
             a, b, c, d = int(a), int(b), int(c), int(d)
             add(("dihedral", b - a, c - a, d - a), a, tuple(dk[t]))
+    if dup:
+        return groups, dup[0]
     if len(groups) > MAX_PATTERNS:
-        raise ValueError(f"pack_patterns: {len(groups)} patterns > {MAX_PATTERNS} "
-                         "(irregular topology)")
+        return groups, (f"pack_patterns: {len(groups)} patterns > {MAX_PATTERNS} "
+                        "(irregular topology)")
     for key in groups:
         if any(abs(o) >= MAX_PATTERN_OFFSET for o in key[1:]):
-            raise ValueError(f"pack_patterns: offset too large in {key}")
+            return groups, f"pack_patterns: offset too large in {key}"
+    return groups, None
+
+
+def pack_patterns(ff, n_atoms: int, dtype=torch.float64, device=None):
+    """Topology -> (static pattern tuple, (R, N) parameter rows) — the JAX
+    package's ``pack_patterns`` (md_fused.py:609) without the lane padding.
+
+    Every term is binned by its atom-index offsets from an anchor: bond
+    (a, a+o) -> ("bond", o), rows [K, r0]; angle centred at a with partners
+    a+oa, a+ob -> ("angle", oa, ob), rows [K, th0]; dihedral (a, a+ob, a+oc,
+    a+od) -> ("dihedral", ob, oc, od), rows [K1..K4].  Raises ValueError for
+    impropers, more than 64 patterns or an offset of 32 or more."""
+    groups, why = _pattern_groups(ff)
+    if why:
+        raise ValueError(why)
     patterns = tuple(sorted(groups.keys(), key=str))
     rows = []
     for key in patterns:
@@ -381,22 +401,31 @@ def pack_patterns(ff, n_atoms: int, dtype=torch.float64, device=None):
     return patterns, torch.as_tensor(rows, dtype=dtype, device=device)
 
 
+def _shake_groups(cons_idx, d0) -> tuple[dict, str | None]:
+    """The constraints by offset, {offset: {anchor: d0}}, and why
+    :func:`pack_shake` refuses them (None where it packs)."""
+    groups: dict[int, dict[int, float]] = {}
+    for (i, j), d in zip(np.asarray(cons_idx), np.asarray(d0)):
+        a, b = (int(i), int(j)) if j > i else (int(j), int(i))
+        o = b - a
+        if o >= MAX_SHAKE_OFFSET:
+            return groups, f"pack_shake: constraint offset {o} too large"
+        g = groups.setdefault(o, {})
+        if a in g:
+            return groups, f"pack_shake: duplicate constraint at {a}+{o}"
+        g[a] = float(d)
+    return groups, None
+
+
 def pack_shake(cons_idx, d0, n_atoms: int, dtype=torch.float64, device=None):
     """Constraints -> (static offsets tuple, (n_off, N) d0^2 rows) — the JAX
     package's ``pack_shake`` (md_fused.py:492) without the lane padding.
     Each constraint (i, j) sits at anchor min(i, j) in the row of its
     offset |j - i| < 8 (the [C H H (H)] layout gives 1..3); a zero entry
     disables the slot."""
-    groups: dict[int, dict[int, float]] = {}
-    for (i, j), d in zip(np.asarray(cons_idx), np.asarray(d0)):
-        a, b = (int(i), int(j)) if j > i else (int(j), int(i))
-        o = b - a
-        if o >= MAX_SHAKE_OFFSET:
-            raise ValueError(f"pack_shake: constraint offset {o} too large")
-        g = groups.setdefault(o, {})
-        if a in g:
-            raise ValueError(f"pack_shake: duplicate constraint at {a}+{o}")
-        g[a] = float(d)
+    groups, why = _shake_groups(cons_idx, d0)
+    if why:
+        raise ValueError(why)
     offsets = tuple(sorted(groups))
     rows = np.zeros((len(offsets), n_atoms))
     for k, o in enumerate(offsets):
@@ -449,26 +478,16 @@ def k1_tables(ff, dtype=torch.float64, device=None):
     3, or for more than 256 types."""
     types = ff.types.cpu().numpy()
     n = len(types)
-    if isinstance(ff, LJ):
-        eps_t, sig_t = ff.epsilon, ff.sigma
-        W = 1.0 - np.eye(n)
-    else:
-        eps_t, sig_t = ff.lj_epsilon, ff.lj_sigma
-        W = ff.pair_weights(ff.special_lj)
-    n_types = int(eps_t.shape[0])
-    if n_types > K1_MAX_TYPES:
-        raise NotImplementedError(f"K1: {n_types} atom types exceed its {K1_MAX_TYPES}-type table")
+    eps_t, sig_t = (ff.epsilon, ff.sigma) if isinstance(ff, LJ) else (ff.lj_epsilon, ff.lj_sigma)
+    n_types, W = _k1_weights(ff)
+    why = _k1_refusal(n_types, W)
+    if why:
+        raise NotImplementedError(why)
     # the planes' entry [j, i] is eps[t_j, t_i]: the table [t_i, t_j] takes the transpose
     eps = eps_t.cpu().double().numpy().T
     sig = sig_t.cpu().double().numpy().T
     sig6 = sig ** 6
     tbl = np.stack([48.0 * eps * sig6 * sig6, 24.0 * eps * sig6], axis=-1)
-    off = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) > K1_REACH
-    if bool((W[off] != 1.0).any()):
-        j, i = np.argwhere(off & (W != 1.0))[0]
-        raise NotImplementedError(
-            f"K1: atoms {i} and {j} are special-bond partners {abs(int(j) - int(i))} apart; "
-            f"K1's window holds chain partners at most {K1_REACH} apart")
     code = types.astype(np.int64).copy()
     win = np.zeros((n, K1_WIN))
     for d in range(K1_WIN):
@@ -480,6 +499,28 @@ def k1_tables(ff, dtype=torch.float64, device=None):
     return (torch.as_tensor(tbl, dtype=dtype, device=device),
             torch.as_tensor(code, dtype=torch.int32, device=device),
             torch.as_tensor(win, dtype=dtype, device=device))
+
+
+def _k1_weights(ff) -> tuple[int, np.ndarray]:
+    """The number of atom types and the (N, N) LJ special-bond weights K1
+    reads (1 off the diagonal for a plain ``LJ``)."""
+    if isinstance(ff, LJ):
+        return int(ff.epsilon.shape[0]), 1.0 - np.eye(int(ff.types.shape[0]))
+    return int(ff.lj_epsilon.shape[0]), ff.pair_weights(ff.special_lj)
+
+
+def _k1_refusal(n_types: int, W: np.ndarray) -> str | None:
+    """Why K1's table and window cannot hold a system of ``n_types`` types
+    and LJ special-bond weights W, or None."""
+    if n_types > K1_MAX_TYPES:
+        return f"K1: {n_types} atom types exceed its {K1_MAX_TYPES}-type table"
+    n = W.shape[0]
+    off = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) > K1_REACH
+    if bool((W[off] != 1.0).any()):
+        j, i = np.argwhere(off & (W != 1.0))[0]
+        return (f"K1: atoms {i} and {j} are special-bond partners {abs(int(j) - int(i))} "
+                f"apart; K1's window holds chain partners at most {K1_REACH} apart")
+    return None
 
 
 def k1_dense_planes(tbl: torch.Tensor, code: torch.Tensor, win: torch.Tensor):
@@ -543,10 +584,9 @@ def k3_tables(ff, dtype=torch.float64, device=None, window: bool = True) -> dict
     12 (the code's bits) or for more than 64 atom types."""
     types = ff.types.cpu().numpy()
     n = len(types)
-    n_types = int(ff.lj_epsilon.shape[0])
-    if n_types > K34_MAX_TYPES:
-        raise NotImplementedError(
-            f"K3/K4: {n_types} atom types exceed the {K34_MAX_TYPES}-type table")
+    why = k34_refusal(ff, window)
+    if why:
+        raise NotImplementedError(why)
     # the planes' entry [j, i] is eps[t_j, t_i]: the table [t_i, t_j] takes the transpose
     eps = ff.lj_epsilon.cpu().double().numpy().T
     sig = ff.lj_sigma.cpu().double().numpy().T
@@ -558,15 +598,7 @@ def k3_tables(ff, dtype=torch.float64, device=None, window: bool = True) -> dict
     W = 0
     if window:
         wl, wc = ff.pair_weights(ff.special_lj), ff.pair_weights(ff.special_coul)
-        special = (wl != 1.0) | (wc != 1.0)
-        np.fill_diagonal(special, False)
-        far = np.argwhere(special)
-        W = int(np.abs(far[:, 0] - far[:, 1]).max()) if far.size else 0
-        if W > K34_MAX_WINDOW:
-            j, i = far[np.argmax(np.abs(far[:, 0] - far[:, 1]))]
-            raise NotImplementedError(
-                f"K3: atoms {i} and {j} are special-bond partners {W} apart; K3's window "
-                f"holds partners at most {K34_MAX_WINDOW} apart")
+        W = _k3_reach(wl, wc)[0]
     win = np.zeros((n, 2 * W + 1, 2))
     if window:
         for d in range(2 * W + 1):
@@ -581,6 +613,34 @@ def k3_tables(ff, dtype=torch.float64, device=None, window: bool = True) -> dict
                 code=torch.as_tensor(code, dtype=torch.int32, device=device),
                 spec=torch.as_tensor(spec, dtype=torch.int32, device=device),
                 win=torch.as_tensor(win, dtype=dtype, device=device))
+
+
+def _k3_reach(wl: np.ndarray, wc: np.ndarray) -> tuple[int, tuple]:
+    """The largest offset |j - i| of a special-bond pair of the (N, N) LJ and
+    Coulomb weights, and one pair (i, j) that reaches it."""
+    special = (wl != 1.0) | (wc != 1.0)
+    np.fill_diagonal(special, False)
+    far = np.argwhere(special)
+    if not far.size:
+        return 0, (0, 0)
+    k = int(np.argmax(np.abs(far[:, 0] - far[:, 1])))
+    j, i = far[k]
+    return abs(int(j) - int(i)), (int(i), int(j))
+
+
+def k34_refusal(ff, window: bool = True) -> str | None:
+    """Why K3's (``window``) or K4's table cannot hold an OPLS system: more
+    than 64 atom types, or (K3) a special-bond partner beyond its window of
+    12; None where it can."""
+    n_types = int(ff.lj_epsilon.shape[0])
+    if n_types > K34_MAX_TYPES:
+        return f"K3/K4: {n_types} atom types exceed the {K34_MAX_TYPES}-type table"
+    if window:
+        W, (i, j) = _k3_reach(ff.pair_weights(ff.special_lj), ff.pair_weights(ff.special_coul))
+        if W > K34_MAX_WINDOW:
+            return (f"K3: atoms {i} and {j} are special-bond partners {W} apart; K3's window "
+                    f"holds partners at most {K34_MAX_WINDOW} apart")
+    return None
 
 
 def k3_window(runner: "FusedRunner") -> int:
@@ -746,7 +806,9 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
     special-bond orders, :func:`k4_orders`).  What no kernel of the port
     runs yet — impropers, irregular topologies, wide constraint offsets,
     special-bond partners beyond K1's or K3's window, for which the JAX
-    package falls back to its XLA path — raises NotImplementedError."""
+    package falls back to its XLA path — raises NotImplementedError
+    (:func:`fused_refusal` says which, and ``material.build_system`` runs
+    such a system on the unfused engine)."""
     n = int(masses.shape[0])
     m = masses.to(torch.float64).cpu()
     if isinstance(ff, LJ):
@@ -765,8 +827,8 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
             patterns, pat = pack_patterns(ff, n, dtype, device)
         except ValueError as e:
             raise NotImplementedError(
-                f"{e}: the XLA bonded path for such topologies is not ported "
-                "(ROADMAP queue 1)") from e
+                f"{e}: no kernel runs this topology; material.build_system takes such a "
+                "system to the unfused engine (fused_refusal)") from e
         topo = torch.zeros((TOPO, n), dtype=dtype, device=device)
     coul = bool(torch.any(ff.charges != 0))
     ewald = ff.ewald
@@ -779,9 +841,9 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
             shake_offsets, shk = pack_shake(constraints.idx, constraints.d0, n, dtype, device)
         except ValueError as e:
             raise NotImplementedError(
-                f"{e}: K3/K4 take constraint offsets below {MAX_SHAKE_OFFSET}; the unfused "
-                "engine (use_fused=False) runs any set, the automatic route is ROADMAP "
-                "item 5b") from e
+                f"{e}: K3/K4 take constraint offsets below {MAX_SHAKE_OFFSET}; "
+                "material.build_system takes such a system to the unfused engine, which "
+                "runs any set (fused_refusal)") from e
         n_cons = int(torch.count_nonzero(shk))
     spec = FusedSpec(n_atoms=n, cutoff2=float(ff.lj_cutoff) ** 2, ndof=3 * n - 3 - n_cons,
                      boltz=units.boltz, ftm2v=units.ftm2v, nktv2p=units.nktv2p,
@@ -804,6 +866,42 @@ def make_runner(ff, masses: torch.Tensor, units, tdamp: float = 100.0,
         qq=dense_qq(ff, dtype, device) if coul else None, pat=pat, shk=shk,
         kspace=kspace, kspace_every=kspace_every, nspec=nspec, rebuild_every=rebuild_every,
         **tables)
+
+
+def fused_refusal(ff, masses: torch.Tensor, constraints=None,
+                  list_kernel: bool = False) -> str | None:
+    """Why no kernel of the port runs an OPLS or LJ system, or None where
+    K1, K3 or (``list_kernel``) K4 does: the checks :func:`make_runner`
+    makes, as a predicate, so that ``material.build_system`` chooses the
+    unfused engine before it builds a runner.  The JAX package takes its
+    XLA route where its ``_build_fused_runner`` returns None
+    (material.py:253-310): impropers, a topology that fits neither the
+    chain rows nor the offset patterns, constraint offsets that
+    :func:`pack_shake` refuses.  The port's route also takes what the
+    Hopper redesigns refuse where the TPU kernels read planes: more atom
+    types than K1's (256) or K3/K4's (64) table holds, and special-bond
+    partners beyond K1's window of 3 or K3's of 12."""
+    if isinstance(ff, LJ):
+        return _k1_refusal(*_k1_weights(ff))
+    if np.asarray(ff.impropers).shape[0]:
+        return "impropers"
+    patterns, offsets = {}, {}
+    if _topo_refusal(ff):
+        patterns, why = _pattern_groups(ff)
+        if why:
+            return f"irregular topology ({why})"
+    if constraints is not None and len(constraints.idx):
+        offsets, why = _shake_groups(constraints.idx, constraints.d0)
+        if why:
+            return f"constraint offsets ({why})"
+    # the kernel make_runner's spec would select
+    kernel = FusedSpec(n_atoms=int(masses.shape[0]), cutoff2=0.0, ndof=0, boltz=0.0, ftm2v=0.0,
+                       nktv2p=0.0, coul=bool(torch.any(ff.charges != 0)),
+                       fext=ff.ewald is not None, bonded_pattern=tuple(patterns),
+                       shake_offsets=tuple(offsets), k=int(list_kernel)).kernel
+    if kernel == "K1":
+        return _k1_refusal(*_k1_weights(ff))
+    return k34_refusal(ff, window=kernel == "K3")
 
 
 def _k1_fields(ff, dtype, device) -> dict:

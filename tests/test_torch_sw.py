@@ -11,7 +11,8 @@ package, float64, on the CPU.
 * The builders and the gate: the lattice, K5's spec against the JAX
   runner's, the routing off the gate (more than 640 atoms or p != 4: the
   list route; brick kernels: the bricks), the refusals (spatial shards,
-  bricks with p != 4), the ``force_field`` default, the LAMMPS-restart refusal,
+  bricks with p != 4), the ``force_field`` default, an unreadable LAMMPS restart
+  (a warning, then the device prep),
   the config selecting SW (``"force field": "sw"`` or a sisw scripts
   directory) through ``build_md_hmm``.
 """
@@ -185,14 +186,30 @@ def test_force_field_default_matches_jax():
     assert TM.MaterialSpec(name="x").force_field == JM.MaterialSpec(name="x").force_field
 
 
-def test_lammps_restart_is_refused(tmp_path):
-    """A replica restart file, which the JAX package seeds the microstate
-    from, makes the port raise instead of equilibrating another box."""
+def test_lammps_restart_is_refused(monkeypatch, tmp_path):
+    """A replica restart file that does not parse (here its magic is cut
+    short) is refused as the JAX package refuses it (replica_data.py:
+    93-101): a warning, and the replica is equilibrated on the device
+    instead of seeded.  (Readable restarts seed the replica:
+    tests/test_torch_lammps_restart.py.)"""
     (tmp_path / "init.g0_1.bin").write_bytes(b"LammpS RestartT")
+    calls = []
+    equilibrate = TM.equilibrate
+
+    def spy(*a, **kw):
+        calls.append(kw["equil_steps"])
+        return equilibrate(*a, **kw)
+
+    monkeypatch.setattr(TM, "equilibrate", spy)
     cfg = TCfg()
-    cfg = cfg.replace(dirs=dataclasses.replace(cfg.dirs, nanoscale_input=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="LAMMPS binary restart"):
-        t_build_md_hmm(cfg, device="cpu")
+    cfg = cfg.replace(dirs=dataclasses.replace(cfg.dirs, nanoscale_input=str(tmp_path)),
+                      mesh=cfg.mesh.__class__(x_cells=1, y_cells=1, z_cells=1),
+                      md=dataclasses.replace(cfg.md, nsteps_sample=10), md_dtype="float64")
+    with pytest.warns(UserWarning, match="skipping unreadable LAMMPS restart"):
+        hmm = t_build_md_hmm(cfg, spec=TM.MaterialSpec(name="g0", n_cells=2), equil_steps=3,
+                             minimize_steps=3, device="cpu")
+    assert calls == [3] * cfg.material.number_of_replicas
+    assert torch.isfinite(hmm.backend.initial_md_state.pos).all()
 
 
 def test_sw_file_and_interop_match_jax(tmp_path):

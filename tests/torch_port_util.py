@@ -37,3 +37,26 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def fixed_replica_data(monkeypatch, jax_coupling):
+    """Make the JAX package's ``build_md_hmm`` (its module ``jax_coupling``)
+    measure no replica: each gets the same replica data (its box lengths, a
+    residual stress of 1e6 Pa in xx and yy, silicon's cubic stiffness,
+    2330 kg/m^3).  For tests of the coupled step, which hand JAX's replica
+    data to the port through ``prepared``: the stress sampling and the
+    stiffness probe, and their compile, are held to JAX elsewhere
+    (tests/test_torch_material.py)."""
+    C = np.zeros((6, 6))
+    C[:3, :3] = 64.0e9
+    C[range(3), range(3)] = 166.0e9
+    C[range(3, 6), range(3, 6)] = 80.0e9
+    M = jax_coupling.M
+
+    def measure(sys, state, params, **kw):
+        return M.InitData(length=np.diag(np.asarray(state.h)).copy(),
+                          stress=np.array([1.0e6, 1.0e6, 0.0, 0.0, 0.0, 0.0]), stiff=C.copy(),
+                          density=2330.0)
+
+    monkeypatch.setattr(M, "make_measure_fn", lambda *a, **k: None)
+    monkeypatch.setattr(M, "measure", measure)
