@@ -111,14 +111,21 @@ failure exits non-zero before the result line:
    counted it), registers, local bytes and blocks per SM, the brick force
    call against the list route's autograd force call and list build; 10
    deform steps of 128 jobs through the unfused engine on both routes from
-   one state;
+   one state; on those 128 strained boxes the list route's neighbor builds
+   in turns (dense, gather cells, structured cells, structured, gather,
+   dense), each cell build's per-row sets against the dense build's (a
+   pair may differ only within 1e-4 A of the list's edge: r_list, or the
+   farthest kept pair of a row the width k_max truncates), and the fullest
+   cell against the capacity;
 14. the brick slice: ``build_md_hmm(HMMConfig(), spec=MaterialSpec(n_cells=8,
    use_pallas_bricks=True))`` with at most 128 MD jobs per step, float32,
    quick prep, 2 macro-steps, every launch counter zeroed just before and
    read just after; K6c, K6d and K2 must have launched and no other MD
    kernel, K6's first design neither; md jobs 128, 128 and 0.00032 m;
 15. the same box on the list route (no bricks) for 1 macro-step: K2 is
-   the only kernel launched;
+   the only kernel launched, and the neighbor lists come from the gather
+   cell build alone (its calls counted, the dense and structured builds
+   never called);
 16. K1m (csrc/md_k1m.cu: K1's run with J = 2 or 4 jobs per block, the
    coupler's pack_jobs, redesigned for Hopper) on the prepared g0 box at
    576 jobs: a 10-step deform run against K1 (bit for bit or not, printed)
@@ -223,7 +230,23 @@ failure exits non-zero before the result line:
    from it (576 qps; the lattice sized from the restart) is 192 atoms on
    K5 with replica 1 the restart's pos - boxlo / vel / h (1e-6 relative,
    float32, the thermostat at rest), then 2 macro-steps with the
-   displacement milestone, K5 and K2 launched and nothing else.
+   displacement milestone, K5 and K2 launched and nothing else;
+26. the route and the shared-memory caps: the g0 melt with its beads
+   spread over 160 atom types (tests/torch_file_util.py) as a data file
+   takes ``unfused: K1: 512 atoms of 160 atom types ...`` (K1's launch
+   check refuses the box too), then FIRE 20 and 4 jobs x 20 strain steps on
+   the unfused engine, finite and no kernel launched;
+27. the surrogate (stress method 2): a reference-shaped stack (18 -> 18 ->
+   36 -> 72 -> 72 -> 36 -> 18 -> 6) with a MinMaxScaler's standardizer,
+   saved as the port's npz (the card has no h5py for the Keras files, whose
+   loader the CPU tests hold to JAX's), ``scema_tpu_torch.cli run {}
+   --surrogate surrogate.npz --steps 3`` on the HMMConfig() dogbone (576
+   qps, the method overridden to 2), counters zeroed before and read after: finite
+   residuals, 0.00048 m, K2 alone launched; the card's float32 forward
+   pass against float64 on the CPU (1e-5 relative) and its time; the same
+   dogbone through ``build_hooke_hmm(surrogate_fn=)``, a finite stress
+   field; ``train_surrogate`` on 4096 synthetic linear transitions x 60
+   epochs, timed, fitting the map within 10%.
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
@@ -232,7 +255,7 @@ its first design's (0) on the charged slice, K4's and its first design's
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
 17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
 on the 4096-atom slice; K2's first design's (0) on the g0 slice; the
-K1, K2 and K5 rows add the launches of phases 23-25's paths;
+K1, K2 and K5 rows add the launches of phases 23-25's and 27's paths;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -1372,7 +1395,7 @@ def phase_k4(dev):
     print(f"[8 neighbor] {J} jobs: list build + pack, ms (old, new, new, old): first design's "
           f"seven channels {nb_t['first'][0]:.3f} / {nb_t['first'][1]:.3f}, compact "
           f"{nb_t['path'][0]:.3f} / {nb_t['path'][1]:.3f} (build alone {list_ms:.3f} ms), "
-          f"{NB.jobs_per_slice(n)} jobs per slice")
+          f"{NB.jobs_per_slice(r.nspec, n)} jobs per slice")
     info = {e: MF.k34_kernel_info("K4", e, n, T) for e in ("run", "forces")}
     print("[8 K4 kernels] " + "; ".join(
         f"{e}: {x['registers']} registers, {x['local_bytes']} B local, {x['blocks_per_sm']} "
@@ -2233,6 +2256,7 @@ def phase_k6(dev):
           f"positions max |bricks - list| {dpos:.3e} A (tol 1e-3), boxes {dh:.3e} A")
     if not (torch.isfinite(ob.pos).all() and dpos < 1e-3 and dh < 1e-5):
         fail(f"the brick and list routes disagree after 10 steps: {dpos:.3e} A")
+    list_builds(sys_l.nspec, ol.pos, ol.h)
     print(f"[13 K6] phase wall {time.perf_counter() - t_phase:.2f}s")
 
     src = "scema_tpu_torch/csrc/sw_bricks.cu"
@@ -2255,6 +2279,84 @@ def phase_k6(dev):
     out["sw_forces_bricks"]["first_design_force_call_ms"] = min(ab["call"]["first"])
     out["sw_forces_bricks"]["list_route_force_ms"] = list_ms
     return out
+
+
+# a pair within this distance (A) of a list's edge may fall on either side
+# of it in float32, where the dense and the cell arithmetic differ
+LIST_EDGE_TOL = 1e-4
+
+
+def list_mismatch(nspec, pos, h, a, b):
+    """Pairs in one of the lists a, b of pos (J, N, 3) in boxes h (J, 3, 3)
+    and not in the other (per-row sets), and how many of them lie farther
+    than LIST_EDGE_TOL from the row's edge: r_list, or where the row holds
+    k_max pairs its farthest kept pair (the width truncates the list there,
+    and a tie in float32 may keep either pair)."""
+    import torch
+
+    from scema_tpu_torch.md import box as B
+
+    J, n = pos.shape[:2]
+    rows = torch.arange(n, device=pos.device)[:, None]
+    differ = bad = 0
+    for j in range(J):
+        m = []
+        for nl in (a, b):
+            s = torch.zeros((n, n), dtype=torch.bool, device=pos.device)
+            s[rows.expand_as(nl.idx[j])[nl.mask[j]], nl.idx[j][nl.mask[j]]] = True
+            m.append(s)
+        i, k = torch.nonzero(m[0] ^ m[1], as_tuple=True)
+        if not i.numel():
+            continue
+        hj, pj = h[j].double(), pos[j].double()
+
+        def dist(ii, kk):
+            return torch.linalg.vector_norm(B.min_image_disp(hj, pj[kk] - pj[ii]), dim=-1)
+
+        zero = torch.zeros((), dtype=hj.dtype, device=hj.device)
+        kept = torch.where(a.mask[j], dist(rows.expand_as(a.idx[j]), a.idx[j]), zero)
+        full = a.mask[j].sum(1) == a.idx.shape[-1]
+        edge = torch.where(full, kept.max(1).values, torch.full_like(kept[:, 0], nspec.r_list))
+        r = dist(i, k)
+        near = ((r - nspec.r_list).abs() < LIST_EDGE_TOL) | ((r - edge[i]).abs() < LIST_EDGE_TOL)
+        differ += int(i.numel())
+        bad += int((~near).sum())
+    return differ, bad
+
+
+def list_builds(nspec, pos, h):
+    """Phase 13's neighbor builds of the list route on J jobs pos (J, N, 3),
+    h (J, 3, 3): the dense build and both cell builds in turns (dense,
+    gather, structured, structured, gather, dense), each cell list against
+    the dense one (:func:`list_mismatch`), and the fullest cell against the
+    capacity."""
+    from scema_tpu_torch.md import neighbor as NB
+
+    J, n = pos.shape[:2]
+    fns = {"dense": NB.build_dense, "gather": NB.build_cells,
+           "structured": NB.build_cells_structured}
+    t = {k: [] for k in fns}
+    for k in ("dense", "gather", "structured", "structured", "gather", "dense"):
+        t[k].append(cuda_ms(lambda: fns[k](nspec, pos, h), 1))
+    lists = {k: fn(nspec, pos, h) for k, fn in fns.items()}
+    occ = max(NB.max_cell_occupancy(nspec, p, hh) for p, hh in
+              zip(pos.double().cpu().numpy(), h.double().cpu().numpy()))
+    cand = {k: NB._candidates(nspec, n, k) for k in fns}
+    print(f"[13 neighbor builds] {J} jobs x {n} atoms, cells {nspec.cells}, capacity "
+          f"{nspec.cell_capacity}, fullest cell {occ}; candidates per job dense "
+          f"{cand['dense']}, gather {cand['gather']}, structured {cand['structured']}; ms per "
+          f"{J}-job build (dense, gather, structured, structured, gather, dense): "
+          f"{t['dense'][0]:.2f} {t['gather'][0]:.2f} {t['structured'][0]:.2f} "
+          f"{t['structured'][1]:.2f} {t['gather'][1]:.2f} {t['dense'][1]:.2f}; jobs per "
+          f"slice {NB.jobs_per_slice(nspec, n)}; build() takes {NB._form(nspec, n)}")
+    for k in ("gather", "structured"):
+        differ, bad = list_mismatch(nspec, pos, h, lists["dense"], lists[k])
+        print(f"[13 neighbor builds] {k} vs dense: {differ} pairs differ, {bad} of them "
+              f"farther than {LIST_EDGE_TOL} A from the list's edge")
+        if bad:
+            fail(f"the {k} cell build's lists disagree with the dense build's: {bad} pairs")
+    if occ > nspec.cell_capacity:
+        fail(f"the fullest cell holds {occ} atoms > capacity {nspec.cell_capacity}")
 
 
 def k6_first_force_call(sw, ff, pos, h):
@@ -2324,23 +2426,25 @@ def phase_sw_big_slice(dev, bricks: bool, n_steps: int):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
-    t0 = time.perf_counter()
-    hmm = build_md_hmm(cfg, spec=spec, device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    state = hmm.init_state()
-    step_s, jobs = [], []
-    for _ in range(n_steps):
-        t1 = time.perf_counter()
-        state, out = hmm.step(state)
+    builds = {}
+    with counted_builds(builds):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        hmm = build_md_hmm(cfg, spec=spec, device=dev)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t1)
-        jobs.append(int(out.n_jobs))
-        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
-            fail(f"{tag} non-finite residuals")
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        setup_s = time.perf_counter() - t0
+        state = hmm.init_state()
+        step_s, jobs = [], []
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            state, out = hmm.step(state)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            jobs.append(int(out.n_jobs))
+            if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
+                fail(f"{tag} non-finite residuals")
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     umax = float(state[0].u.abs().max())
@@ -2359,12 +2463,40 @@ def phase_sw_big_slice(dev, bricks: bool, n_steps: int):
     others = {k: v for k, v in launches.items() if k not in need}
     if any(others.values()):
         fail(f"{tag} kernels of other paths were launched: {others}")
+    if not bricks and (builds.get("build_cells", 0) <= 0 or builds.get("build_dense", 0)
+                       or builds.get("build_cells_structured", 0)):
+        fail(f"{tag} the list route's builds {builds}: the gather cell build alone expected")
     print(f"{tag} {hmm.backend.sys.n_atoms}-atom Si boxes ({'bricks: K6c/K6d' if bricks else 'list route: autograd SW.energy'}), "
           f"qps {hmm.geom.n_qp_total}: setup {setup_s:.3f}s  s/macro-step "
           f"{[round(x, 4) for x in step_s]}  md jobs {jobs}  launches {launches}  peak memory "
           f"{peak / 2**20:.1f} MiB  max displacement {umax:.6g} m (expect {expect:.6g})  "
-          f"phase wall {wall:.2f}s")
+          f"neighbor builds {builds}  phase wall {wall:.2f}s")
     return launches
+
+
+@contextlib.contextmanager
+def counted_builds(counts: dict):
+    """Count the calls of each neighbor build (``neighbor.build_dense``,
+    ``build_cells``, ``build_cells_structured``) into ``counts`` for the
+    duration."""
+    from scema_tpu_torch.md import neighbor as NB
+
+    names = ("build_dense", "build_cells", "build_cells_structured")
+    saved = {name: getattr(NB, name) for name in names}
+
+    def counted(name):
+        def fn(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return saved[name](*a, **k)
+        return fn
+
+    for name in names:
+        setattr(NB, name, counted(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(NB, name, fn)
 
 
 def ptxas_entries():
@@ -3864,6 +3996,166 @@ def phase_restart_seed(dev):
     return launches
 
 
+# phase 26's data file: the g0 melt with its beads spread over this many
+# atom types, where K1's (T, T) table leaves room for 296 atoms
+SMEM_TYPES = 160
+
+
+def phase_smem_route(dev):
+    """Phase 26 (see the module docstring): the route knows K1's
+    shared-memory cap."""
+    import torch
+
+    from scema_tpu_torch.md import data_io
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+    from scema_tpu_torch.ops import md_fused as MF
+
+    fu = _file_util()
+    counters = path_counters()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        path = os.path.join(tmp, "g0_types.data")
+        fu.write_data(path, fu.with_types(data_io.build_alkane_melt(64, 8), SMEM_TYPES))
+        sys_, st = M.build_system(M.MaterialSpec(name="g0t", force_field="opls", data_file=path),
+                                  dtype=torch.float32, device=dev)
+    try:
+        MF.check_smem(MF._kernel_spec(sys_.n_atoms), SMEM_TYPES)
+        launch = "fits"
+    except ValueError as e:
+        launch = str(e)
+    if (not sys_.route.startswith(f"unfused: K1: {sys_.n_atoms} atoms of {SMEM_TYPES} atom types")
+            or sys_.fused is not None or launch == "fits"):
+        fail(f"smem route: {sys_.n_atoms} atoms of {SMEM_TYPES} types take route {sys_.route!r}; "
+             f"K1's launch check: {launch}")
+    gc.collect()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    st = E.minimize_fire(sys_, st, n_steps=20, dt0=0.5)
+    J = 4
+    stJ = E.MDState(*(getattr(st, f).expand((J,) + tuple(getattr(st, f).shape)).contiguous()
+                      for f in ("pos", "vel", "h", "vxi")))
+    eps = torch.tensor([[1e-3, 0, 0, 0, 0, 0], [0, -1e-3, 0, 0, 0, 0], [0, 0, 0, 5e-4, 0, 0],
+                        [0, 0, 0, 0, 0, 0]], dtype=torch.float32, device=dev)
+    out = E.run_strain(sys_, stJ, eps, 20, T_MD, DT)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    moved = float((out.pos - stJ.pos).abs().max())
+    if not (torch.isfinite(out.pos).all() and torch.isfinite(out.vel).all() and moved > 0.0):
+        fail(f"smem route: the unfused run gave non-finite or unmoved states ({moved})")
+    if any(launches.values()):
+        fail(f"smem route: the unfused engine launched fused kernels: {launches}")
+    print(f"[26 smem route] the g0 melt over {SMEM_TYPES} atom types ({sys_.n_atoms} sites, "
+          f"written as a data file): route {sys_.route}; K1's launch would refuse it: {launch}; "
+          f"FIRE 20 + {J} jobs x 20 strain steps on the unfused engine {run_s:.2f}s, max "
+          f"displacement {moved:.4f} A, no kernel launched; phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+
+# phase 27's surrogate: the reference's Keras stack widths (18 -> 18 -> 36
+# -> 72 -> 72 -> 36 -> 18 -> 6) and its scaler's ranges (strains ~0.1,
+# stresses ~4e8 Pa)
+SURROGATE_WIDTHS = (18, 18, 36, 72, 72, 36, 18, 6)
+
+
+def phase_surrogate(dev):
+    """Phase 27 (see the module docstring): stress method 2 on the card."""
+    import numpy as np
+    import torch
+
+    from scema_tpu_torch import cli
+    from scema_tpu_torch.bridging import surrogate as S
+    from scema_tpu_torch.config import HMMConfig
+    from scema_tpu_torch.hmm.problem import build_hooke_hmm
+    from scema_tpu_torch.utils import tensors as T
+
+    counters = path_counters()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(27)
+    w = SURROGATE_WIDTHS
+    kernels = [rng.standard_normal((a, b)) / np.sqrt(a) for a, b in zip(w, w[1:])]
+    biases = [0.1 * rng.standard_normal(b) for b in w[1:]]
+    span = np.r_[np.full(12, 0.1), np.full(6, 4e8)]
+    # the Keras layers and the MinMaxScaler (scale 1/span, min 0.5) as a
+    # flax-layout dict, carried into the port's surrogate and saved as its
+    # npz (the card has no h5py, so the Keras loader runs in the CPU tests)
+    params = {f"Dense_{i}": {"kernel": k, "bias": b}
+              for i, (k, b) in enumerate(zip(kernels, biases))}
+    cpu64 = S.surrogate_from_flax(params, -0.5 * span, span, np.zeros(6), np.ones(6))
+    n_steps = 3
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        model_p, cfg_path = os.path.join(tmp, "surrogate.npz"), os.path.join(tmp, "cfg.json")
+        S.save_surrogate(model_p, cpu64)
+        with open(cfg_path, "w") as f:
+            f.write("{}")
+        gc.collect()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", cfg_path, "--surrogate", model_p, "--steps", str(n_steps)])
+        cli_s = time.perf_counter() - t0
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        card = S.load_surrogate(model_p, dtype=torch.float32, device=dev)
+    printed = buf.getvalue()
+    expect = n_steps * 0.002 * 0.08
+    res = [float(v) for pair in re.findall(r"residual (\S+) -> (\S+)", printed) for v in pair]
+    if (rc != 0 or f"Max displacement: {expect:.6g} m" not in printed or len(res) != 2 * n_steps
+            or not all(np.isfinite(res)) or "overriding 'stress computation method' 0 -> 2"
+            not in printed):
+        fail(f"surrogate: cli run --surrogate gave rc {rc}: {printed[-2000:]!r}")
+    if launches["pairwise_l2"] <= 0 or any(v for k, v in launches.items() if k != "pairwise_l2"):
+        fail(f"surrogate: launches {launches} (K2 alone expected)")
+    # the forward pass on the card against float64 on the CPU
+    x = [torch.as_tensor(rng.normal(0, s, (576, 6))) for s in (3e-2, 3e-2, 1e8)]
+    xd = [a.to(dev, torch.float32) for a in x]
+    y64 = cpu64(*x)
+    y = card(*xd)
+    torch.cuda.synchronize()
+    fwd = float((y.double().cpu() - y64).abs().max() / y64.abs().max())
+    fwd_ms = cuda_ms(lambda: card(*xd), 20)
+    if not fwd < 1e-5:
+        fail(f"surrogate: the card's forward pass is {fwd:.3e} from float64 (tol 1e-5)")
+    # the same dogbone through the Python entry, its stress field
+    cfg = HMMConfig()
+    cfg = cfg.replace(dtype="float32", bridging=dataclasses.replace(cfg.bridging,
+                                                                    stress_method=2))
+    hmm = build_hooke_hmm(cfg, device=dev, surrogate_fn=card.as_update_fn())
+    state, step_s, _, _, _ = _drive(hmm, n_steps, "surrogate")
+    sig = state.qp.new_stress
+    if not (torch.isfinite(sig).all() and float(sig.abs().max()) > 0.0):
+        fail("surrogate: the method-2 stress field is not finite and nonzero")
+    # training on 4096 synthetic linear transitions on the card
+    C = T.isotropic_c66(3.0e9, 0.35, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(27)
+    eps_old = 1e-3 * torch.randn((4096, 6), generator=gen).to(dev)
+    eps_new = eps_old + 1e-4 * torch.randn((4096, 6), generator=gen).to(dev)
+    data = (eps_new, eps_old, T.sym_contract_c66(C, eps_old), T.sym_contract_c66(C, eps_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, loss = S.train_surrogate(torch.Generator().manual_seed(28), *data, epochs=60,
+                                    lr=3e-3)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    pred = model(*data[:3])
+    fit = float(torch.linalg.norm(pred - data[3]) / torch.linalg.norm(data[3]))
+    if not fit < 0.1:
+        fail(f"surrogate: training on the card fits the linear map to {fit:.3e} (tol 0.1)")
+    print(f"[27 surrogate] cli run {{}} --surrogate surrogate.npz --steps {n_steps} (a "
+          f"reference-shaped stack {'-'.join(map(str, w))} with a MinMaxScaler's "
+          f"standardizer, saved by save_surrogate): rc {rc}, "
+          f"{cli_s:.2f}s with setup, residuals {res}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; forward at 576 qps vs float64 "
+          f"{fwd:.3e} (tol 1e-5), {fwd_ms:.4f} ms per call; build_hooke_hmm(stress_method 2) "
+          f"s/macro-step {step_s}, max |sigma| {float(sig.abs().max()):.4e} Pa; train_surrogate "
+          f"4096 transitions x 60 epochs (480 Adam steps) {train_s:.2f}s, loss {loss:.3e}, "
+          f"fit {fit:.3e}; phase wall {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -3901,10 +4193,13 @@ def main() -> int:
     k4_big["launches"] = phase_big_slice(dev)["md_list_big_run"]
     phase_run_surface(dev)
     phase_charged_staged_slice(dev)
-    # the paths of phases 23-25: the data-file material on the unfused engine
-    # (K2 only), the drop-weight and compact-tension runs on K1 and K2, the
-    # restart-seeded SW dogbone on K5 and K2
+    # the paths of phases 23-25 and 27: the data-file material on the
+    # unfused engine (K2 only), the drop-weight and compact-tension runs on
+    # K1 and K2, the restart-seeded SW dogbone on K5 and K2, the surrogate
+    # dogbone on K2
     later = [phase_data_file(dev), phase_problems(dev), phase_restart_seed(dev)]
+    phase_smem_route(dev)
+    later.append(phase_surrogate(dev))  # the surrogate's path: K2 alone
     rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows, k2_first,
             *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:

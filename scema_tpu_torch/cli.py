@@ -25,8 +25,10 @@ The subcommands follow ``scema_tpu/cli.py`` flag for flag and print the
 same lines.  ``--cpu`` runs the same paths on the CPU in float64 with the
 kernels' plain versions; without it a missing CUDA device is an error
 (exit 2), never a silent CPU run.  ``--hooke`` replaces MD with
-sigma = C:eps (the reference's debug mode).  ``--surrogate`` (stress
-method 2) is not ported yet and raises.
+sigma = C:eps (the reference's debug mode).  ``--surrogate`` loads the
+reference's Keras surrogate (h5py reads it) or the port's own npz
+(``bridging.surrogate.save_surrogate``) and runs stress method 2: every
+qp's stress from the surrogate, no MD.
 """
 from __future__ import annotations
 
@@ -106,10 +108,6 @@ def cmd_run(args) -> int:
     device = _device(args)
     if device is None:
         return 2
-    if args.surrogate:
-        raise NotImplementedError(
-            "--surrogate (stress method 2, bridging/surrogate.py) is not ported "
-            "(ROADMAP item 8)")
 
     from .config import load_config
 
@@ -127,11 +125,41 @@ def cmd_run(args) -> int:
             cfg.resources, max_md_jobs=args.max_jobs))
     n_steps = args.steps or (cfg.time.end_timestep - cfg.time.start_timestep + 1)
 
+    surrogate_fn = None
+    if args.surrogate:
+        from .bridging import surrogate as S
+
+        sp, fe_dtype = args.surrogate, getattr(torch, cfg.dtype)
+        if sp.endswith(".npz"):
+            # the port's own file (save_surrogate), which needs no h5py
+            surrogate_fn = S.load_surrogate(sp, dtype=fe_dtype, device=device).as_update_fn()
+            print(f"Loaded surrogate {sp}")
+        else:
+            # the reference's pretrained Keras surrogate + sklearn scaler
+            # (surrogate_model/surrogate.py): the directory holding
+            # model_small_uniaxial.bin + scaler.pkl, or the .bin itself
+            if os.path.isdir(sp):
+                model_p = os.path.join(sp, "model_small_uniaxial.bin")
+                scaler_p = os.path.join(sp, "scaler.pkl")
+            else:
+                model_p = sp
+                scaler_p = os.path.join(os.path.dirname(sp), "scaler.pkl")
+            scaler_p = scaler_p if os.path.exists(scaler_p) else None
+            surrogate_fn = S.load_keras_surrogate(model_p, scaler_p, dtype=fe_dtype,
+                                                  device=device).as_update_fn()
+            print(f"Loaded surrogate {model_p} (scaler: {scaler_p})")
+        if cfg.bridging.stress_method != 2:
+            # a loaded surrogate drives the constitutive update only under
+            # stress method 2; running full MD instead would ignore the flag
+            print("--surrogate given: overriding 'stress computation "
+                  f"method' {cfg.bridging.stress_method} -> 2")
+            cfg = cfg.replace(bridging=dataclasses.replace(cfg.bridging, stress_method=2))
+
     t_setup = time.perf_counter()
     if cfg.bridging.approx_md_with_hookes_law or cfg.bridging.stress_method != 0:
         from .hmm.problem import build_hooke_hmm
 
-        hmm = build_hooke_hmm(cfg, device=device)
+        hmm = build_hooke_hmm(cfg, device=device, surrogate_fn=surrogate_fn)
     else:
         from .hmm.md_coupling import build_md_hmm
 
@@ -448,8 +476,9 @@ def main(argv=None) -> int:
     pr.add_argument("--max-jobs", type=int, default=0,
                     help="cap the MD job-list capacity")
     pr.add_argument("--surrogate", default="",
-                    help="stress method 2: path to a Keras surrogate .bin "
-                         "(not ported: raises, ROADMAP item 8)")
+                    help="stress method 2: a Keras surrogate .bin, the directory "
+                         "holding model_small_uniaxial.bin + scaler.pkl, or the "
+                         "port's surrogate .npz (save_surrogate)")
     pr.add_argument("--max-retries", type=int, default=3,
                     help="transient-fault retries (rollback to the last good step)")
     pr.add_argument("--dump-similarity", default="",

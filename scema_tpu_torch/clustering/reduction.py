@@ -11,6 +11,7 @@ no-ops, the loop stops at the first one instead of running them out.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,4 +40,23 @@ def reduce_graph(adj: torch.Tensor, max_picks: int = 512,
     if return_saturated:
         live = adj & active[:, None] & active[None, :]
         return mapping, live.any()
+    return mapping
+
+
+def reduce_graph_host(adj: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of :func:`reduce_graph` without the pick cap, for
+    tools and tests (reduction.py:77-92)."""
+    n = adj.shape[0]
+    adj = adj.copy()
+    mapping = np.arange(n, dtype=np.int32)
+    active = adj.any(axis=1)
+    while active.any():
+        live = adj & active[:, None] & active[None, :]
+        deg = live.sum(axis=1)
+        score = np.where(active, deg, -1)
+        node = int(np.argmax(score))
+        neigh = live[node]
+        mapping[neigh] = node
+        active &= ~neigh
+        active[node] = False
     return mapping

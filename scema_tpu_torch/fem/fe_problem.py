@@ -32,7 +32,7 @@ class FEOps:
     geom: FEGeometry
     problem: Problem
     dt: float
-    stress_method: int  # 0 MD | 1 tangent Hooke
+    stress_method: int  # 0 MD | 1 tangent Hooke | 2 surrogate
     hooke_mode: bool  # approximate md with hookes law
     min_strain_norm: float
     mass_diag: torch.Tensor  # (n_dofs,) lumped mass
@@ -116,10 +116,13 @@ def solve(ops: FEOps, state: FEState) -> tuple[FEState, SolveOutputs]:
 
 
 def apply_stress_update(ops: FEOps, state: FEState, flags: torch.Tensor,
-                        update_stress_cg: torch.Tensor,
-                        id_to_get: torch.Tensor) -> tuple[FEState, torch.Tensor]:
+                        update_stress_cg: torch.Tensor, id_to_get: torch.Tensor,
+                        surrogate_fn=None) -> tuple[FEState, torch.Tensor]:
     """FEProblem::check + update_stress_quadrature_point_history
-    (FE_problem.h:2452-2477, 1631-1752).  Returns the post-update residual."""
+    (FE_problem.h:2452-2477, 1631-1752).  Stress method 2 takes every qp's
+    new stress from ``surrogate_fn(old_strain, new_strain, old_stress)``
+    (``bridging.surrogate.Surrogate.as_update_fn``).  Returns the
+    post-update residual."""
     qp = state.qp
     gathered = update_stress_cg[id_to_get]
     loc = T.rotate_voigt(gathered, qp.rotam.transpose(-1, -2))
@@ -132,9 +135,13 @@ def apply_stress_update(ops: FEOps, state: FEState, flags: torch.Tensor,
     elif ops.stress_method == 1:
         new_stress = tangent
         upd_strain = qp.upd_strain
+    elif ops.stress_method == 2:
+        if surrogate_fn is None:
+            raise ValueError("stress_method=2 requires a surrogate_fn")
+        new_stress = surrogate_fn(qp.old_strain, qp.new_strain, qp.old_stress)
+        upd_strain = qp.upd_strain
     else:
-        raise NotImplementedError(
-            f"stress computation method {ops.stress_method} is not ported yet")
+        raise ValueError(f"unknown stress computation method {ops.stress_method}")
     state = state.replace(qp=qp.replace(new_stress=new_stress, upd_strain=upd_strain))
     constrained = ops.problem.constrained_mask(state.timestep)
     rhs = assembly.assemble_rhs(ops.geom, new_stress, qp.rho, ops.dt, constrained)

@@ -145,6 +145,10 @@ class MDBackend:
         idx_r = nonzero_padded(rolled, K)
         n_valid = min(int(jobs.sum()), K)
         job_idx = (idx_r[:n_valid] + offset) % n_qp  # valid slots only
+        if n_valid == 0:  # no qp of this backend's material runs MD this step
+            return (micro, torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev),
+                    torch.zeros((n_qp,), dtype=torch.bool, device=dev),
+                    torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype, device=dev))
 
         # microstate source: own if it has run, else borrowed from the
         # most-recent provider if that ran, else the fresh initial state
@@ -261,7 +265,7 @@ class MDHMMProblem:
 
 
 def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
-                 equil_steps: int = 100, minimize_steps: int = 100,
+                 specs: list | None = None, equil_steps: int = 100, minimize_steps: int = 100,
                  staged: bool = False, ns_init: int = 100, device=None, prepared=None,
                  material: torch.Tensor | None = None, pack_jobs: int = 1) -> MDHMMProblem:
     """Assemble the MD-coupled HMM, preparing every material x replica on
@@ -275,7 +279,8 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     config's material (the charged all-atom PE melt is selected this way,
     as the JAX package does; with ``staged`` its FIRE and NPT steps take
     K3's force + virial entry with SHAKE/RATTLE on the host, its NVT stage
-    K3's run).  ``device``
+    K3's run); ``specs``, one per material in the config's order, gives
+    each material its own (md_coupling.py:407-423).  ``device``
     None means the current CUDA device (an error without one);
     ``device="cpu"`` runs the kernels' plain versions.
 
@@ -288,9 +293,9 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     nanoscale input directory whose atom count is the system's starts
     from the restart's microstate (positions relative to its box origin,
     its cell and velocities; md_coupling.py:518-526), neither prepared nor
-    taken from ``prepared``; without ``spec``, an SW material first takes
-    its lattice cell counts and constant from replica 1's restart box
-    (:476-491).  The route each material's system takes
+    taken from ``prepared``; without ``spec`` or ``specs``, an SW material
+    first takes its lattice cell counts and constant from replica 1's
+    restart box (:476-491).  The route each material's system takes
     (``MDSystem.route``: its kernel, or the unfused engine and why) is
     printed once per material."""
     device = resolve(device)
@@ -298,7 +303,13 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     md_dtype = getattr(torch, cfg.md_dtype)
     n_repl = cfg.material.number_of_replicas
     materials = list(cfg.material.materials)
-    if spec is not None:
+    specs_auto = specs is None and spec is None
+    if specs is not None:
+        specs = list(specs)
+        if len(specs) != len(materials):
+            raise ValueError(f"build_md_hmm: {len(specs)} specs for the config's "
+                             f"{len(materials)} materials {materials}")
+    elif spec is not None:
         specs = [M.MaterialSpec(**{**spec.__dict__, "name": name}) for name in materials] \
             if len(materials) > 1 else [spec]
     else:
@@ -319,7 +330,7 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
 
     meta = load_replica_metadata(cfg.dirs.nanoscale_input, materials, n_repl,
                                  cg_vector=cfg.material.common_ground_vector)
-    if spec is None:
+    if specs_auto:
         specs = [_cells_from_restart(ms, meta[mi][0].micro) for mi, ms in enumerate(specs)]
     backends, stiff_rows, rho_rows = [], [], []
     fields = ("pos", "vel", "h", "vxi")
@@ -386,9 +397,13 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     ops = FE.make_ops(geom, problem, qp, cfg.time.timestep_length,
                       cfg.bridging.stress_method, False,
                       cfg.precision.min_quadrature_strain_norm)
-    base = HMMProblem(cfg=cfg, problem=problem, geom=geom, ops=ops,
-                      ensemble=backends[0].ensemble, md_update_fn=None, dtype=dtype,
-                      material=material)
+    # every material's replica data, so that the initial FE state gives each
+    # qp its own material's stiffness and density (JAX's takes the first
+    # material's ensemble and clamps the index of the others into it)
+    ensemble = bridge.ReplicaEnsemble(*(torch.cat([getattr(be.ensemble, f) for be in backends])
+                                        for f in bridge.ReplicaEnsemble._fields))
+    base = HMMProblem(cfg=cfg, problem=problem, geom=geom, ops=ops, ensemble=ensemble,
+                      md_update_fn=None, dtype=dtype, material=material)
     return MDHMMProblem(base=base, backends=tuple(backends))
 
 

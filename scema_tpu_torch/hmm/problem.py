@@ -72,6 +72,7 @@ class HMMProblem:
     md_update_fn: MDUpdateFn | None
     dtype: torch.dtype
     material: torch.Tensor  # (n_qp,) per-qp material index
+    surrogate_fn: object = None  # stress method 2 (bridging/surrogate.py)
 
     @property
     def device(self) -> torch.device:
@@ -103,8 +104,8 @@ class HMMProblem:
                 out.update_strain_cg, out.material, jobs, out.most_recent_id)
         else:
             update_stress_cg = torch.zeros_like(out.update_strain_cg)
-        state, res1 = FE.apply_stress_update(ops, state, out.flags,
-                                             update_stress_cg, id_to_get)
+        state, res1 = FE.apply_stress_update(ops, state, out.flags, update_stress_cg,
+                                             id_to_get, surrogate_fn=self.surrogate_fn)
         rf = assembly.reaction_force(self.geom, state.qp.new_stress, state.qp.rho,
                                      self.problem.loaded_mask)
         state = FE.end_step(ops, state)
@@ -132,11 +133,14 @@ def assign_materials(cfg: HMMConfig, geom: shapes.FEGeometry,
 
 
 def build_hooke_hmm(cfg: HMMConfig, ensemble: bridge.ReplicaEnsemble | None = None,
-                    device=None, material: torch.Tensor | None = None) -> HMMProblem:
+                    device=None, material: torch.Tensor | None = None,
+                    surrogate_fn=None) -> HMMProblem:
     """HMMProblem with the Hooke's-law fake-MD backend (the reference's
-    "approximate md with hookes law" debug mode).  ``material`` overrides
-    the per-qp material draw.  ``device`` None means the current CUDA
-    device (an error without one); ``device="cpu"`` asks for the CPU."""
+    "approximate md with hookes law" debug mode), or with stress method 2
+    the surrogate ``surrogate_fn`` (``Surrogate.as_update_fn``; its tensors
+    on ``device``).  ``material`` overrides the per-qp material draw.
+    ``device`` None means the current CUDA device (an error without one);
+    ``device="cpu"`` asks for the CPU."""
     device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     problem = make_problem(cfg, dtype, device)
@@ -164,4 +168,4 @@ def build_hooke_hmm(cfg: HMMConfig, ensemble: bridge.ReplicaEnsemble | None = No
                       cfg.precision.min_quadrature_strain_norm)
     return HMMProblem(cfg=cfg, problem=problem, geom=geom, ops=ops,
                       ensemble=ensemble, md_update_fn=md_update_fn, dtype=dtype,
-                      material=material)
+                      material=material, surrogate_fn=surrogate_fn)

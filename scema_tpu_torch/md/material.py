@@ -20,8 +20,9 @@ single-type LJ fcc crystal runs K1 with no bonded terms.  With
 ``use_fused=False`` an OPLS or LJ box runs the unfused engine on autograd
 of ``OPLS.energy`` (with the full Ewald/PME sum on a charged box) or
 ``LJ.energy``, and SHAKE/RATTLE on the host, as the JAX package's XLA
-engine does.  Every system carries a dense-built neighbor spec
-(``MDSystem.nspec``).  ``equilibrate_staged`` is the reference's
+engine does.  Every system carries the neighbor spec ``derive_spec`` gives
+its box (``MDSystem.nspec``: the dense build, or cells where 3 fit along
+each axis).  ``equilibrate_staged`` is the reference's
 heatup/cooldown prep (in.init.lammps): FIRE, NVT, then MTK NPT stages
 (``engine.run_npt``), on every box: a fused box's NPT steps take its
 kernel's force + virial entry (plus the k-space remainder), with SHAKE and
@@ -33,7 +34,6 @@ the ReaxFF force field are not ported yet.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -338,7 +338,7 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
                                nspec=nspec if use_list else None,
                                rebuild_every=spec.rebuild_every)
     return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, constraints=cons,
-                      nspec=_dense(nspec, n), rebuild_every=spec.rebuild_every,
+                      nspec=nspec, rebuild_every=spec.rebuild_every,
                       route=_route(fused, route)), st
 
 
@@ -351,12 +351,6 @@ def _route(fused, refusal: str | None) -> str:
     """``MDSystem.route``: the kernel of the runner, or the unfused engine
     and why."""
     return fused.spec.kernel if fused is not None else f"unfused: {refusal}"
-
-
-def _dense(nspec: NB.NeighborSpec, n: int) -> NB.NeighborSpec:
-    """The spec with the dense build at every size (the same pairs as the
-    cell-binned build, which is not ported)."""
-    return dataclasses.replace(nspec, cells=(0, 0, 0), n2_threshold=n)
 
 
 def _build_lj(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
@@ -379,7 +373,7 @@ def _build_lj(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
         fused = MF.make_runner(ff, masses, REAL, dtype=dtype, device=device)
     st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
                       torch.as_tensor(h, dtype=dtype, device=device))
-    return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, nspec=_dense(nspec, n),
+    return E.MDSystem(ff=ff, masses=masses, fused=fused, units=REAL, nspec=nspec,
                       rebuild_every=spec.rebuild_every, route=_route(fused, route)), st
 
 
@@ -396,8 +390,9 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
     * any other box, the unfused engine on autograd of ``SW.energy`` over
       a 20-slot list rebuilt every ``rebuild_every`` steps — the route that
       replaces the JAX package's one-hot structure (boxes of 512 atoms and
-      more) and its XLA engine.  The dense list build gives the same pairs
-      as the cell-binned one, which is not ported.
+      more) and its XLA engine; the list comes from the cell build where
+      the box holds 3 cells along each axis and more than 1024 atoms (from
+      1728 atoms), else from the dense build.
 
     ``spatial_shards`` raises NotImplementedError."""
     cxyz = spec.n_cells_xyz or (spec.n_cells,) * 3
@@ -434,7 +429,7 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
         runner = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
     elif spec.use_pallas_bricks:
         ff = SWB.SWBricksFF(ff, pos, h, device=device)
-    return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL, nspec=_dense(nspec, n),
+    return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL, nspec=nspec,
                       rebuild_every=spec.rebuild_every, route=_route(runner, why)), st
 
 

@@ -8,14 +8,18 @@ packed channels; the unfused engine's SW list route hands it to
 (``derive_spec``, ``required_k``, ``max_in_range``,
 ``max_cell_occupancy``) are numpy, as in the JAX package.
 
-Only the dense O(N^2) build is ported.  Every box the port runs takes it:
-``derive_spec`` falls back to the dense path when fewer than 3 cells of
-edge 1.2 r_list fit along an axis, which holds below ~47 A at the charged
-material's r_list = 13 A.  The cell-binned builds (``build_cells``,
-``build_cells_structured``) are not ported yet; :func:`build` raises for a
-spec that asks for cells.  SW boxes take the dense build at every size
-(``material._build_sw`` clears the cells of their spec): it gives the same
-pairs as the cell build.
+Three builds give the same pairs: the dense O(N^2) search
+(:func:`build_dense`), and two cell-binned ones on ``spec.cells``, which
+bin atoms into cells of edge >= r_list by a sort on the cell id and take
+the candidates from the 27 surrounding cells, ``spec.cell_capacity`` atoms
+each (atoms beyond it drop out of the cell table): the gather form
+(:func:`build_cells`, one row per atom) and the structured form
+(:func:`build_cells_structured`, one row per cell slot, the JAX package's
+choice on the TPU).  :func:`build` takes the dense build where
+``derive_spec`` found fewer than 3 cells along an axis or the box is at
+most ``n2_threshold`` atoms, else the gather form, the faster of the two
+cell builds on the card.  Every build runs in
+job slices that bound its candidate tensors (:func:`jobs_per_slice`).
 """
 from __future__ import annotations
 
@@ -27,8 +31,11 @@ import torch
 
 from . import box as B
 
-# (jobs x N x N) candidate-plane elements per slice of the dense build
-_DENSE_ELEMS = 1 << 27
+# candidate elements (jobs x rows x candidates per row) per slice of a build
+_SLICE_ELEMS = 1 << 27
+# the 27 cells around a cell (and itself), in the JAX package's order
+_CELL_OFFSETS = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                          for k in (-1, 0, 1)], dtype=np.int64)
 
 
 class NeighborList(NamedTuple):
@@ -122,57 +129,209 @@ def _topk_compact(dr2: torch.Tensor, cand_idx: torch.Tensor, valid: torch.Tensor
     return NeighborList(idx=torch.where(mask, idx, self_idx), mask=mask)
 
 
+def _min_image_r2(h: torch.Tensor, dr: list) -> torch.Tensor:
+    """|d|^2 of the minimum image of the displacements dr (three (Bf, ...)
+    components) in boxes h (Bf, 3, 3): box.min_image_disp's arithmetic
+    (ds = inv_h dr, rounded, back through h) without an (..., 3) tensor.
+    Empties the list dr, so that its planes are freed before the second
+    pass."""
+    tail = (1,) * (dr[0].dim() - 1)
+    ih = B.inv_h(h)
+
+    def c(m, a, b):
+        return m[:, a, b].reshape((-1,) + tail)
+
+    ds = [c(ih, a, 0) * dr[0] + c(ih, a, 1) * dr[1] + c(ih, a, 2) * dr[2] for a in range(3)]
+    dr.clear()
+    ds = [x - torch.round(x) for x in ds]
+    r2 = torch.zeros_like(ds[0])
+    for a in range(3):
+        d = c(h, a, 0) * ds[0] + c(h, a, 1) * ds[1] + c(h, a, 2) * ds[2]
+        r2 += d * d
+    return r2
+
+
 def _dense_block(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
     n = pos.shape[-2]
-    ih = B.inv_h(h)
-    # r_j - r_i per component, then the minimum image of box.min_image_disp
-    # (ds = inv_h dr, rounded, back through h) without an (..., N, N, 3)
-    # tensor
-    dr = [pos[..., None, :, a] - pos[..., :, None, a] for a in range(3)]
-    ds = [ih[..., a, 0, None, None] * dr[0] + ih[..., a, 1, None, None] * dr[1]
-          + ih[..., a, 2, None, None] * dr[2] for a in range(3)]
-    del dr
-    ds = [x - torch.round(x) for x in ds]
-    dr2 = torch.zeros_like(ds[0])
-    for a in range(3):
-        d = (h[..., a, 0, None, None] * ds[0] + h[..., a, 1, None, None] * ds[1]
-             + h[..., a, 2, None, None] * ds[2])
-        dr2 += d * d
-    del ds
+    # r_j - r_i per component
+    dr2 = _min_image_r2(h, [pos[:, None, :, a] - pos[:, :, None, a] for a in range(3)])
     cand = torch.arange(n, device=pos.device).expand(pos.shape[:-2] + (n, n))
     valid = ~torch.eye(n, dtype=torch.bool, device=pos.device)
     return _topk_compact(dr2, cand, valid, min(spec.k_max, n - 1), spec.r_list ** 2)
 
 
-def jobs_per_slice(n_atoms: int) -> int:
-    """Jobs per slice of a batched dense build (bounds its (jobs, N, N)
-    candidate planes: 26 jobs at N = 2240)."""
-    return max(1, _DENSE_ELEMS // (n_atoms * n_atoms))
+def _bin(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor):
+    """Each atom's cell (fractional binning on the fixed ``spec.cells``
+    grid, floor and clip) of pos (Bf, N, 3) in boxes h (Bf, 3, 3): the cell
+    coordinates (Bf, N, 3), then from a stable sort by cell id the sorted
+    ids, the order and each sorted atom's rank within its cell, (Bf, N)
+    each."""
+    n = pos.shape[1]
+    nc = torch.tensor(spec.cells, device=pos.device)
+    s = B.to_fractional(h, pos)
+    s = s - torch.floor(s)
+    cxyz = torch.minimum((s * nc).long(), nc - 1).clamp_min(0)
+    cid = (cxyz[..., 0] * nc[1] + cxyz[..., 1]) * nc[2] + cxyz[..., 2]
+    order = torch.argsort(cid, dim=-1, stable=True)
+    cid_sorted = torch.gather(cid, -1, order)
+    first = torch.searchsorted(cid_sorted, cid_sorted, side="left")
+    return cxyz, cid_sorted, order, torch.arange(n, device=pos.device) - first
 
 
-def build_dense(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
-    """O(N^2) masked neighbor search: pos (..., N, 3), h (..., 3, 3) ->
-    lists (..., N, min(k_max, N - 1)).  A batch of jobs is built in slices
-    that bound the (jobs, N, N) candidate planes."""
+def _table(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor, slot) -> tuple:
+    """The (Bf, C * cap) cell table of pos (Bf, N, 3): entry ``slot(cell,
+    rank)`` holds the atom of that rank in that cell, N where none; an atom
+    ranked at or beyond ``cell_capacity`` is dropped, not clipped onto the
+    last slot (JAX's ``mode="drop"``).  Also returns the cell coordinates."""
+    Bf, n = pos.shape[:2]
+    C = spec.cells[0] * spec.cells[1] * spec.cells[2]
+    cxyz, cid_sorted, order, rank = _bin(spec, pos, h)
+    table = torch.full((Bf, C * spec.cell_capacity), n, dtype=torch.int64, device=pos.device)
+    keep = rank < spec.cell_capacity
+    jobs = torch.arange(Bf, device=pos.device)[:, None].expand(Bf, n)
+    table[jobs[keep], slot(cid_sorted, rank)[keep]] = order[keep]
+    return table, cxyz
+
+
+def _cells_block(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
+    """neighbor.py:342-375 on a slice of jobs: each atom's row takes the
+    occupants of its 27 surrounding cells (periodic wrap) as candidates."""
+    Bf, n = pos.shape[:2]
+    cap = spec.cell_capacity
+    _, ncy, ncz = spec.cells
+    occ, cxyz = _table(spec, pos, h, lambda cid, rank: cid * cap + rank)
+    nc = torch.tensor(spec.cells, device=pos.device)
+    nxyz = torch.remainder(cxyz[:, :, None, :] + torch.as_tensor(_CELL_OFFSETS,
+                                                                  device=pos.device), nc)
+    ncell = (nxyz[..., 0] * ncy + nxyz[..., 1]) * ncz + nxyz[..., 2]  # (Bf, N, 27)
+    slots = (ncell[..., None] * cap + torch.arange(cap, device=pos.device)).reshape(Bf, -1)
+    cand = torch.gather(occ, 1, slots)  # (Bf, N * 27 * cap)
+    pos_pad = torch.cat([pos, torch.zeros_like(pos[:, :1])], 1)
+    dr2 = _min_image_r2(h, [(torch.gather(pos_pad[..., a], 1, cand).reshape(Bf, n, -1)
+                             - pos[..., a, None]) for a in range(3)])
+    cand = cand.reshape(Bf, n, -1)
+    valid = (cand < n) & (cand != torch.arange(n, device=pos.device)[:, None])
+    return _topk_compact(dr2, cand, valid, spec.k_max, spec.r_list ** 2)
+
+
+def _structured_block(spec: NeighborSpec, pos: torch.Tensor,
+                      h: torch.Tensor) -> NeighborList:
+    """neighbor.py:255-339 on a slice of jobs: the atoms in a (cap, C) slot
+    grid, each of the 27 neighbor relations a fixed permutation of the
+    cells, distances on (cap_i, cap_j, C) blocks, one row per slot, then the
+    slot rows scattered back to atom order."""
+    Bf, n = pos.shape[:2]
+    ncx, ncy, ncz = spec.cells
+    C, cap = ncx * ncy * ncz, spec.cell_capacity
+    dev = pos.device
+    grid, _ = _table(spec, pos, h, lambda cid, rank: rank * C + cid)
+    pos_pad = torch.cat([pos, torch.zeros_like(pos[:, :1])], 1)
+    pg = [torch.gather(pos_pad[..., a], 1, grid).reshape(Bf, cap, C) for a in range(3)]
+    grid = grid.reshape(Bf, cap, C)
+    occ = grid < n
+    cells = np.arange(C)
+    iz, iy, ix = cells % ncz, (cells // ncz) % ncy, cells // (ncy * ncz)
+    not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
+    d2_blocks, id_blocks = [], []
+    for dx, dy, dz in _CELL_OFFSETS:
+        perm = torch.as_tensor((((ix + dx) % ncx) * ncy + (iy + dy) % ncy) * ncz
+                               + (iz + dz) % ncz, device=dev)
+        r2 = _min_image_r2(h, [p[..., perm][:, None, :, :] - p[:, :, None, :] for p in pg])
+        valid = occ[:, :, None, :] & occ[..., perm][:, None, :, :]
+        if (dx, dy, dz) == (0, 0, 0):
+            valid = valid & not_self
+        d2_blocks.append(torch.where(valid, r2, torch.full((), 1e30, dtype=r2.dtype,
+                                                           device=dev)))
+        id_blocks.append(grid[..., perm][:, None].expand(Bf, cap, cap, C))
+    # (Bf, cap_i, 27 cap, C) -> per-slot rows (Bf, cap * C, 27 cap)
+    d2 = torch.cat(d2_blocks, 2).permute(0, 1, 3, 2).reshape(Bf, cap * C, 27 * cap)
+    ids = torch.cat(id_blocks, 2).permute(0, 1, 3, 2).reshape(Bf, cap * C, 27 * cap)
+    nl = _topk_compact(d2, ids, d2 < spec.r_list ** 2, spec.k_max, spec.r_list ** 2)
+    slot_atom = grid.reshape(Bf, cap * C)
+    live = slot_atom < n
+    jobs = torch.arange(Bf, device=dev)[:, None].expand(Bf, cap * C)
+    idx = torch.arange(n, device=dev)[:, None].expand(Bf, n, spec.k_max).clone()
+    mask = torch.zeros((Bf, n, spec.k_max), dtype=torch.bool, device=dev)
+    idx[jobs[live], slot_atom[live]] = nl.idx[live]
+    mask[jobs[live], slot_atom[live]] = nl.mask[live]
+    return NeighborList(idx=torch.where(mask, idx, torch.arange(n, device=dev)[:, None]),
+                        mask=mask)
+
+
+def _candidates(spec: NeighborSpec, n_atoms: int, form: str) -> int:
+    """Candidate elements per job of one build form: N^2 (dense), N x 27 x
+    cap (gather) or (cap x C) slots x 27 cap (structured)."""
+    if form == "dense":
+        return n_atoms * n_atoms
+    rows = n_atoms if form == "gather" else spec.cell_capacity * int(np.prod(spec.cells))
+    return rows * 27 * spec.cell_capacity
+
+
+def _form(spec: NeighborSpec, n_atoms: int) -> str:
+    return "dense" if n_atoms <= spec.n2_threshold or spec.cells == (0, 0, 0) else "gather"
+
+
+def _jobs(spec: NeighborSpec, n_atoms: int, form: str) -> int:
+    return max(1, _SLICE_ELEMS // _candidates(spec, n_atoms, form))
+
+
+def jobs_per_slice(spec: NeighborSpec, n_atoms: int) -> int:
+    """Jobs per slice of :func:`build` (bounds its candidate tensors: 8
+    jobs of the dense build at N = 4096, 43 of the gather cell build on
+    the 4096-atom Si box's (7, 7, 7) cells of capacity 28)."""
+    return _jobs(spec, n_atoms, _form(spec, n_atoms))
+
+
+def _sliced(block, form: str, spec: NeighborSpec, pos: torch.Tensor,
+            h: torch.Tensor) -> NeighborList:
+    """``block`` over pos (..., N, 3) in boxes h (..., 3, 3), in slices of
+    jobs that bound its candidate tensors -> lists (..., N, K)."""
     n = pos.shape[-2]
     bs = pos.shape[:-2]
-    if not bs:
-        return _dense_block(spec, pos, h)
     pf, hf = pos.reshape(-1, n, 3), h.expand(bs + (3, 3)).reshape(-1, 3, 3)
-    step = jobs_per_slice(n)
-    parts = [_dense_block(spec, pf[s:s + step], hf[s:s + step])
-             for s in range(0, pf.shape[0], step)]
+    step = _jobs(spec, n, form)
+    parts = [block(spec, pf[s:s + step], hf[s:s + step]) for s in range(0, pf.shape[0], step)]
     k = parts[0].idx.shape[-1]
     return NeighborList(idx=torch.cat([p.idx for p in parts]).reshape(bs + (n, k)),
                         mask=torch.cat([p.mask for p in parts]).reshape(bs + (n, k)))
 
 
+def build_dense(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
+    """O(N^2) masked neighbor search: pos (..., N, 3), h (..., 3, 3) ->
+    lists (..., N, min(k_max, N - 1))."""
+    return _sliced(_dense_block, "dense", spec, pos, h)
+
+
+def build_cells(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
+    """Cell-binned neighbor search, the gather form (neighbor.py:342-375):
+    pos (..., N, 3), h (..., 3, 3) -> lists (..., N, k_max).  An atom
+    dropped from a full cell keeps its own row but is no one's
+    candidate."""
+    return _sliced(_cells_block, "gather", spec, pos, h)
+
+
+def build_cells_structured(spec: NeighborSpec, pos: torch.Tensor,
+                           h: torch.Tensor) -> NeighborList:
+    """Cell-binned neighbor search, the structured form (neighbor.py:
+    255-339): pos (..., N, 3), h (..., 3, 3) -> lists (..., N, k_max).  An
+    atom dropped from a full cell has no row (an empty list) and is no
+    one's candidate.  (The JAX form clips the rank, so a dropped atom's
+    write races the last slot's occupant; on the CPU it erases it.)"""
+    return _sliced(_structured_block, "structured", spec, pos, h)
+
+
 def build(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborList:
-    if pos.shape[-2] <= spec.n2_threshold or spec.cells == (0, 0, 0):
+    """The dense build where the box has at most ``n2_threshold`` atoms or
+    no cell grid, else the gather cell build (neighbor.py:378-381, where
+    the JAX package takes the structured form, a TPU layout without
+    gathers).  The gather form is the faster on the card: on 128 strained
+    4096-atom Si boxes (cells (7, 7, 7), capacity 28) it takes 97.9-99.3 ms
+    per build against the structured form's 369.6-418.0 and the dense
+    build's 386.7-388.6 (chip_smoke.py phase 13 in turns, two runs; NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    if _form(spec, pos.shape[-2]) == "dense":
         return build_dense(spec, pos, h)
-    raise NotImplementedError(
-        f"neighbor.build: the cell-binned list (cells {spec.cells}) is not ported "
-        "(build_cells / build_cells_structured, ROADMAP queue 1)")
+    return build_cells(spec, pos, h)
 
 
 def neighbor_disp(pos: torch.Tensor, h: torch.Tensor, nbr: NeighborList) -> torch.Tensor:

@@ -283,7 +283,7 @@ class FusedRunner:
                 self._buffers[(Bn, pos.device)] = out
         if jobs is None:
             jobs = torch.arange(Bn, device=pos.device)
-        step = NB.jobs_per_slice(n)
+        step = NB.jobs_per_slice(self.nspec, n)
         for s in range(0, jobs.shape[0], step):
             js = jobs[s:s + step]
             p, hh = pos[js], h[js]
@@ -294,7 +294,7 @@ class FusedRunner:
         """The first design's seven (B, K, N) channels (:attr:`channel_names`)
         of a fresh list at pos (B, N, 3) in boxes h (B, 3, 3), packed by
         :func:`pack_channels` — for the A/B timings and the checks only."""
-        step = NB.jobs_per_slice(self.spec.n_atoms)
+        step = NB.jobs_per_slice(self.nspec, self.spec.n_atoms)
         parts = [pack_channels(self, pos[s:s + step], h[s:s + step],
                                NB.build(self.nspec, pos[s:s + step], h[s:s + step]))
                  for s in range(0, pos.shape[0], step)]
@@ -460,7 +460,6 @@ def dense_planes(ff, dtype=torch.float64, device=None):
 # (csrc/md_k1.cu): type, excluded offsets, offsets with another weight
 K1_REACH, K1_WIN = 3, 7
 K1_EXCL, K1_SPEC = 8, 16
-K1_MAX_TYPES = 256
 # rows of one box per block of K1's force + virial entry (md_k1.cu K1_ROWS)
 K1_TILE_ROWS = 32
 
@@ -475,7 +474,9 @@ def k1_tables(ff, dtype=torch.float64, device=None):
     The planes are the table entry times that weight inside the window and
     the bare entry outside it (:func:`k1_dense_planes`).  Raises
     NotImplementedError when a special-bond partner lies outside |j - i| <=
-    3, or for more than 256 types."""
+    3, or when K1's block cannot hold the box with its table
+    (:func:`smem_refusal`; no box fits from ~170 types, so the code's
+    8-bit type field never overflows)."""
     types = ff.types.cpu().numpy()
     n = len(types)
     eps_t, sig_t = (ff.epsilon, ff.sigma) if isinstance(ff, LJ) else (ff.lj_epsilon, ff.lj_sigma)
@@ -510,17 +511,15 @@ def _k1_weights(ff) -> tuple[int, np.ndarray]:
 
 
 def _k1_refusal(n_types: int, W: np.ndarray) -> str | None:
-    """Why K1's table and window cannot hold a system of ``n_types`` types
-    and LJ special-bond weights W, or None."""
-    if n_types > K1_MAX_TYPES:
-        return f"K1: {n_types} atom types exceed its {K1_MAX_TYPES}-type table"
+    """Why K1's window and shared memory cannot hold a system of
+    ``n_types`` types and LJ special-bond weights W (N, N), or None."""
     n = W.shape[0]
     off = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) > K1_REACH
     if bool((W[off] != 1.0).any()):
         j, i = np.argwhere(off & (W != 1.0))[0]
         return (f"K1: atoms {i} and {j} are special-bond partners {abs(int(j) - int(i))} "
                 f"apart; K1's window holds chain partners at most {K1_REACH} apart")
-    return None
+    return smem_refusal(_kernel_spec(n), n_types)
 
 
 def k1_dense_planes(tbl: torch.Tensor, code: torch.Tensor, win: torch.Tensor):
@@ -879,8 +878,12 @@ def fused_refusal(ff, masses: torch.Tensor, constraints=None,
     chain rows nor the offset patterns, constraint offsets that
     :func:`pack_shake` refuses.  The port's route also takes what the
     Hopper redesigns refuse where the TPU kernels read planes: more atom
-    types than K1's (256) or K3/K4's (64) table holds, and special-bond
-    partners beyond K1's window of 3 or K3's of 12."""
+    types than K3/K4's table holds (64), special-bond partners beyond K1's
+    window of 3 or K3's of 12, and boxes above the
+    kernel's shared-memory budget for their type count (:func:`smem_refusal`,
+    the test :func:`check_smem` makes at launch: K1 keeps its (T, T) table
+    beside 22 rows of N floats, so it fits 1714 atoms at 100 types and none
+    from ~170; K3 and K4's shared form 23 rows, K4's global form 8)."""
     if isinstance(ff, LJ):
         return _k1_refusal(*_k1_weights(ff))
     if np.asarray(ff.impropers).shape[0]:
@@ -895,13 +898,20 @@ def fused_refusal(ff, masses: torch.Tensor, constraints=None,
         if why:
             return f"constraint offsets ({why})"
     # the kernel make_runner's spec would select
-    kernel = FusedSpec(n_atoms=int(masses.shape[0]), cutoff2=0.0, ndof=0, boltz=0.0, ftm2v=0.0,
-                       nktv2p=0.0, coul=bool(torch.any(ff.charges != 0)),
-                       fext=ff.ewald is not None, bonded_pattern=tuple(patterns),
-                       shake_offsets=tuple(offsets), k=int(list_kernel)).kernel
-    if kernel == "K1":
+    spec = _kernel_spec(int(masses.shape[0]), coul=bool(torch.any(ff.charges != 0)),
+                        fext=ff.ewald is not None, bonded_pattern=tuple(patterns),
+                        shake_offsets=tuple(offsets), k=int(list_kernel))
+    if spec.kernel == "K1":
         return _k1_refusal(*_k1_weights(ff))
-    return k34_refusal(ff, window=kernel == "K3")
+    return (k34_refusal(ff, window=spec.kernel == "K3")
+            or smem_refusal(spec, int(ff.lj_epsilon.shape[0])))
+
+
+def _kernel_spec(n_atoms: int, **flags) -> FusedSpec:
+    """A spec of ``n_atoms`` with the flags that select a kernel and size its
+    shared memory, the rest zero."""
+    return FusedSpec(n_atoms=n_atoms, cutoff2=0.0, ndof=0, boltz=0.0, ftm2v=0.0, nktv2p=0.0,
+                     **flags)
 
 
 def _k1_fields(ff, dtype, device) -> dict:
@@ -1854,6 +1864,23 @@ def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
             f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
             f"memory per block{form}, above the {_MAX_SMEM} B a Hopper block can use; this "
             f"flag set fits at most {cap} atoms")
+
+
+def smem_refusal(spec: FusedSpec, n_types: int) -> str | None:
+    """Why K1's, K3's or K4's block cannot hold this box with a table of
+    ``n_types`` atom types, or None: :func:`check_smem`'s test, from the
+    same budget functions, as a reason for the route (``fused_refusal``)."""
+    need = (k1_smem_bytes(spec, n_types) if spec.kernel == "K1"
+            else k34_smem_bytes(spec, n_types))
+    if need <= _MAX_SMEM:
+        return None
+    form = " in its global form" if spec.kernel == "K4" else ""
+    cap = k4_big_max_atoms(spec, n_types) if form else max_atoms(spec, n_types)
+    types = f"{n_types} atom type" + ("s" if n_types > 1 else "")
+    return (f"{spec.kernel}: {spec.n_atoms} atoms of {types} need {need} B of shared "
+            f"memory per block, above the {_MAX_SMEM} B a Hopper block can use; "
+            f"{spec.kernel}{form} fits " + (f"at most {cap} atoms" if cap > 0 else "no box")
+            + f" of {types}")
 
 
 def _check_cuda(runner: FusedRunner, *tensors):

@@ -1,8 +1,8 @@
 """The port's command line beyond ``run``'s main path, on the CPU: mirrors
 of tests/test_cli_handshake.py (init-material -> run, strain-md ->
 analyse-md) and of tests/test_output_checkpoint.py::test_cli_fault_recovery,
-plus the refusals: a kernel error is never retried, ``--surrogate`` names
-its roadmap item, and no subcommand runs on the CPU unasked.
+plus the refusals: a kernel error is never retried, ``--surrogate`` with
+no Keras file raises, and no subcommand runs on the CPU unasked.
 
 The configs are the JAX tests' (a 1x1x2-cell dogbone, SW silicon at
 0.01 K, 20 sampling steps), with 64-atom boxes where the JAX tests take
@@ -263,8 +263,11 @@ def test_kernel_errors_are_never_retried(tmp_path, monkeypatch, capsys, fault):
 
 
 def test_surrogate_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["run", _hooke_config(tmp_path), "--cpu", "--surrogate", "model.bin"])
+    # --surrogate runs stress method 2 since ROADMAP item 8 landed
+    # (tests/test_torch_surrogate.py); a missing Keras file raises
+    with pytest.raises(FileNotFoundError):
+        cli.main(["run", _hooke_config(tmp_path), "--cpu", "--surrogate",
+                  str(tmp_path / "model.bin")])
 
 
 @pytest.mark.parametrize("cmd", ["run", "init-material", "strain-md", "analyse-md"])

@@ -14,6 +14,7 @@ Tolerances, each with its reason:
   ~1e-16 relative rounding)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,7 +71,7 @@ def test_sizing_and_spec_match_jax(g0):
         ts, js = TNB.derive_spec(n, box, cut, 1.0, 64), JNB.derive_spec(n, box, cut, 1.0, 64)
         assert dataclasses.asdict(ts) == dataclasses.asdict(js)
         assert TNB.max_cell_occupancy(ts, pos, box) == JNB.max_cell_occupancy(js, pos, box)
-    # every box the port runs takes the dense build (fewer than 3 cells)
+    # the charged list boxes take the dense build (fewer than 3 cells)
     assert TNB.derive_spec(2240, np.eye(3) * 29.0, 12.0, 1.0).cells == (0, 0, 0)
 
 
@@ -202,11 +203,32 @@ def test_reused_buffers_rebuild_only_the_given_jobs(common_list):
         assert torch.equal(again[k][0], full[k][0]) and torch.equal(again[k][1], full[k][0])
 
 
-def test_cell_build_is_not_ported():
-    spec = TNB.NeighborSpec(cutoff=12.0, skin=1.0, k_max=64, n2_threshold=10, cells=(4, 4, 4))
-    with pytest.raises(NotImplementedError, match="build_cells"):
-        TNB.build(spec, torch.zeros((20, 3), dtype=torch.float64),
-                  torch.eye(3, dtype=torch.float64) * 60.0)
+@pytest.mark.parametrize("case", ["dense_small", "dense_no_cells", "cells"])
+def test_build_dispatch_matches_jax(case, monkeypatch):
+    """``build`` takes the dense build where N <= n2_threshold or the spec
+    has no cells (JAX too), else the gather cell build: the same sets as
+    JAX's ``build`` (its structured form) on an fcc crystal of 6^3 cells
+    with noise (864 atoms, 4^3 cells of capacity 31)."""
+    from scema_tpu.md import lattice as JL
+
+    pos, h = JL.fcc(4.0, 6, 6, 6)
+    pos = pos + 0.05 * np.random.default_rng(0).standard_normal(pos.shape)
+    jspec = JNB.derive_spec(len(pos), h, cutoff=4.5, skin=0.5, k_max=48)
+    assert jspec.cells == (4, 4, 4)
+    jspec = dataclasses.replace(jspec, n2_threshold=len(pos) if case == "dense_small" else 100,
+                                cells=(0, 0, 0) if case == "dense_no_cells" else jspec.cells)
+    jl = jax.jit(JNB.build, static_argnums=0)(jspec, jnp.asarray(pos), jnp.asarray(h))
+    calls = []
+    for name in ("build_dense", "build_cells", "build_cells_structured"):
+        def spy(*a, _fn=getattr(TNB, name), _name=name):
+            calls.append(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(TNB, name, spy)
+    tl = TNB.build(TNB.NeighborSpec(**dataclasses.asdict(jspec)), torch.as_tensor(pos),
+                   torch.as_tensor(np.asarray(h, dtype=float)))
+    assert _row_sets(tl.idx, tl.mask) == _row_sets(jl.idx, jl.mask)
+    assert calls == (["build_cells"] if case == "cells" else ["build_dense"])
 
 
 def _jax_gate(n_atoms, charged, force_list):

@@ -162,10 +162,14 @@ def test_build_system_and_gate():
     for kw, route in ((dict(n_cells_xyz=(4, 4, 6)), "list"), (dict(n_cells=5), "list"),
                       (dict(use_pallas_bricks=True), "bricks"),
                       (dict(sw=dataclasses.replace(TSW.SI, p=6.0)), "list")):
-        big, _ = TM.build_system(TM.MaterialSpec(name="si", **kw), device="cpu")
+        big, st_big = TM.build_system(TM.MaterialSpec(name="si", **kw), device="cpu")
         assert big.fused is None
         assert (route == "bricks") == hasattr(big.ff, "slot_ids")
-        assert route == "bricks" or big.nspec.cells == (0, 0, 0)
+        # the list takes the spec derive_spec gives the box, which builds
+        # dense at these sizes (<= 1024 atoms)
+        assert route == "bricks" or (big.nspec == TNB.derive_spec(
+            big.n_atoms, np64(st_big.h), TSW.SI.cutoff, 1.0, 20)
+            and big.n_atoms <= big.nspec.n2_threshold)
     for bad in (dict(spatial_shards=2),
                 dict(use_pallas_bricks=True, sw=dataclasses.replace(TSW.SI, p=6.0))):
         with pytest.raises(NotImplementedError):

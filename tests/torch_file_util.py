@@ -4,7 +4,8 @@
 * :func:`write_data` — a ``read_data`` text file (atom_style full) of a
   ``data_io.MolecularData``, every float as its shortest exact repr, so
   that ``read_data`` gives back the same arrays bit for bit
-  (:func:`with_impropers` adds impropers to a melt of chains);
+  (:func:`with_impropers` adds impropers to a melt of chains,
+  :func:`with_types` spreads its atoms over many atom types);
 * :func:`write_restart` — a native binary restart in the layout
   ``md/lammps_restart.read_restart`` decodes (the "17 Nov 2016" format of
   the reference's ``init.<mat>_<n>.bin``): the magic, the endian and
@@ -14,6 +15,8 @@
   ``atomic`` records [11, x, y, z, tag, type, mask, image, vx, vy, vz]
   with the four integers as int64 bit patterns and the image counts
   packed in 10-bit fields around 512;
+* :func:`write_keras_surrogate` — the reference's Keras surrogate and
+  its MinMaxScaler pickle (``surrogate_model/``), from given weights;
 * :func:`write_ct_msh` — a GMSH v2 ASCII hex mesh of a compact-tension
   half specimen (the geometry ``problem_types.make_compact_tension``
   loads: W = 2 calculi_B, a pin hole of diameter 0.25 W about (W, 0.275 W),
@@ -85,6 +88,62 @@ def with_impropers(data, chain_length: int, k: float = 2.0, chi0: float = 10.0):
     return dataclasses.replace(data, impropers=quads,
                                improper_types=np.zeros(len(quads), np.int32),
                                improper_coeffs=np.array([[k, chi0]]))
+
+
+def with_types(data, n_types: int):
+    """``data`` with its atoms spread over ``n_types`` atom types (atom i
+    takes type i mod n_types), each with its own mass and LJ pair
+    coefficients a little apart from the first type's: a box of many types
+    for the kernels' type tables, the same melt otherwise."""
+    import dataclasses
+
+    t = np.arange(n_types)
+    m0, (eps0, sig0) = float(data.masses[0]), data.pair_coeffs[0]
+    return dataclasses.replace(
+        data, types=(np.arange(len(data.pos)) % n_types).astype(np.int32),
+        masses=m0 + 1e-3 * t,
+        pair_coeffs=np.stack([eps0 * (1.0 + 1e-3 * t), sig0 * (1.0 + 1e-4 * t)], axis=1))
+
+
+def write_keras_surrogate(directory, kernels, biases, scale=None, min_=None) -> None:
+    """The reference's surrogate files in ``directory``:
+    ``model_small_uniaxial.bin``, a Keras-2 HDF5 save of a Sequential
+    Dense stack (``model_weights`` with the ``layer_names`` and each
+    layer's ``weight_names`` attributes, kernels (in, out)), and, with
+    ``scale``, ``scaler.pkl``, a pickled sklearn MinMaxScaler (its
+    ``scale_`` and ``min_``) written without sklearn: the pickle names
+    sklearn's class for a stand-in's."""
+    import os
+    import pickle
+
+    import h5py
+
+    with h5py.File(os.path.join(directory, "model_small_uniaxial.bin"), "w") as f:
+        g = f.create_group("model_weights")
+        names = ["dense"] + [f"dense_{i}" for i in range(1, len(kernels))]
+        g.attrs["layer_names"] = [n.encode() for n in names]
+        for name, k, b in zip(names, kernels, biases):
+            lg = g.create_group(name)
+            lg.attrs["weight_names"] = [f"{name}/kernel:0".encode(), f"{name}/bias:0".encode()]
+            lg[f"{name}/kernel:0"] = np.asarray(k, np.float32)
+            lg[f"{name}/bias:0"] = np.asarray(b, np.float32)
+    if scale is None:
+        return
+    cls = type("MinMaxScaler", (), {})
+    obj = cls()
+    obj.__dict__.update(feature_range=(0, 1), copy=True, n_features_in_=len(scale),
+                        scale_=np.asarray(scale, np.float64),
+                        min_=np.asarray(min_, np.float64))
+
+    class Pickler(pickle._Pickler):
+        def save_global(self, o, name=None):
+            if o is not cls:
+                return super().save_global(o, name)
+            self.write(pickle.GLOBAL + b"sklearn.preprocessing._data\nMinMaxScaler\n")
+            self.memoize(o)
+
+    with open(os.path.join(directory, "scaler.pkl"), "wb") as f:
+        Pickler(f, protocol=3).dump(obj)
 
 
 def _i(v: int) -> bytes:
