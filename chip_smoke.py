@@ -246,7 +246,22 @@ failure exits non-zero before the result line:
    pass against float64 on the CPU (1e-5 relative) and its time; the same
    dogbone through ``build_hooke_hmm(surrogate_fn=)``, a finite stress
    field; ``train_surrogate`` on 4096 synthetic linear transitions x 60
-   epochs, timed, fitting the map within 10%.
+   epochs, timed, fitting the map within 10%;
+28. the ReaxFF slice (no kernel of its own: the list bond-order field with
+   QEq is autograd torch on the unfused engine): the synthetic H/C/N/O
+   ffield (tests/torch_file_util.py) in a ``lammps_scripts_reax``
+   directory, a config naming it (300 K, 0.25 fs, at most 32 MD jobs), so
+   that ``load_config`` selects ReaxFF and ``md_spec_kwargs`` the ffield;
+   ``build_md_hmm(cfg, spec=REAXPE, equil_steps=20, minimize_steps=60)``
+   (the JAX package's bench_hmm_reax: 16 C3H8 chains, 176 atoms, list
+   width 175) and 2 macro-steps, every launch counter zeroed before the
+   build and read after the steps: the route printed, setup and step
+   times, md jobs (1-32), peak memory, the displacement milestone after
+   step 1 (after step 2 the explicit FE step grows on the stiffness the
+   probe measures on the synthetic field, whose eigenvalues are printed),
+   finite displacements and stresses, K2 alone launched; one force + virial call
+   of the prepared box on the card against the CPU in float64 (1e-4
+   relative), timed; each MD state's charges summing to 0 (1e-5 e).
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
@@ -255,7 +270,7 @@ its first design's (0) on the charged slice, K4's and its first design's
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
 17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
 on the 4096-atom slice; K2's first design's (0) on the g0 slice; the
-K1, K2 and K5 rows add the launches of phases 23-25's and 27's paths;
+K1, K2 and K5 rows add the launches of phases 23-25's, 27's and 28's paths;
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -3710,10 +3725,10 @@ def path_counters():
             "md_sw_first_forces": (MF._forces_first, "launches_k5")}
 
 
-def _drive(hmm, n_steps: int, what: str):
+def _drive(hmm, n_steps: int, what: str, on_step=None):
     """``n_steps`` macro-steps of ``hmm`` on the card: per-step host times,
     job and flagged counts, the reaction forces and the last carry; fails on
-    a non-finite residual."""
+    a non-finite residual.  ``on_step(carry)`` sees each step's carry."""
     import torch
 
     state = hmm.init_state()
@@ -3728,6 +3743,8 @@ def _drive(hmm, n_steps: int, what: str):
         rf.append(float(out.reaction_force))
         if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
             fail(f"{what}: a macro-step gave non-finite residuals")
+        if on_step is not None:
+            on_step(state)
     return state, step_s, jobs, flagged, rf
 
 
@@ -4156,6 +4173,121 @@ def phase_surrogate(dev):
     return launches
 
 
+# phase 28's ReaxFF slice: the JAX package's bench_hmm_reax (bench.py:260-295)
+# on the HMMConfig() dogbone, with bench_md_reax's MD timestep (0.25 fs; the
+# config's 2 fs suits united-atom OPLS, not ReaxFF) at 300 K
+REAX_MAX_JOBS, REAX_DT = 32, 0.25
+# float32 on the card against float64 on the CPU, relative to the largest
+# component: the force + virial call on the prepared box (the QEq CG floors
+# near 1e-6 relative in float32), and each job's charge sum (e)
+REAX_FV_TOL, REAX_Q_TOL = 1e-4, 1e-5
+
+
+def phase_reax_slice(dev):
+    """Phase 28 (see the module docstring): the ReaxFF slice on the card."""
+    import torch
+
+    from scema_tpu_torch.config import load_config, md_spec_kwargs
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+
+    fu = _file_util()
+    counters = _all_counters()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        scripts = os.path.join(tmp, "lammps_scripts_reax")
+        os.makedirs(scripts)
+        fu.write_ffield(os.path.join(scripts, "ffield.reax.synthetic"))
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"molecular dynamics parameters": {
+                "temperature": T_MD, "timestep length": REAX_DT, "scripts directory": scripts},
+                "computational resources": {"maximum md jobs": REAX_MAX_JOBS}}, f)
+        cfg = load_config(cfg_path, dtype="float32")
+        kw = md_spec_kwargs(cfg)
+        if cfg.md.force_field != "reax" or not kw["reax_ffield"].endswith("synthetic"):
+            fail(f"reax slice: the config resolved to {cfg.md.force_field!r} / {kw}")
+        spec = M.MaterialSpec(**{**M.REAXPE.__dict__, **kw})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gc.collect()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hmm = build_md_hmm(cfg, spec=spec, equil_steps=20, minimize_steps=60, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        umax = []
+        state, step_s, jobs, flagged, _ = _drive(
+            hmm, 2, "reax slice", on_step=lambda c: umax.append(float(c[0].u.abs().max())))
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        sys64, _ = M.build_system(spec, dtype=torch.float64, device="cpu")
+    sys_ = hmm.backend.sys
+    printed = buf.getvalue().strip()
+    fe, micro = state[0], state[1][0]
+    expect = 0.002 * 0.08
+    sig = fe.qp.new_stress
+    ens = hmm.backend.ensemble
+    C = ens.init_stiff[0, 0].double().cpu()
+    c_eig = torch.linalg.eigvalsh(0.5 * (C + C.T))
+    if not printed.endswith("route unfused: reax") or sys_.route != "unfused: reax":
+        fail(f"reax slice: build_md_hmm printed {printed!r}")
+    # the milestone after the first step; after the second the explicit FE
+    # step grows on the tangent stiffness the probe measures on this
+    # synthetic field (printed), so only finiteness is checked there
+    if (abs(umax[0] - expect) > 1e-5 * expect or not torch.isfinite(fe.u).all()
+            or not torch.isfinite(sig).all()):
+        fail(f"reax slice: max displacement after step 1 {umax[0]} (expect {expect}), finite "
+             f"u {bool(torch.isfinite(fe.u).all())}, finite stresses "
+             f"{bool(torch.isfinite(sig).all())}")
+    if min(jobs) <= 0 or max(jobs) > REAX_MAX_JOBS:
+        fail(f"reax slice: md jobs {jobs} (1 to {REAX_MAX_JOBS} a step)")
+    if launches["pairwise_l2"] <= 0 or any(v for k, v in launches.items() if k != "pairwise_l2"):
+        fail(f"reax slice: launches {launches} (K2 alone expected)")
+    # one force + virial call of the prepared box: the card (float32)
+    # against the CPU (float64) on the same state
+    st0 = hmm.backend.initial_md_state
+    pos, h = st0.pos[0], st0.h[0]
+    F, W = E.forces_virial(sys_, pos, h)
+    F64, W64 = E.forces_virial(sys64, pos.double().cpu(), h.double().cpu())
+    torch.cuda.synchronize()
+    f_err = float((F.double().cpu() - F64).abs().max() / F64.abs().max())
+    w_err = float((W.double().cpu() - W64).abs().max() / W64.abs().max())
+    t_fv = cuda_ms(lambda: E.forces_virial(sys_, pos, h), 10)
+    # each job's QEq charges on the MD states after the steps
+    ran = micro.has_run
+    n = sys_.n_atoms
+    pj, hj = micro.pos[ran].reshape(-1, n, 3), micro.h[ran].reshape(-1, 3, 3)
+    with torch.no_grad():
+        q = sys_.ff.energy_terms(pj, hj, sys_.build_neighbors(pj, hj))["q"]
+    q_sum = float(q.double().sum(-1).abs().max())
+    if not (f_err < REAX_FV_TOL and w_err < REAX_FV_TOL and q_sum < REAX_Q_TOL
+            and float(q.abs().max()) > 1e-3):
+        fail(f"reax slice: card vs float64 forces {f_err:.3e}, virial {w_err:.3e} (tol "
+             f"{REAX_FV_TOL}); per-job charge sums {q_sum:.3e} (tol {REAX_Q_TOL}), max |q| "
+             f"{float(q.abs().max()):.3e}")
+    print(f"[28 reax slice] {printed}; config {os.path.basename(scripts)} -> force field "
+          f"{cfg.md.force_field}, REAXPE {n} atoms (list width {sys_.nspec.k_max}), HMMConfig() "
+          f"dogbone, <= {REAX_MAX_JOBS} MD jobs, {T_MD} K, {REAX_DT} fs, FIRE 60 + NVT 20: "
+          f"setup {setup_s:.3f}s  s/macro-step {step_s}  md jobs {jobs}  flagged {flagged}  "
+          f"peak memory {peak / 2**20:.1f} MiB  max displacement per step {umax} m (expect "
+          f"{expect:.6g} after step 1)  max |sigma| {float(sig.abs().max()):.4e} Pa  launches "
+          f"{launches}  phase wall {time.perf_counter() - t_phase:.1f}s")
+    print(f"[28 reax material] the probe's stiffness (replica 1) eigenvalues "
+          f"{[f'{x:.4e}' for x in c_eig.tolist()]} Pa, density {float(ens.rho[0, 0]):.2f} "
+          f"kg/m^3, residual stress {[f'{x:.4e}' for x in ens.init_stress[0, 0].tolist()]} Pa; "
+          f"prepared temperature {float(E.temperature(sys_, st0.vel[0])):.1f} K")
+    print(f"[28 reax checks] force + virial of the prepared box, card float32 vs CPU float64: "
+          f"forces {f_err:.3e}, virial {w_err:.3e} (tol {REAX_FV_TOL}), {t_fv:.3f} ms per call; "
+          f"charges of {pj.shape[0]} MD states after the steps: max |sum q| {q_sum:.3e} e "
+          f"(tol {REAX_Q_TOL}), max |q| {float(q.abs().max()):.4f} e")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -4200,6 +4332,7 @@ def main() -> int:
     later = [phase_data_file(dev), phase_problems(dev), phase_restart_seed(dev)]
     phase_smem_route(dev)
     later.append(phase_surrogate(dev))  # the surrogate's path: K2 alone
+    later.append(phase_reax_slice(dev))  # the ReaxFF slice: K2 alone
     rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows, k2_first,
             *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:

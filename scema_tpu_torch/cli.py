@@ -13,8 +13,10 @@ every flagged quadrature point's MD job through the fused MD kernel of the
 config's force field — K1 for the default united-atom OPLS melt, K5 for
 the Stillinger-Weber diamond-Si box that ``"molecular dynamics
 parameters": {"force field": "sw"}`` (or a ``sisw`` scripts directory)
-selects, as in the JAX CLI — and the clustering distance matrix through
-kernel K2.  ``--outdir`` writes the VTU/PVD/CSV outputs and the npz and
+selects, as in the JAX CLI; a ``reax`` scripts directory (or ``"force
+field": "reax"``) selects ReaxFF with the directory's ``ffield.reax*`` on
+the unfused engine — and the clustering distance matrix through kernel
+K2.  ``--outdir`` writes the VTU/PVD/CSV outputs and the npz and
 reference-format (lcts.*) checkpoints at the config's frequencies;
 ``--restart`` / ``--restart-reference`` resume from either; a failing step
 rolls back to the last good one up to ``--max-retries`` times (never for a
@@ -86,8 +88,6 @@ def _md_setup(args, device):
     from .md.homogenization import MDParams
 
     cfg = load_config(args.config)
-    if cfg.md.force_field == "reax":
-        raise NotImplementedError("the ReaxFF force field is not ported (ROADMAP item 9)")
     params = MDParams(temperature=cfg.md.temperature, dt=cfg.md.timestep_length,
                       strain_rate=cfg.md.strain_rate, nsteps_sample=cfg.md.nsteps_sample)
     return cfg, params, md_spec_kwargs(cfg)
@@ -460,7 +460,7 @@ def main(argv=None) -> int:
 
     pr = sub.add_parser("run", help="run the coupled HMM time loop")
     pr.add_argument("config", help="reference-format inputs.json (its 'molecular dynamics "
-                                   "parameters' pick the force field: opls, or sw)")
+                                   "parameters' pick the force field: opls, sw or reax)")
     pr.add_argument("--steps", type=int, default=0, help="override number of steps")
     pr.add_argument("--hooke", action="store_true",
                     help="force 'approximate md with hookes law' debug mode")

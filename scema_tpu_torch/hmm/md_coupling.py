@@ -23,6 +23,11 @@ Differences from the JAX version, all of form rather than result:
   built with explicit padding, and rows past the valid slots are masked
   out before any gather or scatter — torch's ``index_put_`` has no
   ``mode="drop"`` for the JAX version's out-of-range sentinel.
+* ReaxFF boxes run all of a step's jobs in one force evaluation per MD
+  step, like every unfused box: JAX's ReaxFF job-chunk budget
+  (md_coupling.py:568-581), which answers a TPU fault on wide programs, is
+  not ported (at the bench's 32 jobs of 176 atoms the list field's
+  autograd needs well under a GB).
 """
 from __future__ import annotations
 
@@ -314,9 +319,8 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
             if len(materials) > 1 else [spec]
     else:
         # the config's effective force field ("sw" for a sisw scripts
-        # directory), as the JAX package's md_spec_kwargs gives it
-        if cfg.md.force_field == "reax":
-            raise NotImplementedError("the ReaxFF force field is not ported (ROADMAP item 9)")
+        # directory, "reax" with its ffield for a reax one), as the JAX
+        # package's md_spec_kwargs gives it
         specs = [M.MaterialSpec(name=name, **md_spec_kwargs(cfg)) for name in materials]
     params = MDParams(temperature=cfg.md.temperature, dt=cfg.md.timestep_length,
                       strain_rate=cfg.md.strain_rate, nsteps_sample=cfg.md.nsteps_sample)

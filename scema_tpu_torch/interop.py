@@ -7,8 +7,8 @@ tests hand the port what JAX drew at random (``assign_materials``,
 ``maxwell_velocities``) or prepared (equilibrated microstates, measured
 replica ensembles), since torch cannot reproduce ``jax.random`` bits, and
 how they hand it a charged system's JAX-made pieces (k-space objects,
-Coulomb plane, pattern and SHAKE rows, constraint lists) or an SW brick
-structure to hold the port's own against.
+Coulomb plane, pattern and SHAKE rows, constraint lists), an SW brick
+structure or a ReaxFF field's tables to hold the port's own against.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from .md.engine import MDState
 from .md.forcefields.coulomb import Ewald
 from .md.forcefields.lj import LJ
 from .md.forcefields.pme import PME
+from .md.forcefields.reax import ReaxFFDense, ReaxFFList
 from .md.forcefields.sw import SW
 from .md.material import InitData
 from .md.neighbor import NeighborList
@@ -73,6 +74,25 @@ def sw_bricks(ff, n_atoms: int, device=None) -> SWBricksFF:
     structure (slot_ids, nbr, valid) and ``SW`` constants."""
     return SWBricksFF.from_structure(sw(ff.sw), ff.slot_ids, ff.nbr, ff.valid, n_atoms,
                                      device=device)
+
+
+def reax(ff, dtype=torch.float64, device=None):
+    """JAX ``forcefields.reax.ReaxFFDense`` or ``ReaxFFList`` -> the port's
+    twin, with the same tables (arrays as tensors of ``dtype``, masks
+    bool, scalars as they are), atom types, taper cutoff and flags (the
+    list field's CG trip counts and warm start too)."""
+    def table(v):
+        if isinstance(v, (bool, int, float)):
+            return v
+        a = np.asarray(v)
+        return torch.as_tensor(a.copy(), device=device) if a.dtype == bool else _t(a, dtype, device)
+
+    kw = dict(tables={k: table(v) for k, v in ff.tables.items()}, types=_i(ff.types, device),
+              cutoff=float(ff.cutoff), qeq=bool(ff.qeq), with_hbond=bool(ff.with_hbond))
+    if hasattr(ff, "qeq_iters"):
+        return ReaxFFList(**kw, qeq_iters=int(ff.qeq_iters), qeq_warm=bool(ff.qeq_warm),
+                          qeq_iters_warm=int(ff.qeq_iters_warm))
+    return ReaxFFDense(**kw)
 
 
 def replica_ensemble(ens, dtype=torch.float64, device=None) -> ReplicaEnsemble:

@@ -17,8 +17,9 @@ stmd_problem.h:83-383), with two paths, as in the JAX package:
   a static structure of its own, the SW brick kernels K6c/K6d, needs none),
   forces re-evaluated at each chunk start after the deform remap, and
   forces from the force field's own entry or autograd of its energy.  SW
-  boxes above K5's gate run here (``material.build_system``), and any OPLS
-  box built with ``use_fused=False``.
+  boxes above K5's gate run here (``material.build_system``), any OPLS
+  box built with ``use_fused=False``, and every ReaxFF box, whose QEq CG
+  the strain and sampling loops warm-start within a chunk.
 
 Constraints (SHAKE after the drift, RATTLE after the second kick,
 ``constraints.py``) run inside K3 on the fused runs and on the host in
@@ -215,6 +216,38 @@ def forces_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor,
     return F.reshape(bs + (n, 3)), W.reshape(bs + (6,))
 
 
+def _qeq_warm_enabled(sys: MDSystem) -> bool:
+    """True when the force field warm-starts its QEq CG between the steps
+    of a neighbor-rebuild chunk (``ReaxFFList.qeq_warm``; engine.py:151-
+    158): one cold solve per chunk, then few-trip seeded solves."""
+    ff = sys.ff
+    return bool(getattr(ff, "qeq_warm", False) and getattr(ff, "qeq", False)
+                and hasattr(ff, "energy_qeq"))
+
+
+def _forces_qeq(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr, guess):
+    """(F (B, N, 3), qeq_aux (B, 2, N)): forces with the QEq CG seeded by
+    ``guess`` (None: a cold solve; engine.py:161-166)."""
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        E, aux = sys.ff.energy_qeq(p, h, nbr, qeq_guess=guess)
+        (g,) = torch.autograd.grad(E.sum(), p)
+    return -g, aux
+
+
+def _forces_virial_qeq(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr, guess):
+    """(F, W (B, 6), qeq_aux) from one energy evaluation (the sampling
+    loop's; engine.py:169-180)."""
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        eps = torch.zeros(pos.shape[:-2] + (3, 3), dtype=pos.dtype, device=pos.device,
+                          requires_grad=True)
+        F = torch.eye(3, dtype=pos.dtype, device=pos.device) + eps
+        E, aux = sys.ff.energy_qeq(p @ F.transpose(-1, -2), F @ h, nbr, qeq_guess=guess)
+        gp, ge = torch.autograd.grad(E.sum(), (p, eps))
+    return -gp, _voigt(-0.5 * (ge + ge.transpose(-1, -2))), aux
+
+
 def pressure_tensor(sys: MDSystem, state: MDState, W6: torch.Tensor) -> torch.Tensor:
     """Instantaneous virial pressure (Voigt-6, pressure units):
     P = (sum m v x v / ftm2v + W) / V * nktv2p (engine.py:183-191)."""
@@ -315,22 +348,32 @@ def _run_strain_unfused(sys: MDSystem, st: MDState, eps: torch.Tensor,
     a running job takes max(n, R) // R chunks of R = rebuild_every steps
     (the JAX floor; 0 steps: untouched), each starting with a fresh list
     and a force evaluation after the previous chunk's remap, and the box
-    moves to deform_path(h0, eps, (step + 1) / max(n, R)) after each step."""
+    moves to deform_path(h0, eps, (step + 1) / max(n, R)) after each step.
+    With the QEq warm start (:func:`_qeq_warm_enabled`, engine.py:316-345)
+    each chunk starts with a cold solve and every later step seeds its CG
+    with the previous step's (s, tv) vectors, one pair per job of the
+    chunk's batch (the chunk's jobs are fixed, so nothing merges back)."""
     R = sys.rebuild_every
     h0 = st.h
+    warm = _qeq_warm_enabled(sys)
     n_eff = torch.where(n_steps > 0, torch.clamp(n_steps, min=R), torch.zeros_like(n_steps))
     for c, act, full in _chunks(n_eff // R):
         sub = _subset(st, act, full)
         h0a, ea = (h0, eps) if full else (h0[act], eps[act])
         ne = (n_eff if full else n_eff[act]).to(st.pos.dtype)
         nbr = sys.build_neighbors(sub.pos, sub.h)
-        F = forces(sys, sub.pos, sub.h, nbr)
+        if warm:
+            F, aux = _forces_qeq(sys, sub.pos, sub.h, nbr, None)  # cold solve
+        else:
+            F, aux = forces(sys, sub.pos, sub.h, nbr), None
 
-        def fn(pos, h):
+        def fn(pos, h):  # reads the aux of the step before (late binding)
+            if warm:
+                return _forces_qeq(sys, pos, h, nbr, aux)
             return forces(sys, pos, h, nbr), None
 
         for i in range(R):
-            sub, F, _ = _verlet_step(sys, sub, F, T, dt, fn)
+            sub, F, aux = _verlet_step(sys, sub, F, T, dt, fn)
             # fix deform end_of_step: the box at its target for step + 1
             h_new = B.deform_path(h0a, ea, (c * R + i + 1) / ne)
             sub = sub.replace(pos=B.remap_affine(sub.h, h_new, sub.pos), h=h_new)
@@ -342,23 +385,31 @@ def _sample_stress_unfused(sys: MDSystem, st: MDState, n_steps: torch.Tensor, T:
                            dt: float):
     """The XLA engine's sampling run (engine.py:580-624) on (B,) jobs:
     max(1, n // R) chunks per running job, one energy evaluation per step
-    for the force and the virial; returns (state, mean pressure (B, 6))."""
+    for the force and the virial; returns (state, mean pressure (B, 6)).
+    With the QEq warm start, as in the strain run (engine.py:581-600)."""
     R = sys.rebuild_every
     n_chunks = torch.where(n_steps > 0, torch.clamp(n_steps // R, min=1),
                            torch.zeros_like(n_steps))
+    warm = _qeq_warm_enabled(sys)
     acc = torch.zeros(st.pos.shape[:-2] + (6,), dtype=st.pos.dtype, device=st.pos.device)
     for _, act, full in _chunks(n_chunks):
         sub = _subset(st, act, full)
         nbr = sys.build_neighbors(sub.pos, sub.h)
-        F = forces(sys, sub.pos, sub.h, nbr)
+        if warm:
+            F, _, aux = _forces_virial_qeq(sys, sub.pos, sub.h, nbr, None)  # cold solve
+        else:
+            F, aux = forces(sys, sub.pos, sub.h, nbr), None
 
-        def fn(pos, h):
+        def fn(pos, h):  # reads the aux of the step before (late binding)
+            if warm:
+                Fx, Wx, ax = _forces_virial_qeq(sys, pos, h, nbr, aux)
+                return Fx, (Wx, ax)
             Fx, _, Wx = forces_energy_virial(sys, pos, h, nbr)
-            return Fx, Wx
+            return Fx, (Wx, None)
 
         acc_c = torch.zeros_like(acc[:act.numel()])
         for _ in range(R):
-            sub, F, W = _verlet_step(sys, sub, F, T, dt, fn)
+            sub, F, (W, aux) = _verlet_step(sys, sub, F, T, dt, fn)
             acc_c = acc_c + pressure_tensor(sys, sub, W)
         st = _merge(st, act, sub, full)
         acc = acc + acc_c if full else acc.index_add(0, act, acc_c)

@@ -29,8 +29,9 @@ kernel's force + virial entry (plus the k-space remainder), with SHAKE and
 RATTLE on the host for the constrained all-atom boxes.
 An OPLS system may also come from a LAMMPS data file (``data_file``); one
 that no kernel runs (``md_fused.fused_refusal``) takes the unfused engine,
-as the JAX package's takes its XLA engine.  Spatially sharded SW boxes and
-the ReaxFF force field are not ported yet.
+as the JAX package's takes its XLA engine.  ReaxFF boxes (``reax``: the
+list or dense bond-order field with QEq, ``forcefields/reax.py``) run the
+unfused engine.  Spatially sharded SW boxes are not ported yet.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ class MaterialSpec:
     and OPLS paths read, with the same names and defaults."""
 
     name: str
-    force_field: str = "sw"  # sw | lj | opls (reax is not ported)
+    force_field: str = "sw"  # sw | lj | opls | reax
     n_cells: int = 3  # diamond lattice cells per dimension (sw)
     # non-cubic cell counts (overrides n_cells)
     n_cells_xyz: tuple | None = None
@@ -112,6 +113,16 @@ class MaterialSpec:
     # setup-time checks (min image, list width, cell capacity); disable
     # only for test fixtures
     validate: bool = True
+    # reax (force_field="reax"): the ffield.reax path, the pair_coeff
+    # element order (in.set.lammps: `pair_coeff * * ${locf} H C N O`),
+    # charge equilibration on/off, the bonded sub-list width, and the
+    # field: "list" (the neighbor-list bond-order field) or "dense" (the
+    # O(N^2) twin, the list field's parity anchor)
+    reax_ffield: str = ""
+    reax_elements: tuple = ("H", "C", "N", "O")
+    qeq: bool = True
+    reax_top_k: int = 8
+    reax_impl: str = "list"
 
 
 # The charged all-atom PE material (the JAX package's bench.py
@@ -140,6 +151,15 @@ PEAA2240 = MaterialSpec(name="peaa2240", force_field="opls", allatom=True, n_cha
 PEAA4096 = MaterialSpec(name="peaa4096", force_field="opls", allatom=True, n_chains=128,
                         chain_length=10, pe_density=0.68, opls_lj_cutoff=12.0,
                         opls_coul_cutoff=9.0, use_ewald=True, kspace_every=10, kspace="pme")
+
+# The ReaxFF box of the JAX package's bench.py bench_hmm_reax / bench_md_reax:
+# 16 C3H8 chains of all-atom PE at 0.30 g/cm^3, 176 atoms in a 15.75 A box
+# (the 10 A taper radius exceeds half the box, so unvalidated, as there);
+# the caller adds reax_ffield
+REAXPE = MaterialSpec(name="reaxpe", force_field="reax", n_chains=16, chain_length=3,
+                      pe_density=0.30, validate=False)
+# the dense bond-order field's box cap (material.py:730-734)
+REAX_DENSE_MAX_ATOMS = 2048
 
 # The TPU kernel's all-pairs admission budget (material.py:391-393): the
 # dense parameter and image planes must fit 81 MiB
@@ -294,10 +314,11 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
         return _build_sw(spec, dtype, device)
     if spec.force_field == "lj":
         return _build_lj(spec, dtype, device)
+    if spec.force_field == "reax":
+        return _build_reax(spec, dtype, device)
     if spec.force_field != "opls":
-        raise NotImplementedError(
-            f"material {spec.name!r}: force field {spec.force_field!r} is not ported "
-            "(sw, lj and opls are; reax is ROADMAP queue 1 item 9)")
+        raise NotImplementedError(f"material {spec.name!r}: force field {spec.force_field!r} "
+                                  "is not implemented")
     if spec.data_file:
         data = data_io.read_data(spec.data_file)
     elif spec.allatom:
@@ -377,6 +398,52 @@ def _build_lj(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
                       rebuild_every=spec.rebuild_every, route=_route(fused, route)), st
 
 
+def _build_reax(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
+    """The reax branch of material._build_system (material.py:714-770):
+    ``pair_style reax/c`` + ``fix qeq/reax`` (lammps_scripts_reax/
+    in.set.lammps:13-15) on the unfused engine, route "unfused: reax".
+    The structure comes from a LAMMPS data file or the all-atom PE melt,
+    element identity from the masses; the list field reads the engine's
+    neighbor list, whose width covers every pair within the taper radius
+    plus a 1 A skin (at most N - 1); ``validate`` checks the taper radius
+    against half the smallest box height (the dense field needs no list,
+    so no other check applies).  The dense field holds at most 2048
+    atoms; a missing ffield path is an error."""
+    from . import data_io
+    from .forcefields.reax import build_reax
+
+    if spec.data_file:
+        data = data_io.read_data(spec.data_file)
+    else:
+        data = data_io.build_pe_melt_allatom(spec.n_chains, spec.chain_length,
+                                             density=spec.pe_density)
+    n = len(data.pos)
+    if spec.reax_impl == "dense" and n > REAX_DENSE_MAX_ATOMS:
+        raise ValueError(
+            f"reax box has {n} atoms; the dense bond-order field is sized for the HMM "
+            f"per-qp regime (<= {REAX_DENSE_MAX_ATOMS}) — use the default reax_impl='list'")
+    if not spec.reax_ffield:
+        raise ValueError("force_field='reax' needs reax_ffield (path to a ffield.reax "
+                         "parameter file)")
+    masses_np = data.masses[data.types]
+    ff = build_reax(spec.reax_ffield, list(spec.reax_elements), masses_np, dtype=dtype,
+                    device=device, top_k=spec.reax_top_k, qeq=spec.qeq, impl=spec.reax_impl)
+    box = np.asarray(data.box, dtype=float)
+    k_need = NB.required_k(n, box, ff.cutoff + 1.0)
+    nspec = NB.derive_spec(n, box, cutoff=ff.cutoff, skin=1.0, k_max=min(k_need, max(n - 1, 1)))
+    if spec.validate:
+        hmin = float(np.min(np.abs(np.diag(box))))
+        if ff.cutoff > 0.5 * hmin:
+            raise ValueError(
+                f"material {spec.name!r}: reax taper cutoff {ff.cutoff:.1f} A violates the "
+                f"minimum-image bound (box min height {hmin:.2f} A)")
+    st = E.init_state(torch.as_tensor(data.pos, dtype=dtype, device=device),
+                      torch.as_tensor(data.box, dtype=dtype, device=device))
+    return E.MDSystem(ff=ff, masses=torch.as_tensor(masses_np, dtype=dtype, device=device),
+                      units=REAL, nspec=nspec, rebuild_every=spec.rebuild_every,
+                      route="unfused: reax"), st
+
+
 def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]:
     """The SW branch of material._build_system (material.py:626-649,
     :776-808): a diamond lattice of ``n_cells`` (or ``n_cells_xyz``) cells
@@ -438,8 +505,11 @@ def equilibrate(sys: E.MDSystem, state: E.MDState, params: MDParams,
                 equil_steps: int = 200, velocities: torch.Tensor | None = None) -> E.MDState:
     """Minimize then thermalize (the quick in.init.lammps prep): FIRE, then
     Maxwell-Boltzmann velocities at T and NVT at T; the box stays at the
-    build volume.  ``velocities`` replaces the Maxwell draw."""
-    state = E.minimize_fire(sys, state, n_steps=minimize_steps, dt0=0.5)
+    build volume.  FIRE starts from the force field's ``fire_dt0`` (ReaxFF's
+    0.05 fs), else 0.5 fs (material.py:853-856).  ``velocities`` replaces
+    the Maxwell draw."""
+    state = E.minimize_fire(sys, state, n_steps=minimize_steps,
+                            dt0=getattr(sys.ff, "fire_dt0", 0.5))
     if velocities is None:
         velocities = E.maxwell_velocities(sys, max(params.temperature, 1e-6), generator,
                                           dtype=state.pos.dtype, device=state.pos.device)
@@ -460,9 +530,11 @@ def equilibrate_staged(sys: E.MDSystem, state: E.MDState, params: MDParams,
     factor.  ``velocities`` replaces the Maxwell draw.  On a fused box
     FIRE and the NPT steps take the kernel's force + virial entry and the
     NVT stage its run; a constrained box (the charged all-atom PE) gets
-    SHAKE/RATTLE inside K3's run and on the host in the NPT loop."""
+    SHAKE/RATTLE inside K3's run and on the host in the NPT loop.  FIRE
+    starts from the force field's ``fire_dt0``, as in :func:`equilibrate`."""
     T, dt = params.temperature, params.dt
-    state = E.minimize_fire(sys, state, n_steps=minimize_steps, dt0=0.5)
+    state = E.minimize_fire(sys, state, n_steps=minimize_steps,
+                            dt0=getattr(sys.ff, "fire_dt0", 0.5))
     if velocities is None:
         velocities = E.maxwell_velocities(sys, 200.0, generator, dtype=state.pos.dtype,
                                           device=state.pos.device)

@@ -7,6 +7,7 @@
     python -m scema_tpu_torch.profile_slice --sw [--steps 8] [--repeats 10]
     python -m scema_tpu_torch.profile_slice --sw-bricks [--steps 8] [--repeats 10]
     python -m scema_tpu_torch.profile_slice --sw-list [--steps 2] [--repeats 2]
+    python -m scema_tpu_torch.profile_slice --reax FFIELD [--steps 2] [--repeats 2]
 
 Builds the MD-coupled ``HMMConfig()`` dogbone on one CUDA card exactly as
 ``cli run <{}> --quick-prep`` does (FE and MD in float32, g0 boxes) — or,
@@ -18,8 +19,12 @@ or, with ``--sw``, the config with ``"force field": "sw"`` (the 216-atom
 diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) or,
 with ``--sw-bricks`` / ``--sw-list``, the SW box above K5's gate (8^3
 cells, 4096 atoms, at most 128 MD jobs per step) on the unfused engine with
-the brick kernels K6c/K6d or on the list route (autograd of ``SW.energy``)
-— times the setup (with ``--staged`` the reference's heatup/cooldown NPT
+the brick kernels K6c/K6d or on the list route (autograd of ``SW.energy``),
+or, with ``--reax FFIELD``, the ReaxFF slice (``material.REAXPE``: 176
+atoms of all-atom PE on the list bond-order field with QEq, the given
+ffield.reax file, at most 32 MD jobs per step, 300 K, 0.25 fs MD steps,
+``equil_steps=20``, ``minimize_steps=60``; the JAX package's
+bench_hmm_reax) — times the setup (with ``--staged`` the reference's heatup/cooldown NPT
 prep, ``equilibrate_staged`` at ns_init 100, in place of the quick prep;
 then 20 MTK NPT steps from the prepared replica run once more under
 ``torch.profiler`` and the script prints their time per step, launches and
@@ -29,7 +34,7 @@ then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
 ``torch.profiler``: the script prints the kernels by device time, the share
 of the step's wall time in which the device was idle, and the peak device
-memory.  On the charged slices the k-space remainder and (K4) the neighbor
+memory, and the device launches of that step.  On the charged slices the k-space remainder and (K4) the neighbor
 list rebuilds are timed by CUDA events around each call, and on the SW
 list route the list rebuilds, so the profiled step's device time splits
 into the MD kernels, the rebuilds, PME and the rest.  The last line is one JSON object with these numbers.
@@ -111,6 +116,8 @@ def main(argv=None) -> int:
                     help="the 4096-atom SW slice on the brick kernels (K6c/K6d)")
     ap.add_argument("--sw-list", action="store_true",
                     help="the 4096-atom SW slice on the list route (autograd SW.energy)")
+    ap.add_argument("--reax", default="", metavar="FFIELD",
+                    help="the ReaxFF slice (REAXPE boxes, 176 atoms) on this ffield.reax file")
     ap.add_argument("--staged", action="store_true",
                     help="the staged heatup/cooldown NPT prep (ns_init 100) in place of "
                          "the quick prep, and a profile of its NPT loop")
@@ -134,7 +141,15 @@ def main(argv=None) -> int:
 
     cfg = HMMConfig().replace(dtype="float32")
     t0 = time.perf_counter()
-    if args.charged or args.bigbox or args.sw_bricks or args.sw_list:
+    if args.reax:
+        from .md.material import REAXPE
+
+        cfg = cfg.replace(md_dtype="float32",
+                          md=dataclasses.replace(cfg.md, timestep_length=0.25, force_field="reax"),
+                          resources=dataclasses.replace(cfg.resources, max_md_jobs=32))
+        hmm = build_md_hmm(cfg, spec=dataclasses.replace(REAXPE, reax_ffield=args.reax),
+                           equil_steps=20, minimize_steps=60, staged=args.staged, device=dev)
+    elif args.charged or args.bigbox or args.sw_bricks or args.sw_list:
         from .md.material import PEAA, PEAA2240, MaterialSpec
 
         cfg = cfg.replace(md_dtype="float32", resources=dataclasses.replace(
@@ -256,7 +271,8 @@ def main(argv=None) -> int:
                       "repeat_s": rep, "repeat_md_jobs": rep_jobs, "profiled_step_s": w,
                       "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
                       "span_ms": span_ms, "span_device_ms": span_dev, "idle_share": idle,
-                      "peak_mem_mib": peak, "staged": args.staged, "npt_loop": npt}))
+                      "peak_mem_mib": peak, "device_launches": len(events),
+                      "staged": args.staged, "npt_loop": npt}))
     return 0
 
 

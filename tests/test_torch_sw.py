@@ -228,7 +228,8 @@ def test_sw_file_and_interop_match_jax(tmp_path):
 
 def test_config_selects_sw():
     """The JAX CLI's selection: "force field": "sw", or a sisw scripts
-    directory, gives the 216-atom SW box on K5; reax still raises."""
+    directory, gives the 216-atom SW box on K5; "reax" without a reax
+    scripts directory finds no ffield, as the JAX package's does."""
     cfg = config_from_dict({"molecular dynamics parameters": {"force field": "sw"}})
     assert cfg.md.force_field == "sw"
     assert config_from_dict({"molecular dynamics parameters": {
@@ -241,6 +242,6 @@ def test_config_selects_sw():
                         stiff=np.eye(6) * 1e10, density=2329.0)] * n_repl
     hmm = t_build_md_hmm(cfg, device="cpu", prepared=[(st_r, data)])
     assert hmm.backend.sys.fused.spec.kernel == "K5" and hmm.backend.sys.n_atoms == 216
-    with pytest.raises(NotImplementedError, match="ReaxFF"):
+    with pytest.raises(FileNotFoundError, match="no ffield.reax"):
         t_build_md_hmm(cfg.replace(md=dataclasses.replace(cfg.md, force_field="reax")),
                        device="cpu")

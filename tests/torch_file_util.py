@@ -20,7 +20,12 @@
 * :func:`write_ct_msh` — a GMSH v2 ASCII hex mesh of a compact-tension
   half specimen (the geometry ``problem_types.make_compact_tension``
   loads: W = 2 calculi_B, a pin hole of diameter 0.25 W about (W, 0.275 W),
-  y >= 0) with nodes on the hole's upper half ring, on y = 0 and on z = 0.
+  y >= 0) with nodes on the hole's upper half ring, on y = 0 and on z = 0;
+* :func:`write_ffield` — a synthetic H/C/N/O ReaxFF parameter file in the
+  published CHO layout (not ffield.reax.2, whose parameters the repository
+  does not hold): both packages' ``parse_ffield`` read it, and its
+  numbers give finite, stable dynamics of the all-atom PE melt, not
+  chemistry.
 
 Neither package has these writers; they exist only to make test inputs.
 """
@@ -270,3 +275,109 @@ def write_ct_msh(path, calculi_b: float, n_layers: int = 2, thickness: float | N
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return len(quads) * n_layers
+
+
+# the synthetic parameter file of write_ffield: 39 general parameters, C, H,
+# O and N atom blocks, six bonds (none with N), one off-diagonal row, six
+# angles, four torsions, one hydrogen bond
+SYNTHETIC_FFIELD = """\
+Synthetic C/H/O/N ReaxFF parameters (published CHO form; not ffield.reax.2)
+ 39       ! Number of general parameters
+   50.0000 !Overcoordination parameter
+    9.5469 !Overcoordination parameter
+   26.5405 !Valency angle conjugation parameter
+    1.7224 !Triple bond stabilisation parameter
+    6.8702 !Triple bond stabilisation parameter
+    0.0000 !C2-correction
+    1.0588 !Undercoordination parameter
+    4.6000 !Triple bond stabilisation parameter
+   12.1176 !Undercoordination parameter
+   13.3056 !Undercoordination parameter
+    0.0000 !Triple bond stabilization energy
+    0.0000 !Lower Taper-radius
+   10.0000 !Upper Taper-radius
+    2.8793 !Not used
+   33.8667 !Valency undercoordination
+    6.0891 !Valency angle/lone pair parameter
+    1.0563 !Valency angle
+    2.0384 !Valency angle parameter
+    6.1431 !Not used
+    6.9290 !Double bond/angle parameter
+    0.3989 !Double bond/angle parameter: overcoord
+    3.9954 !Double bond/angle parameter: overcoord
+   -2.4837 !Not used
+    5.7796 !Torsion/BO parameter
+   10.0000 !Torsion overcoordination
+    1.9487 !Torsion overcoordination
+   -1.2327 !Conjugation 0 (not used)
+    2.1645 !Conjugation
+    1.5591 !vdWaals shielding
+    0.1000 !Cutoff for bond order (*100)
+    2.1365 !Valency angle conjugation parameter
+    0.6991 !Overcoordination parameter
+   50.0000 !Overcoordination parameter
+    1.8512 !Valency/lone pair parameter
+    0.5000 !Not used
+   20.0000 !Not used
+    5.0000 !Molecular energy (not used)
+    0.0000 !Molecular energy (not used)
+    2.6962 !Valency angle conjugation parameter
+  4    ! Nr of atoms; cov.r; valency;a.m;Rvdw;Evdw;gammaEEM;cov.r2;#
+            alfa;gammavdW;valency;Eunder;Eover;chiEEM;etaEEM;n.u.
+            cov r3;Elp;Heat inc.;n.u.;n.u.;n.u.;n.u.
+            ov/un;val1;n.u.;val3,vval4
+ C    1.3817   4.0000  12.0000   1.8903   0.1838   0.9000   1.1341   4.0000
+      9.7559   2.1346   4.0000  34.9350  79.5548   5.9666   7.0000   0.0000
+      1.2114   0.0000 202.5551   8.9539  34.9289  13.5366   0.8563   0.0000
+     -2.8983   2.5000   1.0564   4.0000   2.9663   0.0000   0.0000   0.0000
+ H    0.8930   1.0000   1.0080   1.3550   0.0930   0.8203  -0.1000   1.0000
+      8.2230  33.2894   1.0000   0.0000 121.1250   3.7248   9.6093   1.0000
+     -0.1000   0.0000  61.6606   3.0408   2.4197   0.0003   1.0698   0.0000
+    -19.4571   4.2733   1.0338   1.0000   2.8793   0.0000   0.0000   0.0000
+ O    1.2450   2.0000  15.9990   2.3890   0.1000   1.0898   1.0548   6.0000
+      9.7300  13.8449   4.0000  37.5000 116.0768   8.5000   8.3122   2.0000
+      0.9049   0.4056  59.0626   3.5027   0.7640   0.0021   0.9745   0.0000
+     -3.5500   2.9000   1.0493   4.0000   2.9225   0.0000   0.0000   0.0000
+ N    1.2333   3.0000  14.0000   1.9324   0.1376   0.8596   1.1748   5.0000
+     10.0667   7.8431   4.0000  32.2482 100.0000   6.7529   6.4292   2.0000
+      1.0433  13.7673 119.9837   2.1961   3.0696   2.7683   0.9745   0.0000
+     -4.3875   2.6192   1.0183   4.0000   2.8793   0.0000   0.0000   0.0000
+  6      ! Nr of bonds; Edis1;LPpen;n.u.;pbe1;pbo5;13corr;pbo6
+                         pbe2;pbo3;pbo4;n.u.;pbo1;pbo2;ovcorr
+  1  1 158.2004  99.1897  78.0000  -0.7738  -0.4550   1.0000  37.6117   0.4147
+         0.4590  -0.1000   9.1628   1.0000  -0.0777   6.7268   1.0000   0.0000
+  1  2 169.4760   0.0000   0.0000  -0.6083   0.0000   1.0000   6.0000   0.7652
+         5.2290   1.0000   0.0000   1.0000  -0.0500   6.9136   0.0000   0.0000
+  2  2 153.3934   0.0000   0.0000  -0.4600   0.0000   1.0000   6.0000   0.7300
+         6.2500   1.0000   0.0000   1.0000  -0.0790   6.0552   0.0000   0.0000
+  3  3 142.2858 145.0000  50.8293   0.2506  -0.1000   1.0000  29.7503   0.6051
+         0.3451  -0.1055   9.0000   1.0000  -0.1225   5.5000   1.0000   0.0000
+  2  3 160.0000   0.0000   0.0000  -0.5725   0.0000   1.0000   6.0000   0.5626
+         1.1150   1.0000   0.0000   0.0000  -0.0920   4.2790   0.0000   0.0000
+  1  3 164.4303  82.6772  60.8077  -0.3739  -0.2351   1.0000  10.5036   1.0000
+         0.4475  -0.2288   7.0250   1.0000  -0.1363   4.8734   0.0000   0.0000
+  1      ! Nr of off-diagonal terms; Ediss;Ro;gamma;rsigma;rpi;rpi2
+  1  2   0.1239   1.4004   9.8467   1.1210  -1.0000  -1.0000
+  6      ! Nr of angles;at1;at2;at3;Thetao,o;ka;kb;pv1;pv2
+  1  1  1  59.0573  30.7029   0.7606   0.0000   0.7180   6.2933   1.1244
+  1  1  2  65.7758  14.5234   6.2481   0.0000   0.5665   0.0000   1.6255
+  2  1  2  70.2607  25.2202   3.7312   0.0000   0.0050   0.0000   2.7500
+  1  2  2   0.0000   0.0000   6.0000   0.0000   0.0000   0.0000   1.0400
+  2  3  2  85.8000   9.8453   2.2720   0.0000   2.8635   0.0000   1.5800
+  2  2  2   0.0000  27.9213   5.8635   0.0000   0.0000   0.0000   1.0400
+  4      ! Nr of torsions;at1;at2;at3;at4;;V1;V2;V3;V2(BO);vconj;n.u;n
+  1  1  1  1  -0.2500  34.7453   0.0288  -6.3507  -1.6000   0.0000   0.0000
+  1  1  1  2  -0.2500  29.2131   0.2945  -4.9581  -2.1802   0.0000   0.0000
+  2  1  1  2  -0.2500  31.2081   0.4539  -4.8923  -2.2677   0.0000   0.0000
+  0  1  2  0   0.0000   0.0000   0.0000   0.0000   0.0000   0.0000   0.0000
+  1      ! Nr of hydrogen bonds;at1;at2;at3;Rhb;Dehb;vhb1
+  3  2  3   2.1200  -3.5800   1.4500  19.5000
+"""
+
+
+def write_ffield(path) -> None:
+    """Write the synthetic H/C/N/O ReaxFF parameter file to ``path`` (a
+    ``ffield.reax*`` name lets ``config.reax_ffield_path`` find it in a
+    ``lammps_scripts_reax`` directory)."""
+    with open(path, "w") as f:
+        f.write(SYNTHETIC_FFIELD)
