@@ -261,7 +261,37 @@ failure exits non-zero before the result line:
    probe measures on the synthetic field, whose eigenvalues are printed),
    finite displacements and stresses, K2 alone launched; one force + virial call
    of the prepared box on the card against the CPU in float64 (1e-4
-   relative), timed; each MD state's charges summing to 0 (1e-5 e).
+   relative), timed; each MD state's charges summing to 0 (1e-5 e);
+29. the multi-rank paths (``scema_tpu_torch.parallel``, ``fem.sharded``),
+   each run (a) in this process as world 1 on NCCL (``cuda:0``) and (b) in
+   two spawned processes as world 2 on gloo, both ranks on ``cuda:0`` (NCCL
+   refuses two ranks on one card; the kernels are built before the spawn),
+   against the unsharded run in this process, with deterministic
+   algorithms on: first each collective the port hands gloo on a CUDA
+   tensor, called directly and checked; then ``build_hooke_hmm(HMMConfig(),
+   device_mesh=)`` (576 qps, float32, 3 macro-steps), the same dogbone's
+   FE state node- and qp-sharded through ``make_sharded_step`` (3 steps;
+   each rank's state bytes against the unsharded state's), the SW slice
+   of phase 12 with its job batch over the ranks (``build_md_hmm(...,
+   device_mesh=)``, 216-atom boxes on K5, 4 macro-steps, the last at up to
+   all 576 qps' jobs (half on each world-2 rank);
+   rank 0 prepares the replica and broadcasts it, and the other runs start
+   from it), and the 4096-atom Si box on the list route with
+   ``spatial_shards`` 1 (world 1) or 2 (world 2): its first force +
+   virial call, then 4 jobs x 20 strain steps and 10 sampling steps.
+   World 1 must equal the unsharded runs bit for bit; world 2 holds the
+   stresses within 1e-6 (Hooke, SW), u and stress within 1e-5 (FE), the
+   first forces and virial within 1e-5, and the pressures within 2x the
+   unsharded float32 route's distance from its float64 run (at least
+   1e-6), both ranks holding the same results; the world-2 Hooke run
+   again with deterministic algorithms off, rank 0's stress within 1e-6
+   and its job counts equal (each rank's FE sums round in their own order;
+   rank 0's job list is broadcast); job counts equal, the displacement
+   milestone, K2 launched on each rank's Hooke and FE steps, K5's run and
+   K2 on each rank's SW steps, no other kernel; the launch counters read
+   inside each rank, each path's zeroed just before it and read just after;
+   the times per macro-step (MD step for the spatial box) and of the setup
+   at each world size.
 
 The second-to-last line is a JSON object with one entry per kernel (K1,
 K1's first design (0) and K2 launches counted on the g0 slice, K3's and
@@ -270,7 +300,8 @@ its first design's (0) on the charged slice, K4's and its first design's
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
 17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
 on the 4096-atom slice; K2's first design's (0) on the g0 slice; the
-K1, K2 and K5 rows add the launches of phases 23-25's, 27's and 28's paths;
+K1, K2 and K5 rows add the launches of phases 23-25's, 27's and 28's paths,
+and the K2 and K5 rows phase 29's, world 1's and both world-2 ranks';
 bounds from this run's shapes and the card's published peaks); the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -283,6 +314,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4288,6 +4320,441 @@ def phase_reax_slice(dev):
     return launches
 
 
+# Phase 29: the multi-rank paths.  Each runs (a) in this process as world 1
+# on NCCL and (b) in two spawned processes as world 2 on gloo, both ranks
+# on cuda:0 (NCCL refuses two ranks on one card).  Depth: 3 Hooke and FE
+# steps; 4 SW macro-steps, so that the last runs up to all 576 qps' jobs
+# (half on each world-2 rank); 20 + 10 spatial MD steps.
+MR_FE_STEPS, MR_MD_STEPS = 3, 4
+MR_SPATIAL_CELLS, MR_SPATIAL_JOBS, MR_STRAIN, MR_SAMPLE = 8, 4, 20, 10
+# tolerances at world 2 (relative to the largest entry of the unsharded run)
+MR_TOL = {"hooke": 1e-6, "fe": 1e-5, "md": 1e-6, "spatial_fv": 1e-5}
+# the world-2 spatial pressures' distance from the float64 run, at most
+# MR_PRESS_X times the unsharded float32 route's (both read 8.2e-6 on an
+# H100 80GB HBM3 at 700 W), floored for a float32 route that lands on it
+MR_PRESS_X, MR_PRESS_FLOOR = 2.0, 1e-6
+
+
+def _mr_collectives(dev, world, rank):
+    """Each collective the port's helper hands a CUDA tensor under gloo,
+    called directly on a small float32 CUDA tensor: {name: right}."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device=dev) + rank
+    ok = {}
+    y = x.clone()
+    dist.all_reduce(y)
+    ok["all_reduce"] = y.tolist() == [2.0 * i + 1.0 for i in range(4)]
+    y = x.clone()
+    dist.broadcast(y, 0)
+    ok["broadcast"] = y.tolist() == [0.0, 1.0, 2.0, 3.0]
+    y = torch.empty(4 * world, dtype=x.dtype, device=dev)
+    dist.all_gather_into_tensor(y, x)
+    ok["all_gather_into_tensor"] = y.tolist() == [0.0, 1.0, 2.0, 3.0, 1.0, 2.0, 3.0, 4.0]
+    y = torch.empty(4 // world, dtype=x.dtype, device=dev)
+    dist.reduce_scatter_tensor(y, x)
+    ok["reduce_scatter_tensor"] = y.tolist() == [[1.0, 3.0], [5.0, 7.0]][rank]
+    torch.cuda.synchronize()
+    return ok
+
+
+def _mr_cfg(sw: bool):
+    from scema_tpu_torch.config import HMMConfig
+
+    cfg = HMMConfig().replace(dtype="float32", md_dtype="float32")
+    if sw:
+        cfg = cfg.replace(md=dataclasses.replace(cfg.md, force_field="sw"))
+    return cfg
+
+
+def _mr_counts():
+    counters = _all_counters()
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def _mr_zero():
+    for fn, attr in _all_counters().values():
+        setattr(fn, attr, 0)
+
+
+def _mr_steps(step, state, n):
+    import torch
+
+    times, jobs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, out = step(state)
+        torch.cuda.synchronize()
+        times.append(round(time.perf_counter() - t0, 4))
+        jobs.append(int(out.n_jobs))
+        if not (torch.isfinite(out.residual0) and torch.isfinite(out.residual1)):
+            fail("[29 multi-rank] a macro-step gave non-finite residuals")
+    return state, times, jobs
+
+
+def _mr_np(x):
+    return x.detach().double().cpu().numpy()
+
+
+def _mr_paths(dev, mesh, spatial_k, inputs, prepared=None):
+    """The four multi-rank paths on this rank (``mesh`` None: unsharded,
+    spatial_shards 0), each with the launch counters zeroed just before and
+    read just after: results as numpy, times and launches."""
+    import torch
+
+    from scema_tpu_torch.fem import sharded as SH
+    from scema_tpu_torch.hmm.md_coupling import build_md_hmm
+    from scema_tpu_torch.hmm.problem import build_hooke_hmm
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+
+    out = {"hooke": _mr_hooke(dev, mesh)}
+    # the node- and qp-sharded FE state
+    _mr_zero()
+    t0 = time.perf_counter()
+    hmm = build_hooke_hmm(_mr_cfg(False), device=dev)
+    if mesh is None:
+        step, s = hmm.step, hmm.init_state()
+        own = full = None
+    else:
+        step = SH.make_sharded_step(hmm, mesh)
+        full = SH.fe_state_bytes(hmm.init_state())
+        s = SH.shard_fe_state(hmm.init_state(), mesh)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    s, times, jobs = _mr_steps(step, s, MR_FE_STEPS)
+    if mesh is not None:
+        own = SH.fe_state_bytes(s)
+        s = SH.gather_fe_state(s, mesh, hmm)
+    out["fe"] = dict(stress=_mr_np(s.qp.new_stress), u=_mr_np(s.u), times=times, jobs=jobs,
+                     setup=setup, own_bytes=own, full_bytes=full, launches=_mr_counts())
+    # the job-sharded SW coupled step on K5 (rank 0 prepares and broadcasts
+    # where no prepared replica is given)
+    _mr_zero()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hmm = build_md_hmm(_mr_cfg(True), device=dev, device_mesh=mesh, prepared=prepared)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    carry, times, jobs = _mr_steps(hmm.step, hmm.init_state(), MR_MD_STEPS)
+    be = hmm.backend
+    out["md"] = dict(stress=_mr_np(carry[0].qp.new_stress), umax=float(carry[0].u.abs().max()),
+                     times=times, jobs=jobs, setup=setup, kernel=be.sys.route,
+                     launches=_mr_counts(),
+                     init={f: _mr_np(getattr(be.initial_md_state, f))
+                           for f in ("pos", "vel", "h", "vxi")},
+                     rows=[dict(length=_mr_np(be.ensemble.init_length[0, r]),
+                                stress=_mr_np(be.ensemble.init_stress[0, r]),
+                                stiff=_mr_np(be.ensemble.init_stiff[0, r]),
+                                density=float(be.ensemble.rho[0, r]))
+                           for r in range(be.n_repl)])
+    # one 4096-atom SW box's force calls over x-slabs (the list route)
+    _mr_zero()
+    out["spatial"] = _mr_spatial(dev, spatial_k, inputs, torch.float32)
+    out["spatial"]["launches"] = _mr_counts()
+    return out
+
+
+def _mr_hooke(dev, mesh):
+    """The Hooke dogbone with the qp update over the ranks' blocks
+    (shard_md_update), launch counters zeroed just before and read just
+    after."""
+    from scema_tpu_torch.hmm.problem import build_hooke_hmm
+
+    _mr_zero()
+    t0 = time.perf_counter()
+    hmm = build_hooke_hmm(_mr_cfg(False), device=dev, device_mesh=mesh)
+    setup = time.perf_counter() - t0
+    s, times, jobs = _mr_steps(hmm.step, hmm.init_state(), MR_FE_STEPS)
+    return dict(stress=_mr_np(s.qp.new_stress), times=times, jobs=jobs, setup=setup,
+                launches=_mr_counts())
+
+
+def _mr_spatial(dev, spatial_k, inputs, dtype):
+    """The 4096-atom box's first force + virial call, then a 20-step strain
+    run and a 10-step sampling run of its 4 jobs, with ``spatial_k`` slabs
+    (0: the unsharded list route)."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    spec = M.MaterialSpec(name="si", n_cells=MR_SPATIAL_CELLS, spatial_shards=spatial_k)
+    t0 = time.perf_counter()
+    sys_, _ = M.build_system(spec, dtype=dtype, device=dev)
+    setup = time.perf_counter() - t0
+    pos, h = t(inputs["pos"]), t(inputs["h"])
+    t0 = time.perf_counter()
+    F, W = E.forces_virial(sys_, pos, h)
+    torch.cuda.synchronize()
+    fv_s = time.perf_counter() - t0
+    st = E.MDState(pos=pos, vel=t(inputs["vel"]), h=h,
+                   vxi=torch.zeros((MR_SPATIAL_JOBS, 3), dtype=dtype, device=dev))
+    t0 = time.perf_counter()
+    st = E.run_strain(sys_, st, t(inputs["eps"]), MR_STRAIN, T_MD, 1.0)
+    st, press = E.sample_stress(sys_, st, MR_SAMPLE, T_MD, 1.0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if not (torch.isfinite(st.pos).all() and torch.isfinite(press).all()):
+        fail(f"[29 spatial] non-finite state or pressure ({sys_.route})")
+    return dict(F=_mr_np(F), W=_mr_np(W), press=_mr_np(press), pos=_mr_np(st.pos),
+                route=sys_.route, setup=setup, fv_s=fv_s,
+                step_s=run_s / (MR_STRAIN + MR_SAMPLE))
+
+
+def _mr_prepared(md, dev):
+    """A rank's prepared SW replica as build_md_hmm's ``prepared``."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+
+    st = E.MDState(*(torch.as_tensor(md["init"][f], dtype=torch.float32, device=dev)
+                     for f in ("pos", "vel", "h", "vxi")))
+    return [(st, [M.InitData(**r) for r in md["rows"]])]
+
+
+def _mr_check(w1, w2, ref, ref64):
+    """Phase 29's rules: world 1 bit for bit the unsharded run, world 2
+    within MR_TOL, both world-2 ranks holding the same results, rank 0's
+    Hooke stresses within MR_TOL with deterministic algorithms off too,
+    the spatial pressures within MR_PRESS_X times the float32 route's
+    distance from float64 (at least MR_PRESS_FLOOR), job counts equal,
+    each rank's kernels launched."""
+    import numpy as np
+
+    keys = {"hooke": ("stress",), "fe": ("stress", "u"), "md": ("stress",),
+            "spatial": ("F", "W", "press", "pos")}
+    for name, fields in keys.items():
+        for f in fields:
+            a, r = w1[name][f], ref[name][f]
+            if not np.array_equal(a, r):
+                fail(f"[29 {name}] world 1 (NCCL) {f} differs from the unsharded run: "
+                     f"{_mr_err(a, r):.3e} relative (expected bit for bit)")
+            if not np.array_equal(w2[0][name][f], w2[1][name][f]):
+                fail(f"[29 {name}] the two world-2 ranks hold different {f}")
+        if name != "spatial":
+            if not w1[name]["jobs"] == w2[0][name]["jobs"] == w2[1][name]["jobs"] \
+                    == ref[name]["jobs"]:
+                fail(f"[29 {name}] md jobs {ref[name]['jobs']} unsharded, {w1[name]['jobs']} "
+                     f"world 1, {w2[0][name]['jobs']} world 2")
+    errs = {}
+    for name, f in (("hooke", "stress"), ("fe", "stress"), ("fe", "u"), ("md", "stress")):
+        errs[f"{name} {f}"] = e = _mr_err(w2[0][name][f], ref[name][f])
+        if e > MR_TOL[name]:
+            fail(f"[29 {name}] world 2 {f} {e:.3e} from the unsharded run (tol {MR_TOL[name]})")
+    for f in ("F", "W"):
+        errs[f"spatial {f}"] = e = _mr_err(w2[0]["spatial"][f], ref["spatial"][f])
+        if e > MR_TOL["spatial_fv"]:
+            fail(f"[29 spatial] world 2 first-call {f} {e:.3e} from the unsharded list route "
+                 f"(tol {MR_TOL['spatial_fv']})")
+    # world 2 with deterministic algorithms off: each rank's FE sums round
+    # in their own atomic order; rank 0's job list is every rank's, so rank
+    # 0's stresses must still hold
+    nd = [w2[r]["hooke_nondet"] for r in (0, 1)]
+    errs["hooke stress, nondeterministic (rank 0 / rank 1)"] = tuple(
+        _mr_err(x["stress"], ref["hooke"]["stress"]) for x in nd)
+    if errs["hooke stress, nondeterministic (rank 0 / rank 1)"][0] > MR_TOL["hooke"]:
+        fail(f"[29 hooke] world 2 rank 0 with deterministic algorithms off: stress "
+             f"{errs['hooke stress, nondeterministic (rank 0 / rank 1)'][0]:.3e} from the "
+             f"unsharded run (tol {MR_TOL['hooke']})")
+    if nd[0]["jobs"] != ref["hooke"]["jobs"]:
+        fail(f"[29 hooke] world 2 rank 0 with deterministic algorithms off: md jobs "
+             f"{nd[0]['jobs']}, unsharded {ref['hooke']['jobs']}")
+    p32 = _mr_err(ref["spatial"]["press"], ref64["press"])
+    p2 = _mr_err(w2[0]["spatial"]["press"], ref64["press"])
+    errs["spatial pressure vs float64 (unsharded float32 / world 2)"] = (p32, p2)
+    if p2 > max(MR_PRESS_X * p32, MR_PRESS_FLOOR):
+        fail(f"[29 spatial] world-2 pressures {p2:.3e} from float64, the unsharded float32 "
+             f"route {p32:.3e}: beyond max({MR_PRESS_X} x, {MR_PRESS_FLOOR})")
+    fe = w2[0]["fe"]
+    if fe["own_bytes"] + w2[1]["fe"]["own_bytes"] != fe["full_bytes"]:
+        fail(f"[29 fe] world-2 ranks hold {fe['own_bytes']} + {w2[1]['fe']['own_bytes']} bytes "
+             f"of a {fe['full_bytes']}-byte state")
+    expect = MR_MD_STEPS * 0.002 * 0.08
+    for res, who in ((w1, "world 1"), (w2[0], "world 2 rank 0"), (w2[1], "world 2 rank 1")):
+        if abs(res["md"]["umax"] - expect) > 1e-5 * expect:
+            fail(f"[29 md] {who}: max displacement {res['md']['umax']} != {expect}")
+        need = {"hooke": ("pairwise_l2",), "fe": ("pairwise_l2",),
+                "md": ("md_sw_run", "pairwise_l2"), "spatial": (),
+                "hooke_nondet": ("pairwise_l2",)}
+        for name, ks in need.items():
+            if name not in res:  # the nondeterministic Hooke run is world 2's
+                continue
+            got = res[name]["launches"]
+            for k in ks:
+                if got[k] <= 0:
+                    fail(f"[29 {name}] {who}: kernel {k} was not launched")
+            others = {k: v for k, v in got.items()
+                      if v and k not in ks and not (name == "md" and k == "md_sw_forces")}
+            if others:
+                fail(f"[29 {name}] {who}: kernels of other paths launched: {others}")
+    for r in (0, 1):
+        bad = [k for k, v in w2[r]["collectives"].items() if not v]
+        if bad:
+            fail(f"[29 multi-rank] rank {r}: gloo gave wrong results on CUDA tensors for {bad}")
+    print(f"[29 checks] world 1 (NCCL) bit for bit the unsharded runs (Hooke stress, FE u and "
+          f"stress, SW stress, spatial forces/virial/pressures/positions); world 2 (gloo) "
+          f"relative errors { {k: (f'{v:.3e}' if isinstance(v, float) else tuple(f'{x:.3e}' for x in v)) for k, v in errs.items()} }")
+
+
+def _mr_rank(rank, world, init, q, inputs):
+    """A world-2 gloo rank of phase 29 on cuda:0."""
+    import traceback
+
+    try:
+        sys.path.insert(0, HERE)
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        from scema_tpu_torch.parallel import mesh_utils as MU
+
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+        res = {"collectives": _mr_collectives(dev, world, rank)}
+        mesh = MU.make_mesh()
+        res.update(_mr_paths(dev, mesh, 2, inputs))
+        torch.use_deterministic_algorithms(False)
+        res["hooke_nondet"] = _mr_hooke(dev, mesh)
+        q.put((rank, "ok", res))
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the parent fails the phase on it
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def _mr_err(a, ref):
+    import numpy as np
+
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _mr_inputs():
+    """The spatial path's inputs: 4 jobs of the 4096-atom box, jiggled
+    0.05 A, Maxwell velocities at 300 K, one strain each (seeded)."""
+    import numpy as np
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.md import material as M
+
+    sys_, st = M.build_system(M.MaterialSpec(name="si", n_cells=MR_SPATIAL_CELLS),
+                              dtype=torch.float64, device="cpu")
+    gen = torch.Generator().manual_seed(29)
+    pos = st.pos.expand(MR_SPATIAL_JOBS, -1, -1) + 0.05 * torch.randn(
+        (MR_SPATIAL_JOBS,) + tuple(st.pos.shape), generator=gen, dtype=torch.float64)
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen) for _ in range(MR_SPATIAL_JOBS)])
+    eps = np.zeros((MR_SPATIAL_JOBS, 6))
+    eps[:, 2] = np.linspace(1e-3, 4e-3, MR_SPATIAL_JOBS)
+    eps[:, 3] = 5e-4
+    return dict(pos=pos.numpy(), h=st.h.expand(MR_SPATIAL_JOBS, 3, 3).numpy().copy(),
+                vel=vel.numpy(), eps=eps)
+
+
+def phase_multi_rank(dev, card):
+    """Phase 29 (module docstring)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scema_tpu_torch.parallel import mesh_utils as MU
+
+    t_phase = time.perf_counter()
+    inputs = {**_mr_inputs(), "dtype": torch.float32}
+    tmp = tempfile.mkdtemp(dir=HERE, prefix=".phase29-")
+    # (b) world 2 on gloo: the kernels are built (phase 2), so the ranks
+    # load the library and never compile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mr_rank, args=(r, 2, f"file://{tmp}/gloo2", q, inputs))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    w2, errors = {}, []
+    try:
+        for _ in procs:
+            rank, status, res = q.get(timeout=600)
+            if status != "ok":
+                errors.append(f"rank {rank}: {res}")
+                break
+            w2[rank] = res
+    except queue_mod.Empty:
+        errors.append(f"no rank answered within 600 s (exit codes {[p.exitcode for p in procs]})")
+    for p in procs:
+        p.join(60 if not errors else 1)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if errors or any(p.exitcode != 0 for p in procs):
+        fail(f"[29 multi-rank] world 2 (gloo): {' '.join(errors)} exit codes "
+             f"{[p.exitcode for p in procs]}")
+    w2_wall = time.perf_counter() - t0
+    # every later run starts from the replica rank 0 prepared and broadcast
+    for f in ("pos", "vel", "h", "vxi"):
+        if not np.array_equal(w2[0]["md"]["init"][f], w2[1]["md"]["init"][f]):
+            fail(f"[29 md] the world-2 ranks start from different replicas ({f})")
+    prepared = _mr_prepared(w2[0]["md"], dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # (a) world 1 on NCCL, in this process
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl1", world_size=1,
+                                rank=0, device_id=dev)
+        if dist.get_backend() != "nccl":
+            fail("[29 multi-rank] world 1 did not come up on NCCL")
+        w1 = _mr_paths(dev, MU.make_mesh(), 1, inputs, prepared)
+        dist.destroy_process_group()
+        w1_wall = time.perf_counter() - t0
+        # the unsharded paths (no group), and the spatial box in float64
+        ref = _mr_paths(dev, None, 0, inputs, prepared)
+        ref64 = _mr_spatial(dev, 0, inputs, torch.float64)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _mr_check(w1, w2, ref, ref64)
+    print(f"[29 multi-rank] collectives gloo takes on CUDA tensors (each rank): "
+          f"{[w2[r]['collectives'] for r in (0, 1)]}")
+    for name in ("hooke", "fe", "md"):
+        print(f"[29 {name}] s/macro-step unsharded {ref[name]['times']}  world 1 (NCCL) "
+              f"{w1[name]['times']}  world 2 (gloo) rank 0 {w2[0][name]['times']} rank 1 "
+              f"{w2[1][name]['times']}  md jobs {w2[0][name]['jobs']}  setup s unsharded "
+              f"{ref[name].get('setup', 0.0):.3f} w1 {w1[name].get('setup', 0.0):.3f} w2 "
+              f"{w2[0][name].get('setup', 0.0):.3f}/{w2[1][name].get('setup', 0.0):.3f}  "
+              f"({card})")
+    print(f"[29 hooke] world 2 with deterministic algorithms off: s/macro-step rank 0 "
+          f"{w2[0]['hooke_nondet']['times']} rank 1 {w2[1]['hooke_nondet']['times']}  md jobs "
+          f"{w2[0]['hooke_nondet']['jobs']} / {w2[1]['hooke_nondet']['jobs']}  ({card})")
+    print(f"[29 fe] persistent FE state bytes per rank: world 2 {w2[0]['fe']['own_bytes']} + "
+          f"{w2[1]['fe']['own_bytes']} against {w2[0]['fe']['full_bytes']} unsharded")
+    sp = {k: v["spatial"] for k, v in (("ref", ref), ("w1", w1), ("w2_0", w2[0]),
+                                        ("w2_1", w2[1]))}
+    print(f"[29 spatial] {sp['w2_0']['route']}: s/MD step unsharded "
+          f"{sp['ref']['step_s']:.4f} world 1 {sp['w1']['step_s']:.4f} world 2 "
+          f"{sp['w2_0']['step_s']:.4f}/{sp['w2_1']['step_s']:.4f}; first force + virial call "
+          f"s {sp['ref']['fv_s']:.3f} / {sp['w1']['fv_s']:.3f} / {sp['w2_0']['fv_s']:.3f}; "
+          f"setup s {sp['w2_0']['setup']:.3f}  ({card})")
+    launches = {}
+    for res in (w1, w2[0], w2[1]):
+        for name in ("hooke", "fe", "md", "spatial", "hooke_nondet"):
+            for k, v in res.get(name, {"launches": {}})["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"[29 multi-rank] launches (world 1 + both world-2 ranks) "
+          f"{ {k: v for k, v in launches.items() if v} }  world 2 wall {w2_wall:.1f}s, "
+          f"world 1 wall {w1_wall:.1f}s, phase wall {time.perf_counter() - t_phase:.1f}s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "scema_tpu_torch")):
         fail("scema_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -4333,6 +4800,9 @@ def main() -> int:
     phase_smem_route(dev)
     later.append(phase_surrogate(dev))  # the surrogate's path: K2 alone
     later.append(phase_reax_slice(dev))  # the ReaxFF slice: K2 alone
+    # the multi-rank paths: K2 on each rank's Hooke and FE steps, K5 and K2
+    # on each rank's block of the SW jobs
+    later.append(phase_multi_rank(dev, card))
     rows = [*k1_rows, k2, *k3_rows, *k4_rows, *k5_rows, *k1_first_design_rows, k2_first,
             *k3_first_rows, *k4_first_rows, *k5_first_rows]
     for row in rows:

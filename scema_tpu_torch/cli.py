@@ -18,7 +18,12 @@ field": "reax"``) selects ReaxFF with the directory's ``ffield.reax*`` on
 the unfused engine — and the clustering distance matrix through kernel
 K2.  ``--outdir`` writes the VTU/PVD/CSV outputs and the npz and
 reference-format (lcts.*) checkpoints at the config's frequencies;
-``--restart`` / ``--restart-reference`` resume from either; a failing step
+``--restart`` / ``--restart-reference`` resume from either; under
+``torchrun --nproc-per-node=N`` (WORLD_SIZE > 1) ``run`` initialises the
+default process group (NCCL on the cards, gloo with ``--cpu``), spreads
+each step's MD jobs (or Hooke qps) over the ranks, lets the config's
+'minimum number of cores for MD simulation' slab-shard SW boxes above 2048
+atoms, and rank 0 alone prints and writes; a failing step
 rolls back to the last good one up to ``--max-retries`` times (never for a
 kernel that did not build or launch); ``--profile`` writes a torch.profiler
 Chrome trace; ``--dump-similarity`` the final distance matrix.
@@ -66,6 +71,27 @@ def _device(args):
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _torchrun_group(device):
+    """Under ``torchrun`` (WORLD_SIZE > 1): the default process group (NCCL
+    on the card, gloo with ``--cpu``), this rank's card (LOCAL_RANK's) and
+    a mesh over every rank; (device, None) in a single process.  NCCL
+    refuses two ranks on one card, and that error is not caught."""
+    import torch
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device, None
+    import torch.distributed as dist
+
+    from .parallel import mesh_utils as MU
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device, MU.make_mesh()
+
+
 def _fatal(e: BaseException) -> bool:
     """A fault no rollback can cure: a kernel that did not build or launch
     (a build error repeats), or a CUDA error (it leaves the context
@@ -108,6 +134,12 @@ def cmd_run(args) -> int:
     device = _device(args)
     if device is None:
         return 2
+    # under torchrun: every rank runs the loop with the step's MD jobs (or
+    # Hooke qps) spread over the ranks; rank 0 alone prints and writes
+    device, rank_mesh = _torchrun_group(device)
+    lead = rank_mesh is None or rank_mesh.get_coordinate()[0] == 0
+    if not lead:
+        sys.stdout = open(os.devnull, "w")
 
     from .config import load_config
 
@@ -159,13 +191,15 @@ def cmd_run(args) -> int:
     if cfg.bridging.approx_md_with_hookes_law or cfg.bridging.stress_method != 0:
         from .hmm.problem import build_hooke_hmm
 
-        hmm = build_hooke_hmm(cfg, device=device, surrogate_fn=surrogate_fn)
+        hmm = build_hooke_hmm(cfg, device=device, surrogate_fn=surrogate_fn,
+                              device_mesh=rank_mesh)
     else:
         from .hmm.md_coupling import build_md_hmm
 
         # production material prep = the staged heatup/cooldown NPT cycle;
         # --quick-prep takes the short fixed-box prep (debug and smoke runs)
-        hmm = build_md_hmm(cfg, staged=not args.quick_prep, device=device)
+        hmm = build_md_hmm(cfg, staged=not args.quick_prep, device=device,
+                           device_mesh=rank_mesh)
     _sync(device)
     setup_s = time.perf_counter() - t_setup
     print(f"Problem: {cfg.problem.cls}  mesh {cfg.mesh.x_cells}x{cfg.mesh.y_cells}x"
@@ -201,7 +235,7 @@ def cmd_run(args) -> int:
               f"at time {fe.time:.6g} (timestep {ts0})")
 
     writer = None
-    if args.outdir:
+    if args.outdir and lead:
         from .fem.output import OutputWriter
 
         resumed = bool(args.restart or args.restart_reference)
@@ -211,7 +245,7 @@ def cmd_run(args) -> int:
         writer.write_mesh_eps()
 
     prof = None
-    if args.profile:
+    if args.profile and lead:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -292,7 +326,7 @@ def cmd_run(args) -> int:
         prof.export_chrome_trace(trace)
         print(f"Profiler trace written to {trace}")
 
-    if args.dump_similarity:
+    if args.dump_similarity and lead:
         # final-state similarity network for clustering.render_network —
         # the reference's __results/ID_* edge shards
         # (strain2spline.h write_similar_histories)
@@ -309,6 +343,10 @@ def cmd_run(args) -> int:
     u = fe_of(state).u.detach().cpu().numpy().reshape(-1, 3)
     print(f"Max displacement: {np.abs(u).max():.6g} m")
     print(f"Total wall time: {time.perf_counter() - t_total:.2f}s for {n_steps} steps")
+    if rank_mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

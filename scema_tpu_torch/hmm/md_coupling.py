@@ -49,8 +49,12 @@ from ..md import engine as E
 from ..md import material as M
 from ..md.homogenization import MDParams, strain_and_homogenize, strain_and_homogenize_multi
 from ..ops import md_fused as MF
+from ..parallel import mesh_utils as MU
 from ..utils.device import resolve
 from .problem import HMMProblem, StepOutputs, assign_materials, clustering_mapping
+
+
+_FIELDS = ("pos", "vel", "h", "vxi")
 
 
 class MicroStates(NamedTuple):
@@ -99,6 +103,11 @@ class MDBackend:
     # jobs per kernel block (K1m, md_coupling.py:90): J > 1 groups the
     # step's (job, replica) pairs into J-tuples; K1 runners only
     pack_jobs: int = 1
+    # a mesh of parallel.mesh_utils: each rank runs its contiguous block of
+    # the step's jobs (md_coupling.py:184-221); a spatially sharded system
+    # (MDSystem.spatial) runs every job on every rank instead, each rank
+    # taking its slab
+    device_mesh: object = None
 
     def __post_init__(self):
         if self.pack_jobs != 1:
@@ -108,14 +117,44 @@ class MDBackend:
             MF.check_multi(self.sys.fused, self.pack_jobs)
 
     def _run_jobs(self, st: E.MDState, dlength: torch.Tensor):
-        """Every (job, replica) MD run of the step: one batch, or with
-        ``pack_jobs`` = J the flattened batch grouped into J-tuples, the
-        last padded with zero-step copies of the first job whose outputs
-        are dropped (md_coupling.py:158-183)."""
+        """Every (job, replica) MD run of the step: one batch on this rank,
+        or with ``device_mesh`` this rank's contiguous block of the jobs
+        (the job count padded to a multiple of the mesh size with
+        zero-step copies of the first job), then ``pos``, ``vel``, ``h``,
+        ``vxi`` and the stresses all-gathered, so every rank holds every
+        job's result (JAX's global arrays after its ``shard_map``)."""
+        mesh = self.device_mesh
+        r = None if mesh is None or self.sys.spatial is not None else MU.mesh_rank(mesh)
+        if r is None:
+            return self._run_local(st, dlength, None)
+        w, nj = MU.mesh_size(mesh), st.pos.shape[0]
+        b = -(-nj // w)
+        pad = b * w - nj
+
+        def mine(x):
+            x = torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
+            return x[r * b:(r + 1) * b]
+
+        active = None
+        if pad:  # the rank's real jobs, then zero-step padding
+            real = min(max(nj - r * b, 0), b)
+            active = (torch.arange(b, device=st.pos.device) < real)[:, None] \
+                .expand(b, st.pos.shape[1])
+        out, sig = self._run_local(E.MDState(*(mine(getattr(st, f)) for f in _FIELDS)),
+                                   mine(dlength), active)
+        group = MU.mesh_group(mesh)
+        return (E.MDState(*(MU.all_gather(getattr(out, f), group)[:nj] for f in _FIELDS)),
+                MU.all_gather(sig, group)[:nj])
+
+    def _run_local(self, st: E.MDState, dlength: torch.Tensor, active):
+        """One batch of (job, replica) runs (``active`` (B, R): False runs
+        zero steps; None: all run), or with ``pack_jobs`` = J the flattened
+        batch grouped into J-tuples, the last padded with zero-step copies
+        of the first job whose outputs are dropped (md_coupling.py:158-183)."""
         J = self.pack_jobs
         n = st.pos.shape[0] * st.pos.shape[1]
         if J == 1 or n == 0:
-            return strain_and_homogenize(self.sys, st, dlength, self.params)
+            return strain_and_homogenize(self.sys, st, dlength, self.params, active=active)
         pad = -n % J
 
         def grouped(x):
@@ -123,22 +162,31 @@ class MDBackend:
             x = torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
             return x.reshape((-1, J) + x.shape[1:])
 
-        active = grouped(torch.ones(st.pos.shape[:2], dtype=torch.bool, device=st.pos.device))
+        if active is None:
+            active = torch.ones(st.pos.shape[:2], dtype=torch.bool, device=st.pos.device)
+        active = grouped(active).clone()
         if pad:
             active.view(-1)[n:] = False
         out, sig = strain_and_homogenize_multi(
-            self.sys, E.MDState(*(grouped(getattr(st, f)) for f in ("pos", "vel", "h", "vxi"))),
+            self.sys, E.MDState(*(grouped(getattr(st, f)) for f in _FIELDS)),
             grouped(dlength), self.params, active=active)
 
         def back(x):
             return x.reshape((-1,) + x.shape[2:])[:n].reshape(st.pos.shape[:2] + x.shape[2:])
 
-        return E.MDState(*(back(getattr(out, f)) for f in ("pos", "vel", "h", "vxi"))), back(sig)
+        return E.MDState(*(back(getattr(out, f)) for f in _FIELDS)), back(sig)
 
     def update(self, micro: MicroStates, eps_cg, material, jobs, most_recent_id,
                timestep: int = 0):
         """-> (micro', update_stress_cg (n_qp, 6), has_result (n_qp,),
-        stress_repl_cg (n_qp, n_repl, 6))."""
+        stress_repl_cg (n_qp, n_repl, 6)).  Where this backend's runs take
+        collectives (a mesh, or a spatially sharded system) and the default
+        group has more than one rank, rank 0's job mask, strains and
+        most-recent ids are broadcast first, as ``shard_md_update`` does
+        for the Hooke backend (``mesh_utils.broadcast_job_inputs``)."""
+        if (self.device_mesh is not None or self.sys.spatial is not None) \
+                and MU.world_size() > 1:
+            jobs, eps_cg, most_recent_id = MU.broadcast_job_inputs(jobs, eps_cg, most_recent_id)
         n_qp = eps_cg.shape[0]
         K = self.max_jobs
         dev = eps_cg.device
@@ -232,9 +280,9 @@ class MDHMMProblem:
         p = self.cfg.precision
         id_to_get, saturated = clustering_mapping(
             fe_state, out.flags, p.clustering_min_steps, p.spline_points,
-            p.clustering_diff_threshold)
+            p.clustering_diff_threshold, ops.layout)
         fe_state = fe_state.replace(
-            hist=fe_state.hist.replace(id_to_get_results_from=id_to_get))
+            hist=fe_state.hist.replace(id_to_get_results_from=ops.layout.own(id_to_get)))
         jobs = bridge.job_mask(out.flags, id_to_get)
 
         n_qp = out.flags.shape[0]
@@ -260,7 +308,8 @@ class MDHMMProblem:
         fe_state, res1 = FE.apply_stress_update(ops, fe_state, updated,
                                                 update_stress_cg, id_to_get)
         rf = assembly.reaction_force(self.geom, fe_state.qp.new_stress,
-                                     fe_state.qp.rho, self.base.problem.loaded_mask)
+                                     fe_state.qp.rho, self.base.problem.loaded_mask,
+                                     ops.layout)
         fe_state = FE.end_step(ops, fe_state)
         return (fe_state, tuple(new_micros)), StepOutputs(
             residual0=out.residual, residual1=res1, n_flagged=out.flags.sum(),
@@ -272,7 +321,8 @@ class MDHMMProblem:
 def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                  specs: list | None = None, equil_steps: int = 100, minimize_steps: int = 100,
                  staged: bool = False, ns_init: int = 100, device=None, prepared=None,
-                 material: torch.Tensor | None = None, pack_jobs: int = 1) -> MDHMMProblem:
+                 material: torch.Tensor | None = None, pack_jobs: int = 1,
+                 device_mesh=None) -> MDHMMProblem:
     """Assemble the MD-coupled HMM, preparing every material x replica on
     the device first — with ``staged`` the reference's heatup/cooldown NPT
     cycle (``material.equilibrate_staged``, stage lengths scaled by
@@ -302,7 +352,20 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     first takes its lattice cell counts and constant from replica 1's
     restart box (:476-491).  The route each material's system takes
     (``MDSystem.route``: its kernel, or the unfused engine and why) is
-    printed once per material."""
+    printed once per material.
+
+    ``device_mesh`` (a mesh of ``parallel.mesh_utils``) spreads each
+    step's MD jobs over its ranks (:attr:`MDBackend.device_mesh`), the job
+    capacity rounded up to a multiple of the mesh size (md_coupling.py:
+    447-449).  With more than one rank in the default group, rank 0 alone
+    prepares and measures the replicas and broadcasts the microstates and
+    replica data, so every rank starts from the same ensemble (the
+    reference's Bcast, dealammps.cc:406-415), except for a spatially
+    sharded system, whose prep runs on every rank together.  Without
+    ``spec`` or ``specs``, an SW material of more than 2048 atoms takes
+    ``spatial_shards`` = the config's 'minimum number of cores for MD
+    simulation' where the default group has that many ranks
+    (:func:`auto_spatial_shards`, md_coupling.py:463-474)."""
     device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     md_dtype = getattr(torch, cfg.md_dtype)
@@ -329,23 +392,34 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                                       cfg.mesh.quadrature_formula, dtype=dtype,
                                       device=device)
     max_jobs = min(cfg.resources.max_md_jobs or geom.n_qp_total, geom.n_qp_total)
+    if device_mesh is not None:
+        n_dev = MU.mesh_size(device_mesh)  # the job axis spans every mesh axis
+        max_jobs = -(-max_jobs // n_dev) * n_dev
 
     from ..bridging.replica_data import load_replica_metadata
 
     meta = load_replica_metadata(cfg.dirs.nanoscale_input, materials, n_repl,
                                  cg_vector=cfg.material.common_ground_vector)
     if specs_auto:
+        specs = auto_spatial_shards(specs, cfg.resources.md_cores_min, MU.world_size())
         specs = [_cells_from_restart(ms, meta[mi][0].micro) for mi, ms in enumerate(specs)]
     backends, stiff_rows, rho_rows = [], [], []
-    fields = ("pos", "vel", "h", "vxi")
     for mi, mspec in enumerate(specs):
         sys, st_init = M.build_system(mspec, dtype=md_dtype, device=device)
-        print(f"material {mspec.name}: {sys.n_atoms} atoms, route {sys.route}")
+        if MU.rank() == 0:
+            print(f"material {mspec.name}: {sys.n_atoms} atoms, route {sys.route}")
         seeds = [_restart_state(meta[mi][r].micro, sys, md_dtype, device)
                  for r in range(n_repl)]
-        if prepared is not None:
+        # prep on rank 0 alone, then broadcast (a sharded system's prep
+        # takes every rank's slab)
+        shared = prepared is None and MU.world_size() > 1 and sys.spatial is None
+        if shared and MU.rank() != 0:
+            rep_states = [st_init] * n_repl
+            rep_data = [M.InitData(length=np.zeros(3), stress=np.zeros(6), stiff=np.zeros((6, 6)),
+                                   density=0.0)] * n_repl
+        elif prepared is not None:
             st_p, rep_data = prepared[mi]
-            rep_states = [E.MDState(*(getattr(st_p, f)[r] for f in fields))
+            rep_states = [E.MDState(*(getattr(st_p, f)[r] for f in _FIELDS))
                           if seeds[r] is None else seeds[r] for r in range(n_repl)]
         else:
             rep_states, rep_data = [], []
@@ -373,7 +447,9 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
                                               stiff=measured.stiff, density=mr.rho)
                     rep_data.append(measured)
         st0 = E.MDState(*(torch.stack([getattr(s, f).to(device=device, dtype=md_dtype)
-                                       for s in rep_states]) for f in fields))
+                                       for s in rep_states]) for f in _FIELDS))
+        if shared:
+            st0, rep_data = _broadcast_prep(st0, rep_data)
 
         def rows(key):
             return torch.as_tensor(np.stack([np.asarray(getattr(d, key), dtype=np.float64)
@@ -388,7 +464,7 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
             rho=torch.tensor([[d.density for d in rep_data]], dtype=dtype, device=device))
         backends.append(MDBackend(sys=sys, params=params, ensemble=ens, n_repl=n_repl,
                                   max_jobs=max_jobs, initial_md_state=st0,
-                                  pack_jobs=pack_jobs))
+                                  pack_jobs=pack_jobs, device_mesh=device_mesh))
         sc, rc = bridge.average_replica_data(ens)
         stiff_rows.append(sc[0])
         rho_rows.append(rc[0])
@@ -409,6 +485,38 @@ def build_md_hmm(cfg: HMMConfig, spec: M.MaterialSpec | None = None,
     base = HMMProblem(cfg=cfg, problem=problem, geom=geom, ops=ops, ensemble=ensemble,
                       md_update_fn=None, dtype=dtype, material=material)
     return MDHMMProblem(base=base, backends=tuple(backends))
+
+
+def auto_spatial_shards(specs: list, md_cores_min: int, n_ranks: int) -> list:
+    """The reference's 'minimum number of cores for MD simulation'
+    (set_md_procs: LAMMPS ranks per job) as P4 spatial sharding
+    (md_coupling.py:463-474): an SW spec of more than 2048 atoms (8 per
+    diamond cell) without ``spatial_shards`` takes ``md_cores_min`` shards
+    where ``n_ranks`` (the default group's size) reaches it; small boxes
+    run faster unsharded, batched, and other specs stay as they are."""
+    if md_cores_min <= 1:
+        return list(specs)
+    out = []
+    for ms in specs:
+        cells = ms.n_cells_xyz or (ms.n_cells,) * 3
+        n_est = 8 * int(np.prod(cells))
+        if (ms.force_field == "sw" and ms.spatial_shards == 0 and n_est > 2048
+                and n_ranks >= md_cores_min):
+            ms = dataclasses.replace(ms, spatial_shards=md_cores_min)
+        out.append(ms)
+    return out
+
+
+def _broadcast_prep(st0: E.MDState, rep_data: list):
+    """Rank 0's prepared microstates and replica data on every rank."""
+    st0 = E.MDState(*(MU.broadcast(getattr(st0, f)) for f in _FIELDS))
+    rows = torch.as_tensor(np.stack([np.concatenate([
+        np.asarray(d.length, dtype=np.float64).ravel(), np.asarray(d.stress, dtype=np.float64),
+        np.asarray(d.stiff, dtype=np.float64).ravel(), [float(d.density)]]) for d in rep_data]),
+        device=st0.pos.device)
+    rows = MU.broadcast(rows).cpu().numpy()
+    return st0, [M.InitData(length=r[:3], stress=r[3:9], stiff=r[9:45].reshape(6, 6),
+                            density=float(r[45])) for r in rows]
 
 
 def _cells_from_restart(spec: M.MaterialSpec, micro) -> M.MaterialSpec:

@@ -25,19 +25,21 @@ from ..utils.device import resolve
 
 
 def clustering_mapping(state: FEState, flags: torch.Tensor, min_steps: int,
-                       n_points: int, threshold: float):
+                       n_points: int, threshold: float, layout=assembly.WHOLE):
     """Strain-history similarity dedup: which qp sources each qp's stress
     (history_analysis, FE_problem.h:1166-1291).  Active only after
     ``min steps`` timesteps (FE_problem.h:1277).  As in the JAX version the
     splines, the distance matrix (K2) and the graph reduction run on every
-    step and the result is selected afterwards."""
+    step and the result is selected afterwards.  ``flags`` covers every
+    qp; the history is gathered from the rows ``layout`` holds."""
     from ..clustering.reduction import reduce_graph
     from ..clustering.similarity import similarity_adjacency
     from ..clustering.spline import splinify_histories
 
     n_qp = flags.shape[0]
     identity = torch.arange(n_qp, device=flags.device)
-    splines = splinify_histories(state.hist.buffer, state.hist.count, n_points)
+    splines = splinify_histories(layout.full_qps(state.hist.buffer), state.hist.count,
+                                 n_points)
     adj = similarity_adjacency(splines, flags, threshold)
     on = state.timestep > min_steps
     mapping, saturated = reduce_graph(adj & on, return_saturated=True)
@@ -89,15 +91,16 @@ class HMMProblem:
                              dtype=self.dtype)
 
     def step(self, state: FEState) -> tuple[FEState, StepOutputs]:
-        """One macro timestep."""
+        """One macro timestep, over the rows ``ops.layout`` holds."""
         ops = self.ops
         state = FE.begin_step(ops, state)
         state, out = FE.solve(ops, state)
         p = self.cfg.precision
         id_to_get, saturated = clustering_mapping(
             state, out.flags, p.clustering_min_steps, p.spline_points,
-            p.clustering_diff_threshold)
-        state = state.replace(hist=state.hist.replace(id_to_get_results_from=id_to_get))
+            p.clustering_diff_threshold, ops.layout)
+        state = state.replace(hist=state.hist.replace(
+            id_to_get_results_from=ops.layout.own(id_to_get)))
         jobs = bridge.job_mask(out.flags, id_to_get)
         if ops.stress_method == 0:
             update_stress_cg = self.md_update_fn(
@@ -107,7 +110,7 @@ class HMMProblem:
         state, res1 = FE.apply_stress_update(ops, state, out.flags, update_stress_cg,
                                              id_to_get, surrogate_fn=self.surrogate_fn)
         rf = assembly.reaction_force(self.geom, state.qp.new_stress, state.qp.rho,
-                                     self.problem.loaded_mask)
+                                     self.problem.loaded_mask, ops.layout)
         state = FE.end_step(ops, state)
         return state, StepOutputs(
             residual0=out.residual, residual1=res1,
@@ -134,13 +137,16 @@ def assign_materials(cfg: HMMConfig, geom: shapes.FEGeometry,
 
 def build_hooke_hmm(cfg: HMMConfig, ensemble: bridge.ReplicaEnsemble | None = None,
                     device=None, material: torch.Tensor | None = None,
-                    surrogate_fn=None) -> HMMProblem:
+                    surrogate_fn=None, device_mesh=None) -> HMMProblem:
     """HMMProblem with the Hooke's-law fake-MD backend (the reference's
     "approximate md with hookes law" debug mode), or with stress method 2
     the surrogate ``surrogate_fn`` (``Surrogate.as_update_fn``; its tensors
     on ``device``).  ``material`` overrides the per-qp material draw.
     ``device`` None means the current CUDA device (an error without one);
-    ``device="cpu"`` asks for the CPU."""
+    ``device="cpu"`` asks for the CPU.  With ``device_mesh`` (a mesh of
+    ``parallel.mesh_utils``) each rank computes the update of its block of
+    qps and the blocks are all-gathered (``shard_md_update``,
+    problem.py:202-205)."""
     device = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     problem = make_problem(cfg, dtype, device)
@@ -157,6 +163,10 @@ def build_hooke_hmm(cfg: HMMConfig, ensemble: bridge.ReplicaEnsemble | None = No
         upd = bridge.hooke_update_stress(ensemble, eps_cg, material_)
         return torch.where(jobs[:, None], upd, torch.zeros_like(upd))
 
+    if device_mesh is not None:
+        from ..parallel.mesh_utils import shard_md_update
+
+        md_update_fn = shard_md_update(md_update_fn, device_mesh)
     if material is None:
         material = assign_materials(cfg, geom, device=device)
     material = material.to(device=device, dtype=torch.int64)

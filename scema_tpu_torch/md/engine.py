@@ -95,6 +95,9 @@ class MDSystem:
     # the route material.build_system chose: the kernel ("K1", "K3", "K4",
     # "K5") or "unfused: <reason>"
     route: str = ""
+    # parallel.spatial_md.SpatialRunner: the unfused SW force calls sharded
+    # into x-slabs over ranks (P4; engine.py:56)
+    spatial: object = None
 
     @property
     def n_atoms(self) -> int:
@@ -118,7 +121,10 @@ class MDSystem:
         """The unfused force field's interaction structure at pos (B, N, 3)
         in boxes h (B, 3, 3): a neighbor list, or None for a force field
         with a static structure of its own (``slot_ids``, the brick
-        kernels; engine.py:76-93)."""
+        kernels; engine.py:76-93); with ``spatial`` the rank's slab of the
+        list."""
+        if self.spatial is not None:
+            return self.spatial.build(self.nspec, pos, h)
         if getattr(self.ff, "slot_ids", None) is not None:
             return None
         return NB.build(self.nspec, pos, h)
@@ -161,7 +167,10 @@ def _voigt(W: torch.Tensor) -> torch.Tensor:
 def forces(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr) -> torch.Tensor:
     """Unfused forces (B, N, 3) at pos (B, N, 3) in boxes h (B, 3, 3) over
     the structure ``nbr``: the force field's own ``forces`` (the brick
-    kernels) or -grad of its energy (engine.py:124-127)."""
+    kernels) or -grad of its energy (engine.py:124-127); with ``spatial``
+    the slab-sharded gradient, summed over the ranks."""
+    if sys.spatial is not None:
+        return sys.spatial.forces(sys.ff, pos, h, nbr)
     if hasattr(sys.ff, "forces"):
         return sys.ff.forces(pos, h, nbr)
     with torch.enable_grad():
@@ -175,7 +184,10 @@ def forces_energy_virial(sys: MDSystem, pos: torch.Tensor, h: torch.Tensor, nbr)
     the Voigt potential virial W_ab = -dE/d eps_ab for the affine
     deformation pos -> (1 + eps) pos, h -> (1 + eps) h with a full 3x3 eps,
     symmetrised (engine.py:130-148, where W is 3x3) — one backward pass for
-    both gradients; or the force field's own entry (the brick kernels)."""
+    both gradients; or the force field's own entry (the brick kernels); or
+    with ``spatial`` the slab-sharded sums."""
+    if sys.spatial is not None:
+        return sys.spatial.forces_energy_virial(sys.ff, pos, h, nbr)
     if hasattr(sys.ff, "forces_energy_virial"):
         return sys.ff.forces_energy_virial(pos, h, nbr)
     with torch.enable_grad():

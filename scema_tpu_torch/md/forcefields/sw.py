@@ -46,18 +46,23 @@ class SW:
     def cutoff(self) -> float:
         return self.a * self.sigma
 
-    def energy(self, pos: torch.Tensor, h: torch.Tensor, nbr) -> torch.Tensor:
+    def energy(self, pos: torch.Tensor, h: torch.Tensor, nbr,
+               centres: torch.Tensor | None = None) -> torch.Tensor:
         """Total energy of positions pos (..., N, 3) in boxes h (..., 3, 3)
         over the full neighbor list ``nbr`` (idx, mask (..., N, K); each
         pair in both rows), minimum image by fractional rounding.  Returns
-        (...) energies; differentiable in pos and h.
+        (...) energies; differentiable in pos and h.  With ``centres``
+        (..., M) the list holds only those atoms' rows, and the result is
+        their share of the energy: every term below is a sum over rows
+        (the two-body one halved), so the shares of disjoint row sets add
+        up to the total (``parallel.spatial_md``).
 
         The three-body double sum collapses to per-atom moments because
         (cos - c0)^2 is quadratic in cos(theta_jik) = u_j . u_k:
         sum_{j!=k} g_j g_k (u_j.u_k)^2 = Tr[Q^2] - sum g_j^2, and likewise
         for |m|^2 and s^2, with m = sum g_j u_j, Q = sum g_j u_j u_j^T,
         s = sum g_j."""
-        dr = NB.neighbor_disp(pos, h, nbr)  # (..., N, K, 3)
+        dr = NB.neighbor_disp(pos, h, nbr, centres)  # (..., N, K, 3)
         r2 = torch.sum(dr * dr, -1)
         rc = self.cutoff
         mask = nbr.mask & (r2 < (rc - 1e-6) ** 2)

@@ -31,7 +31,8 @@ An OPLS system may also come from a LAMMPS data file (``data_file``); one
 that no kernel runs (``md_fused.fused_refusal``) takes the unfused engine,
 as the JAX package's takes its XLA engine.  ReaxFF boxes (``reax``: the
 list or dense bond-order field with QEq, ``forcefields/reax.py``) run the
-unfused engine.  Spatially sharded SW boxes are not ported yet.
+unfused engine.  ``spatial_shards`` x-slab shards one SW box's force calls
+over ranks (``parallel.spatial_md``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ import torch
 
 from ..ops import md_fused as MF
 from ..ops import sw_bricks as SWB
+from ..parallel import mesh_utils as MU
+from ..parallel import spatial_md as SP
 from ..utils.device import resolve
 from . import box as B
 from . import engine as E
@@ -100,9 +103,10 @@ class MaterialSpec:
     rebuild_every: int = 10
     # run K4 even where the all-pairs gate would admit the box
     force_list_kernel: bool = False
-    # sw: the brick kernels K6c/K6d on the unfused engine (p = 4, q = 0);
-    # the sharded force path of one big box is not ported
+    # sw: the brick kernels K6c/K6d on the unfused engine (p = 4, q = 0)
     use_pallas_bricks: bool = False
+    # P4: shard ONE SW box's force work into x-slabs over this many ranks
+    # (parallel.spatial_md); 0 = off
     spatial_shards: int = 0
     # None = the fused kernel (K1/K3/K4 wherever md_fused.fused_refusal
     # finds none refusing the system, or K5 for sw wherever its gate admits
@@ -310,6 +314,8 @@ def build_system(spec: MaterialSpec, dtype=torch.float64,
     from . import data_io
 
     device = resolve(device)
+    if spec.spatial_shards > 0 and spec.force_field != "sw":
+        raise ValueError("spatial_shards: only SW boxes have a sharded force path (P4)")
     if spec.force_field == "sw":
         return _build_sw(spec, dtype, device)
     if spec.force_field == "lj":
@@ -461,15 +467,30 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
       the box holds 3 cells along each axis and more than 1024 atoms (from
       1728 atoms), else from the dense build.
 
-    ``spatial_shards`` raises NotImplementedError."""
+    With ``spatial_shards`` = k the box runs the unfused engine on the list
+    route with its force calls x-slab sharded over the first k ranks of
+    the default group (``parallel.spatial_md.SpatialRunner``, material.py:
+    809-826; autograd of ``SW.energy`` whatever the brick flag, as JAX's
+    runner reads ``sw``); ValueError where k exceeds the group's ranks (1
+    without a group) or the box has too few x-cells for k slabs."""
     cxyz = spec.n_cells_xyz or (spec.n_cells,) * 3
     pos, h = lattice.diamond(spec.a0, *cxyz)
     n = len(pos)
     ff = spec.sw
-    if spec.spatial_shards:
-        raise NotImplementedError(
-            f"material {spec.name!r}: the spatially sharded SW force path "
-            "(spatial_shards) is not ported (ROADMAP item 11)")
+    # the SW cutoff spans the first two diamond shells; 20 slots cover
+    # moderate compression (material.py:632-634)
+    k_max = spec.neighbor_k if spec.neighbor_k is not None else 20
+    nspec = NB.derive_spec(n, h, cutoff=ff.cutoff, skin=1.0, k_max=k_max)
+    if spec.validate:
+        _validate_setup(spec, pos, h, nspec)
+    masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
+    st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
+                      torch.as_tensor(h, dtype=dtype, device=device))
+    if spec.spatial_shards > 0:
+        return E.MDSystem(ff=ff, masses=masses, units=REAL, nspec=nspec,
+                          rebuild_every=spec.rebuild_every,
+                          route=f"unfused: spatial_shards={spec.spatial_shards}",
+                          spatial=_spatial_runner(spec.spatial_shards, n, h, ff.cutoff)), st
     family = abs(float(ff.p) - 4.0) < 1e-12 and abs(float(ff.q)) < 1e-12
     if spec.use_pallas_bricks and not family:
         raise NotImplementedError(
@@ -482,15 +503,6 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
                               f"{n} atoms above K5's {SW_ALLPAIRS_MAX_ATOMS}"
                               if n > SW_ALLPAIRS_MAX_ATOMS else
                               f"p = {ff.p}, q = {ff.q} outside K5's family"))
-    # the SW cutoff spans the first two diamond shells; 20 slots cover
-    # moderate compression (material.py:632-634)
-    k_max = spec.neighbor_k if spec.neighbor_k is not None else 20
-    nspec = NB.derive_spec(n, h, cutoff=ff.cutoff, skin=1.0, k_max=k_max)
-    if spec.validate:
-        _validate_setup(spec, pos, h, nspec)
-    masses = torch.full((n,), spec.mass, dtype=dtype, device=device)
-    st = E.init_state(torch.as_tensor(pos, dtype=dtype, device=device),
-                      torch.as_tensor(h, dtype=dtype, device=device))
     runner = None
     if fused:
         runner = MF.make_runner_sw(ff, masses, REAL, dtype=dtype, device=device)
@@ -498,6 +510,16 @@ def _build_sw(spec: MaterialSpec, dtype, device) -> tuple[E.MDSystem, E.MDState]
         ff = SWB.SWBricksFF(ff, pos, h, device=device)
     return E.MDSystem(ff=ff, masses=masses, fused=runner, units=REAL, nspec=nspec,
                       rebuild_every=spec.rebuild_every, route=_route(runner, why)), st
+
+
+def _spatial_runner(k: int, n: int, h, cutoff: float):
+    """The x-slab runner of ``spatial_shards`` = k over the first k ranks of
+    the default group (none without a group; material.py:809-826)."""
+    w = MU.world_size()
+    if w < k:
+        raise ValueError(f"spatial_shards={k} but only {w} ranks")
+    sg = SP.derive_sharded_grid(n, np.asarray(h), cutoff=cutoff, skin=0.5, n_shards=k)
+    return SP.SpatialRunner(sg=sg, mesh=MU.make_mesh(k) if MU.is_initialized() else None)
 
 
 def equilibrate(sys: E.MDSystem, state: E.MDState, params: MDParams,

@@ -334,10 +334,18 @@ def build(spec: NeighborSpec, pos: torch.Tensor, h: torch.Tensor) -> NeighborLis
     return build_cells(spec, pos, h)
 
 
-def neighbor_disp(pos: torch.Tensor, h: torch.Tensor, nbr: NeighborList) -> torch.Tensor:
+def neighbor_disp(pos: torch.Tensor, h: torch.Tensor, nbr: NeighborList,
+                  centres: torch.Tensor | None = None) -> torch.Tensor:
     """Min-image displacement r_j - r_i for every list entry: pos (..., N,
-    3), h (..., 3, 3) -> (..., N, K, 3) (neighbor.py:389)."""
+    3), h (..., 3, 3) -> (..., N, K, 3) (neighbor.py:389).  With
+    ``centres`` (..., M) the list's M rows belong to those atoms (a slab's
+    rows, ``parallel.spatial_md``) and the result is (..., M, K, 3)."""
     lead, (n, k) = nbr.idx.shape[:-2], nbr.idx.shape[-2:]
+    full = pos.expand(lead + pos.shape[-2:])
     flat = nbr.idx.reshape(lead + (n * k, 1)).expand(lead + (n * k, 3))
-    nb = torch.gather(pos.expand(lead + pos.shape[-2:]), -2, flat).reshape(lead + (n, k, 3))
-    return B.min_image_disp(h[..., None, :, :], nb - pos[..., :, None, :])
+    nb = torch.gather(full, -2, flat).reshape(lead + (n, k, 3))
+    if centres is None:
+        ctr = pos
+    else:
+        ctr = torch.gather(full, -2, centres[..., None].expand(lead + (n, 3)))
+    return B.min_image_disp(h[..., None, :, :], nb - ctr[..., :, None, :])

@@ -170,10 +170,13 @@ def test_build_system_and_gate():
         assert route == "bricks" or (big.nspec == TNB.derive_spec(
             big.n_atoms, np64(st_big.h), TSW.SI.cutoff, 1.0, 20)
             and big.n_atoms <= big.nspec.n2_threshold)
-    for bad in (dict(spatial_shards=2),
-                dict(use_pallas_bricks=True, sw=dataclasses.replace(TSW.SI, p=6.0))):
-        with pytest.raises(NotImplementedError):
-            TM.build_system(TM.MaterialSpec(name="si", **bad), device="cpu")
+    with pytest.raises(NotImplementedError):
+        TM.build_system(TM.MaterialSpec(name="si", use_pallas_bricks=True,
+                                        sw=dataclasses.replace(TSW.SI, p=6.0)), device="cpu")
+    # spatial_shards builds a sharded box; two shards need two ranks (this
+    # process has no group: one), as JAX's need two devices
+    with pytest.raises(ValueError, match="spatial_shards=2 but only 1 ranks"):
+        TM.build_system(TM.MaterialSpec(name="si", spatial_shards=2), device="cpu")
     # an lj box builds on K1 (no bonded terms), and on the unfused engine
     # with use_fused=False, as the JAX package's lj branch
     ar = dict(name="ar", force_field="lj", a0=5.26, n_cells=4, mass=39.948)
