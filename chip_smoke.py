@@ -58,8 +58,9 @@ failure exits non-zero before the result line:
    list row full; K4's first design (md_kernel.cuh over the seven
    channels) to the same rules and in turns with the redesign on a 128-job
    10-step chunk and on the force entry, the list rebuild (compact pack
-   against the seven channels) in turns, K4's global form (phase 19) on the
-   same chunk against float64 and in turns with the shared form, the
+   against the seven channels) in turns, K4's global form (the cluster
+   form's A/B partner) on the same chunk against float64 and in turns with
+   the shared form, the
    compact list's live-slot
    statistics, the instances' registers, spills and blocks per SM, both bounds
    (4 B per live slot, and the seven channels' in brackets), and K3's
@@ -157,19 +158,26 @@ failure exits non-zero before the result line:
    (K1m) and every slim variant at 576 jobs x 500 steps (best of 3 runs,
    each state finite), its launch counters zeroed just before and read
    just after (v0 on K1, never on its first design);
-19. K4's global form (csrc/md_k4_big.cu: the velocities and role/SHAKE
-   buffer in device memory, for list boxes above the shared form's
-   2509-atom cap) on the prepared 4096-atom PE box (``material.PEAA4096``,
-   128 C10H22 chains, K = 1112): the force entry on 12 boxes, orthorhombic
-   and tilted, a 16-job 10-step chunk (a 0-step job bit-identical, the
-   SHAKE residual) and 20-step pressure sums against the plain version and
-   float64 by phase 8's rules, no list row full, a 128-job 10-step chunk
-   timed against its bound;
+19. K4's cluster form (csrc/md_k4_big.cu: one job on a thread-block
+   cluster of C CTAs, its rows in the CTAs' shared memory, for list boxes
+   above the shared form's 2509-atom cap) on the prepared 4096-atom PE box
+   (``material.PEAA4096``, 128 C10H22 chains, K = 1112): the force entry on
+   12 boxes, orthorhombic and tilted; against the plain version and float64
+   by phase 8's rules (a 0-step job bit-identical, the SHAKE residual) a
+   16-job 10-step chunk on the host's C, the same on 8 CTAs with cuts that
+   split SHAKE constraints, 37 jobs (no whole wave of clusters), an
+   8192-atom box near the cap (16 CTAs per job) and 20-step pressure sums,
+   no list row full; every fitting C timed at 32 jobs; the cluster form and
+   K4's global form (one block per job, its rows in device memory: the A/B
+   partner) in turns at 32 and 128 jobs against the bound, with C, the
+   clusters the card holds at once, registers, spills and shared bytes per
+   CTA;
 20. the coupled step on that box: ``build_md_hmm(HMMConfig(),
    spec=PEAA4096, equil_steps=50, minimize_steps=100)`` with at most 32 MD
    jobs per step, float32, 2 macro-steps, its launch counters zeroed just
-   before and read just after; K4's global form, its force entry and K2
-   must have launched, K4's shared form and the first designs not;
+   before and read just after; K4's cluster form, its force entry and K2
+   must have launched, K4's shared and global forms and the first designs
+   not;
 21. the run surface on the g0 dogbone: ``init-material --quick-prep``
    writes the init set; ``run --quick-prep --steps 3 --outdir D
    --dump-similarity`` reads it, with every output frequency at 1 (its
@@ -298,8 +306,9 @@ K1's first design (0) and K2 launches counted on the g0 slice, K3's and
 its first design's (0) on the charged slice, K4's and its first design's
 (0) on the coupled list slice, K5's and its first design's (0) on the SW
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
-17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's global form's
-on the 4096-atom slice; K2's first design's (0) on the g0 slice; the
+17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's cluster form's
+and its global form's (0) on the 4096-atom slice; K2's first design's (0)
+on the g0 slice; the
 K1, K2 and K5 rows add the launches of phases 23-25's, 27's and 28's paths,
 and the K2 and K5 rows phase 29's, world 1's and both world-2 ranks';
 bounds from this run's shapes and the card's published peaks); the last
@@ -1141,6 +1150,7 @@ def md_counters():
             "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
             "md_list_first_run": (MF._run_first, "launches_k4"),
             "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
+            "md_list_cluster_run": (MF.md_run, "launches_k4cluster"),
             "md_list_big_run": (MF.md_run, "launches_k4big"),
             "pairwise_l2": (K2.pairwise_l2, "launches")}
 
@@ -2439,6 +2449,7 @@ def _k6_counters():
             "md_list_forces_virial": (MF.md_forces_virial, "launches_k4"),
             "md_list_first_run": (MF._run_first, "launches_k4"),
             "md_list_first_forces_virial": (MF._forces_first, "launches_k4"),
+            "md_list_cluster_run": (MF.md_run, "launches_k4cluster"),
             "md_list_big_run": (MF.md_run, "launches_k4big"),
             "md_sw_run": (MF.md_run, "launches_k5"),
             "md_sw_forces": (MF.md_forces_virial, "launches_k5"),
@@ -3114,14 +3125,92 @@ K4_BIG_SOURCE = "scema_tpu_torch/csrc/md_k4_big.cu"
 # that its dense torch list builds (N^2 = 16M candidates, ~64 MB a job per
 # slice) and two steps stay well inside the run's time
 BIG_JOBS = 32
+# phase 19's job counts: the slice's, one that fills no whole wave of
+# clusters, and the timed chunk's; the box near the cluster form's cap
+# (256 chains of C10H22: above what 8 CTAs per job hold, so 16)
+K4_CL_JOBS, K4_CL_ODD, K4_CL_TIMED, K4_CL_NEAR_CHAINS = 32, 37, 128, 256
+
+
+def _k4_cluster_check(r, r64, sys_, sub, nbr, what, run=None):
+    """Run ``sub`` (md_run's arguments, job 1 at 0 steps) on K4's cluster
+    form (``run``, default md_run) and hold it to the plain version and
+    float64 by phase 8's rules, the 0-step job bit-identical, the SHAKE
+    residual of the jobs that ran below 1e-3; returns (max |pos - plain|,
+    float64 position error, velocity error, residual)."""
+    import torch
+
+    from scema_tpu_torch.ops import md_fused as MF
+
+    before = MF.md_run.launches_k4cluster
+    out, xo, _ = (run or MF.md_run)(r, *sub, nbr=nbr)
+    torch.cuda.synchronize()
+    if MF.md_run.launches_k4cluster != before + 1:
+        fail(f"{what}: the cluster form did not count its launch")
+    if not (torch.equal(out[1], sub[0][1]) and torch.equal(xo[1], sub[1][1])):
+        fail(f"{what}: a job with n_run = 0 changed")
+    ref, _, _ = MF.md_run_plain(r, *sub, nbr=nbr)
+    ref64, _, _ = MF.md_run_plain(r64, *(x.double() if torch.is_tensor(x)
+                                         and x.is_floating_point() else x for x in sub), nbr=nbr)
+    torch.cuda.synchronize()
+    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    pk, vk = _run_rule(out, ref, ref64, what)
+    # the jobs that ran: the 0-step job keeps FIRE's positions, which FIRE
+    # does not hold to the SHAKE bond lengths
+    resid = shake_residual(sys_, out[sub[2] > 0, :3].transpose(1, 2))
+    if not resid < 1e-3:
+        fail(f"{what}: SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
+    return p_err, pk, vk, resid
+
+
+def _k4_chunk(sys_, st, J, dev, seed):
+    """J jobs of the prepared box with Maxwell velocities and random strain
+    rates: (md_run's arguments for a 10-step deform chunk of a 40-step run
+    with the frozen k-space force, its compact list)."""
+    import torch
+
+    from scema_tpu_torch.md import engine as E
+    from scema_tpu_torch.ops import md_fused as MF
+
+    r = sys_.fused
+    gen = torch.Generator().manual_seed(seed)
+    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
+                       for _ in range(J)])
+    hJ = st.h.expand(J, 3, 3).contiguous()
+    posJ = st.pos.expand(J, -1, -1).contiguous()
+    fscal = MF.make_fscal(DT, T_MD, hJ, (torch.rand((J, 6), generator=gen) * 2e-3
+                                         - 1e-3).to(dev))
+    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
+    Fk, _ = r.kspace(posJ, hJ)
+    args = (MF.pack_state(posJ, vel), torch.zeros((J, 3), device=dev), n10, fscal, True, False,
+            Fk.transpose(1, 2).contiguous(), torch.zeros_like(n10), torch.full_like(n10, 40))
+    return args, r.channels(posJ, hJ, reuse=True)
+
+
+def _skip_one(args):
+    """md_run's arguments with job 1 at 0 steps."""
+    nr = args[2].clone()
+    nr[1] = 0
+    return (args[0], args[1], nr) + args[3:]
+
+
+def _plan_line(plan) -> str:
+    return (f"C={plan['C']} CTAs per job (cuts {list(plan['cuts'])}, cross {plan['cross']}), "
+            f"{plan['clusters']} clusters at once, {plan['threads']} threads and "
+            f"{plan['smem_bytes']} B shared per CTA, {plan['registers']} registers, "
+            f"{plan['local_bytes']} B local")
 
 
 def phase_k4_big(dev):
-    """Phase 19: K4's global form (csrc/md_k4_big.cu) on the prepared
+    """Phase 19: K4's cluster form (csrc/md_k4_big.cu: one job on a cluster
+    of C CTAs, its rows in the CTAs' shared memory) on the prepared
     4096-atom PE box (``material.PEAA4096``, above the shared form's cap):
-    the force entry on 12 boxes, a 16-job 10-step chunk (one job at 0
-    steps) and 20-step sampling against the plain version and float64 by
-    phase 8's rules, a 128-job 10-step chunk timed against its bound."""
+    the force entry on 12 boxes; against the plain version and float64 by
+    phase 8's rules (a 0-step job bit-identical, the SHAKE residual) a
+    16-job 10-step chunk on the host's cluster size, the same on 8 CTAs
+    with cuts that split SHAKE constraints, 37 jobs (no whole wave), an
+    8192-atom box near the cap on 16 CTAs, and 20-step pressure sums; the
+    cluster sizes timed at 32 jobs; then the cluster form and the global
+    form (its A/B partner) in turns at 32 and 128 jobs against the bound."""
     import torch
 
     from scema_tpu_torch.md import box as B
@@ -3137,12 +3226,13 @@ def phase_k4_big(dev):
     n, K = sys_.n_atoms, r.spec.k
     T = int(r.k34_tbl.shape[0])
     if not MF.k4_big(r.spec, T):
-        fail(f"the {n}-atom box does not take K4's global form")
+        fail(f"the {n}-atom box does not take K4's cluster form")
     st = E.minimize_fire(sys_, st, n_steps=100, dt0=0.5)
     torch.cuda.synchronize()
     print(f"[19 K4 big] PEAA4096 box: {n} atoms, box {float(st.h[0, 0]):.3f} A, flags "
           f"{r.spec.flags}, list width K={K}; K4's shared form fits {MF.max_atoms(r.spec, T)} "
-          f"atoms, the global form {MF.k4_big_max_atoms(r.spec, T)} ({T} types); build + FIRE "
+          f"atoms, the cluster form {MF.k4_big_max_atoms(r.spec, T)} ({T} types; cluster sizes "
+          f"{MF.k4_cluster_fits(n, T)} fit this box); build + FIRE "
           f"{time.perf_counter() - t0:.2f}s")
     r64 = r.to(dev, torch.float64)
 
@@ -3184,109 +3274,174 @@ def phase_k4_big(dev):
           f"{MF.k34_kernel_info('K4', 'forces', n, T)}")
     del nb, nb12
 
-    # a 128-job 10-step deform chunk with SHAKE and the frozen k-space force
-    gen = torch.Generator().manual_seed(19)
-    J, S = 128, 16
-    vel = torch.stack([E.maxwell_velocities(sys_, T_MD, gen, torch.float32, dev)
-                       for _ in range(J)])
-    hJ = st.h.expand(J, 3, 3).contiguous()
-    posJ = st.pos.expand(J, -1, -1).contiguous()
-    state = MF.pack_state(posJ, vel)
-    vxi = torch.zeros((J, 3), device=dev)
-    fscal = MF.make_fscal(DT, T_MD, hJ, (torch.rand((J, 6), generator=gen) * 2e-3
-                                         - 1e-3).to(dev))
-    n10 = torch.full((J,), 10, dtype=torch.int32, device=dev)
-    g0, n_tot = torch.zeros_like(n10), torch.full_like(n10, 40)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    nbrJ = r.channels(posJ, hJ, reuse=True)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t1
-    Fk, _ = r.kspace(posJ, hJ)
-    fk = Fk.transpose(1, 2).contiguous()
-    args = (state, vxi, n10, fscal, True, False, fk, g0, n_tot)
-    sub = tuple(x[:S] if torch.is_tensor(x) and x.dim() else x for x in args)
-    nr = sub[2].clone()
-    nr[1] = 0  # a job with no steps comes back bit-identical
-    sub = (sub[0], sub[1], nr) + sub[3:]
+    # 16 jobs of a 128-job 10-step deform chunk with SHAKE and the frozen
+    # k-space force, one at 0 steps: the host's cluster size, then 8 CTAs
+    # with each cut moved onto a SHAKE constraint (the cross path)
+    J, S = K4_CL_TIMED, 16
+    args, nbrJ = _k4_chunk(sys_, st, J, dev, 19)
+    sub = _skip_one(tuple(x[:S] if torch.is_tensor(x) and x.dim() else x for x in args))
     nbrS = {k: v[:S] for k, v in nbrJ.items()}
-    before = MF.md_run.launches_k4big
-    out, xo, _ = MF.md_run(r, *sub, nbr=nbrS)
-    torch.cuda.synchronize()
-    if MF.md_run.launches_k4big != before + 1:
-        fail("K4's global form did not count its launch")
-    if not (torch.equal(out[1], state[1]) and torch.equal(xo[1], vxi[1])):
-        fail("K4's global form changed a job with n_run = 0")
-    ref, _, _ = MF.md_run_plain(r, *sub, nbr=nbrS)
-    ref64, _, _ = MF.md_run_plain(r64, *(x.double() if torch.is_tensor(x)
-                                         and x.is_floating_point() else x for x in sub),
-                                  nbr=nbrS)
-    torch.cuda.synchronize()
-    p_err = float((out[:, :3] - ref[:, :3]).abs().max())
-    pk, vk = _run_rule(out, ref, ref64, "K4 big run")
-    # the jobs that ran: the 0-step job keeps FIRE's positions, which FIRE
-    # does not hold to the SHAKE bond lengths
-    resid = shake_residual(sys_, out[nr > 0, :3].transpose(1, 2))
-    if not resid < 1e-3:
-        fail(f"K4 big SHAKE residual |r^2 - d0^2| / d0^2 = {resid:.3e} >= 1e-3")
-    run_ms = cuda_ms(lambda: MF.md_run(r, *args, nbr=nbrJ), reps=3)
-    run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
-    lp, lj, lq = list_pair_counts(MF.k4_slots_to_channels(r, {k: v[:2] for k, v in nbrJ.items()}),
-                                  posJ[:2], hJ[:2], r.spec.cutoff2, r.spec.coul_cutoff2)
-    cnt = nbrJ["count"].double()
-    live_mean = float(cnt.mean())
-    tables = 2 * T * T + 2 * n
-    jobs_bytes = 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
-    rb_ms, rb_by = bound(J * (4.0 * (live_mean * n + n) + jobs_bytes)
-                         + 4.0 * (tables + r.pat.numel() + r.shk.numel() + 2 * n),
-                         list_flops(J * 10, lp, lj, lq))
-    info = MF.k34_kernel_info("K4", "big_run", n, T)
-    print(f"[19 K4 big run] {S} jobs x 10 deform steps of {DT} fs, SHAKE + fext: positions "
-          f"max_abs_err vs plain {p_err:.3e} A; vs float64 {pk:.3e} A, velocities rel {vk:.3e} "
-          f"(tol 4x plain + 1e-4), SHAKE residual {resid:.3e}, the 0-step job bit-identical; "
-          f"{J} jobs: kernel {run_ms:.3f} ms  plain {run_plain_ms:.3f} ms  bound {rb_ms:.3f} ms "
-          f"({rb_by}; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, {lq:.0f} inside "
-          f"Coulomb); live slots per row mean {live_mean:.1f}, max {int(cnt.max())} of K={K}; "
-          f"list build + pack {build_s:.3f} s; run kernel {info['registers']} registers, "
-          f"{info['local_bytes']} B local, {info['blocks_per_sm']} block(s) per SM of "
-          f"{info['threads']} threads; ptxas (registers, spill stores) "
-          f"{kernel_registers('Li321ELi768E')}")
+    plan = MF.k4_cluster_plan(r, S)
+    p_err, pk, vk, resid = _k4_cluster_check(r, r64, sys_, sub, nbrS, "K4 cluster run")
+    split = MF._shake_split(r)
+    cross_cuts = [0] + [next(c for c in range(k * n // 8, n) if split[c]) for k in range(1, 8)] + [n]
+    xplan = MF.k4_cluster_plan(r, S, cuts=cross_cuts)
+    if not xplan["cross"]:
+        fail(f"K4 cluster: cuts {cross_cuts} split no SHAKE constraint")
+    xp_err, xpk, xvk, xres = _k4_cluster_check(
+        r, r64, sys_, sub, nbrS, "K4 cluster run (cuts across constraints)",
+        run=lambda *a, **kw: MF.k4_cluster_run(*a, cuts=cross_cuts, **kw))
+    og, _, _ = MF.k4_global_run(r, *sub, nbr=nbrS)
+    g_err = float((og[:, :3] - MF.md_run_plain(r, *sub, nbr=nbrS)[0][:, :3]).abs().max())
+    print(f"[19 K4 cluster run] {S} jobs x 10 deform steps of {DT} fs, SHAKE + fext, "
+          f"{_plan_line(plan)}: positions max_abs_err vs plain {p_err:.3e} A; vs float64 "
+          f"{pk:.3e} A, velocities rel {vk:.3e} (tol 4x plain + 1e-4), SHAKE residual "
+          f"{resid:.3e}, the 0-step job bit-identical; cuts across constraints "
+          f"({_plan_line(xplan)}): vs plain {xp_err:.3e} A, vs float64 {xpk:.3e} A, velocities "
+          f"rel {xvk:.3e}, SHAKE residual {xres:.3e}; the global form vs plain {g_err:.3e} A")
+
+    # a job count that fills no whole wave of clusters
+    oargs, onbr = _k4_chunk(sys_, st, K4_CL_ODD, dev, 37)
+    oplan = MF.k4_cluster_plan(r, K4_CL_ODD)
+    o_err, opk, ovk, ores = _k4_cluster_check(r, r64, sys_, _skip_one(oargs), onbr,
+                                              f"K4 cluster run ({K4_CL_ODD} jobs)")
+    print(f"[19 K4 cluster odd] {K4_CL_ODD} jobs, {_plan_line(oplan)}: vs plain {o_err:.3e} A, "
+          f"vs float64 {opk:.3e} A, velocities rel {ovk:.3e}, SHAKE residual {ores:.3e}")
+    del oargs, onbr
 
     # 20-step sampling at 16 jobs: each job's pressure sums against float64
+    out, xo, _ = MF.md_run(r, *sub, nbr=nbrS)
     n20 = torch.full((S,), 20, dtype=torch.int32, device=dev)
-    f_s = MF.make_fscal(DT, T_MD, hJ[:S])
+    hS = st.h.expand(S, 3, 3).contiguous()
+    f_s = MF.make_fscal(DT, T_MD, hS)
     one = torch.ones_like(n20)
-    sargs = (out, xo, n20, f_s, False, True, fk[:S], g0[:S], one)
+    fkS, g0S = sub[6], sub[7]
+    sargs = (out, xo, n20, f_s, False, True, fkS, g0S, one)
     _, _, sk = MF.md_run(r, *sargs, nbr=nbrS)
     _, _, sp = MF.md_run_plain(r, *sargs, nbr=nbrS)
     _, _, s64 = MF.md_run_plain(r64, out.double(), xo.double(), n20, f_s.double(), False, True,
-                                fk[:S].double(), g0[:S], one, nbr=nbrS)
+                                fkS.double(), g0S, one, nbr=nbrS)
     torch.cuda.synchronize()
     smax = s64.abs().amax(0)
     sk_err = float(((sk.double() - s64).abs().amax(0) / smax).max())
     sp_err = float(((sp.double() - s64).abs().amax(0) / smax).max())
     if not torch.isfinite(sk).all() or sk_err > 4 * sp_err + 1e-4:
-        fail(f"K4 big sampling: kernel pressure sums vs float64 rel {sk_err:.3e} exceed "
+        fail(f"K4 cluster sampling: kernel pressure sums vs float64 rel {sk_err:.3e} exceed "
              f"4x plain float32 {sp_err:.3e} + 1e-4")
     print(f"[19 K4 big sample20] {S} jobs x 20 sampling steps: per-job pressure sums rel to "
           f"float64 (worst component): kernel {sk_err:.3e} plain-f32 {sp_err:.3e} (tol 4x "
-          f"plain + 1e-4)  phase wall {time.perf_counter() - t0:.2f}s")
-    return {"name": "md_list_big_run", "route": "cuda", "source": K4_BIG_SOURCE,
-            "replaces": "scema_tpu/ops/md_fused.py:1850",
-            "note": K4_NOTE + "; the global form (velocities and role buffer in device "
-                    "memory) for boxes above the shared form's cap: 128 jobs x 10 deform "
-                    "steps at N=4096",
-            "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms, "bound_ms": rb_ms,
-            "bound_by": rb_by, "library_ms": None}
+          f"plain + 1e-4)")
+
+    # the box near the cap: 8192 atoms hold only at 16 CTAs per job
+    t1 = time.perf_counter()
+    near = dataclasses.replace(M.PEAA4096, name="peaa8192", n_chains=K4_CL_NEAR_CHAINS)
+    nsys, nst = M.build_system(near, dtype=torch.float32, device=dev)
+    nr_, nn = nsys.fused, nsys.n_atoms
+    cap = MF.k4_big_max_atoms(nr_.spec, T)
+    if not (MF.k4_big(nr_.spec, T) and nn <= cap and MF.k4_cluster_fits(nn, T) == (16,)):
+        fail(f"the {nn}-atom box: cap {cap}, cluster sizes {MF.k4_cluster_fits(nn, T)}")
+    nst = E.minimize_fire(nsys, nst, n_steps=50, dt0=0.5)
+    nargs, nnbr = _k4_chunk(nsys, nst, 4, dev, 81)
+    if int(nnbr["count"].max()) >= nr_.spec.k:
+        fail(f"K4 at {nn} atoms: a list row is full ({int(nnbr['count'].max())} of "
+             f"K={nr_.spec.k})")
+    nplan = MF.k4_cluster_plan(nr_, 4)
+    n_err, npk, nvk, nres = _k4_cluster_check(nr_, nr_.to(dev, torch.float64), nsys,
+                                              _skip_one(nargs), nnbr,
+                                              f"K4 cluster run ({nn} atoms)")
+    print(f"[19 K4 cluster near cap] {nn} atoms ({cap} fit at {T} types), 4 jobs, "
+          f"{_plan_line(nplan)}: vs plain {n_err:.3e} A, vs float64 {npk:.3e} A, velocities rel "
+          f"{nvk:.3e}, SHAKE residual {nres:.3e}; build + FIRE + check "
+          f"{time.perf_counter() - t1:.2f}s")
+    del nsys, nst, nr_, nargs, nnbr
+
+    # the cluster sizes at the slice's 32 jobs, then the cluster form and
+    # the global form in turns (global, cluster, cluster, global) at 32 and
+    # 128 jobs
+    a32 = tuple(x[:K4_CL_JOBS] if torch.is_tensor(x) and x.dim() else x for x in args)
+    n32 = {k: v[:K4_CL_JOBS] for k, v in nbrJ.items()}
+    sizes = {(jobs, C): cuda_ms(lambda C=C, aa=aa, nb=nb: MF.k4_cluster_run(r, *aa, nbr=nb,
+                                                                           cluster=C), reps=3)
+             for jobs, aa, nb in ((K4_CL_JOBS, a32, n32), (J, args, nbrJ))
+             for C in MF.k4_cluster_fits(n, T)}
+    # where a chunk's time goes at the slice's 32 jobs, in both forms: the
+    # pair loop (every count 0), 36 of the 37 pattern passes (the first
+    # pattern alone), the SHAKE/RATTLE sweeps (0 of each)
+    spec = r.spec
+    parts = {"all": (r, n32),
+             "no pair loop": (r, {"slot": n32["slot"], "count": torch.zeros_like(n32["count"])}),
+             "one pattern": (dataclasses.replace(r, spec=dataclasses.replace(
+                 spec, bonded_pattern=spec.bonded_pattern[:1])), n32),
+             "no SHAKE sweeps": (dataclasses.replace(r, spec=dataclasses.replace(
+                 spec, shake_iters=0, rattle_iters=0)), n32)}
+    split_ms = {(k, form): cuda_ms(lambda rr=rr, nb=nb, run=run: run(rr, *a32, nbr=nb), reps=3)
+                for k, (rr, nb) in parts.items()
+                for form, run in (("global", MF.k4_global_run), ("cluster", MF.md_run))}
+    forms = {}
+    for jobs, aa, nb in ((K4_CL_JOBS, a32, n32), (J, args, nbrJ)):
+        forms[jobs] = k34_ab({"first": lambda aa=aa, nb=nb: MF.k4_global_run(r, *aa, nbr=nb),
+                              "path": lambda aa=aa, nb=nb: MF.md_run(r, *aa, nbr=nb)}, 3)
+    run_ms = min(forms[J]["path"])
+    run_plain_ms = cuda_ms(lambda: MF.md_run_plain(r, *args, nbr=nbrJ), reps=1, warmup=0)
+    lp, lj, lq = list_pair_counts(MF.k4_slots_to_channels(r, {k: v[:2] for k, v in nbrJ.items()}),
+                                  args[0][:2, :3].transpose(1, 2), st.h.expand(2, 3, 3),
+                                  r.spec.cutoff2, r.spec.coul_cutoff2)
+    cnt = nbrJ["count"].double()
+    live_mean = float(cnt.mean())
+    tables = 2 * T * T + 2 * n
+    jobs_bytes = 4.0 * (2 * 6 * n + 3 * n + 16 + 2 * 3 + 3)
+
+    def run_bound(jobs):
+        return bound(jobs * (4.0 * (live_mean * n + n) + jobs_bytes)
+                     + 4.0 * (tables + r.pat.numel() + r.shk.numel() + 2 * n),
+                     list_flops(jobs * 10, lp, lj, lq))
+
+    rb_ms, rb_by = run_bound(J)
+    rb32, _ = run_bound(K4_CL_JOBS)
+    plans = {jobs: MF.k4_cluster_plan(r, jobs) for jobs in (K4_CL_JOBS, J)}
+    print(f"[19 K4 cluster sizes] 10 deform steps, ms: "
+          + ", ".join(f"{jobs} jobs C={C} {t:.3f}" for (jobs, C), t in sizes.items())
+          + f"; the host's C={plans[K4_CL_JOBS]['C']} at {K4_CL_JOBS} jobs, "
+          f"{plans[J]['C']} at {J}")
+    print(f"[19 K4 time split] {K4_CL_JOBS} jobs x 10 deform steps, ms (global / cluster): "
+          + ", ".join(f"{k} {split_ms[(k, 'global')]:.3f} / {split_ms[(k, 'cluster')]:.3f}"
+                      for k in parts))
+    for jobs in (K4_CL_JOBS, J):
+        f = forms[jobs]
+        print(f"[19 K4 A/B] {jobs} jobs x 10 deform steps, ms (global, cluster, cluster, "
+              f"global): {turns(f)}: global / cluster {min(f['first']) / min(f['path']):.3f}x; "
+              f"bound {run_bound(jobs)[0]:.3f} ms; {_plan_line(plans[jobs])}")
+    ginfo = MF.k34_kernel_info("K4", "big_run", n, T)
+    print(f"[19 K4 big run] {J} jobs: cluster form {run_ms:.3f} ms  plain {run_plain_ms:.3f} ms  "
+          f"bound {rb_ms:.3f} ms ({rb_by}; per box {lp:.0f} list pairs, {lj:.0f} inside LJ, "
+          f"{lq:.0f} inside Coulomb); live slots per row mean {live_mean:.1f}, max "
+          f"{int(cnt.max())} of K={K}; the global form's run kernel {ginfo['registers']} "
+          f"registers, {ginfo['local_bytes']} B local, {ginfo['blocks_per_sm']} block(s) per "
+          f"SM of {ginfo['threads']} threads; ptxas (registers, spill stores) cluster form "
+          f"{kernel_registers('k4_cluster_run_kernel')}, global form "
+          f"{kernel_registers('Li321ELi768E')}; phase wall {time.perf_counter() - t0:.2f}s")
+    note = (K4_NOTE + f"; boxes above the shared form's cap: {J} jobs x 10 deform steps at "
+            f"N={n}")
+    cluster_row = {"name": "md_list_cluster_run", "route": "cuda", "source": K4_BIG_SOURCE,
+                   "replaces": "scema_tpu/ops/md_fused.py:1678",
+                   "note": note + f", the cluster form (C={plans[J]['C']}; at {K4_CL_JOBS} jobs "
+                           f"{min(forms[K4_CL_JOBS]['path']):.3f} ms, bound {rb32:.3f})",
+                   "max_abs_err": p_err, "ms": run_ms, "plain_ms": run_plain_ms,
+                   "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None}
+    global_row = dict(cluster_row, name="md_list_big_run",
+                      note=note + f", the global form (one block per job; at {K4_CL_JOBS} jobs "
+                                  f"{min(forms[K4_CL_JOBS]['first']):.3f} ms)",
+                      max_abs_err=g_err, ms=min(forms[J]["first"]))
+    return [cluster_row, global_row]
 
 
 def phase_big_slice(dev):
-    """Phase 20: the coupled step on the 4096-atom PE box (K4's global form)
-    — ``build_md_hmm(HMMConfig(), spec=PEAA4096, equil_steps=50,
+    """Phase 20: the coupled step on the 4096-atom PE box (K4's cluster
+    form) — ``build_md_hmm(HMMConfig(), spec=PEAA4096, equil_steps=50,
     minimize_steps=100)`` with at most BIG_JOBS MD jobs per step, float32,
     2 macro-steps, the launch counters zeroed just before the build and read
-    just after the steps; K4's global form, its force entry and K2 must
-    have launched, K4's shared form and the first designs not."""
+    just after the steps; K4's cluster form, its force entry and K2 must
+    have launched, K4's shared and global forms and the first designs not."""
     import torch
 
     from scema_tpu_torch.config import HMMConfig
@@ -3323,11 +3478,11 @@ def phase_big_slice(dev):
     expect = n_steps * 0.002 * 0.08
     if abs(umax - expect) > 1e-5 * expect:
         fail(f"4096-atom slice: max displacement {umax} != {expect}")
-    for k in ("md_list_big_run", "md_list_forces_virial", "pairwise_l2"):
+    for k in ("md_list_cluster_run", "md_list_forces_virial", "pairwise_l2"):
         if launches[k] <= 0:
             fail(f"4096-atom slice: kernel {k} was not launched: {launches}")
-    if launches["md_list_run"]:
-        fail(f"4096-atom slice: K4's shared form was launched on a box above its cap")
+    if launches["md_list_run"] or launches["md_list_big_run"]:
+        fail(f"4096-atom slice: K4's shared or global form was launched: {launches}")
     first_designs_idle(launches, "4096-atom slice")
     if max(jobs) > BIG_JOBS:
         fail(f"4096-atom slice: {max(jobs)} MD jobs in a step, above the {BIG_JOBS} cap")
@@ -3336,7 +3491,7 @@ def phase_big_slice(dev):
     resid = shake_residual(hmm.backend.sys, ran)
     if ran.shape[0] == 0 or not resid < 1e-3:
         fail(f"4096-atom slice: SHAKE residual {resid:.3e} on {ran.shape[0]} MD states")
-    print(f"[20 big slice] {hmm.backend.sys.n_atoms}-atom PEAA4096 boxes on K4's global form "
+    print(f"[20 big slice] {hmm.backend.sys.n_atoms}-atom PEAA4096 boxes on K4's cluster form "
           f"(K={hmm.backend.sys.fused.spec.k}), qps {hmm.geom.n_qp_total}, at most {BIG_JOBS} "
           f"MD jobs per step: setup {setup_s:.3f}s  s/macro-step {step_s}  md jobs {jobs}  "
           f"launches {launches}  peak memory {peak / 2**20:.1f} MiB  max displacement "
@@ -4789,7 +4944,9 @@ def main() -> int:
     k1m_first["launches"] = launches_k1m["md_allpairs_run_multi"]
     p1 = phase_p1(dev)
     k4_big = phase_k4_big(dev)
-    k4_big["launches"] = phase_big_slice(dev)["md_list_big_run"]
+    launches_big = phase_big_slice(dev)
+    for row in k4_big:  # the cluster form's and the global form's (0) on phase 20's path
+        row["launches"] = launches_big[row["name"]]
     phase_run_surface(dev)
     phase_charged_staged_slice(dev)
     # the paths of phases 23-25 and 27: the data-file material on the
@@ -4815,7 +4972,7 @@ def main() -> int:
         rows.append(row)
     rows += [k1m, k1m_first]  # K1m's launches on the pack_jobs=2 steps (phase 17)
     rows.extend(p1)  # P1's launches on the lab's path (phase 18)
-    rows.append(k4_big)  # K4's global form's launches on the 4096-atom slice (phase 20)
+    rows.extend(k4_big)  # K4's cluster and global forms' launches on the 4096-atom slice
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -69,19 +69,21 @@
 //   another block), and each block writes a partial virial to a (B, tiles,
 //   6) scratch that a second small kernel sums in tile order.
 //
-// K4's form for boxes above one block's shared memory (V_GLOBAL; the JAX
-// list path streams its channels from HBM and has no ceiling,
-// scema_tpu/md/material.py:442-470).  The shared form keeps 23 N floats per
-// job (2509 atoms at most).  The global form keeps in shared memory only
-// what the pair loop reads for every pair — the float4 of position and
-// code, the charges and the type table — and the forces (8 N floats: up to
-// ~7200 atoms), and moves the rows touched O(N) times per step, the
-// velocities and the 12 N role/SHAKE buffer, to a (B, 15, N) per-job
-// scratch in device memory (31 MB at 128 jobs x 4096 atoms: L2-resident on
-// the card's 50 MB).  The arithmetic and its order are the shared form's;
-// the bonded pattern and SHAKE/RATTLE passes read and write that scratch
-// between their barriers (a block's global writes are visible to it after
-// __syncthreads).  The force entry keeps 5 N floats and serves both forms.
+// K4's forms for boxes above one block's shared memory (md_k4_big.cu; the
+// JAX list path streams its channels from HBM and has no ceiling,
+// scema_tpu/md/material.py:442-470).  The shared form keeps 23 N floats
+// per job (2509 atoms at most).  The path's cluster form runs one job on a
+// thread-block cluster of C CTAs: each CTA keeps the whole job's float4 of
+// position and code, the charges and the type table (what the pair loop
+// reads for every pair), and its own rows' velocities, forces and role/
+// SHAKE buffer; positions reach the peers through distributed shared
+// memory after each drift (design notes in md_k4_big.cu; up to ~9190
+// atoms with one type at 16 CTAs per job).  The global form (V_GLOBAL,
+// here) keeps the float4, forces and charges of one job in one block and
+// its velocities and the 12 N role/SHAKE buffer in a (B, 15, N) per-job
+// device scratch, the bonded pattern and SHAKE/RATTLE passes reading and
+// writing it between their barriers; only the A/B timings reach it.  The
+// force entry keeps 5 N floats and serves every form.
 #pragma once
 #include "md_kernel.cuh"
 
@@ -776,12 +778,17 @@ cudaError_t c_launch_run(const CArgs& A, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// a run's operands (every form's)
+bool c_run_ptrs_ok(const CArgs& A, bool list) {
+  return c_args_ok(A, list) && A.invm && A.mftm && A.state && A.vxi && A.press && A.n_run &&
+         A.fscal && A.gstep0 && A.n_tot;
+}
+
 // a run's operands, and its form's shared memory within one block's (the
 // global form needs its scratch)
 bool c_run_args_ok(const CArgs& A, bool list, bool global) {
   if (c_run_smem(A.N, A.T, global) > C_MAX_SMEM || (global && !A.scratch)) return false;
-  return c_args_ok(A, list) && A.invm && A.mftm && A.state && A.vxi && A.press && A.n_run &&
-         A.fscal && A.gstep0 && A.n_tot;
+  return c_run_ptrs_ok(A, list);
 }
 
 // The flag sets make_runner produces for K3 and K4 (any other is refused

@@ -69,14 +69,19 @@ SIGNATURES = {
     "md_list_forces_f32": [_P, _P],
     # K3 and K4 (md_k3.cu, md_k4.cu): a pointer to CArgs (md_fused._K34Args)
     # and the stream, for the run and the force entry; (entry, atoms, types,
-    # int[4]) -> registers, local bytes, blocks per SM, threads; K4's global
-    # form (md_k4_big.cu): CArgs and the stream, and (atoms, types, int[4])
+    # int[4]) -> registers, local bytes, blocks per SM, threads; K4's
+    # cluster form (md_k4_big.cu): a pointer to ClArgs (md_fused._K4ClArgs)
+    # and the stream, and (atoms, types, rows per CTA, CTAs per job, int[5])
+    # -> registers, local bytes, clusters at once, threads, shared bytes per
+    # CTA; its global form: CArgs and the stream, and (atoms, types, int[4])
     "md_k3_run_f32": [_P, _P],
     "md_k3_forces_f32": [_P, _P],
     "md_k3_info": [_I, _I, _I, _P],
     "md_k4_run_f32": [_P, _P],
     "md_k4_forces_f32": [_P, _P],
     "md_k4_info": [_I, _I, _I, _P],
+    "md_k4_cluster_run_f32": [_P, _P],
+    "md_k4_cluster_info": [_I, _I, _I, _I, _P],
     "md_k4_big_run_f32": [_P, _P],
     "md_k4_big_info": [_I, _I, _P],
     # K5 (md_k5.cu): a pointer to K5Args (md_fused._K5Args) and the stream,

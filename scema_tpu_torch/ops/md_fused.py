@@ -64,9 +64,12 @@ models it), and the force entry runs over (tile of 32 rows, box) blocks;
 its first design is ``csrc/md_sw.cu`` (:func:`_run_first`).
 
 K4's boxes above one block's shared memory (:func:`max_atoms`, 2509 atoms
-with one type) run its global form (``csrc/md_k4_big.cu``: the velocities
-and the role/SHAKE buffer in a per-job scratch in device memory), up to
-:func:`k4_big_max_atoms`; :func:`k4_big` says which a box takes.
+with one type) run its cluster form (``csrc/md_k4_big.cu``: one job on a
+thread-block cluster of C CTAs, :func:`k4_cluster_size`, each keeping the
+job's positions and its own rows in shared memory), up to
+:func:`k4_big_max_atoms`; :func:`k4_big` says which a box takes.  The
+global form before it (one block per job, its velocities and role/SHAKE
+buffer in device memory) stays for the A/B timings, :func:`k4_global_run`.
 
 K1m is K1's run with J jobs per thread block (the TPU kernel's
 ``FusedSpec.jobs``): :func:`md_run_multi`, behind
@@ -80,7 +83,8 @@ Three entries, each a wrapper that launches ``csrc/md_k1.cu`` (K1),
 ``csrc/md_k3.cu`` (K3), ``csrc/md_k1m.cu`` (K1m), ``csrc/md_k4.cu`` or
 ``csrc/md_k4_big.cu`` (K4) or ``csrc/md_k5.cu`` (K5) on CUDA tensors
 (counting the launch: ``launches`` for K1, ``launches_k3`` for K3,
-``launches_k4`` for K4, ``launches_k4big`` for K4's global form,
+``launches_k4`` for K4, ``launches_k4cluster`` for K4's cluster form
+(``launches_k4big`` its global form's, through :func:`k4_global_run`),
 ``launches_k5`` for K5, ``launches_k1m`` for K1m) and runs the plain
 PyTorch version of the same function on CPU tensors:
 
@@ -236,6 +240,8 @@ class FusedRunner:
     rebuild_every: int = 10
     # K4's channel buffers of the chunk loop, one set per batch size
     _buffers: dict = field(default_factory=dict, init=False, compare=False, repr=False)
+    # K4's cluster form: row cuts by CTAs per job (k4_cluster_cuts)
+    _cluster: dict = field(default_factory=dict, init=False, compare=False, repr=False)
 
     def to(self, device=None, dtype=None) -> "FusedRunner":
         def mv(x):
@@ -883,7 +889,8 @@ def fused_refusal(ff, masses: torch.Tensor, constraints=None,
     kernel's shared-memory budget for their type count (:func:`smem_refusal`,
     the test :func:`check_smem` makes at launch: K1 keeps its (T, T) table
     beside 22 rows of N floats, so it fits 1714 atoms at 100 types and none
-    from ~170; K3 and K4's shared form 23 rows, K4's global form 8)."""
+    from ~170; K3 and K4's shared form 23 rows, K4's cluster form 20 B per
+    atom and 72 per row of a CTA)."""
     if isinstance(ff, LJ):
         return _k1_refusal(*_k1_weights(ff))
     if np.asarray(ff.impropers).shape[0]:
@@ -1793,36 +1800,108 @@ def k1_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
 
 # K3/K4 (csrc/md_charged.cuh) keep 23 rows of N floats (a float4 of
 # position and code, velocities, forces, the role buffer, the charges), the
-# type table, the reduction scratch and the NHC chain + broadcast; K4's
-# global form (md_k4_big.cu) keeps 8 of them (the float4, forces, charges)
-# and the other 15 in a (B, 15, N) scratch in device memory
-_K34_ROWS, _K4_BIG_ROWS, K4_SCRATCH_ROWS = 23, 8, 15
+# type table, the reduction scratch and the NHC chain + broadcast
+_K34_ROWS = 23
+# K4's global form (md_k4_big.cu, V_GLOBAL; the A/B partner of the cluster
+# form, reached only through k4_global_run) keeps 8 of them and the other
+# 15 in a (B, 15, N) scratch in device memory
+K4_SCRATCH_ROWS = 15
 
 
 def _k34_rows_fit(rows: int, n_types: int) -> int:
     return (_MAX_SMEM // 4 - 2 * n_types ** 2 - _SMEM_RED - _K1_MISC) // rows
 
 
+# K4's cluster form (csrc/md_k4_big.cu) runs one job on C CTAs (a power of
+# two up to K4_CLUSTER_MAX; above 8 the card's non-portable cluster sizes).
+# Each CTA keeps the whole job's float4 and charges (20 B per atom) and
+# the type table, 18 floats per row it owns (velocities, forces, the
+# 12-row role/SHAKE buffer) and a halo of _CL_HALO rows on each side in that
+# buffer, the block and cluster reduction slots and the NHC chain.  The
+# host moves each even cut by at most _CL_SLACK // 2 rows to where no SHAKE
+# constraint crosses it, so the budget counts _CL_SLACK rows more per CTA.
+K4_CLUSTER_MAX = 16
+_CL_HALO, _CL_SLACK = 32, 16
+_CL_FIXED = 4 * (12 * 2 * _CL_HALO + _SMEM_RED + 2 * K4_CLUSTER_MAX * 12 + 4)
+_CL_SIZES = tuple(1 << k for k in range(K4_CLUSTER_MAX.bit_length()))
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def k4_cluster_smem_bytes(n_atoms: int, n_types: int, rows: int) -> int:
+    """Shared memory one CTA of K4's cluster form keeps at ``rows`` rows of
+    its own (md_k4_big.cu cl_smem)."""
+    return 20 * n_atoms + 8 * n_types ** 2 + 72 * rows + _CL_FIXED
+
+
+def _cluster_rows(n_atoms: int, C: int) -> int:
+    """The most rows a CTA of C per job may own (the budget's)."""
+    return min(n_atoms, -(-n_atoms // C) + _CL_SLACK)
+
+
+def k4_cluster_fits(n_atoms: int, n_types: int = 1) -> tuple:
+    """The cluster sizes whose CTA holds this box in its shared memory."""
+    return tuple(C for C in _CL_SIZES
+                 if k4_cluster_smem_bytes(n_atoms, n_types, _cluster_rows(n_atoms, C))
+                 <= _MAX_SMEM)
+
+
+def k4_cluster_size(n_atoms: int, n_types: int, jobs: int, active=None, sms: int = _SMS) -> int:
+    """CTAs per job of a K4 cluster-form run of ``jobs`` jobs: the fewest
+    whose CTA fits (:func:`k4_cluster_fits`), doubled while the larger size
+    still runs every job at once on one CTA per SM — jobs x 2C <= ``sms``
+    (the card's SMs, 132 on an H100 SXM) and the card holds ``jobs``
+    clusters of 2C.  More CTAs per job only pay
+    where SMs would idle: each CTA keeps the whole job's positions and runs
+    every pass of a step, so a CTA of fewer rows works at a lower rate, and
+    a batch larger than one wave of clusters pays a wave per remainder.
+    ``active(C)`` is how many clusters of C the card holds at once (the
+    wrapper asks the card, cudaOccupancyMaxActiveClusters); by default one
+    CTA per SM, sms // C.  Raises where none fits or the card can hold no
+    cluster of the size chosen."""
+    fits = k4_cluster_fits(n_atoms, n_types)
+    if not fits:
+        raise ValueError(f"K4's cluster form: {n_atoms} atoms of {n_types} atom types fit no "
+                         f"cluster of up to {K4_CLUSTER_MAX} CTAs")
+    held = active if active is not None else (lambda c: sms // c)
+    C = fits[0]
+    while 2 * C in fits and jobs * 2 * C <= sms and held(2 * C) >= jobs:
+        C *= 2
+    if held(C) < 1:
+        raise _build.KernelError(f"K4's cluster form: the card schedules no cluster of {C} "
+                                 f"CTAs for {n_atoms} atoms of {n_types} atom types")
+    return C
+
+
 def k4_big(spec: FusedSpec, n_types: int = 1) -> bool:
-    """Whether a K4 run of this box takes K4's global form: its box is above
+    """Whether a K4 run of this box takes K4's cluster form: its box is above
     the shared form's cap (:func:`max_atoms`)."""
     return spec.kernel == "K4" and spec.n_atoms > _k34_rows_fit(_K34_ROWS, n_types)
 
 
 def k4_big_max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
-    """The largest box K4's global form fits in one block with a table of
-    ``n_types`` atom types (8 rows of N floats in shared memory; the force
-    entry, 5 rows, fits wider boxes)."""
-    return _k34_rows_fit(_K4_BIG_ROWS, n_types)
+    """The largest box K4's cluster form holds with a table of ``n_types``
+    atom types: its CTA fits at :data:`K4_CLUSTER_MAX` CTAs per job (the
+    force entry, 5 rows of N floats, fits wider boxes)."""
+    lo, hi = 0, (_MAX_SMEM - 8 * n_types ** 2 - _CL_FIXED) // 20 + 1
+    while hi - lo > 1:  # fits lo, not hi (the budget grows with the box)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if k4_cluster_fits(mid, n_types) else (lo, mid)
+    return lo
 
 
 def k34_smem_bytes(spec: FusedSpec, n_types: int = 1) -> int:
     """Shared memory one block of K3's or K4's run kernel keeps with a table
     of ``n_types`` atom types (md_charged.cuh c_run_smem), in the form the
-    box takes (K4's global form above the shared form's cap)."""
+    box takes: above the shared form's cap, one CTA of K4's cluster form at
+    the fewest CTAs per job that fit, or at :data:`K4_CLUSTER_MAX` where
+    none fits (md_k4_big.cu cl_smem)."""
     _smem_rows(spec)  # SHAKE's rows must fit the role buffer
-    rows = _K4_BIG_ROWS if k4_big(spec, n_types) else _K34_ROWS
-    return 4 * (rows * spec.n_atoms + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
+    n = spec.n_atoms
+    if k4_big(spec, n_types):
+        fits = k4_cluster_fits(n, n_types)
+        C = fits[0] if fits else K4_CLUSTER_MAX
+        return k4_cluster_smem_bytes(n, n_types, _cluster_rows(n, C))
+    return 4 * (_K34_ROWS * n + 2 * n_types ** 2 + _SMEM_RED + _K1_MISC)
 
 
 # K5 (csrc/md_k5.cu) keeps a float4 of position and 16 rows of N floats
@@ -1841,7 +1920,7 @@ def k5_smem_bytes(spec: FusedSpec) -> int:
 def max_atoms(spec: FusedSpec, n_types: int = 1) -> int:
     """The largest box this runner's kernel fits in one block (K1, K3 and
     K4 with a table of ``n_types`` atom types; for K4 its shared form's, above
-    which a run takes the global form up to :func:`k4_big_max_atoms`)."""
+    which a run takes the cluster form up to :func:`k4_big_max_atoms`)."""
     if spec.kernel in ("K1", "K3", "K4"):
         return _k34_rows_fit(_K1_ROWS if spec.kernel == "K1" else _K34_ROWS, n_types)
     return ((_MAX_SMEM - 4 * (_SMEM_RED + _K5_MISC))
@@ -1852,13 +1931,13 @@ def check_smem(spec: FusedSpec, n_types: int = 1) -> None:
     """Raise on the host when a box exceeds its kernel's shared-memory budget
     (K1's, K3's and K4's, with a table of ``n_types`` atom types, cover their
     first designs', which keep fewer rows; K4 above its shared form's cap is
-    held to its global form's; K5's run, with its live list, keeps more than
-    its first design and the force entry)."""
+    held to its cluster form's CTA; K5's run, with its live list, keeps more
+    than its first design and the force entry)."""
     need = (k1_smem_bytes(spec, n_types) if spec.kernel == "K1"
             else k34_smem_bytes(spec, n_types) if spec.kernel in ("K3", "K4")
             else k5_smem_bytes(spec))
     if need > _MAX_SMEM:
-        cap, form = ((k4_big_max_atoms(spec, n_types), " in K4's global form")
+        cap, form = ((k4_big_max_atoms(spec, n_types), " in K4's cluster form")
                      if spec.kernel == "K4" else (max_atoms(spec, n_types), ""))
         raise ValueError(
             f"{spec.kernel} (flags {spec.flags}): {spec.n_atoms} atoms need {need} B of shared "
@@ -1874,7 +1953,7 @@ def smem_refusal(spec: FusedSpec, n_types: int) -> str | None:
             else k34_smem_bytes(spec, n_types))
     if need <= _MAX_SMEM:
         return None
-    form = " in its global form" if spec.kernel == "K4" else ""
+    form = " in its cluster form" if spec.kernel == "K4" else ""
     cap = k4_big_max_atoms(spec, n_types) if form else max_atoms(spec, n_types)
     types = f"{n_types} atom type" + ("s" if n_types > 1 else "")
     return (f"{spec.kernel}: {spec.n_atoms} atoms of {types} need {need} B of shared "
@@ -2050,12 +2129,12 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                 n_run=nr.data_ptr(), fscal=fs.data_ptr())
     if spec.kernel == "K1":
         _k1_run(runner, Bn, deform, sample, ptrs)
+    elif spec.kernel == "K4" and k4_big(spec, int(runner.k34_tbl.shape[0])):
+        _k4_cluster_chunk(runner, ptrs, nr, fext, gstep0, n_tot, nbr, deform, sample)
+        md_run.launches_k4cluster += 1
+        return st, xi, press
     elif spec.kernel in ("K3", "K4"):
-        big = k4_big(spec, int(runner.k34_tbl.shape[0]))
-        _k34_chunk(runner, big, ptrs, nr, fext, gstep0, n_tot, nbr, deform, sample)
-        if big:
-            md_run.launches_k4big += 1
-            return st, xi, press
+        _k34_chunk(runner, False, ptrs, nr, fext, gstep0, n_tot, nbr, deform, sample)
     else:
         _k5_run(runner, Bn, deform, sample, ptrs, K5_CAP)
     _count(md_run, spec)
@@ -2064,8 +2143,8 @@ def md_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
 
 def _k34_chunk(runner: FusedRunner, big: bool, ptrs: dict, nr, fext, gstep0, n_tot, nbr,
                deform: bool, sample: bool) -> None:
-    """Launch a K3 or K4 run (with ``big`` K4's global form, its velocities
-    and role buffer in a (B, 15, N) scratch) on the pointers of
+    """Launch a K3 or K4 run (with ``big`` K4's global form, the A/B
+    partner, its velocities and role buffer in a (B, 15, N) scratch) on the pointers of
     :func:`_run_inputs`' operands."""
     spec = runner.spec
     Bn = nr.shape[0]
@@ -2083,10 +2162,10 @@ def k4_global_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                   n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
                   fext: torch.Tensor | None = None, gstep0: torch.Tensor | None = None,
                   n_tot: torch.Tensor | None = None, nbr: dict | None = None):
-    """:func:`md_run` of a K4 runner on K4's global form whatever its box
-    size (a box within the shared form's cap too), for chip_smoke.py's
-    timing of the two forms on one box; the path picks the form by
-    :func:`k4_big`.  Counts nothing."""
+    """:func:`md_run` of a K4 runner on K4's global form (one block per job,
+    its velocities and role buffer in device memory) whatever its box size,
+    for chip_smoke.py's timings against the shared and the cluster form;
+    no path launches it.  Counted in ``md_run.launches_k4big``."""
     if runner.spec.kernel != "K4" or state.device.type != "cuda":
         raise ValueError("k4_global_run: a K4 runner on the card")
     st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k4_global_run")
@@ -2095,6 +2174,133 @@ def k4_global_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
                                       press=press.data_ptr(), n_run=nr.data_ptr(),
                                       fscal=fs.data_ptr()),
                    nr, fext, gstep0, n_tot, nbr, deform, sample)
+        md_run.launches_k4big += 1
+    return st, xi, press
+
+
+def _shake_split(runner: FusedRunner) -> np.ndarray:
+    """(N + 1,) bool: a SHAKE constraint (a, a + o) with a < c <= a + o
+    splits at cut c.  Cached on the runner."""
+    got = runner._cluster.get("split")
+    if got is None:
+        n = runner.spec.n_atoms
+        got = np.zeros(n + 1, bool)
+        if runner.shk is not None:
+            rows = runner.shk.detach().cpu().numpy()
+            for k, o in enumerate(runner.spec.shake_offsets):
+                a = np.nonzero(rows[k] > 0)[0]
+                for d in range(1, o + 1):
+                    got[np.minimum(a + d, n)] = True
+        runner._cluster["split"] = got
+    return got
+
+
+def k4_cluster_cuts(runner: FusedRunner, C: int, cuts=None) -> tuple:
+    """(row cuts (C + 1,), cross) of a K4 cluster-form run with C CTAs per
+    job: CTA r owns rows [cuts[r], cuts[r + 1]).  Each cut is the even split
+    moved by at most _CL_SLACK // 2 rows, nearest first, to where no SHAKE
+    constraint crosses it (or the given ``cuts``); ``cross`` says that some
+    cut still splits a constraint (the kernel then reads the partner from
+    its CTA).  Cached on the runner."""
+    split = _shake_split(runner)
+    if cuts is not None:
+        return tuple(int(c) for c in cuts), bool(any(split[c] for c in cuts[1:-1]))
+    got = runner._cluster.get(C)
+    if got is None:
+        n = runner.spec.n_atoms
+        cuts = [0]
+        for r in range(1, C):
+            even = round(r * n / C)
+            near = [even + d for m in range(_CL_SLACK // 2 + 1) for d in ((m, -m) if m else (0,))]
+            cuts.append(next((c for c in near if cuts[-1] < c < n and not split[c]), even))
+        cuts.append(n)
+        got = runner._cluster[C] = (tuple(cuts), bool(any(split[c] for c in cuts[1:-1])))
+    return got
+
+
+_CLUSTER_INFO: dict = {}
+
+
+def k4_cluster_kernel_info(n_atoms: int, n_types: int, C: int, rows: int | None = None) -> dict:
+    """Registers, local (spill) bytes per thread, clusters of C CTAs the
+    card holds at once (cudaOccupancyMaxActiveClusters), threads and shared
+    bytes per CTA of K4's cluster-form run kernel (the charged slices' flag
+    set) at ``n_atoms`` atoms of ``n_types`` types and ``rows`` rows per CTA
+    (default the budget's).  Cached."""
+    rows = _cluster_rows(n_atoms, C) if rows is None else rows
+    key = (n_atoms, n_types, C, rows)
+    if key not in _CLUSTER_INFO:
+        out = (ctypes.c_int * 5)()
+        rc = _build.library().md_k4_cluster_info(n_atoms, n_types, rows, C, out)
+        _build.check(rc, f"K4 cluster info (C={C}, {rows} rows)")
+        _CLUSTER_INFO[key] = dict(zip(("registers", "local_bytes", "clusters", "threads",
+                                       "smem_bytes"), out))
+    return _CLUSTER_INFO[key]
+
+
+def k4_cluster_plan(runner: FusedRunner, jobs: int, cluster: int | None = None,
+                    cuts=None) -> dict:
+    """The launch of a K4 cluster-form run of ``jobs`` jobs on the card: C
+    (:func:`k4_cluster_size` with the card's resident clusters, or
+    ``cluster``), the cuts and cross flag (:func:`k4_cluster_cuts`) and
+    the kernel's info at those rows."""
+    n, T = runner.spec.n_atoms, int(runner.k34_tbl.shape[0])
+
+    def info(C, cut=None):
+        cut = k4_cluster_cuts(runner, C, cut)[0]
+        return k4_cluster_kernel_info(n, T, C, int(max(np.diff(cut))))
+
+    sms = torch.cuda.get_device_properties(runner.invm.device).multi_processor_count
+    C = (len(cuts) - 1 if cuts is not None else cluster
+         or k4_cluster_size(n, T, jobs, active=lambda c: info(c)["clusters"], sms=sms))
+    cut, cross = k4_cluster_cuts(runner, C, cuts)
+    return dict(C=C, cuts=cut, cross=cross, rows=int(max(np.diff(cut))), **info(C, cuts))
+
+
+def _k4_cluster_chunk(runner: FusedRunner, ptrs: dict, nr, fext, gstep0, n_tot, nbr,
+                      deform: bool, sample: bool, cluster: int | None = None,
+                      cuts=None) -> None:
+    """Launch K4's cluster form (md_k4_big.cu) on the pointers of
+    :func:`_run_inputs`' operands (C and the cuts by
+    :func:`k4_cluster_plan`).  A launch the card refuses raises."""
+    spec = runner.spec
+    Bn = nr.shape[0]
+    keep = _chunk_ptrs(runner, ptrs, nr, fext, gstep0, n_tot)
+    plan = k4_cluster_plan(runner, Bn, cluster, cuts)
+    if plan["clusters"] < 1:
+        raise _build.KernelError(f"K4's cluster form: the card holds no cluster of {plan['C']} "
+                                 f"CTAs of {plan['smem_bytes']} B")
+    args = _K4ClArgs()
+    args.a = _k34_args(runner, Bn, _check_slots(runner, nbr, Bn), **ptrs)
+    args.a.deform, args.a.sample = int(deform), int(sample)
+    args.C, args.rmax, args.cross = plan["C"], plan["rows"], int(plan["cross"])
+    for r, c in enumerate(plan["cuts"]):
+        args.cut[r] = c
+    rc = _build.library().md_k4_cluster_run_f32(ctypes.byref(args),
+                                                _build.stream_handle(nr.device))
+    _build.check(rc, f"md_k4_cluster_run_f32 (flags {spec.flags}, {plan['C']} CTAs per job)")
+    del keep
+
+
+def k4_cluster_run(runner: FusedRunner, state: torch.Tensor, vxi: torch.Tensor,
+                   n_run: torch.Tensor, fscal: torch.Tensor, deform: bool, sample: bool,
+                   fext: torch.Tensor | None = None, gstep0: torch.Tensor | None = None,
+                   n_tot: torch.Tensor | None = None, nbr: dict | None = None,
+                   cluster: int | None = None, cuts=None):
+    """:func:`md_run` of a K4 runner on K4's cluster form with C =
+    ``cluster`` CTAs per job or the given row ``cuts`` (C + 1 of them), for
+    chip_smoke.py's checks and timings of other cluster sizes and of cuts
+    that split SHAKE constraints; md_run takes the host's choice.  Counted
+    in ``md_run.launches_k4cluster``."""
+    if runner.spec.kernel != "K4" or state.device.type != "cuda":
+        raise ValueError("k4_cluster_run: a K4 runner on the card")
+    st, xi, nr, fs, press = _run_inputs(runner, state, vxi, n_run, fscal, "k4_cluster_run")
+    if st.shape[0]:
+        _k4_cluster_chunk(runner, dict(state=st.data_ptr(), vxi=xi.data_ptr(),
+                                       press=press.data_ptr(), n_run=nr.data_ptr(),
+                                       fscal=fs.data_ptr()),
+                          nr, fext, gstep0, n_tot, nbr, deform, sample, cluster, cuts)
+        md_run.launches_k4cluster += 1
     return st, xi, press
 
 
@@ -2159,7 +2365,8 @@ def _count(fn, spec: FusedSpec) -> None:
 md_run.launches = 0
 md_run.launches_k3 = 0
 md_run.launches_k4 = 0
-md_run.launches_k4big = 0  # K4's global form (boxes above the shared form's cap)
+md_run.launches_k4cluster = 0  # K4's cluster form (boxes above the shared form's cap)
+md_run.launches_k4big = 0  # K4's global form (its A/B partner: k4_global_run only)
 md_run.launches_k5 = 0
 
 # jobs per block K1m is built for (csrc/md_k1m.cu; its first design in
@@ -2483,6 +2690,15 @@ class _K34Args(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "cutoff2", "r2min", "coul_cutoff2", "alpha", "ndof", "boltz", "nktv2p", "tdamp")]
         + [("slj", ctypes.c_float * 4), ("sco", ctypes.c_float * 4), ("topo3", _Topo3)])
+
+
+class _K4ClArgs(ctypes.Structure):
+    """Mirror of md_k4_big.cu's ClArgs: K4's operands, the CTAs per job,
+    their most rows, whether a SHAKE constraint crosses a cut and the row
+    cuts."""
+
+    _fields_ = [("a", _K34Args), ("C", ctypes.c_int), ("rmax", ctypes.c_int),
+                ("cross", ctypes.c_int), ("cut", ctypes.c_int * (K4_CLUSTER_MAX + 1))]
 
 
 def k34_tiles(n_atoms: int) -> int:

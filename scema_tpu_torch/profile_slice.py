@@ -4,6 +4,7 @@
     python -m scema_tpu_torch.profile_slice --charged [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --charged --staged [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --bigbox [--steps 3] [--repeats 3]
+    python -m scema_tpu_torch.profile_slice --bigbox4096 [--k4-form global] [--steps 3] [--repeats 3]
     python -m scema_tpu_torch.profile_slice --sw [--steps 8] [--repeats 10]
     python -m scema_tpu_torch.profile_slice --sw-bricks [--steps 8] [--repeats 10]
     python -m scema_tpu_torch.profile_slice --sw-list [--steps 2] [--repeats 2]
@@ -15,7 +16,11 @@ with ``--charged``, the charged slice (the 1792-atom all-atom PE material
 ``material.PEAA`` at every flagged qp, at most 128 MD jobs per step,
 ``equil_steps=50``, ``minimize_steps=100``) or, with ``--bigbox``, the same
 with the 2240-atom box ``material.PEAA2240`` on the gather-list kernel K4,
-or, with ``--sw``, the config with ``"force field": "sw"`` (the 216-atom
+or, with ``--bigbox4096``, the 4096-atom box ``material.PEAA4096`` at most
+32 MD jobs per step on K4's cluster form (``--k4-form global`` runs those
+launches on K4's global form instead, the form before the cluster form,
+to compare the two forms on one card), or, with ``--sw``, the config with
+``"force field": "sw"`` (the 216-atom
 diamond-Si Stillinger-Weber box on K5 at every flagged qp, 576 jobs) or,
 with ``--sw-bricks`` / ``--sw-list``, the SW box above K5's gate (8^3
 cells, 4096 atoms, at most 128 MD jobs per step) on the unfused engine with
@@ -101,6 +106,26 @@ def _profile_npt(hmm, dev, n_steps: int = 20) -> dict:
     return out
 
 
+def _route_k4_global() -> None:
+    """Send every K4 run above the shared form's cap to K4's global form
+    (``md_fused.k4_global_run``) for the rest of the process."""
+    from .ops import md_fused as MF
+
+    md_run = MF.md_run
+
+    def run(runner, state, vxi, n_run, fscal, deform, sample, fext=None, gstep0=None,
+            n_tot=None, nbr=None):
+        if (state.device.type == "cuda" and runner.spec.kernel == "K4"
+                and MF.k4_big(runner.spec, int(runner.k34_tbl.shape[0]))):
+            return MF.k4_global_run(runner, state, vxi, n_run, fscal, deform, sample, fext,
+                                    gstep0, n_tot, nbr)
+        return md_run(runner, state, vxi, n_run, fscal, deform, sample, fext, gstep0, n_tot,
+                      nbr)
+
+    run.__dict__ = md_run.__dict__  # the same launch counters
+    MF.md_run = run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="scema_tpu_torch.profile_slice")
     ap.add_argument("--steps", type=int, default=8, help="macro-steps before the repeats")
@@ -110,6 +135,11 @@ def main(argv=None) -> int:
                     help="the charged all-atom PE slice (K3, PME) instead of the g0 slice")
     ap.add_argument("--bigbox", action="store_true",
                     help="the charged 2240-atom slice on the list kernel (K4, PME)")
+    ap.add_argument("--bigbox4096", action="store_true",
+                    help="the charged 4096-atom slice at <= 32 jobs on K4's cluster form")
+    ap.add_argument("--k4-form", choices=("cluster", "global"), default="cluster",
+                    help="K4's form for boxes above its shared form's cap (global: the "
+                         "earlier one-block-per-job form, for comparisons)")
     ap.add_argument("--sw", action="store_true",
                     help="the Stillinger-Weber silicon slice (K5) instead of the g0 slice")
     ap.add_argument("--sw-bricks", action="store_true",
@@ -139,6 +169,8 @@ def main(argv=None) -> int:
     card = card_line(dev)
     print(card)
 
+    if args.k4_form == "global":
+        _route_k4_global()
     cfg = HMMConfig().replace(dtype="float32")
     t0 = time.perf_counter()
     if args.reax:
@@ -149,18 +181,19 @@ def main(argv=None) -> int:
                           resources=dataclasses.replace(cfg.resources, max_md_jobs=32))
         hmm = build_md_hmm(cfg, spec=dataclasses.replace(REAXPE, reax_ffield=args.reax),
                            equil_steps=20, minimize_steps=60, staged=args.staged, device=dev)
-    elif args.charged or args.bigbox or args.sw_bricks or args.sw_list:
-        from .md.material import PEAA, PEAA2240, MaterialSpec
+    elif args.charged or args.bigbox or args.bigbox4096 or args.sw_bricks or args.sw_list:
+        from .md.material import PEAA, PEAA2240, PEAA4096, MaterialSpec
 
         cfg = cfg.replace(md_dtype="float32", resources=dataclasses.replace(
-            cfg.resources, max_md_jobs=128))
+            cfg.resources, max_md_jobs=32 if args.bigbox4096 else 128))
         if args.sw_bricks or args.sw_list:
             hmm = build_md_hmm(cfg, spec=MaterialSpec(name="si", n_cells=8,
                                                       use_pallas_bricks=args.sw_bricks),
                                staged=args.staged, device=dev)
         else:
-            hmm = build_md_hmm(cfg, spec=PEAA2240 if args.bigbox else PEAA, equil_steps=50,
-                               minimize_steps=100, staged=args.staged, device=dev)
+            spec = PEAA4096 if args.bigbox4096 else PEAA2240 if args.bigbox else PEAA
+            hmm = build_md_hmm(cfg, spec=spec, equil_steps=50, minimize_steps=100,
+                               staged=args.staged, device=dev)
     else:
         if args.sw:
             cfg = cfg.replace(md=dataclasses.replace(cfg.md, force_field="sw"))
@@ -241,6 +274,7 @@ def main(argv=None) -> int:
         key = (md if any(k in name for k in ("md_run_kernel", "md_forces_kernel", "k1_run_kernel",
                                               "k1_forces_kernel", "k1_virial_kernel",
                                               "k34_run_kernel", "k34_forces_kernel",
+                                              "k4_cluster_run_kernel",
                                               "k34_virial_kernel", "k1m_run_kernel",
                                               "k5_run_kernel", "k5_moments_kernel",
                                               "k5_forces_kernel", "k5_virial_kernel",
@@ -272,7 +306,7 @@ def main(argv=None) -> int:
                       "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
                       "span_ms": span_ms, "span_device_ms": span_dev, "idle_share": idle,
                       "peak_mem_mib": peak, "device_launches": len(events),
-                      "staged": args.staged, "npt_loop": npt}))
+                      "staged": args.staged, "npt_loop": npt, "k4_form": args.k4_form}))
     return 0
 
 

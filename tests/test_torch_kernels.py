@@ -52,8 +52,10 @@ Tolerances, each with its reason (float32 on both sides, same inputs):
   md_fused._run_first / _forces_first; K4 over the seven channels of
   channels_first) to the same bounds, each design's launches counted on
   its own wrapper and the other's untouched;
-* K4's global form (csrc/md_k4_big.cu) on the 4096-atom PEAA4096 box, above
-  the shared form's cap: the bounds of K4, inactive jobs bit-identical;
+* K4's cluster form (csrc/md_k4_big.cu: one job on a cluster of CTAs) on
+  the 4096-atom PEAA4096 box, above the shared form's cap, on the host's
+  cluster size and on 8 CTAs with cuts that split SHAKE constraints: the
+  bounds of K4, inactive jobs bit-identical;
 * K5 (csrc/md_k5.cu: sweep 2 over sweep 1's live lists) on the slice's
   216-atom diamond-Si box and on the gate's largest, 640 atoms, with
   perturbed positions and tilted boxes: the bounds of K1, inactive jobs
@@ -634,7 +636,7 @@ def test_k4_flag_sets_match_plain(case):
 
 @pytest.fixture(scope="module")
 def peaa4096():
-    """The 4096-atom charged PE box on K4's global form (above the shared
+    """The 4096-atom charged PE box on K4's cluster form (above the shared
     form's 2509-atom cap), 4 jobs after FIRE 100."""
     dev = _device()
     sys, st = M.build_system(M.PEAA4096, dtype=torch.float32, device=dev)
@@ -652,12 +654,16 @@ def peaa4096():
     return sys, batch, fk.transpose(1, 2).contiguous(), r.channels(batch.pos, batch.h)
 
 
-def test_k4_big_run_matches_plain_and_skips_inactive(peaa4096):
-    """K4's global form on a 10-step deform chunk with SHAKE and the frozen
-    k-space force: the K3/K4 run bounds, a job with n_run = 0 bit-identical,
-    the SHAKE residual below 1e-3, counted in launches_k4big only."""
+@pytest.mark.parametrize("cuts", ["host", "across"])
+def test_k4_big_run_matches_plain_and_skips_inactive(peaa4096, cuts):
+    """K4's cluster form on a 10-step deform chunk with SHAKE and the frozen
+    k-space force — on the host's cluster size (counted in
+    launches_k4cluster only) and on 8 CTAs whose cuts split SHAKE
+    constraints: the K3/K4 run bounds, a job with n_run = 0 bit-identical,
+    the SHAKE residual below 1e-3."""
     sys, batch, fk, nbr = peaa4096
     B = batch.pos.shape[0]
+    r = sys.fused
     st = MF.pack_state(batch.pos, batch.vel)
     eps = torch.tensor([1e-3, 0.0, -5e-4, 2e-4, 0.0, 1e-4], device=st.device).expand(B, 6)
     fscal = MF.make_fscal(DT, T_MD, batch.h, eps)
@@ -665,13 +671,22 @@ def test_k4_big_run_matches_plain_and_skips_inactive(peaa4096):
     g0 = torch.tensor([0, 0, 10, 20], dtype=torch.int32, device=st.device)
     n_tot = torch.full_like(n_run, 30)
     args = (batch.vxi, n_run, fscal, True, False, fk, g0, n_tot)
-    before, shared = MF.md_run.launches_k4big, MF.md_run.launches_k4
-    out, vxi, _ = MF.md_run(sys.fused, st, *args, nbr=nbr)
+    before = {k: getattr(MF.md_run, k) for k in ("launches_k4cluster", "launches_k4big",
+                                                   "launches_k4")}
+    if cuts == "host":
+        out, vxi, _ = MF.md_run(r, st, *args, nbr=nbr)
+    else:
+        n = sys.n_atoms
+        split = MF._shake_split(r)
+        cut = [0] + [next(c for c in range(k * n // 8, n) if split[c]) for k in range(1, 8)] + [n]
+        assert MF.k4_cluster_cuts(r, 8, cut)[1]
+        out, vxi, _ = MF.k4_cluster_run(r, st, *args, nbr=nbr, cuts=cut)
     torch.cuda.synchronize()
-    assert MF.md_run.launches_k4big == before + 1 and MF.md_run.launches_k4 == shared
+    after = {k: getattr(MF.md_run, k) for k in before}
+    assert after == {**before, "launches_k4cluster": before["launches_k4cluster"] + 1}
     assert torch.equal(out[1], st[1]) and torch.equal(vxi[1], batch.vxi[1])
-    ref, _, _ = MF.md_run_plain(sys.fused, st, *args, nbr=nbr)
-    ref64, _, _ = MF.md_run_plain(sys.fused.to(st.device, torch.float64), st.double(),
+    ref, _, _ = MF.md_run_plain(r, st, *args, nbr=nbr)
+    ref64, _, _ = MF.md_run_plain(r.to(st.device, torch.float64), st.double(),
                                   batch.vxi.double(), n_run, fscal.double(), True, False,
                                   fk.double(), g0, n_tot, nbr=nbr)
     assert _err(out[:, :3], ref64[:, :3]) <= 4 * _err(ref[:, :3], ref64[:, :3]) + 1e-4
@@ -682,11 +697,11 @@ def test_k4_big_run_matches_plain_and_skips_inactive(peaa4096):
     ran = out[n_run > 0]
     rr = ran[:, :3, j].double() - ran[:, :3, i].double()
     assert float(((rr * rr).sum(1) - d0sq).abs().div(d0sq).max()) < 1e-3
-    assert int(nbr["count"].max()) < sys.fused.spec.k
+    assert int(nbr["count"].max()) < r.spec.k
 
 
 def test_k4_big_sampling_and_forces_match_plain(peaa4096):
-    """On the 4096-atom box: 20-step pressure sums of K4's global form and
+    """On the 4096-atom box: 20-step pressure sums of K4's cluster form and
     the force entry (one form for both box sizes), to the K4 bounds."""
     sys, batch, fk, nbr = peaa4096
     st = MF.pack_state(batch.pos, batch.vel)
@@ -709,8 +724,9 @@ def test_k4_big_sampling_and_forces_match_plain(peaa4096):
     F64, W64 = MF.md_forces_virial_plain(r64, pos.double(), h6.double(), nbr)
     assert _rel(F, F64) <= 2 * _rel(Fp, F64) + 1e-6
     assert _rel(W, W64) <= 2 * _rel(Wp, W64) + 1e-6
-    info = MF.k34_kernel_info("K4", "big_run", sys.n_atoms, int(sys.fused.k34_tbl.shape[0]))
-    assert info["threads"] == 768 and info["blocks_per_sm"] == 1, info
+    plan = MF.k4_cluster_plan(sys.fused, st.shape[0])
+    assert plan["clusters"] >= 1 and plan["smem_bytes"] <= 232448, plan
+    assert plan["threads"] == min(1024, -(-plan["rows"] // 32) * 32), plan
 
 
 def _charged(kernel, peaa, peaa2240):
