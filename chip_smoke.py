@@ -149,15 +149,21 @@ failure exits non-zero before the result line:
    prep of the 216-atom SW box on K5's entry (density in the band of the
    JAX package's prep);
 18. P1 (the kernel lab's slim all-pairs LJ runs, ``ops.md_slim``, variants
-   v1-v8) on the prepared g0 box (float32): each variant's kernel on a
-   25-step run of 576 jobs (one image-cache refresh mid-run) against its
-   plain version and float64 (K1's rule: 4x plain float32 + 1e-4) and
-   against v1, and its int8 image guard against the plain version's;
-   kernel, plain and bound times of that run, with each kernel's blocks
-   per SM; then the lab itself, ``probe_allpairs.main`` over v0 (K1), v0p
-   (K1m) and every slim variant at 576 jobs x 500 steps (best of 3 runs,
-   each state finite), its launch counters zeroed just before and read
-   just after (v0 on K1, never on its first design);
+   v1-v8) on the prepared g0 box (float32): each variant's redesign
+   (csrc/md_slim_ring.cu: float4 positions, planes and image cache through
+   a shared-memory ring of TMA bulk copies) and first design (md_slim.cu)
+   on a 25-step run of 576 jobs (one image-cache refresh mid-run) against
+   the plain version and float64 (K1's rule: 4x plain float32 + 1e-4),
+   against each other (bit for bit for v1-v4 and v5m), the redesign
+   against v1, a program with n_run = 0 bit-identical, and the int8 image
+   guard against the plain version's; both designs in turns (first, new,
+   new, first) with the plain and bound times, the wrapper's shared bytes
+   against the kernel's own, registers, spills and blocks per SM; then
+   the lab itself, ``probe_allpairs.main`` over v0 (K1), v0p (K1m) and every slim
+   variant at 576 jobs x 500 steps (best of 3 runs, each state finite),
+   its launch counters zeroed just before and read just after (the
+   redesign 4 launches per variant, the first design none, v0 on K1, never
+   on its first design);
 19. K4's cluster form (csrc/md_k4_big.cu: one job on a thread-block
    cluster of C CTAs, its rows in the CTAs' shared memory, for list boxes
    above the shared form's 2509-atom cap) on the prepared 4096-atom PE box
@@ -2961,8 +2967,12 @@ def phase_staged_slice(dev, k1m_bitwise: bool):
 # with its own velocities and strain, for 25 steps, so the image cache is
 # refreshed once mid-run (every 20 steps, and before the first force call)
 P1_JOBS, P1_STEPS = 576, 25
-P1_SOURCE = "scema_tpu_torch/csrc/md_slim.cu"
+P1_SOURCE = "scema_tpu_torch/csrc/md_slim_ring.cu"
+P1_FIRST_SOURCE = "scema_tpu_torch/csrc/md_slim.cu"
 P1_REPLACES = "scripts/probe_allpairs.py:616"
+# the variants whose two designs keep each thread's order of the sum over j
+# (full rows, v5m's partials in warp order): bit for bit, checked
+P1_BITWISE = ("v1", "v2", "v3", "v4", "v5m")
 
 
 def events_ms(fn):
@@ -2981,15 +2991,21 @@ def events_ms(fn):
 
 def phase_p1(dev, n_steps: int = 500):
     """Phase 18: P1 (the kernel lab's slim all-pairs runs, variants v1-v8)
-    on the prepared g0 box, made once: each variant's kernel against its
-    plain version and float64 on 25 steps of 576 jobs (one image refresh
-    mid-run), and against v1; the int8 image guard (an atom 200 box lengths
-    out turns its program's positions NaN in kernel and plain version
-    alike); the kernel's and the plain version's times on the check run,
-    with the bound and the kernel's blocks per SM; then the lab itself
-    (``probe_allpairs.main``) over v0, v0p and every slim variant at 576
-    jobs x ``n_steps``, its launch counters zeroed just before and read
-    just after.  Returns the kernels' rows."""
+    on the prepared g0 box, made once.  For each variant, on 25 steps of
+    576 jobs (one image refresh mid-run): the redesign (``slim_run``) and
+    the first design (``slim_run_first``) against the plain version and
+    float64 (4x plain float32 + 1e-4), against each other (bit for bit for
+    P1_BITWISE), and the redesign against v1; a program with n_run = 0
+    bit-identical; the int8 image guard (an atom 200 box lengths out turns
+    its program's positions NaN in kernel and plain version alike); both
+    designs timed in turns (first, new, new, first) beside the plain
+    version and the bound, with the wrapper's block (``ring_layout``)
+    against the kernel's own, and registers, spills and blocks per SM of
+    both.  Then the lab itself (``probe_allpairs.main``)
+    over v0, v0p and every slim variant at 576 jobs x ``n_steps``, its
+    launch counters zeroed just before and read just after: the redesign 4
+    launches per variant, the first design none.  Returns the kernels' rows
+    (the redesign's, then the first design's)."""
     import torch
 
     from scema_tpu_torch import probe_allpairs as PA
@@ -3026,17 +3042,9 @@ def phase_p1(dev, n_steps: int = 500):
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
 
-    rows, v1_out = {}, None
-    for name, v in MS.VARIANTS.items():
-        J = v.jobs
-        w, s = MS.variant_planes(name, w4e, sig2)
-        x, fs = grouped(jobs, J), fscal[::J].contiguous()
-        out, sacc = MS.slim_run(name, x, w, s, n_chk, fs)
-        ms = cuda_ms(lambda: MS.slim_run(name, x, w, s, n_chk, fs), reps=3, warmup=0)
-        (pl, spl), plain_ms = events_ms(lambda: MS.slim_run_plain(name, x, w, s, n_chk, fs))
-        p64, s64 = MS.slim_run_plain(name, x.double(), w.double(), s.double(), n_chk,
-                                     fs.double())
-        torch.cuda.synchronize()
+    def held(out, sacc, pl, spl, p64, s64, what):
+        """(positions, velocities, chain and 2 KE) errors against float64,
+        failing beyond 4x the plain float32 run's + 1e-4."""
         pk, pp = err(out[:, :3], p64[:, :3]), err(pl[:, :3], p64[:, :3])
         vmax = float(p64[:, 3:6].abs().max())
         vk, vp = err(out[:, 3:6], p64[:, 3:6]) / vmax, err(pl[:, 3:6], p64[:, 3:6]) / vmax
@@ -3044,10 +3052,39 @@ def phase_p1(dev, n_steps: int = 500):
         sk = float(((sacc[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
         sp = float(((spl[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
         if (not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4
-                or sk > 4 * sp + 1e-4 or not torch.equal(out[:, 6:], x[:, 6:])):
-            fail(f"P1 {name}: kernel vs float64 positions {pk:.3e} A, velocities rel {vk:.3e}, "
-                 f"chain and 2 KE rel {sk:.3e} exceed 4x plain float32 ({pp:.3e}, {vp:.3e}, "
-                 f"{sp:.3e}) + 1e-4")
+                or sk > 4 * sp + 1e-4 or not torch.equal(out[:, 6:], pl[:, 6:])):
+            fail(f"P1 {what}: vs float64 positions {pk:.3e} A, velocities rel {vk:.3e}, chain "
+                 f"and 2 KE rel {sk:.3e} exceed 4x plain float32 ({pp:.3e}, {vp:.3e}, {sp:.3e}) "
+                 f"+ 1e-4")
+        return pk, pp, vk, vp, sk, sp
+
+    rows, first_rows, v1_out = {}, {}, None
+    for name, v in MS.VARIANTS.items():
+        J = v.jobs
+        w, s = MS.variant_planes(name, w4e, sig2)
+        x, fs = grouped(jobs, J), fscal[::J].contiguous()
+        out, sacc = MS.slim_run(name, x, w, s, n_chk, fs)
+        fo, fsacc = MS.slim_run_first(name, x, w, s, n_chk, fs)
+        (pl, spl), plain_ms = events_ms(lambda: MS.slim_run_plain(name, x, w, s, n_chk, fs))
+        p64, s64 = MS.slim_run_plain(name, x.double(), w.double(), s.double(), n_chk,
+                                     fs.double())
+        torch.cuda.synchronize()
+        pk, pp, vk, vp, sk, sp = held(out, sacc, pl, spl, p64, s64, f"{name} (redesign)")
+        pkf = held(fo, fsacc, pl, spl, p64, s64, f"{name} (first design)")[0]
+        # the two designs against each other
+        same = torch.equal(out, fo) and torch.equal(sacc, fsacc)
+        if name in P1_BITWISE and not same:
+            fail(f"P1 {name}: the redesign differs from the first design by {err(out, fo):.3e} "
+                 f"though both keep each thread's order of the sum over j")
+        designs = ("bit for bit" if same else
+                   f"|new - first| {err(out[:, :6], fo[:, :6]):.3e} (shared atomics add in a "
+                   f"run-dependent order; both within the rule)")
+        # a program with n_run = 0 comes back bit-identical
+        n0 = n_chk.expand(x.shape[0], 2).clone()
+        n0[1, 0] = 0
+        o0, s0 = MS.slim_run(name, x, w, s, n0, fs)
+        if not (torch.equal(o0[1], x[1]) and torch.equal(s0[1, :3], fs[1, 14:17])):
+            fail(f"P1 {name}: a program with n_run = 0 changed its state")
         # against v1: the J = 1 variants against the v1 kernel on the same
         # jobs; J > 1 on programs of J copies of one job, against plain
         # float64 v1 over the same J copies under one chain
@@ -3077,47 +3114,76 @@ def phase_p1(dev, n_steps: int = 500):
         if nan_k != nan_p or nan_k != [False, v.cache]:
             fail(f"P1 {name}: image guard: NaN programs kernel {nan_k}, plain {nan_p}, "
                  f"expected {[False, v.cache]}")
+        # both designs in turns
+        t = {"first": [], "new": []}
+        for which in ("first", "new", "new", "first"):
+            fn = MS.slim_run_first if which == "first" else MS.slim_run
+            t[which].append(events_ms(lambda: fn(name, x, w, s, n_chk, fs))[1])
+        ms, ms_first = sum(t["new"]) / 2, sum(t["first"]) / 2
+        # the wrapper's block (threads, groups, chunks, copies, stage, ring
+        # and shared bytes) against the kernel's own
+        lay, info = MS.ring_layout(v, n), MS.ring_info(name, n)
+        if info["layout"] != lay:
+            fail(f"P1 {name}: the wrapper's block {lay} is not the kernel's {info['layout']}")
         rows[name] = {"name": f"md_slim_{name}", "route": "cuda", "source": P1_SOURCE,
                       "replaces": P1_REPLACES, "max_abs_err": err(out[:, :3], pl[:, :3]),
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": None}
-        print(f"[18 P1 {name}] J={J}: {P1_JOBS} jobs x {P1_STEPS} steps vs float64: kernel "
-              f"{pk:.3e} A plain-f32 {pp:.3e} A, velocities rel {vk:.3e} / {vp:.3e}, chain and "
-              f"2 KE rel {sk:.3e} / {sp:.3e} (tol 4x plain + 1e-4); max |kernel - plain| "
-              f"{rows[name]['max_abs_err']:.3e} A; vs v1 {d1:.3e} A; guard NaN {nan_k}; "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}); "
-              f"(registers, spill stores) {kernel_registers(p1_kernel(v))}, "
-              f"{MS.occupancy(name, n)} blocks per SM")
+        first_rows[name] = {**rows[name], "name": f"md_slim_first_{name}",
+                            "source": P1_FIRST_SOURCE, "max_abs_err": err(fo[:, :3], pl[:, :3]),
+                            "ms": ms_first}
+        print(f"[18 P1 {name}] J={J}: {P1_JOBS} jobs x {P1_STEPS} steps vs float64: redesign "
+              f"{pk:.3e} A, first design {pkf:.3e} A, plain-f32 {pp:.3e} A, velocities rel "
+              f"{vk:.3e} / {vp:.3e}, chain and 2 KE rel {sk:.3e} / {sp:.3e} (tol 4x plain + "
+              f"1e-4); max |kernel - plain| {rows[name]['max_abs_err']:.3e} A; designs "
+              f"{designs}; n_run 0 bit-identical; vs v1 {d1:.3e} A; guard NaN {nan_k}")
+        print(f"[18 P1 {name} A/B] first / new / new / first "
+              + " / ".join(f"{a:.3f}" for a in (t["first"][0], *t["new"], t["first"][1]))
+              + f" ms ({ms_first / ms:.2f}x); plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); ring {lay.rows} rows x {lay.depth} stages, {lay.smem_bytes} B per "
+              f"block, as the kernel's; new {info['registers']} registers, "
+              f"{info['local_bytes']} local bytes, {info['blocks_per_sm']} blocks per SM "
+              f"{kernel_registers(p1_kernel(v))}; first {kernel_registers(p1_kernel(v, first=True))}"
+              f", {MS.occupancy_first(name, n)} blocks per SM")
     print(f"[18 P1] check runs {time.perf_counter() - t0:.2f}s")
 
     # the lab itself on the same prepared box: v0 (K1), v0p (K1m) and every
     # slim variant at 576 jobs
     counters = {name: (MS.slim_run, "launches_" + name) for name in MS.VARIANTS}
+    counters.update({"first_" + name: (MS.slim_run_first, "launches_" + name)
+                     for name in MS.VARIANTS})
     counters.update(v0=(MF.md_run, "launches"), v0p=(MF.md_run_multi, "launches_k1m"),
-                    first=(MF._run_first, "launches"))
-    del out, pl, p64, oc, ref
+                    k1_first=(MF._run_first, "launches"))
+    del out, pl, p64, oc, ref, fo
     gc.collect()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     t_lab = time.perf_counter()
+    repeats = 3
     res = PA.main(["v0", "v0p", *MS.VARIANTS], n_jobs=P1_JOBS, n_steps=n_steps, device=dev,
-                  out=lambda line: print(f"    {line}"), g0=g0)
+                  repeats=repeats, out=lambda line: print(f"    {line}"), g0=g0)
     torch.cuda.synchronize()
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     lab_b_ms = b_ms * n_steps / P1_STEPS
     bad = [k for k, r in res.items() if not r["finite"] or launches[k] <= 0]
-    if launches["first"]:
-        fail(f"P1 lab: v0 launched K1's first design ({launches['first']} times), not K1")
+    if launches["k1_first"]:
+        fail(f"P1 lab: v0 launched K1's first design ({launches['k1_first']} times), not K1")
     if bad:
         fail(f"P1 lab: variants {bad} gave a non-finite state or launched no kernel "
              f"(launches {launches})")
-    print(f"[18 P1 lab] {P1_JOBS} jobs x {n} atoms x {n_steps} steps, best of 3: "
+    wrong = {k: launches[k] for k in MS.VARIANTS if launches[k] != 1 + repeats}
+    wrong.update({k: launches[k] for k in launches if k.startswith("first_") and launches[k]})
+    if wrong:
+        fail(f"P1 lab: the redesign must launch {1 + repeats} times per variant and the first "
+             f"design never; got {wrong}")
+    print(f"[18 P1 lab] {P1_JOBS} jobs x {n} atoms x {n_steps} steps, best of {repeats}: "
           + "  ".join(f"{k} {r['ms']:.2f} ms" for k, r in res.items())
           + f"  bound {lab_b_ms:.3f} ms ({b_by}); launches {launches}; "
           f"wall {time.perf_counter() - t_lab:.2f}s, phase {time.perf_counter() - t0:.2f}s")
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-    return list(rows.values())
+    for name in MS.VARIANTS:
+        rows[name]["launches"] = launches[name]
+        first_rows[name]["launches"] = launches["first_" + name]
+    return list(rows.values()) + list(first_rows.values())
 
 
 K4_BIG_SOURCE = "scema_tpu_torch/csrc/md_k4_big.cu"
@@ -3673,13 +3739,15 @@ def phase_run_surface(dev):
           f"phase {time.perf_counter() - t_phase:.1f}s")
 
 
-def p1_kernel(v) -> str:
-    """The mangled name of a P1 variant's instance in md_slim.cu (template
-    flags CACHE TRIM UNISIG FORM NEWTON J)."""
+def p1_kernel(v, first: bool = False) -> str:
+    """The mangled name of a P1 variant's instance (template flags CACHE
+    TRIM UNISIG FORM NEWTON J): the redesign's in md_slim_ring.cu or the
+    first design's in md_slim.cu."""
     form = {"sig": 0, "lj": 1, "rsqrt": 2}[v.form]
     newton = {"": 0, "atomic": 1, "partials": 2, "shuffle": 3}[v.newton]
-    return (f"md_slim_kernelILb{int(v.cache)}ELb{int(v.trim)}ELb{int(v.unisig)}ELi{form}E"
-            f"Li{newton}ELi{v.jobs}E")
+    flags = (f"ILb{int(v.cache)}ELb{int(v.trim)}ELb{int(v.unisig)}ELi{form}E"
+             f"Li{newton}ELi{v.jobs}E")
+    return f"md_slim{'' if first else '_ring'}_kernel{flags}"
 
 
 # Density band (kg/m^3) of PEAA after the staged prep at ns_init 100 (phase

@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``md_list.cu``, ``md_sw.cu``, ``md_multi.cu`` and ``md_k5.cu`` share device
 code through ``md_kernel.cuh``, ``md_k1.cu`` and ``md_k1m.cu`` through
 ``md_k1.cuh`` on top of it, ``md_k3.cu``, ``md_k4.cu`` and ``md_k4_big.cu``
-through ``md_charged.cuh``; ``pairwise_l2.cu``, ``sw_bricks.cu`` and
-``md_slim.cu`` stand alone) —
+through ``md_charged.cuh``, ``md_slim.cu`` and ``md_slim_ring.cu``
+through ``md_slim.cuh``; ``pairwise_l2.cu`` and ``sw_bricks.cu`` stand
+alone) —
 and the objects are
 linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, writes into
@@ -103,11 +104,17 @@ SIGNATURES = {
     "sw_moments_list_f32": [_P] * 9 + [_I] * 4 + [_P, _P],
     "sw_forces_list_f32": [_P] * 8 + [_I] + [_P] * 2 + [_I] * 3 + [_P, _P],
     "sw_kernel_info": [_I, _P],
-    # P1 (the kernel lab's slim runs): a pointer to SlimArgs
+    # P1's first design (the kernel lab's slim runs): a pointer to SlimArgs
     # (md_slim._SlimArgs), the variant id, the stream
     "md_slim_run_f32": [_P, _I, _P],
     # the variant id, atoms per box, a pointer to the int result
     "md_slim_occupancy": [_I, _I, _P],
+    # P1's redesign (md_slim_ring.cu): a pointer to RingArgs
+    # (md_slim._RingArgs), the variant id, the stream; and (variant, atoms,
+    # depth, int[12]) -> registers, local bytes, blocks per SM, the block
+    # (md_slim.ring_info)
+    "md_slim_ring_run_f32": [_P, _I, _P],
+    "md_slim_ring_info": [_I, _I, _I, _P],
 }
 
 class KernelError(RuntimeError):

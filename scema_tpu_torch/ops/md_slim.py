@@ -30,9 +30,15 @@ refresh (probe_allpairs.py:543 vs :580), which is undefined memory on the
 TPU; the port refreshes before the first force call, the function the
 probe's docstring promises.
 
-:func:`slim_run` launches ``csrc/md_slim.cu`` on CUDA tensors (counting
-the launch in ``slim_run.launches_<variant>``) and runs
-:func:`slim_run_plain` on CPU tensors.  Layouts are the probe's, batched
+:func:`slim_run` launches the Hopper redesign, ``csrc/md_slim_ring.cu``,
+on CUDA tensors (counting the launch in ``slim_run.launches_<variant>``):
+float4 positions, and the planes and image cache streamed through a ring of
+shared-memory stages by TMA bulk copies (:func:`ring_layout` mirrors its
+block).  It holds at most its block width of atoms per box: 512 for J = 1,
+1024 for J > 1.  :func:`slim_run_first` launches the first design,
+``csrc/md_slim.cu`` (``slim_run_first.launches_<variant>``), kept for A/B
+timings and checks.  Both run :func:`slim_run_plain` on CPU tensors.
+Layouts are the probe's, batched
 over P programs: ``state`` (P, 8, J NT, 128) rows x y z vx vy vz
 ``invm = FTM2V/m`` ``m/FTM2V``; ``iscal`` (P, 2) [n_run, n_tot];
 ``fscal`` (P, 20) [dt, T, h0 (6), eps (6), vxi (3), 0...] (a (2,) or
@@ -387,15 +393,15 @@ _TILE = 32  # v8's tile: one warp's atoms
 
 
 def threads(v: Variant, N: int) -> int:
-    """Block width of the variant's instance (csrc/md_slim.cu, launch)."""
+    """Block width of the variant's instance in either design."""
     M = v.jobs * N
     return min(((M + 31) // 32) * 32, 512 if v.jobs == 1 else 1024)
 
 
 def smem_bytes(v: Variant, N: int) -> int:
-    """Shared memory of one block (csrc/md_slim.cu, launch): eleven
-    rows per atom, the reduction scratch and the chain, and v5m's per-warp
-    reaction partials."""
+    """Shared memory of one block of the first design (csrc/md_slim.cu,
+    launch): eleven rows per atom, the reduction scratch and the chain, and
+    v5m's per-warp reaction partials."""
     M = v.jobs * N
     floats = 11 * M + 32 + 8
     if v.newton == "partials":
@@ -435,7 +441,7 @@ def layout_pairs(v: Variant, N: int, device=None):
 
 
 class _SlimArgs(ctypes.Structure):
-    """Mirror of the kernel's SlimArgs, field for field."""
+    """Mirror of the kernels' SlimArgs (csrc/md_slim.cuh), field for field."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "state", "out", "sacc", "w4e", "sig2", "iscal", "fscal", "img")]
@@ -444,37 +450,131 @@ class _SlimArgs(ctypes.Structure):
             "cutoff2", "r2min", "boltz", "tdamp", "sig2u", "ndof")])
 
 
-def slim_run(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: torch.Tensor,
-             iscal: torch.Tensor, fscal: torch.Tensor, jobs: int | None = None):
-    """One slim run of P programs: the variant's CUDA kernel on CUDA
-    tensors (one block per program, float32), :func:`slim_run_plain` on CPU
-    tensors.  Inputs are not modified; returns (state', sacc)."""
+class _RingArgs(ctypes.Structure):
+    """Mirror of the redesign's RingArgs (csrc/md_slim_ring.cu)."""
+
+    _fields_ = [("a", _SlimArgs), ("depth", ctypes.c_int)]
+
+
+# --------------------------------------------------------------------------
+# The redesign's shared memory (a mirror of md_slim_ring.cu)
+
+RING_DEPTH = 3  # stages at most
+_SM_SMEM = 233472  # shared memory of an H100 SM
+_BLOCK_RESERVED = 1024  # the shared memory the card reserves per block
+
+
+@dataclass(frozen=True)
+class RingLayout:
+    """One block of the redesign (``ring_layout`` in md_slim_ring.cu)."""
+
+    threads: int
+    jobs_per_group: int  # jobs whose rows the block walks at once
+    groups: int
+    chunks: int  # stages per group and force call (v8: per tile pair)
+    arrays: int  # bulk copies per stage: the planes read, then the group's images
+    rows: int  # layout rows per stage (v8: shuffle steps), ring_rows
+    depth: int
+    stage_bytes: int  # v8: of one warp's stage
+    ring_bytes: int
+    smem_bytes: int
+
+    @property
+    def two_blocks(self) -> bool:
+        """Whether two blocks fit one SM's shared memory."""
+        return 2 * (self.smem_bytes + _BLOCK_RESERVED) <= _SM_SMEM
+
+
+def _ring_layout(v: Variant, N: int, depth: int) -> RingLayout | None:
+    M, nt, rows = v.jobs * N, threads(v, N), ring_rows(v)
+    at = 2 if v.jobs == 4 else 1  # atoms per thread, their velocities in registers
+    if N <= 0 or N % LANE or N > nt or M > at * nt or depth <= 0:
+        return None
+    planes = 1 if v.unisig else 2
+    warps = nt // 32
+    if v.newton == "shuffle":
+        jg, groups, arrays = v.jobs, 1, planes + int(v.cache)
+        chunks, stage = _TILE // rows, arrays * rows * _TILE * 4
+        ring, bars, counts = warps * depth * stage, warps * depth, 0
+    else:
+        jg = min(v.jobs, nt // N)
+        groups, arrays = v.jobs // jg, planes + (jg if v.cache else 0)
+        R = N if v.newton == "" else N // 2
+        if v.jobs % jg or R % rows:
+            return None
+        chunks, stage = R // rows, arrays * rows * N * 4
+        ring, bars, counts = depth * stage, depth, 4 * depth  # the release counts
+    # float4 positions (x, y, z, 1/m), the ring, the forces (full rows keep
+    # theirs in registers), the reduction scratch and chain
+    part = 16 * M + ring + 4 * ((0 if v.newton == "" else 3 * M) + 32 + 8)
+    bar = part + (4 * warps * 3 * M if v.newton == "partials" else 0)
+    smem = (bar + 7) // 8 * 8 + 8 * bars + counts
+    if smem > _MAX_SMEM:
+        return None
+    return RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem)
+
+
+def ring_rows(v: Variant | str) -> int:
+    """Layout rows per stage of the block ring, 8, and v8's shuffle steps
+    per stage of a warp's ring, 4: fixed per kernel instance (``ring_rows``
+    in md_slim_ring.cu)."""
+    v = VARIANTS[v] if isinstance(v, str) else v
+    return 4 if v.newton == "shuffle" else 8
+
+
+def ring_layout(v: Variant | str, N: int) -> RingLayout:
+    """The redesign's block for variant ``v`` at N atoms per box: stages of
+    :func:`ring_rows` rows, the most of them up to ``RING_DEPTH`` that fit,
+    keeping a one-box variant other than v5m at two blocks per SM.
+    ValueError where nothing fits: the redesign holds at most its block
+    width of atoms per box (512 for J = 1, 1024 for J > 1)."""
+    v = VARIANTS[v] if isinstance(v, str) else v
+    fits = [lay for lay in (_ring_layout(v, N, d)
+                            for d in range(RING_DEPTH, 0, -1)) if lay is not None]
+    pair = v.jobs == 1 and v.newton != "partials"
+    for lay in fits:
+        if lay.two_blocks or not pair:
+            return lay
+    if fits:
+        return fits[0]
+    raise ValueError(f"md_slim: no ring fits {v.jobs} x {N} atoms: the redesign runs at most "
+                     f"{threads(v, N)} atoms per box in shared memory")
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+
+
+def _launch(who: str, variant: str, state, w4e, sig2, iscal, fscal, jobs, run, smem: int):
+    """Check the operands, allocate the outputs and the image cache, and call
+    ``run(SlimArgs, variant, stream)`` (one kernel launch); returns (state',
+    sacc)."""
     v, J, N = _checked(variant, state, w4e, sig2, jobs)
-    if state.device.type == "cpu":
-        return slim_run_plain(variant, state, w4e, sig2, iscal, fscal, jobs)
     if state.device.type != "cuda":
-        raise ValueError(f"slim_run: unsupported device {state.device}")
+        raise ValueError(f"{who}: unsupported device {state.device}")
     if J != v.jobs:
-        raise ValueError(f"slim_run: the {variant} kernel is built for J = {v.jobs}, not {J}")
+        raise ValueError(f"{who}: the {variant} kernel is built for J = {v.jobs}, not {J}")
     Pn = state.shape[0]
     iscal = _batched(iscal, Pn, ISCAL).to(torch.int32).contiguous()
     fscal = _batched(fscal, Pn, FSCAL).contiguous()
     st = state.contiguous()
     for t in (st, w4e, sig2, iscal, fscal):
         if t.device != st.device:
-            raise ValueError("slim_run: all operands must be on the same CUDA device")
+            raise ValueError(f"{who}: all operands must be on the same CUDA device")
     if st.dtype != torch.float32 or fscal.dtype != torch.float32:
-        raise TypeError(f"slim_run: the kernel takes float32, got {st.dtype}, {fscal.dtype}")
-    if smem_bytes(v, N) > _MAX_SMEM:
-        raise ValueError(f"slim_run: {variant} with {J} x {N} atoms needs {smem_bytes(v, N)} B "
-                         f"of shared memory per block, above the {_MAX_SMEM} B of a Hopper block")
+        raise TypeError(f"{who}: the kernel takes float32, got {st.dtype}, {fscal.dtype}")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{who}: {variant} with {J} x {N} atoms needs {smem} B of shared "
+                         f"memory per block, above the {_MAX_SMEM} B of a Hopper block")
     out = torch.empty_like(st)
     sacc = torch.empty((Pn, SACC), dtype=torch.float32, device=st.device)
     if Pn == 0:
         return out, sacc
-    # the planes in the variant's pair layout, once for every program
+    # the planes in the variant's pair layout, once for every program, on
+    # 16-byte boundaries (the bulk copies' alignment)
     if v.newton == "":
         wl, sl = w4e.float().contiguous(), sig2.float().contiguous()
+        wl, sl = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (wl, sl))
     else:
         rows_, cols_ = layout_pairs(v, N, st.device)
         wl, sl = w4e.float()[rows_, cols_], sig2.float()[rows_, cols_]
@@ -486,23 +586,80 @@ def slim_run(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: torch.T
                   fscal=fscal.data_ptr(), img=img.data_ptr() if img is not None else None,
                   P=Pn, N=N, J=J, cutoff2=CUTOFF2, r2min=R2MIN, boltz=BOLTZ, tdamp=TDAMP,
                   sig2u=SIG2_UNIFORM, ndof=float((3 * N - 3) * J))
-    rc = _build.library().md_slim_run_f32(ctypes.byref(a), v.vid, _build.stream_handle(st.device))
-    _build.check(rc, f"md_slim_run_f32 ({variant})")
-    name = "launches_" + variant
-    setattr(slim_run, name, getattr(slim_run, name) + 1)
+    _build.check(run(a, v, _build.stream_handle(st.device)), f"{who} ({variant})")
     return out, sacc
 
 
-def occupancy(variant: str, N: int = N_ATOMS) -> int:
-    """Resident blocks per SM of the variant's kernel at N atoms per box, as
-    the card's occupancy calculator gives it (registers, block width, shared
-    memory)."""
+def _count(fn, variant: str) -> None:
+    name = "launches_" + variant
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def slim_run(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: torch.Tensor,
+             iscal: torch.Tensor, fscal: torch.Tensor, jobs: int | None = None):
+    """One slim run of P programs: the variant's redesigned CUDA kernel on
+    CUDA tensors (one block per program, float32; csrc/md_slim_ring.cu, its
+    block from :func:`ring_layout`), :func:`slim_run_plain` on CPU tensors.
+    N must be a multiple of 128 and at most the block width: 512 atoms per
+    box for J = 1, 1024 for J > 1 (ValueError beyond).  Inputs are not
+    modified; returns (state', sacc)."""
+    if state.device.type == "cpu":
+        return slim_run_plain(variant, state, w4e, sig2, iscal, fscal, jobs)
+    v, _, N = _checked(variant, state, w4e, sig2, jobs)
+    lay = ring_layout(v, N)
+
+    def run(a, v, stream):
+        ra = _RingArgs(a=a, depth=lay.depth)
+        return _build.library().md_slim_ring_run_f32(ctypes.byref(ra), v.vid, stream)
+
+    out = _launch("slim_run", variant, state, w4e, sig2, iscal, fscal, jobs, run,
+                  lay.smem_bytes)
+    _count(slim_run, variant)
+    return out
+
+
+def slim_run_first(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: torch.Tensor,
+                   iscal: torch.Tensor, fscal: torch.Tensor, jobs: int | None = None):
+    """:func:`slim_run` on P1's first design (csrc/md_slim.cu), kept for A/B
+    timings and checks; :func:`slim_run_plain` on CPU tensors."""
+    if state.device.type == "cpu":
+        return slim_run_plain(variant, state, w4e, sig2, iscal, fscal, jobs)
+    v, _, N = _checked(variant, state, w4e, sig2, jobs)
+
+    def run(a, v, stream):
+        return _build.library().md_slim_run_f32(ctypes.byref(a), v.vid, stream)
+
+    out = _launch("slim_run_first", variant, state, w4e, sig2, iscal, fscal, jobs, run,
+                  smem_bytes(v, N))
+    _count(slim_run_first, variant)
+    return out
+
+
+def ring_info(variant: str, N: int = N_ATOMS) -> dict:
+    """The redesign's instance as the card reports it at N atoms per box and
+    :func:`ring_layout`'s depth: registers, local (spill) bytes, resident
+    blocks per SM, and ``layout``, the kernel's own block (a
+    :class:`RingLayout`, to hold the mirror against)."""
+    depth = ring_layout(variant, N).depth
+    out = (ctypes.c_int * 12)()
+    rc = _build.library().md_slim_ring_info(VARIANTS[variant].vid, N, depth, out)
+    _build.check(rc, f"md_slim_ring_info ({variant})")
+    nt, jg, groups, chunks, arrays, rows, stage, ring, smem = out[3:]
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "layout": RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem)}
+
+
+def occupancy_first(variant: str, N: int = N_ATOMS) -> int:
+    """Resident blocks per SM of the first design's kernel at N atoms per
+    box, as the card's occupancy calculator gives it (registers, block
+    width, shared memory)."""
     blocks = ctypes.c_int(0)
     rc = _build.library().md_slim_occupancy(VARIANTS[variant].vid, N, ctypes.byref(blocks))
     _build.check(rc, f"md_slim_occupancy ({variant})")
     return blocks.value
 
 
-for _v in VARIANTS:
-    setattr(slim_run, "launches_" + _v, 0)
-del _v
+for _fn in (slim_run, slim_run_first):
+    for _v in VARIANTS:
+        setattr(_fn, "launches_" + _v, 0)
+del _fn, _v
