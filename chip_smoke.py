@@ -163,7 +163,16 @@ failure exits non-zero before the result line:
    variant at 576 jobs x 500 steps (best of 3 runs, each state finite),
    its launch counters zeroed just before and read just after (the
    redesign 4 launches per variant, the first design none, v0 on K1, never
-   on its first design);
+   on its first design); then each variant at 640, 1024 and 2048 atoms per
+   box and at its cap (``md_slim.n_max``: 5248, v5m 2176, J = 2 2560, J = 4
+   1280), capped there, on a jittered lattice at the LJ liquid's density:
+   the redesign's big-box instance on a few 25-step programs against the
+   plain version and float64 (the same rule), against the first design
+   where that runs (bit for bit for v1-v4), a program with n_run = 0
+   bit-identical, the image guard, its block against the kernel's own,
+   registers, spills and blocks per SM; both designs in turns at 1024 and
+   2048 on 576 jobs beside the bound; its launch counters zeroed just
+   before and read just after (every variant launched at every size);
 19. K4's cluster form (csrc/md_k4_big.cu: one job on a thread-block
    cluster of C CTAs, its rows in the CTAs' shared memory, for list boxes
    above the shared form's 2509-atom cap) on the prepared 4096-atom PE box
@@ -312,7 +321,10 @@ K1's first design (0) and K2 launches counted on the g0 slice, K3's and
 its first design's (0) on the charged slice, K4's and its first design's
 (0) on the coupled list slice, K5's and its first design's (0) on the SW
 slice, K6's on the brick slice, K1m's and its first design's (0) on phase
-17's pack_jobs=2 steps, P1's on phase 18's lab runs, K4's cluster form's
+17's pack_jobs=2 steps, P1's on phase 18's lab runs (N = 512; the
+``md_slim_big_<v>`` rows, P1's big-box instance, on phase 18's other sizes,
+its times from the check run at 2048 atoms per box or the cap below),
+K4's cluster form's
 and its global form's (0) on the 4096-atom slice; K2's first design's (0)
 on the g0 slice; the
 K1, K2 and K5 rows add the launches of phases 23-25's, 27's and 28's paths,
@@ -2989,6 +3001,30 @@ def events_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def p1_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def p1_held(out, sacc, pl, spl, p64, s64, what):
+    """Phase 18's rule: (positions, velocities, chain and 2 KE) errors of a
+    slim run against float64, failing beyond 4x the plain float32 run's +
+    1e-4, or where 1/m and m/FTM2V changed."""
+    import torch
+
+    pk, pp = p1_err(out[:, :3], p64[:, :3]), p1_err(pl[:, :3], p64[:, :3])
+    vmax = float(p64[:, 3:6].abs().max())
+    vk, vp = p1_err(out[:, 3:6], p64[:, 3:6]) / vmax, p1_err(pl[:, 3:6], p64[:, 3:6]) / vmax
+    smax = s64[:, :4].abs().amax(0)
+    sk = float(((sacc[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
+    sp = float(((spl[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
+    if (not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4
+            or sk > 4 * sp + 1e-4 or not torch.equal(out[:, 6:], pl[:, 6:])):
+        fail(f"P1 {what}: vs float64 positions {pk:.3e} A, velocities rel {vk:.3e}, chain "
+             f"and 2 KE rel {sk:.3e} exceed 4x plain float32 ({pp:.3e}, {vp:.3e}, {sp:.3e}) "
+             f"+ 1e-4")
+    return pk, pp, vk, vp, sk, sp
+
+
 def phase_p1(dev, n_steps: int = 500):
     """Phase 18: P1 (the kernel lab's slim all-pairs runs, variants v1-v8)
     on the prepared g0 box, made once.  For each variant, on 25 steps of
@@ -3039,24 +3075,7 @@ def phase_p1(dev, n_steps: int = 500):
     def grouped(x, J):  # (B, 8, NT, 128) jobs -> (B / J, 8, J NT, 128) programs
         return x.reshape(-1, J, 8, nt, MS.LANE).transpose(1, 2).reshape(-1, 8, J * nt, MS.LANE)
 
-    def err(a, b):
-        return float((a.double() - b.double()).abs().max())
-
-    def held(out, sacc, pl, spl, p64, s64, what):
-        """(positions, velocities, chain and 2 KE) errors against float64,
-        failing beyond 4x the plain float32 run's + 1e-4."""
-        pk, pp = err(out[:, :3], p64[:, :3]), err(pl[:, :3], p64[:, :3])
-        vmax = float(p64[:, 3:6].abs().max())
-        vk, vp = err(out[:, 3:6], p64[:, 3:6]) / vmax, err(pl[:, 3:6], p64[:, 3:6]) / vmax
-        smax = s64[:, :4].abs().amax(0)
-        sk = float(((sacc[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
-        sp = float(((spl[:, :4].double() - s64[:, :4]).abs().amax(0) / smax).max())
-        if (not torch.isfinite(out).all() or pk > 4 * pp + 1e-4 or vk > 4 * vp + 1e-4
-                or sk > 4 * sp + 1e-4 or not torch.equal(out[:, 6:], pl[:, 6:])):
-            fail(f"P1 {what}: vs float64 positions {pk:.3e} A, velocities rel {vk:.3e}, chain "
-                 f"and 2 KE rel {sk:.3e} exceed 4x plain float32 ({pp:.3e}, {vp:.3e}, {sp:.3e}) "
-                 f"+ 1e-4")
-        return pk, pp, vk, vp, sk, sp
+    err, held = p1_err, p1_held
 
     rows, first_rows, v1_out = {}, {}, None
     for name, v in MS.VARIANTS.items():
@@ -3184,6 +3203,201 @@ def phase_p1(dev, n_steps: int = 500):
         rows[name]["launches"] = launches[name]
         first_rows[name]["launches"] = launches["first_" + name]
     return list(rows.values()) + list(first_rows.values())
+
+
+# phase 18 at other box sizes (the redesign's big-box instance above 512
+# atoms per box): each variant at P1_SIZES and its cap (md_slim.n_max), on a
+# jittered simple-cubic lattice at the LJ liquid's reduced density 0.8
+# (sigma 3.905 A), two atom types with their own epsilon and sigma, the
+# lab's chain exclusions; a few programs of P1_STEPS steps checked, and the
+# two designs timed in turns at P1_TIMED on the lab's 576 jobs
+P1_SIZES = (640, 1024, 2048)
+P1_TIMED = (1024, 2048)
+P1_RHO = 0.8 / 3.905 ** 3  # atoms per A^3
+P1_TILT = (0.5, 0.3, 0.4)  # xy, xz, yz (A)
+P1_CACHE_BYTES = 16e9  # a timed run's image cache at most
+# full rows keep each atom's order of the sum over j in both designs at
+# every size; v5m's big-box windows add by atomics (held to the rule only)
+P1_BITWISE_BIG = ("v1", "v2", "v3", "v4")
+
+
+def p1_lattice(N: int, J: int, programs: int, seed: int, dev):
+    """Slim programs of J boxes of N atoms, float32 on ``dev``: (state (P,
+    8, J N / 128, 128), w4e, sig2 (N, N), fscal (P, 20), h (3, 3) float64,
+    positions of the first box (N, 3) float64).  Each box N sites of a
+    simple-cubic lattice (a random choice of the smallest cube's sites that
+    holds N) in a tilted box at P1_RHO, jittered by 5% of the spacing, its
+    own velocities at ~300 K and strain within +-1e-3."""
+    import numpy as np
+    import torch
+
+    from scema_tpu_torch.ops import md_slim as MS
+
+    rng = np.random.default_rng(seed)
+    side = round(N ** (1 / 3))
+    side += side ** 3 < N
+    L = (N / P1_RHO) ** (1 / 3)
+    H = np.array([[L, P1_TILT[0], P1_TILT[1]], [0.0, L, P1_TILT[2]], [0.0, 0.0, L]])
+    grid = np.stack(np.meshgrid(*(np.arange(side),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    types = rng.integers(0, 2, N)
+    masses = np.where(types == 0, 14.0, 15.0)
+    boxes = []
+    for _ in range(programs * J):
+        sites = grid[rng.choice(len(grid), N, replace=False)]
+        pos = (sites + 0.5 + 0.05 * rng.standard_normal((N, 3))) / side @ H.T
+        boxes.append(MS.pack_state(pos, rng.normal(0.0, 0.004, (N, 3)), masses, np.float32))
+    nt = N // MS.LANE
+    x = torch.as_tensor(np.stack(boxes), device=dev)
+    x = x.reshape(programs, J, 8, nt, MS.LANE).transpose(1, 2).reshape(programs, 8, J * nt,
+                                                                        MS.LANE).contiguous()
+    t = torch.as_tensor(types, device=dev)
+    eps_t = torch.tensor([0.175, 0.118], dtype=torch.float64, device=dev)[t]
+    sig_t = torch.tensor([3.905, 3.6], dtype=torch.float64, device=dev)[t]
+    w = 1.0 - torch.eye(N, dtype=torch.float64, device=dev)
+    k = torch.arange(N - 1, device=dev)
+    w[k, k + 1] = w[k + 1, k] = 0.0
+    w4e = (4.0 * torch.sqrt(eps_t[:, None] * eps_t[None, :]) * w).float()
+    sig2 = (0.25 * (sig_t[:, None] + sig_t[None, :]) ** 2).float()
+    h6 = [L, L, L, *P1_TILT]
+    fscal = torch.stack([torch.as_tensor(MS.make_fscal(h6, rng.uniform(-1e-3, 1e-3, 6)),
+                                         dtype=torch.float32) for _ in range(programs)]).to(dev)
+    pos0 = torch.as_tensor(boxes[0][:3].reshape(3, -1).T, dtype=torch.float64, device=dev)
+    return x, w4e, sig2, fscal, torch.as_tensor(H, device=dev), pos0
+
+
+def phase_p1_sizes(dev, sizes=P1_SIZES, timed=P1_TIMED):
+    """Phase 18 at other box sizes: for each variant at ``sizes`` and its cap
+    (``md_slim.n_max``), capped there, on a few programs of P1_STEPS steps
+    of ``p1_lattice``: the redesign (its big-box instance) against the plain
+    version and float64 (phase 18's rule), against the first design where
+    that runs (bit for bit for P1_BITWISE_BIG, the rule for the rest), a
+    program with n_run = 0 bit-identical, the int8 image guard, the
+    wrapper's block against the kernel's own, registers, spills and blocks
+    per SM; at ``timed`` both designs in turns (first, new, new, first) on
+    the lab's 576 jobs (fewer where the image cache would pass
+    P1_CACHE_BYTES) beside the bound.  The launch counters are zeroed just
+    before and read just after: every variant's redesign launched at each
+    size.  Returns one kernels row per variant (its big-box instance at
+    2048 atoms per box, or its cap below that: the check run's kernel,
+    plain and bound times, and the launches of this phase)."""
+    import torch
+
+    from scema_tpu_torch.ops import md_slim as MS
+
+    t0 = time.perf_counter()
+    for name in MS.VARIANTS:
+        setattr(MS.slim_run, "launches_" + name, 0)
+        setattr(MS.slim_run_first, "launches_" + name, 0)
+    n_chk = torch.tensor([P1_STEPS, P1_STEPS], dtype=torch.int32, device=dev)
+    n_one = torch.tensor([1, 1], dtype=torch.int32, device=dev)
+    rows, ran = {}, {}
+    for name, v in MS.VARIANTS.items():
+        J, cap = v.jobs, MS.n_max(v)
+        ns = sorted({n for n in (*sizes, cap) if n <= cap})
+        ran[name] = ns
+        row_n = max(n for n in ns if n <= 2048)
+        for N in ns:
+            t_n = time.perf_counter()
+            progs = 4 if N <= 2048 else 2
+            x, w4e, sig2, fs, H, pos0 = p1_lattice(N, J, progs, 1800 + N, dev)
+            w, s = MS.variant_planes(name, w4e, sig2)
+            out, sacc = MS.slim_run(name, x, w, s, n_chk, fs)
+            ms = events_ms(lambda: MS.slim_run(name, x, w, s, n_chk, fs))[1]  # warm
+            (pl, spl), plain_ms = events_ms(lambda: MS.slim_run_plain(name, x, w, s, n_chk, fs))
+            p64, s64 = MS.slim_run_plain(name, x.double(), w.double(), s.double(), n_chk,
+                                         fs.double())
+            what = f"{name} N={N}"
+            pk, pp, vk, vp, sk, sp = p1_held(out, sacc, pl, spl, p64, s64, what)
+            first = MS.smem_bytes(v, N) <= MS._MAX_SMEM
+            designs = "first design does not run"
+            if first:
+                fo, fsacc = MS.slim_run_first(name, x, w, s, n_chk, fs)
+                p1_held(fo, fsacc, pl, spl, p64, s64, what + " (first design)")
+                same = torch.equal(out, fo) and torch.equal(sacc, fsacc)
+                if name in P1_BITWISE_BIG and not same:
+                    fail(f"P1 {what}: the redesign differs from the first design by "
+                         f"{p1_err(out, fo):.3e} though both keep each atom's order of the "
+                         f"sum over j")
+                designs = ("first design bit for bit" if same else
+                           f"|new - first| {p1_err(out[:, :6], fo[:, :6]):.3e}")
+            # a program with n_run = 0 bit-identical (the others one step)
+            n0 = n_one.expand(progs, 2).clone()
+            n0[1, 0] = 0
+            o0, s0 = MS.slim_run(name, x, w, s, n0, fs)
+            if not (torch.equal(o0[1], x[1]) and torch.equal(s0[1, :3], fs[1, 14:17])):
+                fail(f"P1 {what}: a program with n_run = 0 changed its state")
+            # the int8 image guard: program 1's first atom 200 box lengths out
+            xg = x[:2].clone()
+            xg[1, 0, 0, 0] += 200.0 * float(fs[0, 2])
+            og, _ = MS.slim_run(name, xg, w, s, n_one, fs[:2])
+            pg, _ = MS.slim_run_plain(name, xg, w, s, n_one, fs[:2])
+            nan_k = torch.isnan(og[:, :3]).flatten(1).any(1).tolist()
+            nan_p = torch.isnan(pg[:, :3]).flatten(1).any(1).tolist()
+            if nan_k != nan_p or nan_k != [False, v.cache]:
+                fail(f"P1 {what}: image guard: NaN programs kernel {nan_k}, plain {nan_p}, "
+                     f"expected {[False, v.cache]}")
+            lay, info = MS.ring_layout(v, N), MS.ring_info(name, N)
+            if info["layout"] != lay:
+                fail(f"P1 {what}: the wrapper's block {lay} is not the kernel's {info['layout']}")
+            f_lj, _ = pair_fractions(pos0[None], H[None], MS.CUTOFF2)
+            b_ms, b_by = bound(4.0 * (2 * N * N + 2 * progs * 8 * J * N + progs * 30),
+                               pair_flops(N, progs * J * P1_STEPS, f_lj))
+            max_err = p1_err(out[:, :3], pl[:, :3])
+            print(f"[18 P1 {name} N={N}] {progs} programs x {J} x {N} atoms x {P1_STEPS} steps, "
+                  f"{f_lj:.4f} of pairs live: vs float64 redesign {pk:.3e} A, plain-f32 "
+                  f"{pp:.3e} A, velocities rel {vk:.3e} / {vp:.3e}, chain and 2 KE rel "
+                  f"{sk:.3e} / {sp:.3e} (tol 4x plain + 1e-4); max |kernel - plain| "
+                  f"{max_err:.3e} A; {designs}; n_run 0 bit-identical; guard NaN {nan_k}; "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"ring {lay.rows} rows x {lay.cols} columns x {lay.depth} stages, "
+                  f"{lay.tiles} tiles, {lay.smem_bytes} B per block, as the kernel's; "
+                  f"{info['registers']} registers, {info['local_bytes']} local bytes, "
+                  f"{info['blocks_per_sm']} blocks per SM; {time.perf_counter() - t_n:.2f}s")
+            if N == row_n:
+                rows[name] = {"name": f"md_slim_big_{name}", "route": "cuda",
+                              "source": P1_SOURCE, "replaces": P1_REPLACES,
+                              "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            del out, pl, p64, o0, og, pg
+            if first:
+                del fo
+            if N in timed:
+                slots = MS.layout_slots(v, N) if v.cache else 0
+                progs_t = min(P1_JOBS // J, int(P1_CACHE_BYTES // max(1, 4 * J * slots)))
+                xt, wt, st_, ft, _, _ = p1_lattice(N, J, progs_t, 1900 + N, dev)
+                wt, st_ = MS.variant_planes(name, wt, st_)
+                t = {"first": [], "new": []}
+                for which in ("first", "new", "new", "first"):
+                    fn = MS.slim_run_first if which == "first" else MS.slim_run
+                    if which == "first" and not first:
+                        continue
+                    t[which].append(events_ms(lambda: fn(name, xt, wt, st_, n_chk, ft))[1])
+                tb_ms, tb_by = bound(4.0 * (2 * N * N + 2 * progs_t * 8 * J * N + progs_t * 30),
+                                     pair_flops(N, progs_t * J * P1_STEPS, f_lj))
+                ms_new = sum(t["new"]) / 2
+                firsts = (" / ".join(f"{a:.3f}" for a in (t["first"][0], *t["new"], t["first"][1]))
+                          + f" ms ({sum(t['first']) / 2 / ms_new:.2f}x)" if t["first"] else
+                          " / ".join(f"{a:.3f}" for a in t["new"]) + " ms (new only)")
+                occ = (f"; first design {MS.occupancy_first(name, N)} blocks per SM"
+                       if first else "")
+                print(f"[18 P1 {name} N={N} A/B] {progs_t} programs x {J} x {N} atoms x "
+                      f"{P1_STEPS} steps, first / new / new / first {firsts}; bound "
+                      f"{tb_ms:.4f} ms ({tb_by}){occ}")
+                del xt
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = {name: getattr(MS.slim_run, "launches_" + name) for name in MS.VARIANTS}
+    firsts = {name: getattr(MS.slim_run_first, "launches_" + name) for name in MS.VARIANTS}
+    # each size: the check run (twice), the n_run = 0 run and the guard's
+    short = {k: launches[k] for k in MS.VARIANTS if launches[k] < 4 * len(ran[k])}
+    if short:
+        fail(f"P1 sizes: the redesign launched fewer than 4 times per size: {short}")
+    print(f"[18 P1 sizes] sizes {ran}; launches {launches}; first design launches {firsts}; "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name in MS.VARIANTS:
+        rows[name]["launches"] = launches[name]
+    return list(rows.values())
 
 
 K4_BIG_SOURCE = "scema_tpu_torch/csrc/md_k4_big.cu"
@@ -5011,6 +5225,7 @@ def main() -> int:
     k1m["launches"] = launches_k1m["md_k1m_run"]
     k1m_first["launches"] = launches_k1m["md_allpairs_run_multi"]
     p1 = phase_p1(dev)
+    p1_big = phase_p1_sizes(dev)
     k4_big = phase_k4_big(dev)
     launches_big = phase_big_slice(dev)
     for row in k4_big:  # the cluster form's and the global form's (0) on phase 20's path
@@ -5040,6 +5255,7 @@ def main() -> int:
         rows.append(row)
     rows += [k1m, k1m_first]  # K1m's launches on the pack_jobs=2 steps (phase 17)
     rows.extend(p1)  # P1's launches on the lab's path (phase 18)
+    rows.extend(p1_big)  # P1's big-box instance's on phase 18's other sizes
     rows.extend(k4_big)  # K4's cluster and global forms' launches on the 4096-atom slice
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -57,12 +57,18 @@
 //   (d) the refresh writes four slots (16 bytes) per thread, then a
 //       fence.proxy.async orders those writes before the bulk copies that
 //       read them.
-// Each variant has one instance, with every lever.
+// Each variant has two instances, with every lever: md_slim_ring_kernel
+// for N <= SMALL_N = 512 atoms per box (levers (a)-(d) as above), and
+// md_slim_big_kernel from 640 up to the variant's n_max (5248 atoms per box
+// for one box, 2176 for v5m, 2560 for J = 2, 1280 for J = 4), whose notes
+// are at its code: velocities in device memory, column-tiled stages of 4
+// rows, v5m's per-warp window.
 //
-// Bits: full rows and v5m keep each thread's order of the sum over j, so
-// v1-v4 and v5m give the first design's bits; the shared atomics of v5,
-// v5p, v5r, v7, v7d4, v7p and v8 add in an order that changes from run to
-// run, in either design.
+// Bits: full rows keep each thread's order of the sum over j in both
+// instances, and v5m in the first, so v1-v4 (every N) and v5m (N <= 512)
+// give the first design's bits; the shared atomics of v5, v5p, v5r, v7,
+// v7d4, v7p and v8, and of v5m's windows above 512, add in an order that
+// changes from run to run.
 #include <stdint.h>
 
 #include "md_slim.cuh"
@@ -70,7 +76,7 @@
 namespace {
 
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a Hopper block can opt into
-constexpr int INFO = 12;          // ints md_slim_ring_info writes
+constexpr int INFO = 14;          // ints md_slim_ring_info writes
 
 // Layout rows per stage of the block ring, 8, and v8's shuffle steps per
 // stage of a warp's ring, 4: fixed per instance so the row loop unrolls
@@ -80,8 +86,10 @@ __host__ __device__ constexpr int ring_rows() {
   return V::NEWTON == SHUFFLE ? 4 : 8;
 }
 
-// Atoms per thread: each thread keeps its atoms' velocities and masses in
-// registers (two atoms for v7d4's 4 N > 1024, else one)
+// Atoms per thread of the instance for N <= SMALL_N: each thread keeps its
+// atoms' velocities and masses in registers (two atoms for v7d4's 4 N >
+// 1024, else one), so that instance runs at most 512 atoms per box for every
+// J; the big-box instance keeps them in device memory
 template <class V>
 __host__ __device__ constexpr int atoms_per_thread() {
   return V::J == 4 ? 2 : 1;
@@ -93,20 +101,24 @@ struct RingArgs {
   int depth;  // stages of the ring (v8: of each warp's ring)
 };
 
-// The block's shared memory, mirrored by ops/md_slim.ring_layout: float4
-// positions (x, y, z, 1/m), the ring, the forces (but for full rows, whose
-// forces stay in their thread's registers), the reduction scratch and chain,
-// v5m's per-warp partials, the mbarriers and the block ring's release
-// counts.  Velocities and masses stay in registers.
+// The block's shared memory, mirrored by ops/md_slim.ring_layout.  The
+// instance for N <= SMALL_N (512 atoms per box, every J): float4 positions
+// (x, y, z, 1/m), the ring, the forces (but for full rows, whose forces stay
+// in their thread's registers), the reduction scratch and chain, v5m's
+// per-warp partials, the mbarriers and the block ring's release counts;
+// velocities and masses stay in registers.  The big-box instance
+// (big_layout): the same with the forces of every schedule in shared memory,
+// v5m's per-warp windows in place of its partials, and column-tiled stages.
 struct Layout {
   int threads, warps;
   int jg, groups;  // jobs walked at once, groups of them
   int chunks;      // stages per group (v8: per tile pair)
-  int arrays;      // bulk copies per stage
+  int arrays;      // bulk copies per stage (big-box instance: per stage row)
   int rows;        // layout rows per stage (v8: shuffle steps), ring_rows
   int bars;
   size_t stage, ring, flt, part, bar, bytes;
   bool ok;
+  int cols, tiles;  // big-box instance: columns per stage, column tiles per job
 };
 
 template <class V>
@@ -781,15 +793,393 @@ __global__ void __launch_bounds__(J == 1 ? 512 : 1024, J == 1 ? 2 : 1)
   if (tid > NHC && tid < SACC) sacc[tid] = 0.f;
 }
 
-#define RING_KERNEL(V) md_slim_ring_kernel<V::CACHE, V::TRIM, V::UNISIG, V::FORM, V::NEWTON, V::J>
+// ---- the big-box instance (SMALL_N < N <= n_max atoms per box)
+//
+// A box wider than the block.  Positions (float4) and the forces of every
+// schedule stay in shared memory; velocities and m/FTM2V live in the
+// program's output rows in device memory, which the integration passes
+// (O(N) per step, against the pair loop's O(N^2)) read and write, each
+// thread its atoms a = tid + k nt as in the first design, so J = 1 keeps the
+// first design's 512 threads and its order of the 2 KE sums.  A stage holds
+// BIG_ROWS layout rows of one column tile of BIG_COLS slots of each array:
+// one bulk copy per (array, row) segment of the tile's columns.  Each job
+// lane of BIG_COLS threads walks its job's column tiles outer and the rows
+// inner, so a full-row atom sums over j in ascending order (the first
+// design's bits).  J > 1 runs 1024 threads: two job lanes, which share the
+// stage's planes and read their own job's images.  v5m's reactions go to a
+// per-warp window of the partners one stage reaches (TILE + BIG_ROWS - 1
+// of them), added to the shared forces by atomics when the stage is done.
+// v8's per-warp ring of tile pairs is the first instance's, with more tile
+// pairs per warp.
 
-// The variant's layout at N atoms per box; opts the kernel into more than
-// 48 KB of shared memory where it needs it.
+constexpr int SMALL_N = 512;             // the largest box of the first instance
+// layout rows per stage, big-box instance: not the first instance's 8, as two
+// 8-row stages of three arrays (96 KB) do not fit beside 5248 atoms'
+// positions and forces (147 KB)
+constexpr int BIG_ROWS = 4;
+constexpr int BIG_COLS = 512;            // columns per stage: one per thread of a job lane
+constexpr int WIN = TILE + BIG_ROWS;     // v5m: a warp's window, TILE + BIG_ROWS - 1 used
+
+// The largest box of each variant: what the first design (11 J N floats of
+// shared memory) or the lab's 100 MiB VMEM budget runs (ops/md_slim.n_max)
+template <class V>
+__host__ __device__ constexpr int n_max() {
+  return V::J == 4 ? 1280 : V::J == 2 ? 2560 : V::NEWTON == PARTIALS ? 2176 : 5248;
+}
+
+template <class V>
+__host__ __device__ Layout big_layout(int N, int depth) {
+  Layout L{};
+  const int M = V::J * N;
+  L.threads = V::J == 1 ? 512 : 1024;
+  L.warps = L.threads / 32;
+  L.rows = V::NEWTON == SHUFFLE ? ring_rows<V>() : BIG_ROWS;
+  L.ok = N > SMALL_N && N % 128 == 0 && N <= n_max<V>() && depth > 0;
+  if (!L.ok) return L;
+  const int planes = V::UNISIG ? 1 : 2;
+  if (V::NEWTON == SHUFFLE) {  // the first instance's per-warp ring
+    L.jg = V::J;
+    L.groups = 1;
+    L.cols = TILE;
+    L.tiles = 1;
+    L.arrays = planes + (V::CACHE ? 1 : 0);
+    L.chunks = TILE / L.rows;
+    L.stage = (size_t)L.arrays * L.rows * TILE * 4;
+    L.ring = (size_t)L.warps * depth * L.stage;
+    L.bars = L.warps * depth;
+  } else {
+    const int R = V::NEWTON == FULL ? N : N / 2;
+    L.cols = BIG_COLS;
+    L.jg = L.threads / L.cols;
+    L.groups = V::J / L.jg;
+    L.tiles = (N + L.cols - 1) / L.cols;
+    L.ok = V::J % L.jg == 0 && R % L.rows == 0;
+    L.arrays = planes + (V::CACHE ? L.jg : 0);
+    L.chunks = L.tiles * (R / L.rows);
+    L.stage = (size_t)L.arrays * L.rows * L.cols * 4;
+    L.ring = (size_t)depth * L.stage;
+    L.bars = depth;
+  }
+  L.flt = (size_t)16 * M + L.ring;
+  L.part = L.flt + 4 * ((size_t)3 * M + MAXW + MISC);
+  L.bar = L.part + (V::NEWTON == PARTIALS ? (size_t)4 * L.warps * 3 * WIN : 0);
+  L.bar = (L.bar + 7) / 8 * 8;
+  L.bytes = L.bar + (size_t)8 * L.bars;
+  if (V::NEWTON != SHUFFLE) L.bytes += (size_t)4 * depth;  // release counts
+  L.ok = L.ok && L.bytes <= (size_t)SMEM_MAX;
+  return L;
+}
+
+template <class V>
+__device__ __forceinline__ St carve_big(unsigned char* sm, const Layout& L, int M) {
+  St s;
+  s.p4 = reinterpret_cast<float4*>(sm);
+  s.ring = sm + (size_t)16 * M;
+  float* f = reinterpret_cast<float*>(sm + L.flt);
+  s.fx = f;
+  s.fy = f + M;
+  s.fz = f + 2 * M;
+  s.red = f + 3 * M;
+  s.misc = s.red + MAXW;
+  s.R = reinterpret_cast<float*>(sm + L.part);  // v5m: the warps' windows, 3 WIN each
+  s.bar = reinterpret_cast<uint64_t*>(sm + L.bar);
+  s.cnt = reinterpret_cast<int*>(s.bar + L.bars);
+  return s;
+}
+
+// A stage holds the planes read (w4e, then sig2 but for UNISIG), then the
+// images of the group's jobs, each BIG_ROWS rows of L.cols slots: a thread's
+// slot of row r of array a is at float (a BIG_ROWS + r) L.cols + column of
+// the stage.  One thread: fill stage st with chunk k of this force call
+// (group, column tile, then BIG_ROWS layout rows), one bulk copy per array
+// and row of the tile's columns (the last tile may be narrower).
+template <class V>
+__device__ void issue_big(const RingArgs& RA, const St& S, const Layout& L, const char4* img,
+                          int st, int k) {
+  const SlimArgs& A = RA.a;
+  constexpr int PL = V::UNISIG ? 1 : 2;
+  const int per = L.chunks / L.tiles;  // row chunks per column tile
+  const int gt = k / per, c = k - gt * per, g = gt / L.tiles, t = gt - g * L.tiles;
+  const int c0 = t * L.cols, ct = A.N - c0 < L.cols ? A.N - c0 : L.cols;
+  const uint32_t bytes = (uint32_t)ct * 4;
+  uint64_t* full = S.bar + st;
+  float* dst = reinterpret_cast<float*>(S.ring + (size_t)st * L.stage);
+  bar_expect(full, bytes * L.arrays * BIG_ROWS);
+  for (int r = 0; r < BIG_ROWS; ++r) {
+    const size_t off = (size_t)(c * BIG_ROWS + r) * A.N + c0;
+    bulk_load(dst + r * L.cols, A.w4e + off, bytes, full);
+    if constexpr (!V::UNISIG) bulk_load(dst + (BIG_ROWS + r) * L.cols, A.sig2 + off, bytes, full);
+    if constexpr (V::CACHE) {
+      const size_t slots = slots_per_job<V::NEWTON>(A.N);
+      for (int j = 0; j < L.jg; ++j)
+        bulk_load(dst + ((PL + j) * BIG_ROWS + r) * L.cols,
+                  img + (size_t)(g * L.jg + j) * slots + off, bytes, full);
+    }
+  }
+}
+
+// release_block and prime_block over issue_big
+template <class V>
+__device__ __forceinline__ void release_big(const RingArgs& RA, const St& S, const Layout& L,
+                                            const char4* img, Cursor c, int k) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();  // the warp's reads of the stage before its release
+    const int done = atomicAdd(S.cnt + c.st, 1) + 1;
+    if (done == (int)(c.wrap + 1) * L.warps && k + RA.depth < L.groups * L.chunks)
+      issue_big<V>(RA, S, L, img, c.st, k + RA.depth);
+  }
+}
+
+template <class V>
+__device__ __forceinline__ void prime_big(const RingArgs& RA, const St& S, const Layout& L,
+                                          const char4* img, Cursor c) {
+  if (threadIdx.x == 0)
+    for (int k = 0; k < RA.depth && k < L.groups * L.chunks; ++k)
+      issue_big<V>(RA, S, L, img, c.ahead(k, RA.depth), k);
+}
+
+// the half shell as pair_half, v5m's reaction into the warp's window at
+// entry e = lane + row of the stage (distinct across the warp at each row)
+template <class V>
+__device__ __forceinline__ void pair_half_big(const SlimArgs& A, const St& S, float* W,
+                                              const Box& h, int i, int base, int d, int e,
+                                              float4 pi, const float* wp, const float* sp,
+                                              const char4* ip, float& ax, float& ay, float& az) {
+  const int N = A.N;
+  int jl = i + d;
+  if (jl >= N) jl -= N;
+  const int b = base + jl;
+  float dx = 0.f, dy = 0.f, dz = 0.f, fp = 0.f;
+  if (2 * d != N || 2 * i < N) {  // the pair at d = N/2 once
+    const float4 pj = S.p4[b];
+    dx = pj.x - pi.x;
+    dy = pj.y - pi.y;
+    dz = pj.z - pi.z;
+    const float r2 = disp_cached(h, *ip, dx, dy, dz);
+    fp = fpair<V>(A, r2, wp, sp);
+  }
+  if (fp != 0.f) {
+    const float wx = fp * dx, wy = fp * dy, wz = fp * dz;
+    ax += wx;
+    ay += wy;
+    az += wz;
+    if constexpr (V::NEWTON == PARTIALS) {
+      W[e] += wx;
+      W[WIN + e] += wy;
+      W[2 * WIN + e] += wz;
+    } else {
+      atomicAdd(S.fx + b, wx);
+      atomicAdd(S.fy + b, wy);
+      atomicAdd(S.fz + b, wz);
+    }
+  }
+  if constexpr (V::NEWTON == PARTIALS) __syncwarp();
+}
+
+// v5m: add the warp's window (partners j0 + e mod N of its job) to the
+// shared forces and clear it
+__device__ __forceinline__ void flush_window(const St& S, float* W, int base, int N, int j0) {
+  for (int e = threadIdx.x & 31; e < TILE + BIG_ROWS - 1; e += 32) {
+    int j = j0 + e;
+    if (j >= N) j -= N;
+    atomicAdd(S.fx + base + j, W[e]);
+    atomicAdd(S.fy + base + j, W[WIN + e]);
+    atomicAdd(S.fz + base + j, W[2 * WIN + e]);
+    W[e] = W[WIN + e] = W[2 * WIN + e] = 0.f;
+  }
+  __syncwarp();
+}
+
+// The big-box force call: full rows (v1-v4) and the half shell (v5, v5p,
+// v5r, v5m, v7, v7d4, v7p) over column-tiled stages, v8 as the first
+// instance.  Forces into S.f*.  Exit is block-synced.
+template <class V>
+__device__ void forces_big(const RingArgs& RA, const St& S, const Layout& L, const char4* img,
+                           const Box& h, Cursor& cur) {
+  if constexpr (V::NEWTON == SHUFFLE) {
+    forces_shuffle<V>(RA, S, L, img, h, cur);
+  } else {
+    const SlimArgs& A = RA.a;
+    constexpr int RR = BIG_ROWS, PL = V::UNISIG ? 1 : 2;
+    const int N = A.N, tid = threadIdx.x, nt = blockDim.x, M = V::J * N;
+    const int lj = tid / L.cols, col = tid - lj * L.cols;  // job lane, column in a tile
+    const int lane = tid & 31, per = L.chunks / L.tiles, C = L.cols;
+    const float ilx = 1.f / h.lx, ily = 1.f / h.ly, ilz = 1.f / h.lz;
+    float* W = S.R + (size_t)(tid >> 5) * 3 * WIN;  // v5m: this warp's window
+    if constexpr (V::NEWTON != FULL) {
+      for (int a = tid; a < M; a += nt) S.fx[a] = S.fy[a] = S.fz[a] = 0.f;
+      __syncthreads();
+    }
+    prime_big<V>(RA, S, L, img, cur);
+    const float* w0 = reinterpret_cast<const float*>(S.ring) + col;
+    const int im0 = (PL + lj) * RR * C;  // this lane's job's images in a stage
+    for (int g = 0; g < L.groups; ++g) {
+      const int base = (g * L.jg + lj) * N;
+      for (int t = 0; t < L.tiles; ++t) {
+        const int i = t * C + col, a = base + i;
+        const bool act = i < N;  // whole warps: N and C are multiples of 128
+        const float4 pi = act ? S.p4[a] : make_float4(0.f, 0.f, 0.f, 0.f);
+        float fx = 0.f, fy = 0.f, fz = 0.f;
+        for (int c = 0; c < per; ++c, cur.next(RA.depth)) {
+          bar_wait(S.bar + cur.st, cur.wrap & 1);
+          if (act) {
+            const float* w = w0 + cur.st * (int)(L.stage / 4);
+            const char4* im = reinterpret_cast<const char4*>(w + im0);
+            if constexpr (V::NEWTON == FULL) {
+              const float4* pj = S.p4 + base + c * RR;
+#pragma unroll
+              for (int r = 0; r < RR; ++r)
+                pair_full<V>(A, h, ilx, ily, ilz, pj[r], pi, w + r * C, w + (RR + r) * C,
+                             im + r * C, fx, fy, fz);
+            } else {
+#pragma unroll
+              for (int r = 0; r < RR; ++r)
+                pair_half_big<V>(A, S, W, h, i, base, c * RR + r + 1, lane + r, pi, w + r * C,
+                                 w + (RR + r) * C, im + r * C, fx, fy, fz);
+              if constexpr (V::NEWTON == PARTIALS) flush_window(S, W, base, N, i - lane + c * RR + 1);
+            }
+          }
+          release_big<V>(RA, S, L, img, cur, (g * L.tiles + t) * per + c);
+        }
+        if (act) {
+          if constexpr (V::NEWTON == FULL) {
+            S.fx[a] = V::TRIM ? -fx : fx;
+            S.fy[a] = V::TRIM ? -fy : fy;
+            S.fz[a] = V::TRIM ? -fz : fz;
+          } else {  // other warps' reactions land here too
+            atomicAdd(S.fx + a, -fx);
+            atomicAdd(S.fy + a, -fy);
+            atomicAdd(S.fz + a, -fz);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The big-box instance: the first design's integration order over device
+// memory velocities, the forces of forces_big
+template <bool CACHE, bool TRIM, bool UNISIG, int FORM, int NEWTON, int J>
+__global__ void __launch_bounds__(J == 1 ? 512 : 1024, J == 1 ? 2 : 1)
+    md_slim_big_kernel(RingArgs RA) {
+  using V = Flags<CACHE, TRIM, UNISIG, FORM, NEWTON, J>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SlimArgs& A = RA.a;
+  const int prog = blockIdx.x, N = A.N, M = J * N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Layout L = big_layout<V>(N, RA.depth);
+  const St S = carve_big<V>(smem, L, M);
+  const float* st = A.state + (size_t)prog * 8 * M;
+  float* o = A.out + (size_t)prog * 8 * M;
+  // the run's velocities and m/FTM2V: the output's own rows
+  float *vx = o + 3 * M, *vy = o + 4 * M, *vz = o + 5 * M, *mf = o + 7 * M;
+  for (int a = tid; a < M; a += nt) {
+    S.p4[a] = make_float4(st[a], st[M + a], st[2 * M + a], st[6 * M + a]);
+    vx[a] = st[3 * M + a];
+    vy[a] = st[4 * M + a];
+    vz[a] = st[5 * M + a];
+    mf[a] = st[7 * M + a];
+  }
+  if constexpr (NEWTON == PARTIALS)
+    for (int k = tid; k < L.warps * 3 * WIN; k += nt) S.R[k] = 0.f;
+  const float* fs = A.fscal + (size_t)prog * FS;
+  const int n_run = A.iscal[prog * IS], n_tot = A.iscal[prog * IS + 1];
+  if (tid < NHC) S.misc[tid] = fs[14 + tid];
+  if (tid == 0) S.misc[NHC + 1] = 0.f;
+  if (tid == 0) {  // one arrival each (the filling thread's, with the bytes)
+    for (int k = 0; k < L.bars; ++k) bar_init(S.bar + k, 1u);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (NEWTON != SHUFFLE && tid < RA.depth) S.cnt[tid] = 0;
+  const float dt = fs[0], kt = A.boltz * fs[1], half = 0.5f * dt;
+  float h0[6], eps[6];
+  for (int k = 0; k < 6; ++k) {
+    h0[k] = fs[2 + k];
+    eps[k] = fs[8 + k];
+  }
+  char4* img = CACHE ? A.img + (size_t)prog * J * slots_per_job<NEWTON>(N) : nullptr;
+  const float ntot = (float)n_tot;
+  Cursor cur{0, 0u};
+  __syncthreads();
+  if (n_run > 0) {
+    Box h = h_at(h0, eps, 0.f / ntot);
+    if constexpr (CACHE) refresh<V>(A, S, img, h);
+    forces_big<V>(RA, S, L, img, h, cur);
+    for (int s = 0; s < n_run; ++s) {
+      h = h_at(h0, eps, (float)s / ntot);
+      if constexpr (CACHE) {
+        if (s > 0 && s % R_REFRESH == 0) refresh<V>(A, S, img, h);
+      }
+      nhc_half(vx, vy, vz, mf, S.red, S.misc, M, dt, kt, A.ndof, A.tdamp);
+      for (int a = tid; a < M; a += nt) {
+        float4 p = S.p4[a];
+        const float im = p.w;
+        vx[a] = vx[a] + half * S.fx[a] * im;
+        vy[a] = vy[a] + half * S.fy[a] * im;
+        vz[a] = vz[a] + half * S.fz[a] * im;
+        p.x += dt * vx[a];
+        p.y += dt * vy[a];
+        p.z += dt * vz[a];
+        S.p4[a] = p;
+      }
+      __syncthreads();
+      forces_big<V>(RA, S, L, img, h, cur);
+      for (int a = tid; a < M; a += nt) {
+        const float im = S.p4[a].w;
+        vx[a] = vx[a] + half * S.fx[a] * im;
+        vy[a] = vy[a] + half * S.fy[a] * im;
+        vz[a] = vz[a] + half * S.fz[a] * im;
+      }
+      nhc_half(vx, vy, vz, mf, S.red, S.misc, M, dt, kt, A.ndof, A.tdamp);
+      const Remap r = remap(h, h_at(h0, eps, (float)(s + 1) / ntot));
+      for (int a = tid; a < M; a += nt) {
+        float4 p = S.p4[a];
+        const float x = p.x, y = p.y, z = p.z;
+        p.x = r.a00 * x + r.a01 * y + r.a02 * z;
+        p.y = r.a11 * y + r.a12 * z;
+        p.z = r.a22 * z;
+        S.p4[a] = p;
+      }
+      __syncthreads();
+    }
+  }
+  const bool bad = S.misc[NHC + 1] != 0.f;  // an image beyond int8
+  float ke = 0.f;
+  for (int a = tid; a < M; a += nt) {
+    const float4 p = S.p4[a];
+    o[a] = bad ? nanf("") : p.x;
+    o[M + a] = bad ? nanf("") : p.y;
+    o[2 * M + a] = bad ? nanf("") : p.z;
+    o[6 * M + a] = p.w;
+    ke += mf[a] * (vx[a] * vx[a] + vy[a] * vy[a] + vz[a] * vz[a]);
+  }
+  ke = block_sum(ke, S.red);
+  float* sacc = A.sacc + (size_t)prog * SACC;
+  if (tid < NHC) sacc[tid] = S.misc[tid];
+  if (tid == NHC) sacc[NHC] = ke;
+  if (tid > NHC && tid < SACC) sacc[tid] = 0.f;
+}
+
+#define RING_KERNEL(V) md_slim_ring_kernel<V::CACHE, V::TRIM, V::UNISIG, V::FORM, V::NEWTON, V::J>
+#define BIG_KERNEL(V) md_slim_big_kernel<V::CACHE, V::TRIM, V::UNISIG, V::FORM, V::NEWTON, V::J>
+
+// The variant's layout at N atoms per box, from the instance for N <=
+// SMALL_N or the big-box one; opts that kernel into more than 48 KB of
+// shared memory where it needs it.
 template <class V>
 cudaError_t prepare(int N, int depth, Layout& L) {
-  L = ring_layout<V>(N, depth);
+  const bool big = N > SMALL_N;
+  if (big) {
+    L = big_layout<V>(N, depth);
+  } else {
+    L = ring_layout<V>(N, depth);
+    L.cols = V::NEWTON == SHUFFLE ? TILE : N;
+    L.tiles = 1;
+  }
   if (!L.ok) return cudaErrorInvalidValue;
-  auto kernel = RING_KERNEL(V);
+  const void* kernel = big ? (const void*)BIG_KERNEL(V) : (const void*)RING_KERNEL(V);
   if (L.bytes > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)L.bytes);
@@ -803,19 +1193,22 @@ cudaError_t launch(const RingArgs& RA, cudaStream_t stream) {
   Layout L;
   cudaError_t err = prepare<V>(A.N, RA.depth, L);
   if (err != cudaSuccess) return err;
-  auto kernel = RING_KERNEL(V);
-  kernel<<<A.P, L.threads, L.bytes, stream>>>(RA);
+  if (A.N > SMALL_N)
+    BIG_KERNEL(V)<<<A.P, L.threads, L.bytes, stream>>>(RA);
+  else
+    RING_KERNEL(V)<<<A.P, L.threads, L.bytes, stream>>>(RA);
   return cudaGetLastError();
 }
 
 // registers, local bytes, resident blocks per SM, then the layout: threads,
-// jobs per group, groups, chunks, arrays, rows, stage, ring and shared bytes
+// jobs per group, groups, chunks, arrays, rows, stage, ring and shared
+// bytes, columns per stage and column tiles
 template <class V>
 cudaError_t info(int N, int depth, int* out) {
   Layout L;
   cudaError_t err = prepare<V>(N, depth, L);
   if (err != cudaSuccess) return err;
-  auto kernel = RING_KERNEL(V);
+  const void* kernel = N > SMALL_N ? (const void*)BIG_KERNEL(V) : (const void*)RING_KERNEL(V);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
@@ -823,15 +1216,15 @@ cudaError_t info(int N, int depth, int* out) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, L.threads, L.bytes);
   const int v[] = {fa.numRegs, (int)fa.localSizeBytes, blocks, L.threads, L.jg,
                    L.groups, L.chunks, L.arrays, L.rows, (int)L.stage, (int)L.ring,
-                   (int)L.bytes};
+                   (int)L.bytes, L.cols, L.tiles};
   for (int k = 0; k < INFO; ++k) out[k] = v[k];
   return err;
 }
 
 }  // namespace
 
-// One slim run of P programs on the variant's instance; args points to a
-// RingArgs.
+// One slim run of P programs on the variant's instance for its N (N <=
+// SMALL_N, or the big-box instance up to n_max); args points to a RingArgs.
 extern "C" int md_slim_ring_run_f32(const void* args, int variant, void* stream) {
   const RingArgs* r = static_cast<const RingArgs*>(args);
   if (r == nullptr) return (int)cudaErrorInvalidValue;
@@ -846,7 +1239,7 @@ extern "C" int md_slim_ring_run_f32(const void* args, int variant, void* stream)
 // The instance's registers, local (spill) bytes and resident blocks per SM,
 // then its block at N atoms per box and a ring of `depth` stages (threads,
 // jobs per group, groups, chunks, arrays, rows, stage, ring and shared
-// bytes), into out[INFO].
+// bytes, columns per stage, column tiles), into out[INFO].
 extern "C" int md_slim_ring_info(int variant, int N, int depth, int* out) {
   if (out == nullptr || N <= 0 || N % 128 != 0) return (int)cudaErrorInvalidValue;
   return (int)by_variant(variant, [&](auto v) { return info<decltype(v)>(N, depth, out); });

@@ -111,7 +111,7 @@ SIGNATURES = {
     "md_slim_occupancy": [_I, _I, _P],
     # P1's redesign (md_slim_ring.cu): a pointer to RingArgs
     # (md_slim._RingArgs), the variant id, the stream; and (variant, atoms,
-    # depth, int[12]) -> registers, local bytes, blocks per SM, the block
+    # depth, int[14]) -> registers, local bytes, blocks per SM, the block
     # (md_slim.ring_info)
     "md_slim_ring_run_f32": [_P, _I, _P],
     "md_slim_ring_info": [_I, _I, _I, _P],

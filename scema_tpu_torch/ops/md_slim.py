@@ -34,8 +34,10 @@ probe's docstring promises.
 on CUDA tensors (counting the launch in ``slim_run.launches_<variant>``):
 float4 positions, and the planes and image cache streamed through a ring of
 shared-memory stages by TMA bulk copies (:func:`ring_layout` mirrors its
-block).  It holds at most its block width of atoms per box: 512 for J = 1,
-1024 for J > 1.  :func:`slim_run_first` launches the first design,
+block).  It runs every multiple of 128 atoms per box up to :func:`n_max`
+(5248 for one box, 2176 for v5m, 2560 for J = 2, 1280 for J = 4): one
+instance per variant up to 512 atoms per box, another above, whose stages
+tile the columns.  :func:`slim_run_first` launches the first design,
 ``csrc/md_slim.cu`` (``slim_run_first.launches_<variant>``), kept for A/B
 timings and checks.  Both run :func:`slim_run_plain` on CPU tensors.
 Layouts are the probe's, batched
@@ -462,6 +464,21 @@ class _RingArgs(ctypes.Structure):
 RING_DEPTH = 3  # stages at most
 _SM_SMEM = 233472  # shared memory of an H100 SM
 _BLOCK_RESERVED = 1024  # the shared memory the card reserves per block
+SMALL_N = 512  # the largest box of the redesign's first instance
+_BIG_ROWS = 4  # layout rows per stage of the big-box instance
+_BIG_COLS = 512  # columns per stage of the big-box instance: a job lane's threads
+_WIN = _TILE + _BIG_ROWS  # v5m's per-warp window of partners, big-box instance
+
+
+def n_max(v: Variant | str) -> int:
+    """The largest box (atoms per box) the redesign runs for variant ``v``:
+    the larger of what the first design's shared memory (11 J N floats, plus
+    v5m's partials) holds and what the lab's 100 MiB VMEM budget admits
+    (scripts/probe_allpairs.py:619)."""
+    v = VARIANTS[v] if isinstance(v, str) else v
+    if v.jobs > 1:
+        return 2560 if v.jobs == 2 else 1280
+    return 2176 if v.newton == "partials" else 5248
 
 
 @dataclass(frozen=True)
@@ -478,6 +495,8 @@ class RingLayout:
     stage_bytes: int  # v8: of one warp's stage
     ring_bytes: int
     smem_bytes: int
+    cols: int  # slots of a layout row per stage: the column tile (v8: 32 lanes)
+    tiles: int  # column tiles per job (1 up to SMALL_N)
 
     @property
     def two_blocks(self) -> bool:
@@ -486,59 +505,65 @@ class RingLayout:
 
 
 def _ring_layout(v: Variant, N: int, depth: int) -> RingLayout | None:
-    M, nt, rows = v.jobs * N, threads(v, N), ring_rows(v)
-    at = 2 if v.jobs == 4 else 1  # atoms per thread, their velocities in registers
-    if N <= 0 or N % LANE or N > nt or M > at * nt or depth <= 0:
+    if N <= 0 or N % LANE or N > n_max(v) or depth <= 0:
         return None
+    big = N > SMALL_N  # the big-box instance: column tiles, forces in shared memory
+    M, nt, rows = v.jobs * N, threads(v, N), ring_rows(v, N)
     planes = 1 if v.unisig else 2
     warps = nt // 32
     if v.newton == "shuffle":
-        jg, groups, arrays = v.jobs, 1, planes + int(v.cache)
+        jg, groups, arrays, cols, tiles = v.jobs, 1, planes + int(v.cache), _TILE, 1
         chunks, stage = _TILE // rows, arrays * rows * _TILE * 4
         ring, bars, counts = warps * depth * stage, warps * depth, 0
     else:
-        jg = min(v.jobs, nt // N)
+        cols = _BIG_COLS if big else N
+        jg, tiles = min(v.jobs, nt // cols), -(-N // cols)
         groups, arrays = v.jobs // jg, planes + (jg if v.cache else 0)
         R = N if v.newton == "" else N // 2
-        if v.jobs % jg or R % rows:
-            return None
-        chunks, stage = R // rows, arrays * rows * N * 4
+        chunks, stage = tiles * (R // rows), arrays * rows * cols * 4
         ring, bars, counts = depth * stage, depth, 4 * depth  # the release counts
-    # float4 positions (x, y, z, 1/m), the ring, the forces (full rows keep
-    # theirs in registers), the reduction scratch and chain
-    part = 16 * M + ring + 4 * ((0 if v.newton == "" else 3 * M) + 32 + 8)
-    bar = part + (4 * warps * 3 * M if v.newton == "partials" else 0)
+    # float4 positions (x, y, z, 1/m), the ring, the forces (the first
+    # instance's full rows keep theirs in registers), the reduction scratch
+    # and chain, v5m's per-warp partials (big-box instance: windows)
+    forces = 0 if v.newton == "" and not big else 3 * M
+    part = 16 * M + ring + 4 * (forces + 32 + 8)
+    bar = part + (4 * warps * 3 * (_WIN if big else M) if v.newton == "partials" else 0)
     smem = (bar + 7) // 8 * 8 + 8 * bars + counts
     if smem > _MAX_SMEM:
         return None
-    return RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem)
+    return RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem, cols,
+                      tiles)
 
 
-def ring_rows(v: Variant | str) -> int:
-    """Layout rows per stage of the block ring, 8, and v8's shuffle steps
-    per stage of a warp's ring, 4: fixed per kernel instance (``ring_rows``
-    in md_slim_ring.cu)."""
+def ring_rows(v: Variant | str, N: int = N_ATOMS) -> int:
+    """Layout rows per stage of the block ring, and v8's shuffle steps per
+    stage of a warp's ring: fixed per kernel instance (``ring_rows`` and
+    ``BIG_ROWS`` in md_slim_ring.cu): 8 (v8 4) up to SMALL_N atoms per box,
+    4 above."""
     v = VARIANTS[v] if isinstance(v, str) else v
-    return 4 if v.newton == "shuffle" else 8
+    return 4 if v.newton == "shuffle" or N > SMALL_N else 8
 
 
 def ring_layout(v: Variant | str, N: int) -> RingLayout:
     """The redesign's block for variant ``v`` at N atoms per box: stages of
-    :func:`ring_rows` rows, the most of them up to ``RING_DEPTH`` that fit,
-    keeping a one-box variant other than v5m at two blocks per SM.
-    ValueError where nothing fits: the redesign holds at most its block
-    width of atoms per box (512 for J = 1, 1024 for J > 1)."""
+    :func:`ring_rows` rows, the most of them (2 or 3, up to ``RING_DEPTH``)
+    that fit, keeping a one-box variant other than v5m at two blocks per SM
+    where any depth does.  ValueError for N not a positive multiple of 128
+    or above the variant's :func:`n_max` (512 < N: the big-box instance)."""
     v = VARIANTS[v] if isinstance(v, str) else v
+    name = next(k for k, w in VARIANTS.items() if w == v)
+    if N <= 0 or N % LANE or N > n_max(v):
+        raise ValueError(f"md_slim: {name} runs a multiple of {LANE} atoms per box up to "
+                         f"{n_max(v)} (its cap), not {N}")
     fits = [lay for lay in (_ring_layout(v, N, d)
-                            for d in range(RING_DEPTH, 0, -1)) if lay is not None]
+                            for d in range(RING_DEPTH, 1, -1)) if lay is not None]
+    if not fits:
+        raise ValueError(f"md_slim: no ring of two stages fits {name} at {N} atoms per box")
     pair = v.jobs == 1 and v.newton != "partials"
     for lay in fits:
         if lay.two_blocks or not pair:
             return lay
-    if fits:
-        return fits[0]
-    raise ValueError(f"md_slim: no ring fits {v.jobs} x {N} atoms: the redesign runs at most "
-                     f"{threads(v, N)} atoms per box in shared memory")
+    return fits[0]
 
 
 # --------------------------------------------------------------------------
@@ -600,9 +625,9 @@ def slim_run(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: torch.T
     """One slim run of P programs: the variant's redesigned CUDA kernel on
     CUDA tensors (one block per program, float32; csrc/md_slim_ring.cu, its
     block from :func:`ring_layout`), :func:`slim_run_plain` on CPU tensors.
-    N must be a multiple of 128 and at most the block width: 512 atoms per
-    box for J = 1, 1024 for J > 1 (ValueError beyond).  Inputs are not
-    modified; returns (state', sacc)."""
+    N must be a multiple of 128 and at most the variant's :func:`n_max`
+    (ValueError beyond): the first instance up to 512 atoms per box, the
+    big-box one above.  Inputs are not modified; returns (state', sacc)."""
     if state.device.type == "cpu":
         return slim_run_plain(variant, state, w4e, sig2, iscal, fscal, jobs)
     v, _, N = _checked(variant, state, w4e, sig2, jobs)
@@ -636,17 +661,19 @@ def slim_run_first(variant: str, state: torch.Tensor, w4e: torch.Tensor, sig2: t
 
 
 def ring_info(variant: str, N: int = N_ATOMS) -> dict:
-    """The redesign's instance as the card reports it at N atoms per box and
+    """The redesign's instance for N (the first up to 512 atoms per box, the
+    big-box one above) as the card reports it at N and
     :func:`ring_layout`'s depth: registers, local (spill) bytes, resident
     blocks per SM, and ``layout``, the kernel's own block (a
     :class:`RingLayout`, to hold the mirror against)."""
     depth = ring_layout(variant, N).depth
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * 14)()
     rc = _build.library().md_slim_ring_info(VARIANTS[variant].vid, N, depth, out)
     _build.check(rc, f"md_slim_ring_info ({variant})")
-    nt, jg, groups, chunks, arrays, rows, stage, ring, smem = out[3:]
+    nt, jg, groups, chunks, arrays, rows, stage, ring, smem, cols, tiles = out[3:]
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
-            "layout": RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem)}
+            "layout": RingLayout(nt, jg, groups, chunks, arrays, rows, depth, stage, ring, smem,
+                                 cols, tiles)}
 
 
 def occupancy_first(variant: str, N: int = N_ATOMS) -> int:

@@ -11,10 +11,11 @@ image scratch before the first refresh (ROADMAP §3): interpret mode with
 zeroed scratch gives them the right images only on a box whose images at
 step 0 are all zero, which is where the variants are compared one to one.
 
-Boxes (128 or 256 atoms per job, 25 steps of 2 fs at 300 K, so the image
-refresh at step 20 runs, with a tilted box under a mixed strain):
-* the cluster: a simple-cubic cluster (4.4 A) inside a 70 A box, every
-  pair within half the box, so every image is zero;
+Boxes (128 or 256 atoms per job, and 640 above the redesign's first
+instance; 25 steps of 2 fs at 300 K, so the image refresh at step 20 runs,
+with a tilted box under a mixed strain):
+* the cluster: a simple-cubic cluster (4.4 A) inside a 70 A box (100 A at
+  640 atoms), every pair within half the box, so every image is zero;
 * the lattice: a periodic simple-cubic lattice (6.2 A) filling the box,
   so pairs cross the boundary; half the shortest box length exceeds the
   cutoff by 2.4 A, the drift the cached images allow.
@@ -86,10 +87,10 @@ def _grid(shape, a, seed, origin=0.0):
 
 
 def _box(kind, nt, seed):
-    """One job's (positions, h6) of 128 nt atoms."""
-    shape = (4, 4, 8) if nt == 1 else (4, 8, 8)
+    """One job's (positions, h6) of 128 nt atoms, nt = 1, 2 or 5."""
+    shape = {1: (4, 4, 8), 2: (4, 8, 8), 5: (8, 8, 10)}[nt]
     if kind == "cluster":
-        L = 70.0
+        L = 70.0 if nt <= 2 else 100.0
         h6 = np.array([L, L, L, *TILT])
         return _grid(shape, 4.4, seed, origin=L / 2 - 4.4 * np.array(shape) / 2), h6
     a = 6.2
@@ -209,6 +210,45 @@ def test_cached_variant_matches_lab_v1_across_boundaries(lattice_v1, variant):
     ref_st[7] /= jobs
     for j in range(jobs):
         _close((st.reshape(8, jobs, -1)[:, j], sacc), (ref_st, ref_sacc))
+
+
+# 640 atoms per box (nt = 5): above the redesign's first instance, run on
+# its big-box instance on the card; here the plain version against the lab
+NT_BIG = 5
+
+
+@pytest.fixture(scope="module")
+def big_v7_cluster(lab):
+    """JAX's v7 on two 640-atom cluster boxes (every image zero, so its
+    zeroed scratch is right before the first refresh)."""
+    inp = _inputs("cluster", NT_BIG, 2)
+    w, s = MS.variant_planes("v7", inp[1], inp[2])
+    return inp, _jax_run(lab, "v7", NT_BIG, 2, inp[0], w, s, *inp[3:])
+
+
+@pytest.mark.parametrize("variant,kind", [("v1", "lattice"), ("v7", "cluster"),
+                                          ("v7", "lattice")])
+def test_640_atom_boxes_match_lab(lattice_v1, big_v7_cluster, variant, kind):
+    """At 640 atoms per box, the lab's N_ATOMS set to 640: v1 (J = 1) on the
+    periodic lattice against the lab's v1; v7 (J = 2) on the cluster against
+    the lab's v7, and on two copies of the lattice (images not all zero,
+    refreshed at step 20) against the lab's v1 over the same copies under
+    one chain."""
+    J = MS.VARIANTS[variant].jobs
+    if kind == "cluster":
+        inp, ref = big_v7_cluster
+        assert np.abs(ref[0][:3] - inp[0][:3]).max() > 1e-3  # the atoms moved
+        _close(_port(variant, *inp), ref)
+        return
+    state, w4e, sig2, iscal, fscal = _inputs("lattice", NT_BIG, J, copies=True)
+    pos = state[:3].reshape(3, -1)
+    assert np.abs(pos[0][:, None] - pos[0][None, :]).max() > fscal[2] / 2  # images not all 0
+    st, sacc = _port(variant, state, w4e, sig2, iscal, fscal)
+    ref_st, ref_sacc = lattice_v1(NT_BIG, J)
+    ref_st = ref_st.reshape(8, -1).copy()
+    ref_st[7] /= J
+    for j in range(J):
+        _close((st.reshape(8, J, -1)[:, j], sacc), (ref_st, ref_sacc))
 
 
 def test_lab_cache_read_before_refresh_and_port_repair(lab, cluster_runs):
