@@ -25,8 +25,13 @@ each step's MD jobs (or Hooke qps) over the ranks, lets the config's
 'minimum number of cores for MD simulation' slab-shard SW boxes above 2048
 atoms, and rank 0 alone prints and writes; a failing step
 rolls back to the last good one up to ``--max-retries`` times (never for a
-kernel that did not build or launch); ``--profile`` writes a torch.profiler
-Chrome trace; ``--dump-similarity`` the final distance matrix.
+kernel that did not build or launch); ``--profile DIR`` turns the port's
+tracer on (``utils/trace.py``: its spans around each layer of the step,
+its host-sync, MD job-step and collective counters) and writes a
+torch.profiler Chrome trace of the run, ``DIR/trace.json``, with the
+spans on the kernels' timeline, and ``DIR/counters.json``, the counters
+of each step (the operator's view of where a step's time and syncs go);
+``--dump-similarity`` the final distance matrix.
 
 The subcommands follow ``scema_tpu/cli.py`` flag for flag and print the
 same lines.  ``--cpu`` runs the same paths on the CPU in float64 with the
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -245,12 +251,18 @@ def cmd_run(args) -> int:
         writer.write_mesh_eps()
 
     prof = None
+    step_counters = []
     if args.profile and lead:
         from torch.profiler import ProfilerActivity, profile
+
+        from .utils import trace
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if device.type == "cuda" else [])
         prof = profile(activities=acts)
+        trace.reset()
+        trace.enable()
+        seen = trace.counters()
         prof.start()
 
     # fault recovery: a failing step rolls back to the last good carry and
@@ -270,6 +282,8 @@ def cmd_run(args) -> int:
             _sync(device)
         except Exception as e:  # noqa: BLE001 — filtered just below
             if not _transient(e) or retries_left <= 0:
+                if prof is not None:
+                    trace.disable()
                 raise
             retries_left -= 1
             print(f"step failed ({type(e).__name__}: {e}); rolling back to "
@@ -289,6 +303,11 @@ def cmd_run(args) -> int:
             f"flagged qps {int(out.n_flagged)}  md jobs {int(out.n_jobs)}  "
             f"reaction {float(out.reaction_force):.6g}  ({wall:.3f}s)"
         )
+        if prof is not None:  # this step's counts: the totals' change
+            now = trace.counters()
+            step_counters.append({"timestep": ts, "counters": {
+                k: v - seen.get(k, 0) for k, v in now.items()}})
+            seen = now
         if out.cluster_saturated is not None and bool(out.cluster_saturated):
             print("note: similarity-dedup pick cap reached this step; "
                   "unreduced qps ran their own MD", file=sys.stderr)
@@ -321,10 +340,15 @@ def cmd_run(args) -> int:
                 save_reference_checkpoint(f"{args.outdir}/restart", fe, mesh)
     if prof is not None:
         prof.stop()
+        trace.disable()
         os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"Profiler trace written to {trace}")
+        path = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
+        path = os.path.join(args.profile, "counters.json")
+        with open(path, "w") as f:
+            json.dump(step_counters, f, indent=1)
+        print(f"Step counters written to {path}")
 
     if args.dump_similarity and lead:
         # final-state similarity network for clustering.render_network —
@@ -509,8 +533,10 @@ def main(argv=None) -> int:
     pr.add_argument("--restart-reference", default="",
                     help="restore from a reference-produced lcts.* restart dir")
     pr.add_argument("--profile", default="",
-                    help="write a torch.profiler Chrome trace of the run "
-                         "(trace.json) into this dir")
+                    help="turn the port's tracer on and write a torch.profiler Chrome "
+                         "trace of the run with its spans (trace.json) and each step's "
+                         "counters (counters.json: host syncs, MD jobs and job-steps, "
+                         "collective bytes, kernel launches) into this dir")
     pr.add_argument("--max-jobs", type=int, default=0,
                     help="cap the MD job-list capacity")
     pr.add_argument("--surrogate", default="",

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def reduce_graph(adj: torch.Tensor, max_picks: int = 512,
                  return_saturated: bool = False):
@@ -27,8 +29,9 @@ def reduce_graph(adj: torch.Tensor, max_picks: int = 512,
     mapping = ids.clone()
     active = adj.any(dim=1)
     for _ in range(min(n, max_picks)):
-        if not bool(active.any()):
-            break
+        with trace.sync("cluster.reduce"):
+            if not bool(active.any()):
+                break
         live = adj & active[:, None] & active[None, :]
         deg = live.sum(dim=1)
         score = torch.where(active, deg, torch.full_like(deg, -1))

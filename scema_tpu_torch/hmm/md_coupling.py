@@ -50,6 +50,7 @@ from ..md import material as M
 from ..md.homogenization import MDParams, strain_and_homogenize, strain_and_homogenize_multi
 from ..ops import md_fused as MF
 from ..parallel import mesh_utils as MU
+from ..utils import trace
 from ..utils.device import resolve
 from .problem import HMMProblem, StepOutputs, assign_materials, clustering_mapping
 
@@ -184,66 +185,77 @@ class MDBackend:
         group has more than one rank, rank 0's job mask, strains and
         most-recent ids are broadcast first, as ``shard_md_update`` does
         for the Hooke backend (``mesh_utils.broadcast_job_inputs``)."""
-        if (self.device_mesh is not None or self.sys.spatial is not None) \
-                and MU.world_size() > 1:
-            jobs, eps_cg, most_recent_id = MU.broadcast_job_inputs(jobs, eps_cg, most_recent_id)
-        n_qp = eps_cg.shape[0]
-        K = self.max_jobs
-        dev = eps_cg.device
-        # -- job packing (write_md_updates_list + prepare_md_simulations):
-        # the selection window rotates by timestep so a capacity below the
-        # flagged count round-robins over qps
-        offset = (int(timestep) * K) % n_qp
-        rolled = torch.roll(jobs, -offset)
-        idx_r = nonzero_padded(rolled, K)
-        n_valid = min(int(jobs.sum()), K)
-        job_idx = (idx_r[:n_valid] + offset) % n_qp  # valid slots only
-        if n_valid == 0:  # no qp of this backend's material runs MD this step
-            return (micro, torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev),
-                    torch.zeros((n_qp,), dtype=torch.bool, device=dev),
-                    torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype, device=dev))
+        with trace.span("md.pack"):
+            if (self.device_mesh is not None or self.sys.spatial is not None) \
+                    and MU.world_size() > 1:
+                jobs, eps_cg, most_recent_id = MU.broadcast_job_inputs(jobs, eps_cg,
+                                                                       most_recent_id)
+            n_qp = eps_cg.shape[0]
+            K = self.max_jobs
+            dev = eps_cg.device
+            # -- job packing (write_md_updates_list + prepare_md_simulations):
+            # the selection window rotates by timestep so a capacity below the
+            # flagged count round-robins over qps
+            offset = (int(timestep) * K) % n_qp
+            rolled = torch.roll(jobs, -offset)
+            with trace.sync("md.job_list"):
+                idx_r = nonzero_padded(rolled, K)
+            with trace.sync("md.n_valid"):
+                n_valid = min(int(jobs.sum()), K)
+            trace.count("md.jobs", n_valid)
+            job_idx = (idx_r[:n_valid] + offset) % n_qp  # valid slots only
+            if n_valid == 0:  # no qp of this backend's material runs MD this step
+                return (micro, torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev),
+                        torch.zeros((n_qp,), dtype=torch.bool, device=dev),
+                        torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype, device=dev))
 
-        # microstate source: own if it has run, else borrowed from the
-        # most-recent provider if that ran, else the fresh initial state
-        mri = most_recent_id[job_idx]
-        mri_c = torch.clamp(mri, 0, n_qp - 1)
-        mri_ok = (mri < n_qp) & micro.has_run[mri_c]
-        src = torch.where(micro.has_run[job_idx], job_idx,
-                          torch.where(mri_ok, mri_c, job_idx))
-        st = E.MDState(pos=micro.pos[src], vel=micro.vel[src], h=micro.h[src],
-                       vxi=micro.vxi[src])  # (n_valid, n_repl, ...)
+            # microstate source: own if it has run, else borrowed from the
+            # most-recent provider if that ran, else the fresh initial state
+            mri = most_recent_id[job_idx]
+            mri_c = torch.clamp(mri, 0, n_qp - 1)
+            mri_ok = (mri < n_qp) & micro.has_run[mri_c]
+            src = torch.where(micro.has_run[job_idx], job_idx,
+                              torch.where(mri_ok, mri_c, job_idx))
+            st = E.MDState(pos=micro.pos[src], vel=micro.vel[src], h=micro.h[src],
+                           vxi=micro.vxi[src])  # (n_valid, n_repl, ...)
+            eps_job = eps_cg[job_idx]
+            mat_job = material[job_idx]
 
         # -- strain to replica frames and length variation
-        eps_job = eps_cg[job_idx]
-        mat_job = material[job_idx]
-        eps_rep = bridge.replica_strains(self.ensemble, eps_job, mat_job)
-        dlength = bridge.strain_to_length_variation(self.ensemble, eps_rep, mat_job)
+        with trace.span("md.bridge"):
+            eps_rep = bridge.replica_strains(self.ensemble, eps_job, mat_job)
+            dlength = bridge.strain_to_length_variation(self.ensemble, eps_rep, mat_job)
 
         # -- batched MD (execute_inside_md_simulations): one kernel launch
         # per phase (per chunk with k-space or a list) for every (job,
         # replica)
-        st, sigma_rep = self._run_jobs(st, dlength.to(micro.pos.dtype))
-        sigma_rep = sigma_rep.to(eps_cg.dtype)
+        with trace.span("md.run"):
+            st, sigma_rep = self._run_jobs(st, dlength.to(micro.pos.dtype))
+            sigma_rep = sigma_rep.to(eps_cg.dtype)
 
         # -- replica averaging with init-stress subtraction
-        upd = bridge.average_replica_stresses(self.ensemble, sigma_rep, mat_job,
-                                              subtract_init_stress=True)
+        with trace.span("md.average"):
+            upd = bridge.average_replica_stresses(self.ensemble, sigma_rep, mat_job,
+                                                  subtract_init_stress=True)
         # -- scatter back over the valid slots only
-        update_stress_cg = torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev)
-        update_stress_cg[job_idx] = upd
-        has_result = torch.zeros((n_qp,), dtype=torch.bool, device=dev)
-        has_result[job_idx] = True
-        stress_repl_cg = torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype, device=dev)
-        stress_repl_cg[job_idx] = sigma_rep
+        with trace.span("md.scatter"):
+            update_stress_cg = torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev)
+            update_stress_cg[job_idx] = upd
+            has_result = torch.zeros((n_qp,), dtype=torch.bool, device=dev)
+            with trace.sync("md.has_result"):  # the True is copied from the host
+                has_result[job_idx] = True
+            stress_repl_cg = torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype,
+                                         device=dev)
+            stress_repl_cg[job_idx] = sigma_rep
 
-        def scat(old, new):
-            out = old.clone()
-            out[job_idx] = new
-            return out
+            def scat(old, new):
+                out = old.clone()
+                out[job_idx] = new
+                return out
 
-        micro = MicroStates(pos=scat(micro.pos, st.pos), vel=scat(micro.vel, st.vel),
-                            h=scat(micro.h, st.h), vxi=scat(micro.vxi, st.vxi),
-                            has_run=micro.has_run | (jobs & has_result))
+            micro = MicroStates(pos=scat(micro.pos, st.pos), vel=scat(micro.vel, st.vel),
+                                h=scat(micro.h, st.h), vxi=scat(micro.vxi, st.vxi),
+                                has_run=micro.has_run | (jobs & has_result))
         return micro, update_stress_cg, has_result, stress_repl_cg
 
 
@@ -274,9 +286,15 @@ class MDHMMProblem:
 
     def step(self, carry):
         fe_state, micros = carry
+        with trace.span("hmm.step", fe_state.timestep + 1):
+            return self._step(fe_state, micros)
+
+    def _step(self, fe_state, micros):
         ops = self.base.ops
-        fe_state = FE.begin_step(ops, fe_state)
-        fe_state, out = FE.solve(ops, fe_state)
+        with trace.span("fe.begin"):
+            fe_state = FE.begin_step(ops, fe_state)
+        with trace.span("fe.solve"):
+            fe_state, out = FE.solve(ops, fe_state)
         p = self.cfg.precision
         id_to_get, saturated = clustering_mapping(
             fe_state, out.flags, p.clustering_min_steps, p.spline_points,
@@ -293,24 +311,28 @@ class MDHMMProblem:
         stress_repl = torch.zeros((n_qp, n_repl, 6), dtype=dt, device=dev)
         new_micros = []
         for m, be in enumerate(self.backends):
-            micro_m, upd_m, hr_m, srepl_m = be.update(
-                micros[m], out.update_strain_cg, torch.zeros_like(out.material),
-                jobs & (out.material == m), out.most_recent_id,
-                timestep=fe_state.timestep)
-            new_micros.append(micro_m)
-            update_stress_cg = update_stress_cg + upd_m
-            has_result = has_result | hr_m
-            stress_repl[:, :be.n_repl] += srepl_m
+            with trace.span("md.update", m):
+                micro_m, upd_m, hr_m, srepl_m = be.update(
+                    micros[m], out.update_strain_cg, torch.zeros_like(out.material),
+                    jobs & (out.material == m), out.most_recent_id,
+                    timestep=fe_state.timestep)
+                new_micros.append(micro_m)
+                update_stress_cg = update_stress_cg + upd_m
+                has_result = has_result | hr_m
+                stress_repl[:, :be.n_repl] += srepl_m
 
         # a flagged qp whose source got no MD result this step keeps the
         # tangent update
-        updated = out.flags & has_result[id_to_get]
-        fe_state, res1 = FE.apply_stress_update(ops, fe_state, updated,
-                                                update_stress_cg, id_to_get)
-        rf = assembly.reaction_force(self.geom, fe_state.qp.new_stress,
-                                     fe_state.qp.rho, self.base.problem.loaded_mask,
-                                     ops.layout)
-        fe_state = FE.end_step(ops, fe_state)
+        with trace.span("fe.stress_update"):
+            updated = out.flags & has_result[id_to_get]
+            fe_state, res1 = FE.apply_stress_update(ops, fe_state, updated,
+                                                    update_stress_cg, id_to_get)
+        with trace.span("fe.reaction"):
+            rf = assembly.reaction_force(self.geom, fe_state.qp.new_stress,
+                                         fe_state.qp.rho, self.base.problem.loaded_mask,
+                                         ops.layout)
+        with trace.span("fe.end"):
+            fe_state = FE.end_step(ops, fe_state)
         return (fe_state, tuple(new_micros)), StepOutputs(
             residual0=out.residual, residual1=res1, n_flagged=out.flags.sum(),
             n_jobs=has_result.sum(), reaction_force=rf, md_ran=has_result,

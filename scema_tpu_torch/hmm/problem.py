@@ -21,6 +21,7 @@ from ..fem import shapes
 from ..fem.problem_types import Problem, make_problem
 from ..fem.state import FEState, init_fe_state, init_history, init_qp_state
 from ..utils import tensors as T
+from ..utils import trace
 from ..utils.device import resolve
 
 
@@ -36,14 +37,18 @@ def clustering_mapping(state: FEState, flags: torch.Tensor, min_steps: int,
     from ..clustering.similarity import similarity_adjacency
     from ..clustering.spline import splinify_histories
 
-    n_qp = flags.shape[0]
-    identity = torch.arange(n_qp, device=flags.device)
-    splines = splinify_histories(layout.full_qps(state.hist.buffer), state.hist.count,
-                                 n_points)
-    adj = similarity_adjacency(splines, flags, threshold)
-    on = state.timestep > min_steps
-    mapping, saturated = reduce_graph(adj & on, return_saturated=True)
-    return (mapping if on else identity), saturated
+    with trace.span("cluster"):
+        n_qp = flags.shape[0]
+        identity = torch.arange(n_qp, device=flags.device)
+        with trace.span("cluster.splines"):
+            splines = splinify_histories(layout.full_qps(state.hist.buffer), state.hist.count,
+                                         n_points)
+        with trace.span("cluster.distance"):
+            adj = similarity_adjacency(splines, flags, threshold)
+        on = state.timestep > min_steps
+        with trace.span("cluster.reduce"):
+            mapping, saturated = reduce_graph(adj & on, return_saturated=True)
+        return (mapping if on else identity), saturated
 
 
 class StepOutputs(NamedTuple):
@@ -92,9 +97,15 @@ class HMMProblem:
 
     def step(self, state: FEState) -> tuple[FEState, StepOutputs]:
         """One macro timestep, over the rows ``ops.layout`` holds."""
+        with trace.span("hmm.step", state.timestep + 1):
+            return self._step(state)
+
+    def _step(self, state: FEState) -> tuple[FEState, StepOutputs]:
         ops = self.ops
-        state = FE.begin_step(ops, state)
-        state, out = FE.solve(ops, state)
+        with trace.span("fe.begin"):
+            state = FE.begin_step(ops, state)
+        with trace.span("fe.solve"):
+            state, out = FE.solve(ops, state)
         p = self.cfg.precision
         id_to_get, saturated = clustering_mapping(
             state, out.flags, p.clustering_min_steps, p.spline_points,
@@ -103,15 +114,19 @@ class HMMProblem:
             id_to_get_results_from=ops.layout.own(id_to_get)))
         jobs = bridge.job_mask(out.flags, id_to_get)
         if ops.stress_method == 0:
-            update_stress_cg = self.md_update_fn(
-                out.update_strain_cg, out.material, jobs, out.most_recent_id)
+            with trace.span("md.update", 0):
+                update_stress_cg = self.md_update_fn(
+                    out.update_strain_cg, out.material, jobs, out.most_recent_id)
         else:
             update_stress_cg = torch.zeros_like(out.update_strain_cg)
-        state, res1 = FE.apply_stress_update(ops, state, out.flags, update_stress_cg,
-                                             id_to_get, surrogate_fn=self.surrogate_fn)
-        rf = assembly.reaction_force(self.geom, state.qp.new_stress, state.qp.rho,
-                                     self.problem.loaded_mask, ops.layout)
-        state = FE.end_step(ops, state)
+        with trace.span("fe.stress_update"):
+            state, res1 = FE.apply_stress_update(ops, state, out.flags, update_stress_cg,
+                                                 id_to_get, surrogate_fn=self.surrogate_fn)
+        with trace.span("fe.reaction"):
+            rf = assembly.reaction_force(self.geom, state.qp.new_stress, state.qp.rho,
+                                         self.problem.loaded_mask, ops.layout)
+        with trace.span("fe.end"):
+            state = FE.end_step(ops, state)
         return state, StepOutputs(
             residual0=out.residual, residual1=res1,
             n_flagged=out.flags.sum(), n_jobs=jobs.sum(),

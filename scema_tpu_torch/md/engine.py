@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import md_fused as MF
+from ..utils import trace
 from . import box as B
 from . import constraints as CN
 from . import neighbor as NB
@@ -348,9 +349,11 @@ def _merge(st: MDState, act: torch.Tensor, sub: MDState, full: bool) -> MDState:
 
 def _chunks(n_chunks: torch.Tensor):
     """Per chunk c, the jobs that still run it: (c, act, all jobs run)."""
-    c_max = int(n_chunks.max()) if n_chunks.numel() else 0
+    with trace.sync("md.chunk_count"):
+        c_max = int(n_chunks.max()) if n_chunks.numel() else 0
     for c in range(c_max):
-        act = torch.nonzero(n_chunks > c).flatten()
+        with trace.sync("md.chunk_jobs"):
+            act = torch.nonzero(n_chunks > c).flatten()
         yield c, act, act.numel() == n_chunks.numel()
 
 
@@ -373,7 +376,8 @@ def _run_strain_unfused(sys: MDSystem, st: MDState, eps: torch.Tensor,
         sub = _subset(st, act, full)
         h0a, ea = (h0, eps) if full else (h0[act], eps[act])
         ne = (n_eff if full else n_eff[act]).to(st.pos.dtype)
-        nbr = sys.build_neighbors(sub.pos, sub.h)
+        with trace.span("md.neighbors"):
+            nbr = sys.build_neighbors(sub.pos, sub.h)
         if warm:
             F, aux = _forces_qeq(sys, sub.pos, sub.h, nbr, None)  # cold solve
         else:
@@ -406,7 +410,8 @@ def _sample_stress_unfused(sys: MDSystem, st: MDState, n_steps: torch.Tensor, T:
     acc = torch.zeros(st.pos.shape[:-2] + (6,), dtype=st.pos.dtype, device=st.pos.device)
     for _, act, full in _chunks(n_chunks):
         sub = _subset(st, act, full)
-        nbr = sys.build_neighbors(sub.pos, sub.h)
+        with trace.span("md.neighbors"):
+            nbr = sys.build_neighbors(sub.pos, sub.h)
         if warm:
             F, _, aux = _forces_virial_qeq(sys, sub.pos, sub.h, nbr, None)  # cold solve
         else:

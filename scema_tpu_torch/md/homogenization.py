@@ -31,6 +31,7 @@ import torch
 
 from ..ops import md_fused as MF
 from ..utils import tensors as T
+from ..utils import trace
 from . import box as B
 from . import engine as E
 from .units import ATM_TO_PA
@@ -82,8 +83,11 @@ def strain_and_homogenize(sys: E.MDSystem, state: E.MDState, dlength: torch.Tens
     Entries with ``active`` False run zero steps: their state comes back
     unchanged and their stress is zero (the caller discards it)."""
     eps_eff, nts, n_sample = _job_steps(state, dlength, params, active)
-    state = E.run_strain(sys, state, eps_eff, nts, params.temperature, params.dt)
-    state, press = E.sample_stress(sys, state, n_sample, params.temperature, params.dt)
+    trace.count_device("md.job_steps", nts.sum() + n_sample.sum())
+    with trace.span("md.strain"):
+        state = E.run_strain(sys, state, eps_eff, nts, params.temperature, params.dt)
+    with trace.span("md.sample"):
+        state, press = E.sample_stress(sys, state, n_sample, params.temperature, params.dt)
     return state, -press * ATM_TO_PA
 
 
@@ -99,10 +103,13 @@ def strain_and_homogenize_multi(sys: E.MDSystem, state: E.MDState, dlength: torc
         raise ValueError("multi-job packing runs the fused kernel K1m; this system runs the "
                          "unfused engine")
     eps_eff, nts, n_sample = _job_steps(state, dlength, params, active)
-    state = MF.run_strain_fused_multi(sys.fused, state, eps_eff, nts, params.temperature,
-                                      params.dt)
-    state, press = MF.sample_stress_fused_multi(sys.fused, state, n_sample, params.temperature,
-                                                params.dt)
+    trace.count_device("md.job_steps", nts.sum() + n_sample.sum())
+    with trace.span("md.strain"):
+        state = MF.run_strain_fused_multi(sys.fused, state, eps_eff, nts, params.temperature,
+                                          params.dt)
+    with trace.span("md.sample"):
+        state, press = MF.sample_stress_fused_multi(sys.fused, state, n_sample,
+                                                    params.temperature, params.dt)
     return state, -press * ATM_TO_PA
 
 

@@ -115,6 +115,7 @@ from ..md import neighbor as NB
 from ..md.forcefields.coulomb import QQR2E_REAL
 from ..md.forcefields.lj import LJ
 from ..md.forcefields.sw import SW
+from ..utils import trace
 from . import _build
 from . import sw_bricks as SWB
 
@@ -2950,8 +2951,11 @@ def make_fscal(dt, T, h: torch.Tensor, eps: torch.Tensor | None = None) -> torch
     """(B, 16) scalar rows for a batch of jobs (dt and T scalars or (B,))."""
     Bn = h.shape[0]
     f = torch.zeros((Bn, FSCAL), dtype=h.dtype, device=h.device)
-    f[:, F_DT] = torch.as_tensor(dt, dtype=h.dtype, device=h.device)
-    f[:, F_T] = torch.as_tensor(T, dtype=h.dtype, device=h.device)
+    # each a blocking copy from the host
+    with trace.sync("md.fscal"):
+        f[:, F_DT] = torch.as_tensor(dt, dtype=h.dtype, device=h.device)
+    with trace.sync("md.fscal"):
+        f[:, F_T] = torch.as_tensor(T, dtype=h.dtype, device=h.device)
     f[:, F_H0:F_H0 + 6] = h6_of(h)
     if eps is not None:
         f[:, F_EPS:F_EPS + 6] = eps.to(h.dtype)
@@ -3001,7 +3005,8 @@ def _chunks(runner: FusedRunner, st6, vxi, n_steps, fscal, h0, eps,
     Returns (st6, vxi, press_sum)."""
     R = launch_steps(runner)
     dtype = st6.dtype
-    n_max = int(n_steps.max()) if n_steps.numel() else 0
+    with trace.sync("md.chunk_count"):
+        n_max = int(n_steps.max()) if n_steps.numel() else 0
     ns = torch.clamp(n_steps, min=1)
     conv = runner.spec.nktv2p / B.volume(h0)
     pacc = torch.zeros((st6.shape[0], 6), dtype=dtype, device=st6.device)
@@ -3009,15 +3014,19 @@ def _chunks(runner: FusedRunner, st6, vxi, n_steps, fscal, h0, eps,
     for c in range(math.ceil(n_max / R)):
         g0 = c * R
         trips = torch.clamp(torch.minimum(n_steps - g0, torch.full_like(n_steps, R)), min=0)
-        act = torch.nonzero(trips > 0).flatten()
+        with trace.sync("md.chunk_jobs"):
+            act = torch.nonzero(trips > 0).flatten()
         h_c = B.deform_path(h0, eps, g0 / ns.to(dtype)) if deform else h0
         pos_c, _ = unpack_state(st6)
         if runner.kspace is not None:
-            Fk, Wk = runner.kspace(pos_c[act], h_c[act], want_virial=sample)
-            fk = torch.zeros((st6.shape[0], 3, st6.shape[2]), dtype=dtype, device=st6.device)
-            fk[act] = Fk.transpose(1, 2).to(dtype)
+            with trace.span("md.kspace"):
+                Fk, Wk = runner.kspace(pos_c[act], h_c[act], want_virial=sample)
+                fk = torch.zeros((st6.shape[0], 3, st6.shape[2]), dtype=dtype,
+                                 device=st6.device)
+                fk[act] = Fk.transpose(1, 2).to(dtype)
         if runner.spec.k:
-            nbr = runner.channels(pos_c, h_c, jobs=act, reuse=True)
+            with trace.span("md.neighbors"):
+                nbr = runner.channels(pos_c, h_c, jobs=act, reuse=True)
         st6, vxi, pk = md_run(runner, st6, vxi, trips, fscal, deform, sample, fext=fk,
                               gstep0=torch.full_like(n_steps, g0),
                               n_tot=ns if deform else torch.ones_like(n_steps), nbr=nbr)

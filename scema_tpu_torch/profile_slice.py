@@ -37,12 +37,16 @@ idle share), then
 the first ``--steps`` macro-steps (all 576 qps are flagged from step 4 on),
 then repeats the next step ``--repeats`` times from one fixed carry, so every
 repeat runs the same jobs with the same strains.  One more repeat runs under
-``torch.profiler``: the script prints the kernels by device time, the share
-of the step's wall time in which the device was idle, and the peak device
-memory, and the device launches of that step.  On the charged slices the k-space remainder and (K4) the neighbor
-list rebuilds are timed by CUDA events around each call, and on the SW
-list route the list rebuilds, so the profiled step's device time splits
-into the MD kernels, the rebuilds, PME and the rest.  The last line is one JSON object with these numbers.
+``torch.profiler`` with the port's tracer on (``utils/trace.py``): the script
+prints the kernels by device time, the share of the step's wall time in which
+the device was idle and how much of that lay under the FE, clustering and MD
+spans, the peak device memory, and the device launches of that step.  On the
+charged slices the k-space remainder and (K4) the neighbor list rebuilds,
+and on the SW list route the list rebuilds, are the device time of the
+kernels launched inside the program's ``md.kspace`` and ``md.neighbors``
+spans, so the profiled step's device time splits into the MD kernels, the
+rebuilds, PME and the rest.  The last line is one JSON object with these
+numbers.
 """
 from __future__ import annotations
 
@@ -154,10 +158,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from .config import HMMConfig
     from .hmm.md_coupling import build_md_hmm
+    from .utils import trace
     from .utils.device import card_line
 
     if not torch.cuda.is_available():
@@ -203,30 +208,6 @@ def main(argv=None) -> int:
     prep = "staged NPT prep" if args.staged else "quick prep"
     print(f"setup {setup_s:.3f}s (mesh + {prep}, kernel build included if not cached)")
     npt = _profile_npt(hmm, dev) if args.staged else None
-    # CUDA events around the k-space remainder and the list rebuilds (the
-    # fused runner's, or the unfused engine's build_neighbors)
-    sys_ = hmm.backend.sys
-    runner = sys_.fused if sys_.fused is not None else sys_
-    spans = {"PME remainder": [], "neighbor build": []}
-    hooks = ((("PME remainder", "kspace"), ("neighbor build", "channels"))
-             if sys_.fused is not None else (("neighbor build", "build_neighbors"),))
-    for key, name in hooks:
-        fn = getattr(runner, name)
-        if (name == "kspace" and fn is None or name == "channels" and not runner.spec.k
-                or name == "build_neighbors" and hasattr(sys_.ff, "slot_ids")):
-            continue
-
-        def timed(*a, _fn=fn, _key=key, **kw):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            with record_function(_key):
-                res = _fn(*a, **kw)
-            ev[1].record()
-            spans[_key].append(ev)
-            return res
-
-        object.__setattr__(runner, name, timed)
-
     def timed_step(carry):
         t = time.perf_counter()
         carry, out = hmm.step(carry)
@@ -249,22 +230,36 @@ def main(argv=None) -> int:
     print(f"step {args.steps + 1} x {args.repeats} from one carry ({rep_jobs} md jobs): "
           f"min {min(rep):.4f}s  median {statistics.median(rep):.4f}s  max {max(rep):.4f}s")
 
-    for m in spans.values():
-        m.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, out, w = timed_step(carry)
-    span_ms = {k: sum(a.elapsed_time(b) for a, b in m) for k, m in spans.items()}
+    # the profiled step runs with the port's tracer on: its spans split the
+    # step by layer, and the k-space remainder (md.kspace) and the list
+    # rebuilds (md.neighbors: the fused runner's channels, the unfused
+    # engine's build_neighbors) by the kernels launched inside them
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, out, w = timed_step(carry)
+    finally:
+        trace.disable()
+    table = trace.span_table(prof)
+    spans = {"PME remainder": "md.kspace", "neighbor build": "md.neighbors"}
+    span_ms = {k: table.get(n, {}).get("stream_ms", 0.0) for k, n in spans.items()}
+    span_dev = {k: table.get(n, {}).get("device_ms", 0.0) for k, n in spans.items()}
+    idle_by_layer = {"fe": sum(v["idle_ms"] for n, v in table.items() if n.startswith("fe.")),
+                     **{n: table.get(n, {}).get("idle_ms", 0.0) for n in ("cluster", "md.update")}}
     if args.trace:
         prof.export_chrome_trace(args.trace)
     ka = prof.key_averages()
     # device time from the device events themselves (the operators'
-    # self device time in key_averages counts each kernel twice)
+    # self device time in key_averages counts each kernel twice), without
+    # the device copies of the spans
     cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == cuda and e.name not in spans]
+    events = [e for e in prof.events() if e.device_type == cuda
+              and not getattr(e, "is_user_annotation", False) and e.name not in table]
     dur = [(e.name, e.time_range.end - e.time_range.start) for e in events]
     dev_total = sum(d for _, d in dur)
     print(f"profiled step: wall {w:.4f}s  device time {dev_total / 1e3:.3f} ms")
-    for e in sorted(ka, key=lambda e: -_self_device_us(e))[:12]:
+    for e in sorted((e for e in ka if e.key not in table),
+                    key=lambda e: -_self_device_us(e))[:12]:
         t = _self_device_us(e)
         if t > 0:
             print(f"  {t / 1e3:10.3f} ms  {100 * t / dev_total:5.1f}%  n={e.count:5d}  {e.key[:80]}")
@@ -283,28 +278,25 @@ def main(argv=None) -> int:
                else "pairwise_l2 (K2)" if "pairwise_l2" in name else "everything else")
         groups[key] += d / 1e3
     print("device time by group (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
-    # the device time of the kernels launched inside each timed span
-    span_dev = {k: 0.0 for k in spans}
-    for e in prof.events():
-        if e.device_type != cuda and e.name in spans:
-            span_dev[e.name] += (e.device_time_total if hasattr(e, "device_time_total")
-                                 else e.cuda_time_total) / 1e3
-    if span_ms and any(span_ms.values()):
+    if any(span_ms.values()):
         rest = groups["everything else"] - sum(span_dev.values())
         print("profiled step, device time (ms): " + ", ".join(
             [f"md kernels {groups[md]:.3f}"]
-            + [f"{k} {span_dev.get(k, 0.0):.3f} (stream span {v:.3f} by CUDA events)"
-               for k, v in span_ms.items() if v]
+            + [f"{k} {span_dev.get(k, 0.0):.3f} (stream span {v:.3f}, first kernel to "
+               f"last)" for k, v in span_ms.items() if v]
             + [f"K2 {groups['pairwise_l2 (K2)']:.3f}", f"rest {rest:.3f}"]))
     busy = _device_busy_us(events)
     idle = 1.0 - busy / (w * 1e6)
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     print(f"device busy {busy / 1e3:.3f} ms of {w * 1e3:.3f} ms: idle share {idle:.4f}; "
           f"{len(events)} device events; peak memory {peak:.1f} MiB")
+    print("device idle under the step's layers (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in idle_by_layer.items()))
     print(json.dumps({"card": card, "setup_s": setup_s, "step_s": walls, "md_jobs": jobs,
                       "repeat_s": rep, "repeat_md_jobs": rep_jobs, "profiled_step_s": w,
                       "device_ms": dev_total / 1e3, "device_ms_by_group": groups,
                       "span_ms": span_ms, "span_device_ms": span_dev, "idle_share": idle,
+                      "idle_ms_by_layer": idle_by_layer,
                       "peak_mem_mib": peak, "device_launches": len(events),
                       "staged": args.staged, "npt_loop": npt, "k4_form": args.k4_form}))
     return 0

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
+
 # Voigt index -> (i, j) tensor indices, deal.II raw-entry order.
 VOIGT_IJ = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 # Double-contraction weights for off-diagonal Voigt components.
@@ -25,7 +27,8 @@ _PAIR_TO_VOIGT = ((0, 3, 4), (3, 1, 5), (4, 5, 2))
 
 
 def voigt_weights(dtype=torch.float64, device=None) -> torch.Tensor:
-    return torch.tensor(VOIGT_WEIGHTS, dtype=dtype, device=device)
+    with trace.sync("voigt_weights"):  # a blocking copy from the host
+        return torch.tensor(VOIGT_WEIGHTS, dtype=dtype, device=device)
 
 
 def sym_to_voigt(t: torch.Tensor) -> torch.Tensor:
