@@ -242,8 +242,7 @@ class MDBackend:
             update_stress_cg = torch.zeros((n_qp, 6), dtype=eps_cg.dtype, device=dev)
             update_stress_cg[job_idx] = upd
             has_result = torch.zeros((n_qp,), dtype=torch.bool, device=dev)
-            with trace.sync("md.has_result"):  # the True is copied from the host
-                has_result[job_idx] = True
+            has_result.index_fill_(0, job_idx, True)
             stress_repl_cg = torch.zeros((n_qp, self.n_repl, 6), dtype=eps_cg.dtype,
                                          device=dev)
             stress_repl_cg[job_idx] = sigma_rep

@@ -2948,14 +2948,17 @@ def h_of_h6(h6: torch.Tensor) -> torch.Tensor:
 
 
 def make_fscal(dt, T, h: torch.Tensor, eps: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, 16) scalar rows for a batch of jobs (dt and T scalars or (B,))."""
+    """(B, 16) scalar rows for a batch of jobs.  ``dt`` and ``T`` are
+    numbers, written by a fill, or (B,) tensors on ``h``'s device, copied
+    as they are: nothing comes from host memory, so the host does not wait
+    for the device here."""
     Bn = h.shape[0]
     f = torch.zeros((Bn, FSCAL), dtype=h.dtype, device=h.device)
-    # each a blocking copy from the host
-    with trace.sync("md.fscal"):
-        f[:, F_DT] = torch.as_tensor(dt, dtype=h.dtype, device=h.device)
-    with trace.sync("md.fscal"):
-        f[:, F_T] = torch.as_tensor(T, dtype=h.dtype, device=h.device)
+    for col, v in ((F_DT, dt), (F_T, T)):
+        if torch.is_tensor(v):
+            f[:, col] = v
+        else:
+            f[:, col].fill_(v)
     f[:, F_H0:F_H0 + 6] = h6_of(h)
     if eps is not None:
         f[:, F_EPS:F_EPS + 6] = eps.to(h.dtype)

@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import torch
 
-from . import trace
-
 # Voigt index -> (i, j) tensor indices, deal.II raw-entry order.
 VOIGT_IJ = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 # Double-contraction weights for off-diagonal Voigt components.
@@ -26,9 +24,21 @@ VOIGT_WEIGHTS = (1.0, 1.0, 1.0, 2.0, 2.0, 2.0)
 _PAIR_TO_VOIGT = ((0, 3, 4), (3, 1, 5), (4, 5, 2))
 
 
+_KEPT_WEIGHTS: dict = {}
+
+
 def voigt_weights(dtype=torch.float64, device=None) -> torch.Tensor:
-    with trace.sync("voigt_weights"):  # a blocking copy from the host
-        return torch.tensor(VOIGT_WEIGHTS, dtype=dtype, device=device)
+    """``VOIGT_WEIGHTS`` as a tensor, made once per (dtype, device) by fills
+    (no copy from the host, which would make the host wait for the device)
+    and kept: callers only read it."""
+    key = (dtype, None if device is None else torch.device(device))
+    w = _KEPT_WEIGHTS.get(key)
+    if w is None:
+        w = torch.empty((6,), dtype=dtype, device=device)
+        for i, x in enumerate(VOIGT_WEIGHTS):
+            w[i].fill_(x)
+        _KEPT_WEIGHTS[key] = w
+    return w
 
 
 def sym_to_voigt(t: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ no ``record_function``, no allocation, no synchronisation.  On:
   ``.item()`` of a CUDA tensor, ``torch.nonzero``, ...) or a blocking copy
   from the host (``torch.tensor(..., device=cuda)``), counted in
   ``host_syncs`` and ``host_syncs.<site>`` (also on the CPU, where
-  nothing waits);
+  nothing waits).  A K1 or K5 step has three, all reads:
+  ``cluster.reduce`` (the first pick), ``md.job_list`` (the jobs'
+  ``nonzero``) and ``md.n_valid`` (their count); the chunk loops add
+  ``md.chunk_count`` and ``md.chunk_jobs``;
 * ``count(name, n)`` adds a host integer; ``count_device(name, t)`` adds a
   device scalar into a device total without a sync, read once by
   :func:`counters`.

@@ -4,11 +4,13 @@ spans form the step's tree under ``torch.profiler`` with the timestep in
 ``hmm.step``'s args, the step's results are bit for bit those of the
 untraced step, the host syncs are counted at the sites the step passes,
 ``md.job_steps`` is the MD steps the jobs run, and ``cli run --profile``
-writes the spans and each step's counters.  The dogbone is
+writes the spans and each step's counters; on the card (a test that skips
+without one) CUDA's sync debug mode reports the same syncs.  The dogbone is
 1x1x2 cells (16 qps) of a 48-site united-atom melt, float64, prepared by
 the quick prep."""
 import dataclasses
 import json
+import warnings
 
 import pytest
 import torch
@@ -45,18 +47,16 @@ TREE = {
     "md.update": "hmm.step", "md.pack": "md.update", "sync.md.job_list": "md.pack",
     "sync.md.n_valid": "md.pack", "md.bridge": "md.update", "md.run": "md.update",
     "md.strain": "md.run", "md.sample": "md.run", "md.average": "md.update",
-    "md.scatter": "md.update", "sync.md.has_result": "md.scatter",
+    "md.scatter": "md.update",
     "fe.stress_update": "hmm.step",
     "fe.reaction": "hmm.step", "fe.end": "hmm.step",
 }
-# the points where the host waits for the device in one step (on the card
-# CUDA's sync debug mode reports the same 11): the reduction's first pick,
-# the job list and its count, the True scattered into has_result, and
-# the blocking copies of the Voigt weights (the strain norms of fe.solve and
-# of the jobs' step counts, the tangent) and of each MD run's dt and T
+# the points where the host waits for the device in one step, all reads of
+# a device value (on the card CUDA's sync debug mode reports the same 3,
+# test_card_step_synchronises_at_the_three_reads): the reduction's first
+# pick, the job list and its count
 SITES = {"host_syncs.cluster.reduce": 1, "host_syncs.md.job_list": 1,
-         "host_syncs.md.n_valid": 1, "host_syncs.md.has_result": 1,
-         "host_syncs.voigt_weights": 3, "host_syncs.md.fscal": 4}
+         "host_syncs.md.n_valid": 1}
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +129,9 @@ def test_span_table_on_the_cpu(profiled):
     assert set(TREE) | {"hmm.step"} <= set(table)
     assert {n for n in set(table) - set(TREE) - {"hmm.step"} if not n.startswith("sync.")} \
         == set()
-    assert table["sync.md.fscal"]["calls"] == 4
+    assert {n for n in table if n.startswith("sync.")} == {
+        "sync." + k.removeprefix("host_syncs.") for k in SITES}
+    assert table["sync.md.job_list"]["calls"] == 1
     assert table["hmm.step"]["calls"] == 1
     assert table["md.run"]["host_ms"] <= table["md.update"]["host_ms"]
     assert all(v["device_ms"] == 0 for v in table.values())
@@ -230,3 +232,30 @@ def test_cli_profile_writes_spans_and_counters(tmp_path, capsys):
     names = {e["name"] for e in json.loads((prof / "trace.json").read_text())["traceEvents"]
              if e.get("cat") == "user_annotation"}
     assert {"hmm.step", "fe.solve", "cluster", "md.update", "fe.end"} <= names
+
+
+@pytest.mark.requires_cuda
+def test_card_step_synchronises_at_the_three_reads():
+    """On the card, one coupled step after two warm ones makes exactly the
+    synchronising calls of ``SITES``, as CUDA's sync debug mode reports
+    them: no copy from host memory makes the host wait."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    # FE and MD in float32, as the CLI runs on the card (K2 takes float32)
+    hmm = build_md_hmm(_cfg().replace(dtype="float32", md_dtype="float32"),
+                       spec=TM.MaterialSpec(**SMALL), device=torch.device("cuda"),
+                       equil_steps=10, minimize_steps=20)
+    carry = hmm.init_state()
+    for _ in range(2):
+        carry, _ = hmm.step(carry)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            hmm.step(carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    calls = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    assert len(calls) == sum(SITES.values()), calls
