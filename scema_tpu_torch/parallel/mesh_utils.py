@@ -41,6 +41,8 @@ import functools
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -137,14 +139,16 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks (a new tensor; ``x`` as it
     is for a group of one)."""
     y = x.detach().clone()
-    dist.all_reduce(y, group=group)
+    with trace.collective("all_reduce", y):
+        dist.all_reduce(y, group=group)
     return y
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``x`` of the rank ``src`` (a global rank) on every rank of the group."""
     y = x.detach().clone().contiguous()
-    dist.broadcast(y, src, group=group)
+    with trace.collective("broadcast", y):
+        dist.broadcast(y, src, group=group)
     return y
 
 
@@ -154,7 +158,8 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     x = x.detach().contiguous()
     w = dist.get_world_size(group)
     out = torch.empty((w * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
+    with trace.collective("all_gather", out):
+        dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
@@ -166,7 +171,8 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     if x.shape[0] % w:
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows over {w} ranks")
     out = torch.empty((x.shape[0] // w,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, x, group=group)
+    with trace.collective("reduce_scatter", out):
+        dist.reduce_scatter_tensor(out, x, group=group)
     return out
 
 

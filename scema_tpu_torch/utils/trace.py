@@ -2,9 +2,10 @@
 
 Off by default; :func:`enable` turns it on for the process and
 :func:`disable` off again (no environment variable or config key does).
-Off, :func:`span` and :func:`sync` return one shared no-op context and
-:func:`count` / :func:`count_device` return at once: an attribute check,
-no ``record_function``, no allocation, no synchronisation.  On:
+Off, :func:`span`, :func:`sync` and :func:`collective` return one shared
+no-op context and :func:`count` / :func:`count_device` return at once: an
+attribute check, no ``record_function``, no allocation, no
+synchronisation.  On:
 
 * ``span(name, args)`` enters a ``torch.profiler`` user annotation, so a
   span is an event of the same trace as the kernels, on the same clock,
@@ -20,6 +21,14 @@ no ``record_function``, no allocation, no synchronisation.  On:
   ``cluster.reduce`` (the first pick), ``md.job_list`` (the jobs'
   ``nonzero``) and ``md.n_valid`` (their count); the chunk loops add
   ``md.chunk_count`` and ``md.chunk_jobs``;
+* ``collective(op, out)`` is the span ``coll.<op>`` around one collective
+  of ``parallel/mesh_utils.py`` (``broadcast``, ``all_gather``,
+  ``all_reduce``, ``reduce_scatter``), counted in ``collectives`` and
+  ``collectives.<op>``, and the bytes of its output tensor on this rank
+  (from its shape and item size, on the host) in ``collective_bytes`` and
+  ``collective_bytes.<op>``; the NCCL kernel it launches is linked to the
+  span by its correlation id, so :func:`span_table` gives its device time
+  (the transfer and the wait for the slowest rank);
 * ``count(name, n)`` adds a host integer; ``count_device(name, t)`` adds a
   device scalar into a device total without a sync, read once by
   :func:`counters`.
@@ -35,12 +44,17 @@ one ``md.update`` around its update function)::
         md.pack  md.bridge  md.run  md.average  md.scatter
         md.run:  md.strain  md.sample  (md.kspace, md.neighbors per chunk)
 
+With the MD jobs spread over ranks (``MDBackend.device_mesh``) ``md.pack``
+holds one ``coll.broadcast`` (rank 0's job inputs) and ``md.run`` five
+``coll.all_gather`` (``pos``, ``vel``, ``h``, ``vxi``, the stresses).
+
 Counters: ``md.jobs`` (valid job slots a step), ``md.job_steps`` (the
-strained plus sampling MD steps of the active jobs, on the device) and
-``host_syncs``.  :func:`counters` reports them with the ops' own launch
-counters (``md_run.launches*``, ``md_run_multi.launches_k1m``,
-``md_forces_virial.launches*``, the SW brick kernels', ``pairwise_l2``),
-which count whether the tracer is on or not.
+strained plus sampling MD steps of the active jobs, on the device),
+``host_syncs``, ``collectives`` and ``collective_bytes``.  :func:`counters`
+reports them with the ops' own launch counters (``md_run.launches*``,
+``md_run_multi.launches_k1m``, ``md_forces_virial.launches*``, the SW
+brick kernels', ``pairwise_l2``), which count whether the tracer is on or
+not.
 
 :func:`span_table` reduces a finished ``torch.profiler`` profile to each
 span's host time, the device time of the kernels launched inside it, and
@@ -111,6 +125,19 @@ def sync(site: str):
     key = f"host_syncs.{site}"
     _host[key] = _host.get(key, 0) + 1
     return _Span(f"sync.{site}", ())
+
+
+def collective(op: str, out: torch.Tensor):
+    """The span ``coll.<op>`` around a collective whose output on this rank
+    is ``out``, counted in ``collectives``, ``collectives.<op>``,
+    ``collective_bytes`` and ``collective_bytes.<op>``."""
+    if not _on:
+        return _NULL
+    nbytes = out.numel() * out.element_size()
+    for key, n in (("collectives", 1), (f"collectives.{op}", 1),
+                   ("collective_bytes", nbytes), (f"collective_bytes.{op}", nbytes)):
+        _host[key] = _host.get(key, 0) + n
+    return _Span(f"coll.{op}", ())
 
 
 def count(name: str, n: int) -> None:

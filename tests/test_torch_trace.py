@@ -8,7 +8,6 @@ writes the spans and each step's counters; on the card (a test that skips
 without one) CUDA's sync debug mode reports the same syncs.  The dogbone is
 1x1x2 cells (16 qps) of a 48-site united-atom melt, float64, prepared by
 the quick prep."""
-import dataclasses
 import json
 import warnings
 
@@ -24,6 +23,8 @@ from scema_tpu_torch.md import engine as E
 from scema_tpu_torch.md import homogenization as HZ
 from scema_tpu_torch.md import material as TM
 from scema_tpu_torch.utils import trace
+
+from torch_port_util import leaves
 
 
 SMALL = dict(name="g0", force_field="opls", n_chains=8, chain_length=6,
@@ -147,19 +148,10 @@ def test_traced_step_is_bit_for_bit(hmm_carry):
     finally:
         trace.disable()
         trace.reset()
-    a, b = _leaves(plain), _leaves(traced)
+    a, b = leaves(plain), leaves(traced)
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert torch.equal(x, y) if torch.is_tensor(x) else x == y
-
-
-def _leaves(x) -> list:
-    """Every tensor and plain value of a carry or StepOutputs."""
-    if dataclasses.is_dataclass(x):
-        return [v for f in dataclasses.fields(x) for v in _leaves(getattr(x, f.name))]
-    if isinstance(x, (tuple, list)):
-        return [v for y in x for v in _leaves(y)]
-    return [x]
 
 
 @pytest.mark.parametrize("n_steps", [1, 2])
@@ -209,10 +201,12 @@ def test_device_counter_accumulates_until_reset(traced):
 
 def test_off_calls_are_one_shared_no_op():
     assert not trace.enabled()
-    assert trace.span("a") is trace.span("b", 3) is trace.sync("c")
+    assert trace.span("a") is trace.span("b", 3) is trace.sync("c") \
+        is trace.collective("all_gather", torch.zeros(3))
     trace.count("n", 1)
     trace.count_device("m", torch.tensor(1))
-    assert not {"n", "m", "host_syncs"} & set(trace.counters())
+    assert not {"n", "m", "host_syncs", "collectives", "collective_bytes"} \
+        & set(trace.counters())
 
 
 def test_cli_profile_writes_spans_and_counters(tmp_path, capsys):

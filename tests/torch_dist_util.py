@@ -86,14 +86,15 @@ def hooke_cfg(cls, cells):
         dtype="float64")
 
 
-def sic_cfg(cls):
-    """The 64-atom SW sic coupled step of tests/test_sharding.py:82-97."""
+def sic_cfg(cls, n_repl=1):
+    """The 64-atom SW sic coupled step of tests/test_sharding.py:82-97, with
+    ``n_repl`` MD replicas per qp."""
     cfg = cls()
     return cfg.replace(
         mesh=cfg.mesh.__class__(x_cells=1, y_cells=1, z_cells=2),
         time=cfg.time.__class__(timestep_length=5.0e-7, start_timestep=1, end_timestep=2),
         bridging=cfg.bridging.__class__(stress_method=0, approx_md_with_hookes_law=False),
-        material=cfg.material.__class__(number_of_replicas=1, materials=("sic",),
+        material=cfg.material.__class__(number_of_replicas=n_repl, materials=("sic",),
                                         proportions=(1.0,)),
         md=cfg.md.__class__(temperature=0.01, timestep_length=0.05, strain_rate=1.0e-2,
                             nsteps_sample=10, force_field="sw"),
@@ -185,11 +186,8 @@ def fem_sharded_worker(rank, world, material, n_steps):
     return out
 
 
-def sharded_md_worker(rank, world, prepared, material, n_steps):
-    """tests/test_torch_sharded_md.py: the 64-atom SW sic coupled step with
-    the job batch over all ranks, prepared by the port (rank 0, broadcast)
-    or from JAX's prep (``prepared`` as numpy: MDState fields and InitData
-    rows)."""
+def _sharded_sic_hmm(n_repl, prepared=None, material=None):
+    """The sic coupled step with the job batch over every rank."""
     from scema_tpu_torch.config import HMMConfig
     from scema_tpu_torch.hmm.md_coupling import build_md_hmm
     from scema_tpu_torch.md import engine as E
@@ -201,22 +199,84 @@ def sharded_md_worker(rank, world, prepared, material, n_steps):
         st, rows = prepared
         prep = [(E.MDState(*(torch.as_tensor(st[f]) for f in ("pos", "vel", "h", "vxi"))),
                  [M.InitData(**r) for r in rows])]
-    hmm = build_md_hmm(sic_cfg(HMMConfig), spec=M.MaterialSpec(**SIC_SPEC), equil_steps=0,
-                       minimize_steps=10, device="cpu", device_mesh=MU.make_mesh(),
-                       prepared=prep,
-                       material=None if material is None else torch.as_tensor(material))
+    return build_md_hmm(sic_cfg(HMMConfig, n_repl), spec=M.MaterialSpec(**SIC_SPEC),
+                        equil_steps=0, minimize_steps=10, device="cpu",
+                        device_mesh=MU.make_mesh(), prepared=prep,
+                        material=None if material is None else torch.as_tensor(material))
+
+
+def sharded_md_worker(rank, world, prepared, material, n_steps, ensemble=False):
+    """tests/test_torch_sharded_md.py: the 64-atom SW sic coupled step with
+    the job batch over all ranks, prepared by the port (rank 0, broadcast)
+    or from JAX's prep (``prepared`` as numpy: MDState fields and InitData
+    rows).  With ``ensemble``, also the same steps at 2 MD replicas per qp
+    (under ``"ensemble"``), the last one taken with the port's tracer off
+    and again with it on (:func:`_steps`)."""
+    from scema_tpu_torch.parallel import mesh_utils as MU
+
+    out = _steps(_sharded_sic_hmm(1, prepared, material), n_steps)
+    st, sig = packed_jobs(MU.make_mesh())
+    out["packed"] = dict(pos=np64(st.pos), vel=np64(st.vel), sig=np64(sig))
+    if ensemble:
+        out["ensemble"] = _steps(_sharded_sic_hmm(2), n_steps, traced=True)
+    return out
+
+
+def _steps(hmm, n_steps, traced=False):
+    """``n_steps`` coupled steps from the initial state.  With ``traced``
+    the last one runs with the tracer off under a guard that refuses any
+    profiler range, then again from the same carry with the tracer on
+    under the CPU profiler: the counters of both, each ``coll.*`` span
+    with its parent span, the shapes the step's collectives move, and
+    whether the two steps agree bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scema_tpu_torch.utils import trace
+    from torch_port_util import leaves
+
     carry = hmm.init_state()
     init = {f: np64(getattr(hmm.backend.initial_md_state, f)) for f in ("pos", "vel", "h")}
     jobs = []
-    for _ in range(n_steps):
-        carry, out = hmm.step(carry)
-        jobs.append(int(out.n_jobs))
+    enter = torch.autograd._record_function_with_args_enter
+
+    def refuse(*a, **kw):
+        raise AssertionError("a profiler range was entered with tracing off")
+
+    for i in range(n_steps):
+        prev = carry
+        trace.reset()
+        if traced and i == n_steps - 1:
+            torch.autograd._record_function_with_args_enter = refuse
+        try:
+            carry, o = hmm.step(prev)
+        finally:
+            torch.autograd._record_function_with_args_enter = enter
+        jobs.append(int(o.n_jobs))
     fe, (micro,) = carry
-    st, sig = packed_jobs(MU.make_mesh())
-    return dict(stress=np64(fe.qp.new_stress), u=np64(fe.u), jobs=jobs, init=init,
-                pos=np64(micro.pos), max_jobs=hmm.backend.max_jobs,
-                kernel=hmm.backend.sys.fused.spec.kernel,
-                packed=dict(pos=np64(st.pos), vel=np64(st.vel), sig=np64(sig)))
+    out = dict(stress=np64(fe.qp.new_stress), u=np64(fe.u), jobs=jobs, init=init,
+               pos=np64(micro.pos), max_jobs=hmm.backend.max_jobs,
+               kernel=hmm.backend.sys.fused.spec.kernel)
+    if not traced:
+        return out
+    off = trace.counters()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            again = hmm.step(prev)
+    finally:
+        trace.disable()
+    on = trace.counters()
+    trace.reset()
+    spans = [(e.name, e.cpu_parent.name if e.cpu_parent is not None else None)
+             for e in prof.events() if e.is_user_annotation and e.name.startswith("coll.")]
+    a, b = leaves((carry, o)), leaves(again)
+    same = len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+    m0 = prev[1][0]
+    out.update(off=off, on=on, spans=spans, same=same, n_qp=int(m0.pos.shape[0]),
+               atoms=int(m0.pos.shape[2]), nhc=int(m0.vxi.shape[-1]),
+               md_item=m0.pos.element_size())
+    return out
 
 
 def packed_jobs(mesh, pack_jobs=2, n_jobs=5):

@@ -1,5 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files (the PyTorch port held
 against the JAX package on the same inputs)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,15 @@ def rel_err(a, b) -> float:
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def leaves(x) -> list:
+    """Every tensor and plain value of a carry or StepOutputs."""
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x) for v in leaves(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in leaves(y)]
+    return [x]
 
 
 def np64(x) -> np.ndarray:
